@@ -1,0 +1,158 @@
+"""Composable trajectory cost stack.
+
+PyTorch counterpart of the ``eval`` half of ``stoch_gpmp_tpu/costs/costs.py``
+(reference ``stoch_gpmp/costs/cost_functions.py``). Conventions match:
+
+- ``trajs``: ``[batch, traj_len, 2*n_dof]`` (positions then velocities);
+- ``observation``: dict of runtime data;
+- collision costs skip timestep 0; the goal prior anchors the final state
+  of a goal-major batch.
+
+The Gauss-Newton contributions (``gn_contrib``/``gn_rank1``) and the plane
+evaluators are not ported yet (GN and dof slices). ``supports_dof_planes``
+is kept so the planner routes a problem exactly as the JAX package does.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Sequence
+
+import torch
+
+from stoch_gpmp_tpu_torch.costs.factors import gp_error, quadratic_cost, unary_error
+from stoch_gpmp_tpu_torch.gp.lift import phi_matrix, q_inv_block, unary_weight
+
+
+class Cost:
+    """Protocol-ish base of the cost classes."""
+
+    def __call__(self, trajs, **kwargs):
+        return self.eval(trajs, **kwargs)
+
+    def eval(self, trajs, observation=None):  # pragma: no cover
+        raise NotImplementedError
+
+    def supports_dof_planes(self) -> bool:
+        return False
+
+
+@dataclass
+class CostGP(Cost):
+    """Start anchor + GP smoothness:
+    ``e_0^T K_s e_0 + sum_t e_t^T Q^{-1} e_t``."""
+
+    start_state: torch.Tensor  # [d]
+    k_start: torch.Tensor  # [d, d]
+    q_inv: torch.Tensor  # [d, d]
+    phi: torch.Tensor  # [d, d]
+
+    @classmethod
+    def create(cls, n_dof, traj_len, start_state, dt, sigma_params,
+               dtype=torch.float32, device=None):
+        del traj_len  # shape-free; kept for reference API parity
+        d = 2 * n_dof
+        return cls(
+            start_state=torch.as_tensor(start_state, dtype=dtype, device=device),
+            k_start=unary_weight(d, sigma_params["sigma_start"], dtype=dtype, device=device),
+            q_inv=q_inv_block(n_dof, dt, sigma=sigma_params["sigma_gp"], dtype=dtype,
+                              device=device),
+            phi=phi_matrix(n_dof, dt, dtype=dtype, device=device),
+        )
+
+    def eval(self, trajs, observation=None):
+        err0 = unary_error(trajs[..., 0, :], self.start_state)
+        err = gp_error(trajs, self.phi)
+        return quadratic_cost(err0, self.k_start) + torch.sum(
+            quadratic_cost(err, self.q_inv), dim=-1
+        )
+
+
+@dataclass
+class CostGoalPrior(Cost):
+    """Per-goal quadratic anchor on the final state of a goal-major batch
+    (``batch = num_goals * per_goal``)."""
+
+    multi_goal_states: torch.Tensor  # [G, d]
+    k_goal: torch.Tensor  # [d, d]
+    num_goals: int
+
+    @classmethod
+    def create(cls, n_dof, traj_len, multi_goal_states, sigma_goal_prior,
+               dtype=torch.float32, device=None, **kw):
+        del traj_len, kw
+        goals = torch.as_tensor(multi_goal_states, dtype=dtype, device=device)
+        return cls(
+            multi_goal_states=goals,
+            k_goal=unary_weight(2 * n_dof, sigma_goal_prior, dtype=dtype, device=device),
+            num_goals=goals.shape[0],
+        )
+
+    def eval(self, trajs, observation=None):
+        batch, d = trajs.shape[0], trajs.shape[-1]
+        x_final = trajs[..., -1, :].reshape(self.num_goals, -1, d)
+        err = unary_error(x_final, self.multi_goal_states[:, None])
+        return quadratic_cost(err, self.k_goal).reshape(batch)
+
+
+@dataclass
+class CostCollision(Cost):
+    """Obstacle cost of a 2D field over the timestep slice ``traj_range``
+    (default ``1..T-1``), evaluated on configuration positions:
+    ``k * sum_t field(x_t)`` with ``k = 1 / sigma_coll^2``."""
+
+    field: Any
+    sigma_coll: float
+    n_dof: int
+    traj_range: tuple
+
+    @classmethod
+    def create(cls, n_dof, traj_len, field, sigma_coll, traj_range=None, **kw):
+        del kw
+        if traj_range is None:
+            traj_range = (1, traj_len)
+        return cls(field=field, sigma_coll=sigma_coll, n_dof=n_dof,
+                   traj_range=tuple(traj_range))
+
+    def _field_errors(self, trajs, observation):
+        obs = observation or {}
+        # a strided view: the field reads it in place
+        states = trajs[:, slice(*self.traj_range), : self.n_dof]
+        return self.field.compute_cost(
+            states, obstacle_spheres=obs.get("obstacle_spheres", None)
+        )
+
+    def eval(self, trajs, observation=None):
+        err = self._field_errors(trajs, observation)  # [B, T-1]
+        return (1.0 / self.sigma_coll**2) * torch.sum(err, dim=-1)
+
+    def supports_dof_planes(self) -> bool:
+        return self.n_dof == 2 and getattr(self.field, "plane_capable", False)
+
+
+@dataclass
+class CostComposite(Cost):
+    """Sums child costs on a ``[B, T, 2*n_dof]`` batch. Forward kinematics
+    (``fk``) is not ported yet (Panda slice)."""
+
+    costs: tuple
+    n_dof: int
+    traj_len: int
+
+    @classmethod
+    def create(cls, n_dof, traj_len, cost_list: Sequence[Cost], fk=None):
+        if fk is not None:
+            raise NotImplementedError(
+                "forward-kinematics cost stacks are not ported yet (Panda slice)"
+            )
+        return cls(costs=tuple(cost_list), n_dof=n_dof, traj_len=traj_len)
+
+    def supports_dof_planes(self) -> bool:
+        return all(c.supports_dof_planes() for c in self.costs)
+
+    def eval(self, trajs, observation=None):
+        trajs = trajs.reshape(-1, self.traj_len, 2 * self.n_dof)
+        total = trajs.new_zeros(trajs.shape[0])
+        for cost in self.costs:
+            total = total + cost.eval(trajs, observation=observation)
+        return total

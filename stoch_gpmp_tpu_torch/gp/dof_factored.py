@@ -1,0 +1,246 @@
+"""Per-dof factored, plane-ordered form of the constant-velocity GP stack.
+
+PyTorch counterpart of ``stoch_gpmp_tpu/gp/dof_factored.py``. Under the
+reference's scalar sigmas the lifted trajectory Gaussian factorizes exactly
+across dofs: the dense ``[M, M]`` precision/cost/sampling matrices are
+permuted block-diagonals of ``n_dof`` identical ``[2T, 2T]`` blocks, kept
+here in plane order (per dof ``[p_0..p_{T-1}, v_0..v_{T-1}]``).
+
+On the planar main path this module supplies two things: the exact O(T)
+factor-graph stencil ``Sigma^{-1} mu`` (``DofFactoredPrior.matvec_flat``,
+the importance term's input) and the per-dof ``[2, 2]`` weights the fused
+kernel reads (``DofQuadraticCost``). The plane-layout evaluators of the dof
+planner path are not ported yet (dof slice).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from stoch_gpmp_tpu_torch.gp.lift import q_inv_block, unary_weight
+from stoch_gpmp_tpu_torch.gp.tridiag import BlockTridiag
+
+
+def plane_perm(traj_len: int) -> np.ndarray:
+    """Permutation taking a per-dof t-major ``[p(0), v(0), p(1), ...]``
+    vector to plane order: ``x_plane = x_tmajor[perm]``."""
+    t = traj_len
+    return np.concatenate([2 * np.arange(t), 2 * np.arange(t) + 1])
+
+
+def _perm2(mat: torch.Tensor, perm: np.ndarray) -> torch.Tensor:
+    idx = torch.as_tensor(perm, device=mat.device)
+    return mat[idx][:, idx]
+
+
+def _assert_isotropic(k: torch.Tensor, n_dof: int, name: str) -> None:
+    """Check ``k [2d, 2d]`` has the per-dof-decoupled form
+    ``[[a I, b I], [c I, e I]]``; raises otherwise."""
+    k = k.detach().cpu().double().numpy()
+    d = n_dof
+    a, b, c, e = k[0, 0], k[0, d], k[d, 0], k[d, d]
+    expect = np.block([
+        [a * np.eye(d), b * np.eye(d)],
+        [c * np.eye(d), e * np.eye(d)],
+    ])
+    scale = max(1.0, float(np.abs(k).max()))
+    if not np.allclose(k, expect, rtol=1e-5, atol=1e-6 * scale):
+        raise ValueError(
+            f"{name} is not per-dof isotropic; the dof-factored fast path "
+            "requires scalar sigmas (the reference's only API)"
+        )
+
+
+def _dof2_block(k: torch.Tensor, n_dof: int) -> torch.Tensor:
+    """The per-dof ``[2, 2]`` block of a ``[[aI, bI], [cI, eI]]`` weight."""
+    d = n_dof
+    return torch.stack([
+        torch.stack([k[0, 0], k[0, d]]), torch.stack([k[d, 0], k[d, d]]),
+    ])
+
+
+def _lane_slices(x, n_dof):
+    """Shifted flat-lane views for the t-major layout (lane ``t*2d + j`` =
+    pos_j(t), ``t*2d + d + j`` = vel_j(t)): at a position lane ``l`` of step
+    ``t < T-1``, ``(pos(t), vel(t), pos(t+1), vel(t+1))`` as ``[..., L]``
+    slices with ``L = M - 3d``, plus the pos-lane mask."""
+    m = x.shape[-1]
+    sd = 2 * n_dof
+    lng = m - 3 * n_dof
+    x0 = x[..., :lng]
+    xd = x[..., n_dof : lng + n_dof]
+    x1 = x[..., sd : lng + sd]
+    x1d = x[..., sd + n_dof : lng + sd + n_dof]
+    lanes = torch.arange(lng, device=x.device)
+    mask = ((lanes % sd) < n_dof).to(x.dtype)
+    return x0, xd, x1, x1d, mask
+
+
+def stencil_matvec_flat(x, q_i2, k_s2, k_g2, dt):
+    """``A x`` for the factor-graph block-tridiagonal ``A`` (start anchor +
+    CV-GP chain + goal anchor, per-dof-isotropic 2x2 weights) on flat
+    ``[..., T, 2d]`` trajectories: the exact O(T) elementwise stencil, with
+    no ``[M, M]`` product."""
+    d = x.shape[-1] // 2
+    t = x.shape[-2]
+    lead = x.shape[:-2]
+    m = t * 2 * d
+    sd = 2 * d
+    xf = x.reshape(lead + (m,))
+    x0, xd, x1, x1d, mask = _lane_slices(xf, d)
+    q11, q12 = q_i2[0, 0], q_i2[0, 1]
+    q21, q22 = q_i2[1, 0], q_i2[1, 1]
+    rp = (x0 + dt * xd - x1) * mask
+    rv = (xd - x1d) * mask
+    a = q11 * rp + q12 * rv  # (Q^{-1} r)_p at pos lane l
+    b = q21 * rp + q22 * rv  # (Q^{-1} r)_v
+    pad = torch.nn.functional.pad
+    # y += phi^T Q^{-1} r at step t (lanes l, l+d); -= Q^{-1} r at step t+1
+    # (lanes l+2d, l+3d)
+    y = (
+        pad(a, (0, 3 * d))
+        + pad(dt * a + b, (d, 2 * d))
+        - pad(a, (sd, d))
+        - pad(b, (3 * d, 0))
+    )
+    ks, kg = k_s2, k_g2
+    p0, v0 = xf[..., :d], xf[..., d:sd]
+    pl_, vl_ = xf[..., m - sd : m - d], xf[..., m - d :]
+    y[..., :d] += ks[0, 0] * p0 + ks[0, 1] * v0
+    y[..., d:sd] += ks[1, 0] * p0 + ks[1, 1] * v0
+    y[..., m - sd : m - d] += kg[0, 0] * pl_ + kg[0, 1] * vl_
+    y[..., m - d :] += kg[1, 0] * pl_ + kg[1, 1] * vl_
+    return y.reshape(x.shape)
+
+
+@dataclass
+class DofFactoredPrior:
+    """Shared per-dof sampling factor + precision in plane order.
+
+    ``w_dof [2T, 2T]`` with ``x_d = mu_d + eps_d @ w_dof``; ``prec_dof``
+    the per-dof ``Sigma^{-1}``; ``q_i2``/``k_s2``/``k_g2`` the factor-graph
+    stencil weights of the same precision (``k_g2`` zeros without goals).
+    """
+
+    w_dof: torch.Tensor
+    prec_dof: torch.Tensor
+    traj_len: int
+    q_i2: torch.Tensor | None = None
+    k_s2: torch.Tensor | None = None
+    k_g2: torch.Tensor | None = None
+    dt: float = 0.0
+
+    def matvec_flat(self, x: torch.Tensor) -> torch.Tensor:
+        """``Sigma^{-1} x`` on flat ``[..., T, 2d]`` trajectories by the
+        exact O(T) stencil."""
+        return stencil_matvec_flat(x, self.q_i2, self.k_s2, self.k_g2, self.dt)
+
+
+def make_dof_factored_prior(
+    traj_len: int,
+    dt: float,
+    sigma_start: float,
+    sigma_gp: float,
+    sigma_goal: float | None = None,
+    dtype=torch.float32,
+    device=None,
+) -> DofFactoredPrior:
+    """Per-dof ``[2T, 2T]`` sampling factor and precision (plane order),
+    built by the same structured block Cholesky as ``make_gp_prior`` at
+    ``n_dof=1`` and permuted from t-major to plane order."""
+    from stoch_gpmp_tpu_torch.gp.prior import build_precision
+
+    k_s_inv = unary_weight(2, sigma_start, dtype=dtype, device=device)
+    q_inv = q_inv_block(1, dt, sigma=sigma_gp, dtype=dtype, device=device)
+    k_g_inv = (
+        None if sigma_goal is None
+        else unary_weight(2, sigma_goal, dtype=dtype, device=device)
+    )
+    prec1 = build_precision(
+        1, traj_len, dt, k_s_inv, q_inv, k_g_inv=k_g_inv, dtype=dtype, device=device
+    )
+    w1 = prec1.cholesky().dense_inv_transpose().T  # [2T, 2T] = L^{-1}
+    perm = plane_perm(traj_len)
+    k_g2 = torch.zeros((2, 2), dtype=dtype, device=device) if k_g_inv is None else k_g_inv
+    return DofFactoredPrior(
+        w_dof=_perm2(w1, perm),
+        prec_dof=_perm2(prec1.to_dense(), perm),
+        traj_len=traj_len,
+        q_i2=q_inv,
+        k_s2=k_s_inv,
+        k_g2=k_g2,
+        dt=float(dt),
+    )
+
+
+@dataclass
+class DofQuadraticCost:
+    """``CostGP + CostGoalPrior`` as per-dof plane-order quadratics:
+    ``cost(x) = sum_d x_d^T a_dof x_d - 2 b_planes[g, d] . x_d + c[g]``,
+    plus the factor-graph stencil parameters the fused kernel reads."""
+
+    a_dof: torch.Tensor  # [2T, 2T]
+    b_planes: torch.Tensor  # [G, d, 2T]
+    c: torch.Tensor  # [G]
+    num_goals: int
+    n_dof: int
+    traj_len: int
+    q_i2: torch.Tensor | None = None  # [2, 2] CV-factor Q^{-1}
+    k_s2: torch.Tensor | None = None  # [2, 2] start anchor weight
+    k_g2: torch.Tensor | None = None  # [2, 2] goal anchor weight (zeros if none)
+    s_pd: torch.Tensor | None = None  # [d, 2] start (pos, vel) per dof
+    g_pd: torch.Tensor | None = None  # [G, d, 2] goals (zeros if none)
+    dt: float = 0.0
+
+    @classmethod
+    def from_gp_and_goal_prior(cls, gp, goal_prior, traj_len: int) -> "DofQuadraticCost":
+        """Per-dof analogue of ``QuadraticCost.from_gp_and_goal_prior``."""
+        d2 = gp.start_state.shape[-1]
+        n_dof = d2 // 2
+        dtype = gp.start_state.dtype
+        _assert_isotropic(gp.k_start, n_dof, "k_start")
+        _assert_isotropic(gp.q_inv, n_dof, "q_inv")
+        _assert_isotropic(gp.phi, n_dof, "phi")
+        if goal_prior is not None:
+            _assert_isotropic(goal_prior.k_goal, n_dof, "k_goal")
+
+        k_s = _dof2_block(gp.k_start, n_dof)
+        q_i = _dof2_block(gp.q_inv, n_dof)
+        phi = _dof2_block(gp.phi, n_dof)
+        k_g = _dof2_block(goal_prior.k_goal, n_dof) if goal_prior is not None else None
+        pqp = phi.T @ q_i @ phi
+        diag = (q_i + pqp).repeat(traj_len, 1, 1)
+        diag[0] = k_s + pqp
+        diag[traj_len - 1] = q_i if k_g is None else q_i + k_g
+        lower = (-(q_i @ phi)).repeat(traj_len - 1, 1, 1)
+        a_dof = _perm2(BlockTridiag(diag=diag, lower=lower).to_dense(), plane_perm(traj_len))
+
+        goals = goal_prior.multi_goal_states if goal_prior is not None else None
+        start_state = gp.start_state
+        g = goals.shape[0] if goals is not None else 1
+        t = traj_len
+        b_planes = start_state.new_zeros((g, n_dof, 2 * t))
+        # start anchor: linear term K_s s on state 0 -> (pos_0, vel_0)
+        s_pd = torch.stack([start_state[:n_dof], start_state[n_dof:]], dim=-1)  # [d, 2]
+        bs = s_pd @ k_s.T  # [d, 2]
+        b_planes[:, :, 0] = bs[:, 0]
+        b_planes[:, :, t] = bs[:, 1]
+        c = torch.full((g,), float(torch.sum(s_pd * bs)), dtype=dtype, device=start_state.device)
+        if goals is not None:
+            g_pd = torch.stack([goals[:, :n_dof], goals[:, n_dof:]], dim=-1)  # [G, d, 2]
+            bg = torch.einsum("gdk,jk->gdj", g_pd, k_g)
+            b_planes[:, :, t - 1] += bg[..., 0]
+            b_planes[:, :, 2 * t - 1] += bg[..., 1]
+            c = c + torch.einsum("gdk,gdk->g", g_pd, bg)
+        else:
+            g_pd = start_state.new_zeros((g, n_dof, 2))
+        k_g2 = start_state.new_zeros((2, 2)) if k_g is None else k_g
+        return cls(
+            a_dof=a_dof, b_planes=b_planes, c=c, num_goals=g,
+            n_dof=n_dof, traj_len=traj_len,
+            q_i2=q_i, k_s2=k_s, k_g2=k_g2, s_pd=s_pd, g_pd=g_pd,
+            dt=float(phi[0, 1]),
+        )

@@ -1,0 +1,390 @@
+"""StochGPMP: importance-weighted stochastic trajectory optimization.
+
+PyTorch counterpart of ``stoch_gpmp_tpu/planners/stoch_gpmp.py`` (reference
+``stoch_gpmp/planner.py``). One iteration samples ``x = mu + eps @ L^{-1}``
+for every particle, evaluates the cost stack, adds the importance term
+``tau * x . Sigma^{-1} mu``, takes a softmax over each particle's samples and
+moves the mean by the weighted average of ``x - mu``.
+
+``stoch_gpmp_optimize`` runs the flat path: ``opt_iters - 1`` steps in a
+Python loop (the JAX ``lax.scan``), then a final step whose aux is returned.
+The dof-factored and plane (long-horizon) paths are not ported yet; a
+problem that the JAX package would route there raises
+``NotImplementedError`` rather than silently taking another path.
+
+State layout matches the reference: ``particle_means [P, T, d]`` with
+``P = num_goals * num_particles_per_goal`` goal-major.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any
+
+import torch
+
+from stoch_gpmp_tpu_torch.gp.prior import GPPrior, make_gp_prior
+from stoch_gpmp_tpu_torch.gp.tridiag import BlockTridiag
+
+
+@dataclass
+class SamplerModel:
+    """The shared-precision Gaussian sampler around particle means:
+    structured precision, the dense ``L^{-1}`` and precision, and the
+    per-dof factor (exact stencil ``Sigma^{-1}`` matvec)."""
+
+    precision: BlockTridiag
+    weight_t: torch.Tensor | None  # [M, M] = L^{-1}; samples = eps @ weight_t
+    precision_dense: torch.Tensor | None  # [M, M]
+    dof: object | None = None
+
+    @classmethod
+    def from_prior(cls, prior: GPPrior) -> "SamplerModel":
+        return cls(
+            precision=prior.precision, weight_t=prior.weight_t,
+            precision_dense=prior.precision.to_dense(), dof=prior.dof,
+        )
+
+
+@dataclass
+class StochGPMPState:
+    """Planner state: particle means and the generator every draw takes."""
+
+    particle_means: torch.Tensor  # [P, T, d]
+    generator: torch.Generator
+
+
+@dataclass
+class StochGPMPAux:
+    """Per-call outputs mirroring the reference optimize() return tuple."""
+
+    samples: torch.Tensor  # [P, S, T, d]
+    costs: torch.Tensor  # [P, S]
+    weights: torch.Tensor  # [P, S]
+    grad: torch.Tensor  # [P, T, d]
+
+
+@dataclass
+class IterMetrics:
+    """Per-iteration observability, stacked over iterations."""
+
+    cost_mean: torch.Tensor
+    cost_min: torch.Tensor
+    weight_entropy: torch.Tensor
+    update_norm: torch.Tensor
+
+    @classmethod
+    def from_aux(cls, aux: StochGPMPAux, step_size: float) -> "IterMetrics":
+        w = aux.weights
+        return cls(
+            cost_mean=aux.costs.mean(),
+            cost_min=aux.costs.min(),
+            weight_entropy=-torch.sum(w * torch.log(w + 1e-30), dim=1).mean(),
+            update_norm=(step_size * torch.linalg.norm(
+                aux.grad.reshape(aux.grad.shape[0], -1), dim=-1
+            )).mean(),
+        )
+
+    @classmethod
+    def stack(cls, items: list["IterMetrics"]) -> "IterMetrics":
+        return cls(*(torch.stack([getattr(i, f) for i in items]) for f in
+                     ("cost_mean", "cost_min", "weight_entropy", "update_norm")))
+
+
+def stoch_gpmp_step(
+    sampler: SamplerModel,
+    cost: Any,
+    state: StochGPMPState,
+    observation: dict,
+    *,
+    num_samples: int,
+    temperature: float,
+    step_size: float,
+    eps: torch.Tensor | None = None,
+) -> tuple[StochGPMPState, StochGPMPAux]:
+    """One importance-weighted update of all particle means. ``eps
+    [P, S, M]`` replaces the draw from ``state.generator`` (tests inject the
+    JAX package's draw)."""
+    means = state.particle_means  # [P, T, d]
+    p, t, d = means.shape
+    m = t * d
+    means_flat = means.reshape(p, m)
+    if eps is None:
+        eps = torch.randn(
+            (p, num_samples, m), generator=state.generator,
+            dtype=means.dtype, device=means.device,
+        )
+    # --- sample: x = mu + eps @ L^{-1} ---
+    flat = means_flat[:, None] + eps @ sampler.weight_t  # [P, S, M]
+    samples = flat.reshape(p, num_samples, t, d)
+
+    costs = cost.eval(
+        samples.reshape(p * num_samples, t, d), observation=observation
+    ).reshape(p, num_samples)
+
+    # --- importance correction + tau * x . Sigma^{-1} mu, Sigma^{-1} mu by
+    # the exact O(T) factor-graph stencil when the prior is dof-factored ---
+    if sampler.dof is not None and sampler.dof.q_i2 is not None:
+        prec_u = sampler.dof.matvec_flat(means).reshape(p, m)
+    else:
+        prec_u = means_flat @ sampler.precision_dense
+    costs = costs + temperature * torch.sum(flat * prec_u[:, None], dim=-1)
+
+    # --- softmax re-weighting and mean update ---
+    weights = torch.softmax(-costs / temperature, dim=1)
+    grad_flat = torch.einsum("ps,psm->pm", weights, flat - means_flat[:, None])
+    new_means = (means_flat + step_size * grad_flat).reshape(p, t, d)
+    return (
+        replace(state, particle_means=new_means),
+        StochGPMPAux(samples=samples, costs=costs, weights=weights,
+                     grad=grad_flat.reshape(p, t, d)),
+    )
+
+
+def check_flat_route(sampler, cost, traj_len: int, sample_method: str = "dense") -> None:
+    """Raise ``NotImplementedError`` where the JAX package's
+    ``stoch_gpmp_optimize`` would leave the flat path."""
+    if sample_method != "dense" or sampler.weight_t is None:
+        raise NotImplementedError(
+            f"sample_method={sample_method!r} / a sampler without the dense "
+            "factor takes the dof-factored or plane path, not ported yet "
+            "(dof and long-horizon slices)"
+        )
+    if (sampler.dof is not None and traj_len % 128 == 0
+            and cost.supports_dof_planes()):
+        raise NotImplementedError(
+            f"traj_len={traj_len} (a multiple of 128) with a dof-capable cost "
+            "stack takes the dof-factored path, not ported yet (dof slice)"
+        )
+
+
+def stoch_gpmp_optimize(
+    sampler: SamplerModel,
+    cost: Any,
+    state: StochGPMPState,
+    observation: dict,
+    *,
+    opt_iters: int,
+    num_samples: int,
+    temperature: float,
+    step_size: float,
+    sample_method: str = "dense",
+    collect_metrics: bool = False,
+    eps: list | None = None,
+):
+    """Run ``opt_iters`` updates; returns the final state and the last
+    iteration's aux (plus stacked ``IterMetrics`` with ``collect_metrics``).
+    ``eps``: optional per-iteration list of ``[P, S, M]`` draws."""
+    if opt_iters < 1:
+        raise ValueError(f"opt_iters must be >= 1, got {opt_iters}")
+    if eps is not None and len(eps) != opt_iters:
+        raise ValueError(f"eps holds {len(eps)} draws for {opt_iters} iterations")
+    check_flat_route(sampler, cost, state.particle_means.shape[1], sample_method)
+    metrics = []
+    aux = None
+    for i in range(opt_iters):
+        state, aux = stoch_gpmp_step(
+            sampler, cost, state, observation, num_samples=num_samples,
+            temperature=temperature, step_size=step_size,
+            eps=None if eps is None else eps[i],
+        )
+        if collect_metrics:
+            metrics.append(IterMetrics.from_aux(aux, step_size))
+    if collect_metrics:
+        return state, aux, IterMetrics.stack(metrics)
+    return state, aux
+
+
+class StochGPMP:
+    """Stateful wrapper with the reference's API surface (``reset``,
+    ``optimize``, ``get_recent_samples``, ``get_traj``,
+    ``sample_trajectories``).
+
+    ``fused_kernel=True`` runs ``opt_iters - 1`` iterations through the
+    fused planar step (``planners/fused_exec.py``: the CUDA kernel on the
+    card, its plain version on the CPU) and the final iteration on the flat
+    path, so the reference-shaped 6-tuple comes from a real iteration."""
+
+    def __init__(
+        self,
+        num_particles_per_goal,
+        num_samples,
+        traj_len,
+        opt_iters,
+        dt=None,
+        n_dof=None,
+        step_size=1.0,
+        temperature=1.0,
+        start_state=None,
+        multi_goal_states=None,
+        initial_particle_means=None,
+        cost=None,
+        sigma_start_init=None,
+        sigma_start_sample=None,
+        sigma_goal_init=None,
+        sigma_goal_sample=None,
+        sigma_gp_init=None,
+        sigma_gp_sample=None,
+        seed: int = 0,
+        dtype=torch.float32,
+        device=None,
+        sample_method: str = "dense",
+        mesh=None,
+        fused_kernel: bool = False,
+        **kwargs,
+    ):
+        if mesh is not None:
+            raise NotImplementedError("mesh= is not ported yet (multi-device slice)")
+        self.device = torch.device(device if device is not None else "cpu")
+        self.fused_kernel = fused_kernel
+        self._fused = None  # (key, run): one slot, rebuilt when the key changes
+        self.n_dof = n_dof
+        self.d_state_opt = 2 * n_dof
+        self.dt = dt
+        self.traj_len = traj_len
+        self.goal_directed = multi_goal_states is not None
+        self.num_goals = len(multi_goal_states) if self.goal_directed else 1
+        self.num_particles_per_goal = num_particles_per_goal
+        self.num_particles = num_particles_per_goal * self.num_goals
+        self.num_samples = num_samples
+        self.opt_iters = opt_iters
+        self.step_size = step_size
+        self.temperature = temperature
+        self.sigma_start_init = sigma_start_init
+        self.sigma_start_sample = sigma_start_sample
+        self.sigma_goal_init = sigma_goal_init
+        self.sigma_goal_sample = sigma_goal_sample
+        self.sigma_gp_init = sigma_gp_init
+        self.sigma_gp_sample = sigma_gp_sample
+        self.cost = cost
+        self.dtype = dtype
+        self.sample_method = sample_method
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._recent_aux: StochGPMPAux | None = None
+        self.reset(start_state, multi_goal_states, initial_particle_means)
+
+    def _tensor(self, x):
+        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
+    def reset(self, start_state=None, multi_goal_states=None, initial_particle_means=None):
+        if start_state is not None:
+            self.start_state = self._tensor(start_state)
+        if multi_goal_states is not None:
+            self.multi_goal_states = self._tensor(multi_goal_states)
+        elif not self.goal_directed:
+            self.multi_goal_states = None
+        goals = self.multi_goal_states if self.goal_directed else None
+
+        if initial_particle_means is not None:
+            if isinstance(initial_particle_means, str):
+                if initial_particle_means != "const_vel":
+                    raise ValueError(initial_particle_means)
+                from stoch_gpmp_tpu_torch.gp.prior import const_vel_means
+
+                means = const_vel_means(
+                    self.start_state, goals, self.traj_len - 1, self.dt, self.n_dof
+                )
+                means = means[:, None].repeat(1, self.num_particles_per_goal, 1, 1)
+            else:
+                means = self._tensor(initial_particle_means)
+        else:
+            init_prior = make_gp_prior(
+                self.n_dof, self.traj_len, self.dt, self.start_state,
+                self.sigma_start_init, self.sigma_gp_init,
+                sigma_goal=self.sigma_goal_init if self.goal_directed else None,
+                goal_states=goals, dtype=self.dtype, device=self.device,
+            )
+            means = init_prior.sample(self.generator, self.num_particles_per_goal)
+        particle_means = means.reshape(self.num_particles, self.traj_len, self.d_state_opt)
+
+        sample_prior = make_gp_prior(
+            self.n_dof, self.traj_len, self.dt, self.start_state,
+            self.sigma_start_sample, self.sigma_gp_sample,
+            sigma_goal=self.sigma_goal_sample if self.goal_directed else None,
+            goal_states=goals, dtype=self.dtype, device=self.device,
+        )
+        self.sampler = SamplerModel.from_prior(sample_prior)
+        self.state = StochGPMPState(particle_means=particle_means, generator=self.generator)
+        self._fused = None  # the executor closes over the sampler
+        self.last_metrics: IterMetrics | None = None
+
+    @property
+    def particle_means(self) -> torch.Tensor:
+        return self.state.particle_means
+
+    def optimize(self, opt_iters=None, observation=None, collect_metrics=False,
+                 **obs_kwargs):
+        """Returns the reference's 6-tuple ``(state_particles,
+        control_particles, state_trajectories, control_samples, costs, grad)``;
+        with ``collect_metrics`` the per-iteration ``IterMetrics`` land in
+        ``self.last_metrics``."""
+        observation = dict(observation or {})
+        observation.update(obs_kwargs)
+        iters = self.opt_iters if opt_iters is None else opt_iters
+        check_flat_route(self.sampler, self.cost, self.traj_len, self.sample_method)
+        if self.fused_kernel and not collect_metrics and iters > 1:
+            self.state = self._fused_runner(observation)(self.state, iters - 1)
+            iters = 1  # final iteration on the flat path -> full aux
+        out = stoch_gpmp_optimize(
+            self.sampler, self.cost, self.state, observation, opt_iters=iters,
+            num_samples=self.num_samples, temperature=self.temperature,
+            step_size=self.step_size, sample_method=self.sample_method,
+            collect_metrics=collect_metrics,
+        )
+        if collect_metrics:
+            self.state, aux, self.last_metrics = out
+        else:
+            self.state, aux = out
+        self._recent_aux = aux
+        n = self.n_dof
+        means = self.state.particle_means
+        return (
+            means[..., :n], means[..., n:],
+            aux.samples[..., :n], aux.samples[..., n:],
+            aux.costs, aux.grad,
+        )
+
+    def _fused_runner(self, observation: dict):
+        """The fused executor, kept in one slot keyed on what it bakes in:
+        the cost object and the statics (the sampler is reset with it)."""
+        key = (id(self.cost), self.num_samples, self.temperature, self.step_size)
+        if self._fused is None or self._fused[0] != key:
+            from stoch_gpmp_tpu_torch.planners.fused_exec import build_fused_executor
+
+            run, reason = build_fused_executor(
+                self.sampler, self.cost, observation,
+                num_particles=self.num_particles, num_samples=self.num_samples,
+                temperature=self.temperature, step_size=self.step_size,
+            )
+            if run is None:
+                raise ValueError(f"fused_kernel=True but the stack is ineligible: {reason}")
+            self._fused = (key, run)
+        return self._fused[1]
+
+    def get_recent_samples(self):
+        """(sample positions, sample velocities) of the last optimize call,
+        ``[P, S, T, n_dof]`` each."""
+        n = self.n_dof
+        return self._recent_aux.samples[..., :n], self._recent_aux.samples[..., n:]
+
+    def get_traj(self, mode: str = "best"):
+        """The globally highest-weight sample of the last call, or the means."""
+        if mode == "best":
+            aux = self._recent_aux
+            p, s = divmod(int(torch.argmax(aux.weights.reshape(-1))), self.num_samples)
+            return aux.samples[p, s]
+        if mode == "mean":
+            return self.state.particle_means
+        raise ValueError(f"unknown mode: {mode}")
+
+    def sample_trajectories(self, num_samples_per_particle: int):
+        """Fresh draws around the current means: (positions, velocities)."""
+        means = self.state.particle_means
+        p, t, d = means.shape
+        eps = torch.randn(
+            (p, num_samples_per_particle, t * d), generator=self.generator,
+            dtype=means.dtype, device=means.device,
+        )
+        samples = means[:, None] + (eps @ self.sampler.weight_t).reshape(p, -1, t, d)
+        n = self.n_dof
+        return samples[..., :n], samples[..., n:]

@@ -1,0 +1,50 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: they skip without an NVIDIA GPU (a CUDA kernel has no
+CPU mode). On a machine with the card:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+The checks and their tolerances are those of ``chip_smoke.py`` (see its
+module constants): K1 exact; K2 per-sample costs within a relative 2e-4, at
+most 1% of samples off by a multiple of k_coll (a position within float32
+roundoff of an obstacle's cell edge), new means within 1e-3 where the best
+sample agrees; Philox moments within (0.85, 1.15).
+"""
+
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return torch.device("cuda", 0)
+
+
+def test_raster_kernel_exact(dev):
+    import chip_smoke
+
+    assert chip_smoke.raster_check(dev)["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("branch", ["matmul", "stencil"])
+def test_fused_step_kernel_matches_plain(dev, branch):
+    import chip_smoke
+
+    assert chip_smoke.fused_check(dev, branch)["argmax_agree"] >= 8
+
+
+def test_fused_step_philox_moments(dev):
+    import chip_smoke
+
+    r = chip_smoke.moments_check(dev)
+    assert 0.85 < r["var_ratio_median"] < 1.15
