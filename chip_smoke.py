@@ -6,7 +6,9 @@ Phases, one line each; any failure exits non-zero before the result line:
 
 1. the device: its name, ``nvidia-smi``'s name and power limit, and the
    float32 matmul settings (TF32 must be off);
-2. build both CUDA kernels from ``stoch_gpmp_tpu_torch/csrc`` with nvcc;
+2. build every CUDA kernel from ``stoch_gpmp_tpu_torch/csrc`` (one nvcc per
+   source, all started together) and print each one's ptxas registers and
+   spills;
 3. K1, the raster collision field, against its plain PyTorch version at the
    planner's shape (a strided ``[1920, 63, 2]`` slice) plus cell-edge and
    off-map points: exact equality;
@@ -14,17 +16,33 @@ Phases, one line each; any failure exits non-zero before the result line:
    version at the parity shape, matmul branch (parity) and stencil branch
    (goal anchor sigma 1e-5);
 5. K2 with in-kernel Philox draws: the update's moments with uniform weights;
-6. the main path: ``StochGPMP(fused_kernel=True)`` on the parity problem for
-   500 iterations, with launch counts, goal reaching and updates/s of the
-   kernel loop beside the same loop with the plain K2 on the card, and the
-   device's busy share over a window of the kernel loop.
+6. the planar main path: ``StochGPMP(fused_kernel=True)`` on the parity
+   problem for 500 iterations, with launch counts, goal reaching and
+   updates/s of the kernel loop beside the same loop with the plain K2 on
+   the card, and the device's busy share over a window of the kernel loop;
+7. K3, the dof-plane stencil energy, against a float64 plain oracle at
+   config-5 shapes (``[7, 10240, 256]``), with and without the fused
+   importance term;
+8. K4, FK + link fields, against a float64 plain oracle at config-5 shapes,
+   with planner-regime rows, rows drawn across the joint limits and spheres
+   placed on links; and the flat-stride entry against the plane entry;
+9. K5, the fused dof Panda iteration: eps operand against its plain version
+   at config 5, the RNG-free tier (``W = 0``) against float64 oracles, and
+   the Philox moments;
+10. the Panda main path: ``build_panda_problem`` at config 5 through
+    ``StochGPMP(fused_kernel=True)`` and ``StochGPMP`` on the dof path, 200
+    iterations each, with descent, start-anchor and launch-count gates and
+    updates/s, wall and device ms per iteration and the busy share.
 
 Times: ``ms``/``plain_ms`` are per call over back-to-back calls through
 the wrapper (CUDA events), which includes the host's launch cost where it
 exceeds the device's; the device time per call comes from
-``torch.profiler``. The line before the last is the kernels' JSON record;
-the last line is ``{"ok": true, "device": {...}}``. ``--log-dir`` also
-writes the nvcc log and the per-phase details there.
+``torch.profiler``. ``bound_ms`` is the least time the card could take for
+the same work: the larger of the bytes each function must move over 3.35
+TB/s and its FP32 operations over 67 TFLOP/s (the H100 SXM data sheet),
+counted from this run's shapes. The line before the last is the kernels'
+JSON record; the last line is ``{"ok": true, "device": {...}}``.
+``--log-dir`` also writes the nvcc logs and the per-phase details there.
 """
 
 from __future__ import annotations
@@ -61,6 +79,37 @@ MIN_ARGMAX_AGREE = 0.5
 # sampler's 1e-3 start sigma: the JAX package's flat path moves it 0.084 and
 # 0.090 over the same 500 iterations on the CPU (seeds 0 and 1).
 GOAL_TOL, START_TOL = 0.3, 0.15
+
+# The Panda slice at benchmarks/run.py config 5: 10 goals x 128 particles,
+# 8 samples, T = 128, 7 DOF, 5 spheres.
+PANDA = dict(num_goals=10, ppg=128, traj_len=128, num_samples=8)
+PANDA_ITERS = 200
+PANDA_TAU, PANDA_STEP = 1.0, 0.1
+# K3 per-row energy against a float64 plain oracle on the same float32
+# inputs: rtol 1e-3, the JAX package's gate for its own kernel on the chip
+# (tests/test_fused_panda_dof_tpu.py). Importance term with tau = 0.25 as there.
+K3_RTOL, K3_TAU = 1e-3, 0.25
+# K4 per-trajectory field sums against a float64 plain oracle: the kernel
+# walks the chain generically where the plain FK folds constants, so link
+# positions differ by float32 roundoff (~1e-7 m); an RBF term moves by about
+# 2 d |delta d| / (2 margin^2) ~ 1e-5 of itself.
+K4_RTOL = 1e-4
+# K5, eps operand, against its plain version (float32 both): per-sample costs
+# within K5_COST_RTOL; the best sample agrees for at least MIN_ARGMAX_AGREE
+# of the particles, and there the new means within K5_MEAN_ATOL (the weights
+# are near one-hot at temperature 1, so a flipped argmax moves a mean by a
+# whole step). RNG-free tier (W = 0) as the JAX package's TPU test: fields +
+# goal + importance within 3e-4 of the float64 oracle, the full stack within
+# 1e-3, means unchanged within 1e-5.
+K5_COST_RTOL, K5_MEAN_ATOL = 1e-4, 1e-3
+K5_TIER1_RTOL, K5_TIER2_RTOL, K5_STILL_ATOL = 3e-4, 1e-3, 1e-5
+# Panda main-path gates, from the JAX package's TPU-only tests
+# (tests/test_fused_panda_dof_tpu.py:178-273): the mean cost falls on both
+# paths, the fused descent is more than half the dof path's, and every
+# particle's t = 0 position stays within 2e-2 of the start.
+PANDA_DESCENT_SHARE, PANDA_START_TOL = 0.5, 2e-2
+# Peak rates of one H100 SXM (data sheet) for the bound_ms column.
+HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
 
 
 def fail(msg: str) -> None:
@@ -103,8 +152,61 @@ def device_ms(fn, reps: int) -> float | None:
     return busy_us / 1e3 / reps if busy_us > 0 else None
 
 
+def device_breakdown(fn, reps: int, top: int = 8) -> tuple[float | None, list]:
+    """Like :func:`device_ms`, plus the ``top`` device kernels by time:
+    ``(total ms per call or None, [(name, ms per call), ...])``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3 / reps) for e in prof.key_averages()]
+    busy = sum(ms for _, ms in rows)
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:top]
+    return (busy if busy > 0 else None), [(name[:48], ms) for name, ms in rows]
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port by its JSON name; each counts its
+    launches in ``.launches``."""
+    from stoch_gpmp_tpu_torch.ops.kernels.fields import raster_primitive_cost
+    from stoch_gpmp_tpu_torch.ops.kernels.fused_step import fused_planar_step
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import fk_link_fields_cost_rows
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import fused_panda_dof_step
+    from stoch_gpmp_tpu_torch.ops.kernels.stencil import dof_quad_eval
+
+    return {"raster_field": raster_primitive_cost, "fused_planar_step": fused_planar_step,
+            "dof_quad_eval": dof_quad_eval, "fk_fields": fk_link_fields_cost_rows,
+            "fused_panda_dof_step": fused_panda_dof_step}
+
+
+def reset_counters() -> None:
+    """Set every kernel's launch count to 0, just before a main path runs."""
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
 def fmt_ms(v: float | None) -> str:
     return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """``(bound_ms, bound_by)``: the larger of the bytes over the memory
+    rate and the FP32 operations over the peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _cast(obj, dtype, device):
+    """A copy of dataclass ``obj`` with its floating tensor fields moved."""
+    from dataclasses import fields
+
+    return replace(obj, **{
+        f.name: getattr(obj, f.name).to(device=device, dtype=dtype) for f in fields(obj)
+        if torch.is_tensor(getattr(obj, f.name)) and getattr(obj, f.name).is_floating_point()})
 
 
 def raster_check(dev) -> dict:
@@ -247,10 +349,8 @@ def moments_check(dev) -> dict:
 
 def main_path(dev) -> dict:
     """StochGPMP(fused_kernel=True) on the parity problem, built natively."""
-    from stoch_gpmp_tpu_torch.ops.kernels.fields import raster_primitive_cost
     from stoch_gpmp_tpu_torch.ops.kernels.fused_step import (
         fused_planar_optimize_batched,
-        fused_planar_step,
         fused_planar_step_plain,
     )
     from stoch_gpmp_tpu_torch.planners import StochGPMP
@@ -266,15 +366,14 @@ def main_path(dev) -> dict:
         seed=0, dtype=torch.float32, device=dev, fused_kernel=True,
     )
     p = planner.num_particles
-    raster_primitive_cost.launches = 0
-    fused_planar_step.launches = 0
+    reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = planner.optimize()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"raster_field": raster_primitive_cost.launches,
-                "fused_planar_step": fused_planar_step.launches}
+    launches = {k: fn.launches for k, fn in kernel_counters().items()
+                if k in ("raster_field", "fused_planar_step")}
     if min(launches.values()) < 1:
         fail(f"main path did not launch every kernel: {launches}")
     shapes = [tuple(o.shape) for o in out]
@@ -329,6 +428,317 @@ def main_path(dev) -> dict:
                 loop_device_busy=None if busy is None else busy / 50 / iter_ms)
 
 
+def panda_problem(dev, dtype=torch.float32):
+    from stoch_gpmp_tpu_torch.problems import build_panda_problem
+
+    return build_panda_problem(**PANDA, dtype=dtype, device=dev)
+
+
+def _planner_rows(means, s, scale, seed, dev):
+    """``[P * S, T, 2d]`` sample trajectories: each particle mean plus
+    normal noise of ``scale``, rows sample-minor."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = means.repeat_interleave(s, dim=0)
+    return rows + scale * torch.randn(rows.shape, generator=gen, device=dev, dtype=rows.dtype)
+
+
+def dof_quad_check(dev) -> dict:
+    """K3 vs a float64 plain oracle at config 5, in the planner regime (the
+    particle means + 1e-3 spreads), without and with the importance term."""
+    from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
+    from stoch_gpmp_tpu_torch.ops.kernels.stencil import dof_quad_eval, dof_quad_eval_plain
+
+    sampler, cost, state, _, s = panda_problem(dev)
+    dq = cost.costs[0].dof_form
+    dq64 = _cast(dq, torch.float64, dev)
+    xp = to_dof_planes(_planner_rows(state.particle_means, s, 1e-3, 3, dev)).contiguous()
+    pu = sampler.dof.matvec_planes(to_dof_planes(state.particle_means))
+    kw = dict(pu=pu, temperature=K3_TAU, num_samples=s)
+    errs = []
+    for extra in ({}, kw):
+        got = dof_quad_eval(dq, xp, **extra)
+        want = dof_quad_eval_plain(dq64, xp.double(), **{
+            k: v.double() if torch.is_tensor(v) else v for k, v in extra.items()})
+        torch.cuda.synchronize()
+        rel = float(((got.double() - want).abs() / want.abs()).max())
+        if not (torch.isfinite(got).all() and rel <= K3_RTOL):
+            fail(f"K3 differs from the float64 oracle by {rel:.3g} relative (> {K3_RTOL})")
+        errs.append((rel, float((got.double() - want).abs().max())))
+    d, b, t2 = xp.shape
+    nb, ops = 4 * (xp.numel() + pu.numel() + b), d * b * (t2 // 2) * 14
+    kernel = lambda: dof_quad_eval(dq, xp, **kw)  # noqa: E731
+    plain = lambda: dof_quad_eval_plain(dq, xp, **kw)  # noqa: E731
+    return dict(rows=b, max_rel=max(e[0] for e in errs), max_abs_err=max(e[1] for e in errs),
+                ms=cuda_ms(kernel, 100), plain_ms=cuda_ms(plain, 20),
+                device_ms=device_ms(kernel, 50), plain_device_ms=device_ms(plain, 10),
+                bound=bound(nb, ops))
+
+
+# FP32 operations per (trajectory, t) point of K4, as counted for bound_ms:
+# 36 self pairs and 45 sphere pairs of ~10 operations each (differences,
+# squared norm, scale, exp, accumulate) and ~45 per joint of the FK walk.
+K4_OPS_PER_POINT = (36 + 45) * 10 + 9 * 45
+
+
+def fk_fields_check(dev) -> dict:
+    """K4 vs a float64 plain oracle at config-5 shapes. Half the rows are the
+    planner regime (means + 0.05 spreads), half are drawn uniformly across
+    the joint limits (links within the 3 cm margin of each other); two of
+    the five spheres sit on link positions of the first rows, so those
+    points are inside a sphere. Then the flat-stride entry
+    (``PlaneFieldsCost.eval`` on ``[B, T, 2d]``) against the plane entry."""
+    from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (
+        fk_link_fields_cost_rows,
+        fk_link_fields_cost_rows_plain,
+    )
+
+    _, cost, state, obs, s = panda_problem(dev)
+    fields = cost.costs[1]
+    chain = fields.chain
+    rows = _planner_rows(state.particle_means, s, 0.05, 4, dev)
+    half = rows.shape[0] // 2
+    lo = torch.tensor([-2.8973, -1.7628, -2.8973, -3.0718, -2.8973, -0.0175, -2.8973], device=dev)
+    hi = torch.tensor([2.8973, 1.7628, 2.8973, -0.0698, 2.8973, 3.7525, 2.8973], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    u = torch.rand((rows.shape[0] - half, rows.shape[1], 7), generator=gen, device=dev)
+    rows[half:, :, :7] = lo + (hi - lo) * u
+    xp = to_dof_planes(rows).contiguous()  # [7, B, 2T]
+    t = xp.shape[-1] // 2
+    q = xp[:, :, :t]  # the dof path's strided view
+    links = chain.fk_compact(rows[:2, 5:10, :7].double()).positions  # [2, 5, L, 3]
+    spheres = obs["obstacle_spheres"].reshape(-1, 4).clone()
+    spheres[3, :3], spheres[4, :3] = links[0, 0, -1].float(), links[1, 4, 3].float()
+    spheres[3:, 3] = 0.1
+    kw = dict(margin=fields.margin, w_self=1.0 / fields.sigma_self**2,
+              w_obst=1.0 / fields.sigma_coll**2)
+    got = fk_link_fields_cost_rows(chain, q, spheres, **kw)
+    want = fk_link_fields_cost_rows_plain(chain, q.double(), spheres.double(), **kw)
+    torch.cuda.synchronize()
+    rel = float(((got.double() - want).abs() / want.abs()).max())
+    if not (torch.isfinite(got).all() and rel <= K4_RTOL):
+        fail(f"K4 differs from the float64 oracle by {rel:.3g} relative (> {K4_RTOL})")
+    obs2 = {"obstacle_spheres": spheres}
+    flat = fields.eval(rows, observation=obs2)
+    planes = fields.eval_dof_planes(xp, observation=obs2)
+    torch.cuda.synchronize()
+    flat_rel = float(((flat - planes).abs() / planes.abs()).max())
+    if flat_rel > 1e-6:
+        fail(f"K4 flat-stride entry differs from the plane entry by {flat_rel:.3g} relative")
+    d, b, _ = q.shape
+    nb = 4 * (d * b * t + b + spheres.numel())
+    kernel = lambda: fk_link_fields_cost_rows(chain, q, spheres, **kw)  # noqa: E731
+    plain = lambda: fk_link_fields_cost_rows_plain(chain, q, spheres, **kw)  # noqa: E731
+    return dict(rows=b, points=b * (t - 1), max_rel=rel,
+                max_abs_err=float((got.double() - want).abs().max()), flat_rel=flat_rel,
+                ms=cuda_ms(kernel, 50), plain_ms=cuda_ms(plain, 10),
+                device_ms=device_ms(kernel, 20), plain_device_ms=device_ms(plain, 5),
+                bound=bound(nb, b * (t - 1) * K4_OPS_PER_POINT))
+
+
+def make_dof_step(sampler, cost, obs, p, s, **over):
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import make_fused_panda_dof_step
+
+    quad, fields = cost.costs
+    kw = dict(
+        chain=fields.chain, dof_prior=sampler.dof, dof_quad=quad.dof_form, num_particles=p,
+        spheres=obs["obstacle_spheres"], target_h=fields.target_h, n_dof=fields.n_dof,
+        traj_len=fields.traj_len, num_samples=s, margin=fields.margin,
+        w_self=1.0 / fields.sigma_self**2, w_obst=1.0 / fields.sigma_coll**2,
+        w_goal=1.0 / fields.sigma_goal**2, temperature=PANDA_TAU, step_size=PANDA_STEP)
+    kw.update(over)
+    return make_fused_panda_dof_step(**kw)
+
+
+def fused_dof_check(dev) -> dict:
+    """K5 with an eps operand vs its plain version at config 5."""
+    from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import (
+        fused_panda_dof_step,
+        fused_panda_dof_step_plain,
+    )
+
+    sampler, cost, state, obs, s = panda_problem(dev)
+    p = state.particle_means.shape[0]
+    step = make_dof_step(sampler, cost, obs, p, s)
+    means = to_dof_planes(state.particle_means).contiguous()
+    prec_u = sampler.dof.matvec_planes(means)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    eps = torch.randn((7, p, s, means.shape[-1]), generator=gen, device=dev)
+    new_k, cost_k = fused_panda_dof_step(step, means, prec_u, eps=eps)
+    new_p, cost_p = fused_panda_dof_step_plain(step, means, prec_u, eps)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(cost_k).all() and torch.isfinite(new_k).all()):
+        fail("K5: non-finite output")
+    rel = float(((cost_k - cost_p).abs() / cost_p.abs()).max())
+    if rel > K5_COST_RTOL:
+        fail(f"K5: costs differ from the plain version by {rel:.3g} relative (> {K5_COST_RTOL})")
+    agree = cost_k.argmin(1) == cost_p.argmin(1)
+    if float(agree.float().mean()) < MIN_ARGMAX_AGREE:
+        fail(f"K5: best sample agrees for only {int(agree.sum())}/{p} particles")
+    mean_err = float((new_k - new_p)[:, agree].abs().max())
+    if mean_err > K5_MEAN_ATOL:
+        fail(f"K5: new means differ by {mean_err:.3g} where the best sample agrees")
+    kernel = lambda: fused_panda_dof_step(step, means, prec_u, seed=3)  # noqa: E731
+    plain = lambda: fused_panda_dof_step_plain(  # noqa: E731
+        step, means, prec_u, torch.randn(eps.shape, generator=gen, device=dev))
+    m = means.shape[-1]
+    flops = 2 * 7 * p * s * m * m + p * s * (m // 2 - 1) * K4_OPS_PER_POINT
+    nb = 4 * (3 * means.numel() + m * m + p * s)
+    return dict(cost_max_rel=rel, argmax_agree=int(agree.sum()), particles=p,
+                max_abs_err=mean_err, ms=cuda_ms(kernel, 50), plain_ms=cuda_ms(plain, 10),
+                device_ms=device_ms(kernel, 20), plain_device_ms=device_ms(plain, 5),
+                bound=bound(nb, flops))
+
+
+def fused_dof_rng_free_check(dev) -> dict:
+    """K5 with ``W = 0`` (every sample is its particle's mean), the tiers of
+    the JAX package's TPU test: fields + goal + importance with the
+    quadratic zeroed, then the full stack, against float64 oracles built on
+    the CPU; the means must not move."""
+    from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
+    from stoch_gpmp_tpu_torch.ops.kernels.stencil import dof_quad_eval_plain
+
+    sampler, cost, state, obs, s = panda_problem(dev)
+    _, cost64, _, obs64, _ = panda_problem("cpu", torch.float64)
+    p = state.particle_means.shape[0]
+    means = to_dof_planes(state.particle_means).contiguous()
+    prec_u = sampler.dof.matvec_planes(means)
+    m64 = means.double().cpu()
+    imp = torch.einsum("dpk,dpk->p", m64, prec_u.double().cpu())
+    ref_f = cost64.costs[1].eval_dof_planes(m64, observation=obs64) + imp
+    ref = dof_quad_eval_plain(cost64.costs[0].dof_form, m64) + ref_f
+    dq = cost.costs[0].dof_form
+    z = torch.zeros((2, 2), device=dev)
+    zero_w = torch.zeros_like(sampler.dof.w_dof)
+    out = {}
+    for tier, dquad, want, rtol in (("tier1", replace(dq, q_i2=z, k_s2=z, k_g2=z), ref_f,
+                                     K5_TIER1_RTOL), ("tier2", dq, ref, K5_TIER2_RTOL)):
+        step = make_dof_step(sampler, cost, obs, p, s, w_dof=zero_w, dof_quad=dquad)
+        new, costs = step(means, seed=0)
+        torch.cuda.synchronize()
+        rel = float(((costs.double().cpu() - want[:, None]).abs() / want.abs()[:, None]).max())
+        still = float((new - means).abs().max())
+        if rel > rtol or still > K5_STILL_ATOL:
+            fail(f"K5 RNG-free {tier}: costs {rel:.3g} relative from the float64 oracle "
+                 f"(> {rtol}) or means moved {still:.3g}")
+        out[tier] = dict(max_rel=rel, means_moved=still)
+    return out
+
+
+def fused_dof_moments_check(dev) -> dict:
+    """K5 with Philox draws and uniform weights (quadratic, importance and
+    fields removed, temperature 1e30, step 1): the update is the sample mean
+    of ``eps @ W_dof``, so its per-lane variance is ``diag(W^T W) / S`` and
+    its per-lane mean is 0 within a few standard errors."""
+    from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import fused_panda_dof_step
+
+    sampler, cost, state, obs, s = panda_problem(dev)
+    p = state.particle_means.shape[0]
+    z = torch.zeros((2, 2), device=dev)
+    step = make_dof_step(sampler, cost, obs, p, s, dof_quad=replace(
+        cost.costs[0].dof_form, q_i2=z, k_s2=z, k_g2=z), w_self=0.0, w_obst=0.0, w_goal=0.0,
+        temperature=1e30, step_size=1.0)
+    means = to_dof_planes(state.particle_means).contiguous()
+    zeros = torch.zeros_like(means)
+    d = torch.stack([fused_panda_dof_step(step, means, zeros, seed=2000 + k)[0] - means
+                     for k in range(10)]).double()  # [seeds, d, P, 2T]
+    n = d.shape[0] * d.shape[1] * d.shape[2]
+    want_var = (step.w_dof.double() ** 2).sum(0) / s
+    ratio = float((d.var(dim=(0, 1, 2)) / want_var).median())
+    z_max = float((d.mean(dim=(0, 1, 2)).abs() / (want_var / n).sqrt()).max())
+    if not 0.85 < ratio < 1.15:
+        fail(f"K5 Philox: median variance ratio {ratio:.4f} outside (0.85, 1.15)")
+    if not z_max < 5.0:
+        fail(f"K5 Philox: a lane mean is {z_max:.2f} standard errors from 0")
+    return dict(var_ratio_median=ratio, max_lane_mean_z=z_max)
+
+
+def panda_main_path(dev) -> dict:
+    """``build_panda_problem`` at config 5 through ``StochGPMP(fused_kernel=
+    True)`` and ``StochGPMP`` on the dof path, ``PANDA_ITERS`` each, through
+    the class API."""
+    from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import fused_panda_dof_optimize
+    from stoch_gpmp_tpu_torch.planners import StochGPMP, stoch_gpmp_optimize
+    from stoch_gpmp_tpu_torch.problems import PANDA_DT, PANDA_START_Q
+
+    _, cost, _, obs, s = panda_problem(dev)
+    quad, fields = cost.costs
+    g_pd = quad.dof_form.g_pd  # [G, d, 2] goal anchors
+    goals = torch.cat([g_pd[..., 0], g_pd[..., 1]], dim=-1)
+    start_q = torch.tensor(PANDA_START_Q, device=dev)
+    start = torch.cat([start_q, torch.zeros_like(start_q)])
+    counters = {k: fn for k, fn in kernel_counters().items()
+                if k in ("dof_quad_eval", "fk_fields", "fused_panda_dof_step")}
+
+    def cost_of(means):
+        return float(cost.eval_dof_planes(to_dof_planes(means), observation=obs).mean())
+
+    out = {}
+    for name, fused in (("fused", True), ("dof", False)):
+        planner = StochGPMP(
+            num_particles_per_goal=PANDA["ppg"], num_samples=s, traj_len=PANDA["traj_len"],
+            dt=PANDA_DT, n_dof=7, opt_iters=PANDA_ITERS, temperature=PANDA_TAU,
+            start_state=start, multi_goal_states=goals, cost=cost, step_size=PANDA_STEP,
+            sigma_start_init=1e-3, sigma_goal_init=0.07, sigma_gp_init=0.1,
+            sigma_start_sample=1e-3, sigma_goal_sample=0.07, sigma_gp_sample=0.1, seed=0,
+            dtype=torch.float32, device=dev, fused_kernel=fused)
+        p = planner.num_particles
+        c0 = cost_of(planner.particle_means)
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = planner.optimize(observation=obs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        t, n = PANDA["traj_len"], 7
+        shapes = [tuple(o.shape) for o in res]
+        if shapes != [(p, t, n), (p, t, n), (p, s, t, n), (p, s, t, n), (p, s), (p, t, 2 * n)]:
+            fail(f"panda {name}: unexpected 6-tuple shapes {shapes}")
+        if not all(bool(torch.isfinite(o).all()) for o in res):
+            fail(f"panda {name}: non-finite output")
+        c1 = cost_of(planner.particle_means)
+        start_err = float((planner.particle_means[:, 0, :n] - start_q).abs().max())
+        want = ({"dof_quad_eval": 1, "fk_fields": 1, "fused_panda_dof_step": PANDA_ITERS - 1}
+                if fused else
+                {"dof_quad_eval": PANDA_ITERS, "fk_fields": PANDA_ITERS, "fused_panda_dof_step": 0})
+        if launches != want:
+            fail(f"panda {name}: launches {launches}, expected {want}")
+        if not c1 < c0 or start_err > PANDA_START_TOL:
+            fail(f"panda {name}: mean cost {c0:.6g} -> {c1:.6g}, start moved {start_err:.3g}")
+        # device time per iteration over a profiled window of the same loop
+        if fused:
+            step = planner._fused_runner(obs).step
+            mu = to_dof_planes(planner.particle_means).contiguous()
+            window = lambda: fused_panda_dof_optimize(step, mu, planner.generator, 20)  # noqa: E731
+        else:
+            window = lambda: stoch_gpmp_optimize(  # noqa: E731
+                planner.sampler, cost, planner.state, obs, opt_iters=20, num_samples=s,
+                temperature=PANDA_TAU, step_size=PANDA_STEP)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) / 20 * 1e3
+        dev_ms, top = device_breakdown(window, 1)
+        out[name] = dict(
+            top_kernels_ms_per_iter=[(k, ms / 20) for k, ms in top],
+            launches=launches, cost0=c0, cost=c1, start_err=start_err,
+            optimize_seconds=seconds, updates_per_s=p * PANDA_ITERS / seconds,
+            iter_wall_ms=wall, window_updates_per_s=p / wall * 1e3,
+            iter_device_ms=None if dev_ms is None else dev_ms / 20,
+            device_busy=None if dev_ms is None else dev_ms / 20 / wall)
+    fused_drop = out["fused"]["cost0"] - out["fused"]["cost"]
+    dof_drop = out["dof"]["cost0"] - out["dof"]["cost"]
+    if not fused_drop > PANDA_DESCENT_SHARE * dof_drop:
+        fail(f"panda: fused descent {fused_drop:.6g} not above {PANDA_DESCENT_SHARE} x "
+             f"the dof path's {dof_drop:.6g}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--log-dir", default=None, help="write the nvcc log and details here")
@@ -353,10 +763,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load_library()
-    used = [ln.split(":", 1)[-1].strip() for ln in _build.build_info.get("log", "").splitlines()
-            if "Used" in ln or "spill" in ln]
-    phase("build", f"nvcc sm_90a in {time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(used)}")
-    details = {"device": name, "nvidia_smi": smi, "build_log": _build.build_info.get("log", "")}
+    phase("build", f"{len(_build.build_info)} sources, nvcc sm_90a in parallel, "
+                   f"{time.perf_counter() - t0:.1f} s")
+    for src, info in _build.build_info.items():
+        used = [ln.split(":", 1)[-1].strip() for ln in info["log"].splitlines()
+                if "Used" in ln or "spill" in ln]
+        phase("ptxas", f"{src}: {' | '.join(used) or info['log']}")
+    details = {"device": name, "nvidia_smi": smi, "build": _build.build_info}
 
     k1 = raster_check(dev)
     phase("K1", f"raster field exact on {k1['points']} + {k1['edge_points']} edge points; "
@@ -382,24 +795,74 @@ def main() -> int:
                   f"{fmt_ms(mp['loop_iter_device_ms'])}/iter, device busy "
                   f"{'not measured' if mp['loop_device_busy'] is None else format(mp['loop_device_busy'], '.1%')}"
                   f" on {smi}")
-    details.update(K1=k1, K2=k2, moments=mom, main=mp)
+    k3 = dof_quad_check(dev)
+    phase("K3", f"dof stencil energy on {k3['rows']} rows within {k3['max_rel']:.2e} relative "
+                f"of the float64 oracle (rtol {K3_RTOL}); per call kernel {k3['ms']:.4f} ms, "
+                f"plain {k3['plain_ms']:.4f} ms; device time kernel {fmt_ms(k3['device_ms'])}, "
+                f"plain {fmt_ms(k3['plain_device_ms'])}; bound {k3['bound'][0]:.4f} ms")
+    k4 = fk_fields_check(dev)
+    phase("K4", f"FK + fields on {k4['points']} points within {k4['max_rel']:.2e} relative of "
+                f"the float64 oracle (rtol {K4_RTOL}), flat entry {k4['flat_rel']:.1e} from "
+                f"the plane entry; per call kernel {k4['ms']:.4f} ms, plain {k4['plain_ms']:.4f}"
+                f" ms; device time kernel {fmt_ms(k4['device_ms'])}, plain "
+                f"{fmt_ms(k4['plain_device_ms'])}; bound {k4['bound'][0]:.4f} ms")
+    k5 = fused_dof_check(dev)
+    phase("K5", f"eps operand: costs within {k5['cost_max_rel']:.2e} relative (rtol "
+                f"{K5_COST_RTOL}), best sample agrees {k5['argmax_agree']}/{k5['particles']}, "
+                f"means max err {k5['max_abs_err']:.2e}; per call kernel {k5['ms']:.4f} ms, "
+                f"plain {k5['plain_ms']:.4f} ms; device time kernel {fmt_ms(k5['device_ms'])},"
+                f" plain {fmt_ms(k5['plain_device_ms'])}; bound {k5['bound'][0]:.4f} ms")
+    k5_free = fused_dof_rng_free_check(dev)
+    phase("K5-rng-free", " | ".join(
+        f"{k}: costs within {v['max_rel']:.2e} relative, means moved {v['means_moved']:.1e}"
+        for k, v in k5_free.items()))
+    k5_mom = fused_dof_moments_check(dev)
+    phase("K5-philox", f"variance ratio median {k5_mom['var_ratio_median']:.4f}, largest lane "
+                       f"mean {k5_mom['max_lane_mean_z']:.2f} standard errors")
+    pm = panda_main_path(dev)
+    for k, r in pm.items():
+        busy = "not measured" if r["device_busy"] is None else format(r["device_busy"], ".1%")
+        phase("panda-main", f"{k}: {PANDA_ITERS} iters, launches {r['launches']}, mean cost "
+                            f"{r['cost0']:.6g} -> {r['cost']:.6g}, start err {r['start_err']:.2e};"
+                            f" {r['updates_per_s']:.0f} updates/s over optimize(); 20-iteration"
+                            f" window {r['iter_wall_ms']:.4f} ms/iter wall, device time "
+                            f"{fmt_ms(r['iter_device_ms'])}/iter, device busy {busy} on {smi}")
+        phase("panda-main", f"{k}: device ms per iteration by kernel: " + "; ".join(
+            f"{n} {ms:.4f}" for n, ms in r["top_kernels_ms_per_iter"]))
+    details.update(K1=k1, K2=k2, moments=mom, main=mp, K3=k3, K4=k4, K5=k5,
+                   K5_rng_free=k5_free, K5_moments=k5_mom, panda_main=pm)
     if args.log_dir:
         out = Path(args.log_dir)
         out.mkdir(parents=True, exist_ok=True)
-        (out / "chip_smoke.json").write_text(json.dumps(details, indent=1))
+        (out / "chip_smoke.json").write_text(json.dumps(details, indent=1, default=str))
 
+    # bounds of K1 and K2 from this run's shapes: K1 reads 8 bytes and writes
+    # 4 per point; K2 multiplies [S, M] by [M, M] twice per particle (matmul
+    # branch) and moves means, prec_u, lin_rows, W, A and the costs
+    m2 = T * 4
+    k1_bound = bound(12 * k1["points"], 0.0)
+    k2_bound = bound(4 * (4 * 3 * PPG * m2 + 2 * m2 * m2 + 3 * PPG * S),
+                     2 * 2 * 3 * PPG * S * m2 * m2)
+    record = [
+        ("raster_field", "raster_field.cu", "stoch_gpmp_tpu/ops/pallas/fields.py:147",
+         mp["launches"]["raster_field"], k1, k1_bound),
+        ("fused_planar_step", "fused_planar_step.cu",
+         "stoch_gpmp_tpu/ops/pallas/fused_step.py:419", mp["launches"]["fused_planar_step"],
+         dict(k2["matmul"], max_abs_err=max(r["max_abs_err"] for r in k2.values())), k2_bound),
+        ("dof_quad_eval", "dof_quad_eval.cu", "stoch_gpmp_tpu/ops/pallas/stencil.py:242",
+         pm["dof"]["launches"]["dof_quad_eval"], k3, k3["bound"]),
+        ("fk_fields", "fk_fields.cu", "stoch_gpmp_tpu/ops/pallas/panda_fields.py:325",
+         pm["dof"]["launches"]["fk_fields"], k4, k4["bound"]),
+        ("fused_panda_dof_step", "fused_panda_dof_step.cu",
+         "stoch_gpmp_tpu/ops/pallas/panda_step_dof.py:225",
+         pm["fused"]["launches"]["fused_panda_dof_step"], k5, k5["bound"]),
+    ]
     kernels = [
-        {"name": "raster_field", "route": "cuda",
-         "source": "stoch_gpmp_tpu_torch/csrc/raster_field.cu",
-         "replaces": "stoch_gpmp_tpu/ops/pallas/fields.py:147",
-         "launches": mp["launches"]["raster_field"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "fused_planar_step", "route": "cuda",
-         "source": "stoch_gpmp_tpu_torch/csrc/fused_planar_step.cu",
-         "replaces": "stoch_gpmp_tpu/ops/pallas/fused_step.py:419",
-         "launches": mp["launches"]["fused_planar_step"],
-         "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
-         "ms": k2["matmul"]["ms"], "plain_ms": k2["matmul"]["plain_ms"]},
+        {"name": n, "route": "cuda", "source": f"stoch_gpmp_tpu_torch/csrc/{src}",
+         "replaces": rep, "launches": launches, "max_abs_err": r["max_abs_err"],
+         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bd[0], "bound_by": bd[1],
+         "library_ms": None}
+        for n, src, rep, launches, r, bd in record
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

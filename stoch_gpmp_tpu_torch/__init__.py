@@ -7,8 +7,11 @@ at the same relative path. Plain tensor code is PyTorch; the TPU kernels of
 version that the CPU tests use. This package never imports JAX.
 
 Ported: the planar StochGPMP main path (GP prior, planar cost stack, flat
-planner path, the fused planar iteration). Importing the package is light;
-submodules load on first use.
+planner path, the fused planar iteration) and the Panda 7-DOF dof-factored
+path (kinematics, ``PlaneFieldsCost``, the dof planner path, the fused dof
+iteration). Entry points run on the CUDA card unless given
+``device="cpu"``. Importing the package is light; submodules load on first
+use.
 """
 
 __version__ = "0.1.0"
@@ -25,6 +28,8 @@ def __getattr__(name):
         "CostGP": "stoch_gpmp_tpu_torch.costs",
         "CostGoalPrior": "stoch_gpmp_tpu_torch.costs",
         "CostCollision": "stoch_gpmp_tpu_torch.costs",
+        "PlaneFieldsCost": "stoch_gpmp_tpu_torch.costs",
+        "franka_panda": "stoch_gpmp_tpu_torch.kinematics",
         "generate_obstacle_map": "stoch_gpmp_tpu_torch.envs",
     }
     if name in _exports:

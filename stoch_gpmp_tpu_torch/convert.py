@@ -1,10 +1,12 @@
 """Carry a problem built by the JAX package over to the port.
 
-``sampler_from_jax``, ``cost_from_jax`` and ``state_from_jax`` read the JAX
-objects' fields through ``np.asarray`` and rebuild the port's objects on a
-given device and dtype. They dispatch on class names, so this module never
-imports JAX. The PRNG key does not cross: the port's generator is seeded
-separately.
+``sampler_from_jax``, ``cost_from_jax``, ``state_from_jax``,
+``chain_from_jax`` and ``observation_from_jax`` read the JAX objects' fields
+through ``np.asarray`` and rebuild the port's objects on a given device and
+dtype. They dispatch on class names, so this module never imports JAX. The
+PRNG key does not cross: the port's generator is seeded separately.
+``device=None`` means the CUDA card (raises without one); pass
+``device="cpu"`` to build on the CPU.
 """
 
 from __future__ import annotations
@@ -14,10 +16,13 @@ import torch
 
 from stoch_gpmp_tpu_torch.costs.costs import CostCollision, CostComposite, CostGP, CostGoalPrior
 from stoch_gpmp_tpu_torch.costs.fields import OccupancyGridField, RasterPrimitive2DField
+from stoch_gpmp_tpu_torch.costs.fused_fields import PlaneFieldsCost
 from stoch_gpmp_tpu_torch.costs.quadratic import QuadraticCost
 from stoch_gpmp_tpu_torch.gp.dof_factored import DofFactoredPrior, DofQuadraticCost
 from stoch_gpmp_tpu_torch.gp.tridiag import BlockTridiag
+from stoch_gpmp_tpu_torch.kinematics import JointSpec, KinematicChain, RobotModel
 from stoch_gpmp_tpu_torch.planners.stoch_gpmp import SamplerModel, StochGPMPState
+from stoch_gpmp_tpu_torch.utils.device import resolve_device
 
 
 def _kind(obj) -> str:
@@ -32,6 +37,7 @@ def sampler_from_jax(sampler, *, device=None, dtype=torch.float64) -> SamplerMod
     """``SamplerModel`` (flat-path sampler: dense factor + per-dof factor)."""
     if sampler.weight_t is None:
         raise NotImplementedError("long-horizon samplers are not ported yet")
+    device = resolve_device(device)
     t = lambda x: _t(x, dtype, device)  # noqa: E731
     dof = sampler.dof
     return SamplerModel(
@@ -72,8 +78,9 @@ def _dof_quad_from_jax(dq, dtype, device):
 
 def cost_from_jax(cost, *, device=None, dtype=torch.float64):
     """``CostComposite`` of ``QuadraticCost`` / ``CostGP`` / ``CostGoalPrior``
-    / ``CostCollision(RasterPrimitive2DField | OccupancyGridField)``, or one
-    of those alone."""
+    / ``CostCollision(RasterPrimitive2DField | OccupancyGridField)`` /
+    ``PlaneFieldsCost``, or one of those alone."""
+    device = resolve_device(device)
     t = lambda x: _t(x, dtype, device)  # noqa: E731
     kind = _kind(cost)
     if kind == "CostComposite":
@@ -103,13 +110,44 @@ def cost_from_jax(cost, *, device=None, dtype=torch.float64):
             sigma_coll=float(cost.sigma_coll), n_dof=int(cost.n_dof),
             traj_range=tuple(cost.traj_range),
         )
+    if kind == "PlaneFieldsCost":
+        return PlaneFieldsCost(
+            chain=chain_from_jax(cost.chain), target_h=t(cost.target_h),
+            n_dof=int(cost.n_dof), traj_len=int(cost.traj_len), margin=float(cost.margin),
+            sigma_self=float(cost.sigma_self), sigma_coll=float(cost.sigma_coll),
+            sigma_goal=float(cost.sigma_goal), w_pos=float(cost.w_pos), w_rot=float(cost.w_rot),
+        )
     raise NotImplementedError(f"cost {kind} is not ported yet")
+
+
+def chain_from_jax(chain) -> KinematicChain:
+    """``KinematicChain`` rebuilt from the JAX chain's model joints and its
+    selected links (the chain holds no tensors: FK runs in ``q``'s dtype)."""
+    model = chain.model
+    joints = tuple(
+        JointSpec(name=j.name, joint_type=j.joint_type, parent_link=j.parent_link,
+                  child_link=j.child_link, origin_xyz=tuple(j.origin_xyz),
+                  origin_rpy=tuple(j.origin_rpy), axis=tuple(j.axis),
+                  limit_lower=j.limit_lower, limit_upper=j.limit_upper,
+                  limit_velocity=j.limit_velocity, limit_effort=j.limit_effort)
+        for j in model.joints
+    )
+    return KinematicChain(RobotModel(name=model.name, joints=joints, links=tuple(model.links)),
+                          link_names=list(chain.link_names))
+
+
+def observation_from_jax(observation: dict, *, device=None, dtype=torch.float64) -> dict:
+    """The observation dict with its arrays (e.g. ``obstacle_spheres``) as
+    tensors."""
+    device = resolve_device(device)
+    return {k: _t(v, dtype, device) for k, v in observation.items()}
 
 
 def state_from_jax(state, *, seed: int = 0, device=None, dtype=torch.float64) -> StochGPMPState:
     """``StochGPMPState``: the particle means cross; the key does not, the
     port's generator is seeded with ``seed``."""
+    device = resolve_device(device)
     return StochGPMPState(
         particle_means=_t(state.particle_means, dtype, device),
-        generator=torch.Generator(device=device or "cpu").manual_seed(seed),
+        generator=torch.Generator(device=device).manual_seed(seed),
     )

@@ -6,6 +6,7 @@ from stoch_gpmp_tpu_torch.costs.costs import (
     CostGoalPrior,
 )
 from stoch_gpmp_tpu_torch.costs.fields import OccupancyGridField, RasterPrimitive2DField
+from stoch_gpmp_tpu_torch.costs.fused_fields import PlaneFieldsCost
 from stoch_gpmp_tpu_torch.costs.quadratic import QuadraticCost
 
 __all__ = [
@@ -15,6 +16,7 @@ __all__ = [
     "CostGP",
     "CostGoalPrior",
     "OccupancyGridField",
+    "PlaneFieldsCost",
     "RasterPrimitive2DField",
     "QuadraticCost",
 ]

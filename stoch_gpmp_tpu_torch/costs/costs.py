@@ -8,9 +8,10 @@ PyTorch counterpart of the ``eval`` half of ``stoch_gpmp_tpu/costs/costs.py``
 - collision costs skip timestep 0; the goal prior anchors the final state
   of a goal-major batch.
 
-The Gauss-Newton contributions (``gn_contrib``/``gn_rank1``) and the plane
-evaluators are not ported yet (GN and dof slices). ``supports_dof_planes``
-is kept so the planner routes a problem exactly as the JAX package does.
+``eval_dof_planes`` evaluates on the dof-leading plane batch ``[d, B, 2T]``
+of the dof path. The Gauss-Newton contributions (``gn_contrib``/
+``gn_rank1``) and the per-dim plane evaluators of the long-horizon path are
+not ported yet (GN and long-horizon slices).
 """
 
 from __future__ import annotations
@@ -127,13 +128,21 @@ class CostCollision(Cost):
         return (1.0 / self.sigma_coll**2) * torch.sum(err, dim=-1)
 
     def supports_dof_planes(self) -> bool:
-        return self.n_dof == 2 and getattr(self.field, "plane_capable", False)
+        return self.n_dof == 2 and hasattr(self.field, "compute_cost_planes")
+
+    def eval_dof_planes(self, x_planes, observation=None):
+        """``x_planes [d, B, 2T]``: the 2D field evaluates on the two
+        position planes, read in place."""
+        t = x_planes.shape[-1] // 2
+        vals = self.field.compute_cost_planes(x_planes[0, :, :t], x_planes[1, :, :t])
+        return (1.0 / self.sigma_coll**2) * torch.sum(vals[..., slice(*self.traj_range)], dim=-1)
 
 
 @dataclass
 class CostComposite(Cost):
-    """Sums child costs on a ``[B, T, 2*n_dof]`` batch. Forward kinematics
-    (``fk``) is not ported yet (Panda slice)."""
+    """Sums child costs on a ``[B, T, 2*n_dof]`` batch. A composite that
+    computes FK once for its children (``fk``) is not ported yet: the Panda
+    stack evaluates its own FK (``costs/fused_fields.py``)."""
 
     costs: tuple
     n_dof: int
@@ -143,12 +152,20 @@ class CostComposite(Cost):
     def create(cls, n_dof, traj_len, cost_list: Sequence[Cost], fk=None):
         if fk is not None:
             raise NotImplementedError(
-                "forward-kinematics cost stacks are not ported yet (Panda slice)"
+                "CostComposite(fk=...) stacks are not ported yet; use PlaneFieldsCost"
             )
         return cls(costs=tuple(cost_list), n_dof=n_dof, traj_len=traj_len)
 
     def supports_dof_planes(self) -> bool:
         return all(c.supports_dof_planes() for c in self.costs)
+
+    def eval_dof_planes(self, x_planes, observation=None):
+        """Sum of child costs on the dof-factored batch ``[d, B, 2T]``."""
+        total = None
+        for c in self.costs:
+            v = c.eval_dof_planes(x_planes, observation=observation)
+            total = v if total is None else total + v
+        return total
 
     def eval(self, trajs, observation=None):
         trajs = trajs.reshape(-1, self.traj_len, 2 * self.n_dof)

@@ -8,7 +8,7 @@ PyTorch counterpart of the 2D fields of ``stoch_gpmp_tpu/costs/fields.py``:
   from the primitives the grid was rasterized from (exact grid parity),
   through the raster-field kernel (``ops/kernels/fields.py``).
 
-The link/SE(3) fields of the Panda stack are not ported yet (Panda slice).
+The link fields of the Panda stack live in ``costs/fused_fields.py``.
 """
 
 from __future__ import annotations
@@ -54,8 +54,6 @@ class RasterPrimitive2DField:
     cell_size: float
     nx: int
     ny: int
-    # the JAX twin evaluates on coordinate planes too: keeps planner routing equal
-    plane_capable = True
 
     @classmethod
     def from_map(cls, obst_map, obstacles, dtype=torch.float32, device=None):
@@ -99,3 +97,17 @@ class RasterPrimitive2DField:
             self.rect_bounds, self.circles, x,
             cell_size=self.cell_size, nx=self.nx, ny=self.ny,
         )
+
+    def compute_cost_planes(self, x: torch.Tensor, y: torch.Tensor, **kw) -> torch.Tensor:
+        """``compute_cost`` on separate coordinate planes ``x``, ``y [B, L]``
+        (views of one tensor, as the dof path passes them): the kernel reads
+        them in place as one strided ``[B, L, 2]`` point set."""
+        if x.shape != y.shape or x.dim() != 2:
+            raise ValueError("compute_cost_planes takes two [B, L] planes")
+        offset = y.storage_offset() - x.storage_offset()
+        if (x.untyped_storage().data_ptr() == y.untyped_storage().data_ptr()
+                and x.stride() == y.stride() and offset > 0):
+            pts = x.as_strided(x.shape + (2,), x.stride() + (offset,))
+        else:
+            pts = torch.stack([x, y], dim=-1)
+        return self.compute_cost(pts)

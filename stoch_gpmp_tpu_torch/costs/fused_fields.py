@@ -1,0 +1,102 @@
+"""The Panda field stack evaluated on joint-angle planes.
+
+PyTorch counterpart of ``PlaneFieldsCost`` in
+``stoch_gpmp_tpu/costs/fused_fields.py``: self-collision RBF + obstacle RBF
++ terminal SE(3) goal, equal in value to
+
+    CostCollision(LinkSelfDistanceField(margin), sigma_self)
+  + CostCollision(LinkDistanceField('rbf'), sigma_coll)
+  + CostGoal(EESE3DistanceField(target_h), sigma_goal)
+
+in a ``CostComposite`` without FK. The collision terms (timesteps 1..T-1)
+run in kernel K4 (``ops/kernels/panda_fields.py``) on the position planes,
+read in place through their strides; the SE(3) term (last step only) is
+plain PyTorch, one FK per trajectory.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from stoch_gpmp_tpu_torch.costs.costs import Cost
+from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import fk_link_fields_cost_rows
+
+
+def ee_goal_distance(chain, q_last, target_h, *, w_pos: float, w_rot: float, acos=torch.arccos):
+    """``w_pos * |p_ee - p*| + w_rot * angle(R_ee, R*)`` at ``q_last
+    [d, B]`` against the ``[4, 4]`` target, the angle clamped as in
+    ``se3.rotation_angle``; ``acos`` lets the fused step's plain version use
+    the kernel's polynomial."""
+    (r_ee, p_ee) = chain.fk_planes_from_scalars([q_last[i] for i in range(chain.n_dofs)])[-1]
+    th = target_h
+    sq = 0.0
+    for c in range(3):
+        dd = p_ee[c] - th[c, 3]
+        sq = sq + dd * dd
+    tr = 0.0
+    for i in range(3):
+        for j in range(3):
+            tr = tr + r_ee[i][j] * th[i, j]
+    cos = torch.clamp((tr - 1.0) * 0.5, -1.0 + 1e-7, 1.0 - 1e-7)
+    return w_pos * torch.sqrt(sq) + w_rot * acos(cos)
+
+
+@dataclass
+class PlaneFieldsCost(Cost):
+    """Self RBF + obstacle RBF over timesteps 1..T-1 and the terminal SE(3)
+    goal, on the joint positions of a trajectory batch."""
+
+    chain: Any  # kinematics.KinematicChain
+    target_h: torch.Tensor  # [4, 4] SE(3) goal of the end-effector
+    n_dof: int
+    traj_len: int
+    margin: float = 0.03
+    sigma_self: float = 0.01
+    sigma_coll: float = 0.01
+    sigma_goal: float = 0.00007
+    w_pos: float = 1.0
+    w_rot: float = 1.0
+
+    @classmethod
+    def create(cls, n_dof, traj_len, chain, target_h, *, margin=0.03, sigma_self=0.01,
+               sigma_coll=0.01, sigma_goal=0.00007, w_pos=1.0, w_rot=1.0):
+        return cls(chain=chain, target_h=target_h, n_dof=n_dof, traj_len=traj_len,
+                   margin=margin, sigma_self=sigma_self, sigma_coll=sigma_coll,
+                   sigma_goal=sigma_goal, w_pos=w_pos, w_rot=w_rot)
+
+    def supports_dof_planes(self) -> bool:
+        return True
+
+    def _eval_q(self, q, observation):
+        """``q [d, B, T]`` joint-angle planes (any strides) -> ``[B]``."""
+        spheres = (observation or {}).get("obstacle_spheres", None)
+        coll = fk_link_fields_cost_rows(
+            self.chain, q, spheres, margin=self.margin, w_self=1.0 / self.sigma_self**2,
+            w_obst=1.0 / self.sigma_coll**2 if spheres is not None else 0.0,
+        )
+        target = self.target_h.to(device=q.device, dtype=q.dtype)
+        dist = ee_goal_distance(self.chain, q[:, :, -1], target,
+                                w_pos=self.w_pos, w_rot=self.w_rot)
+        return coll + dist * dist / self.sigma_goal**2
+
+    def eval(self, trajs, observation=None):
+        """Flat ``[B, T, 2d]`` (or ``[B, M]``) batch: the position columns
+        are read in place as ``[d, B, T]`` planes."""
+        trajs = trajs.reshape(-1, self.traj_len, 2 * self.n_dof)
+        return self._eval_q(trajs[..., : self.n_dof].permute(2, 0, 1), observation)
+
+    def eval_dof_planes(self, x_planes, observation=None):
+        """Dof planes ``[d, B, 2T]``: the position planes are the first T
+        lanes of each dof, read in place."""
+        t = x_planes.shape[-1] // 2
+        return self._eval_q(x_planes[: self.n_dof, :, :t], observation)
+
+    def eval_planes(self, planes, observation=None):
+        """Per-dof time planes ``tuple_d of [..., T]`` -> ``[...]``."""
+        batch_shape = planes[0].shape[:-1]
+        t = planes[0].shape[-1]
+        q = torch.stack([p.reshape(-1, t) for p in planes[: self.n_dof]])
+        return self._eval_q(q, observation).reshape(batch_shape)

@@ -75,6 +75,11 @@ class QuadraticCost(Cost):
     def supports_dof_planes(self) -> bool:
         return self.dof_form is not None
 
+    def eval_dof_planes(self, x_planes, observation=None):
+        """``x_planes [d, B, 2T]`` -> ``[B]`` through the dof form (kernel K3
+        on the card)."""
+        return self.dof_form.eval_dof_planes(x_planes, observation=observation)
+
     def eval(self, trajs, observation=None):
         batch = trajs.shape[0]
         if self.dof_form is not None and self.stencil_required:

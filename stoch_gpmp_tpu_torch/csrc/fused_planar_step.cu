@@ -21,7 +21,7 @@
 // thread per lane m; samples go in tiles of ST rows; W (and A) stream in
 // K-tiles of KT rows through two shared-memory buffers by cp.async, the next
 // K-tile in flight while the current one is multiplied (W alone is 256 KB,
-// more than a block's 227 KB); block reductions give each row's
+// more than a block's 227 KB; kernel_common.cuh); block reductions give each row's
 // quadratic, linear, collision and importance sums; sample rows go to a
 // scratch [P, S, M] buffer (2 MB at parity, L2 resident) for the final
 // weighted update. No selection or segment matmuls: the position lanes
@@ -31,6 +31,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_common.cuh"
 #include "raster_common.cuh"
 
 namespace {
@@ -38,117 +39,6 @@ namespace {
 constexpr int ST = 16;  // sample rows per tile
 constexpr int KT = 32;  // K rows of W / A per shared-memory tile
 constexpr int MAX_LANES = 512;
-
-// Philox4x32-10 (Salmon et al., SC'11), counter (lane, sample, particle, 0)
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += 0x9E3779B9u;
-    k.y += 0xBB67AE85u;
-  }
-  return c;
-}
-
-// Dual-output Box-Muller on the top 24 bits, u1 in (0, 1) as in
-// fused_step.py _box_muller: r cos and r sin are both used.
-__device__ __forceinline__ float2 box_muller(uint32_t b1, uint32_t b2) {
-  const float u1 = (float)(b1 >> 8) * (1.0f / 16777216.0f) + (0.5f / 16777216.0f);
-  const float u2 = (float)(b2 >> 8) * (1.0f / 16777216.0f);
-  const float r = sqrtf(-2.0f * logf(u1));
-  float s, c;
-  sincosf(6.283185307179586f * u2, &s, &c);
-  return make_float2(r * c, r * s);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Block-wide sum or max; every thread gets the result. scratch: 32 floats.
-template <bool IS_MAX>
-__device__ float block_reduce(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = IS_MAX ? warp_max(v) : warp_sum(v);
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float r = scratch[0];
-  for (int w = 1; w < nwarps; ++w) r = IS_MAX ? fmaxf(r, scratch[w]) : r + scratch[w];
-  return r;
-}
-
-// 16-byte asynchronous global -> shared copy (Ampere and later), so the next
-// K-tile is in flight while the current one is multiplied.
-__device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Issue the copy of K-tile kt of G [M, M] (KT rows) into buf.
-__device__ __forceinline__ void load_ktile(const float* __restrict__ G, float* buf, int kt,
-                                           int M) {
-  const float4* src = reinterpret_cast<const float4*>(G + (size_t)kt * KT * M);
-  float4* dst = reinterpret_cast<float4*>(buf);
-  for (int j = threadIdx.x; j < KT * M / 4; j += blockDim.x) cp_async16(dst + j, src + j);
-  cp_async_commit();
-}
-
-// acc[i] += sum_k xs[i][k] * G[k][m] for the ST rows of the tile in
-// shared memory; G [M, M] streams through the two KT-row buffers of g_sh,
-// the copy of K-tile kt+1 overlapping the products of K-tile kt.
-__device__ __forceinline__ void tile_matmul(const float* xs, const float* __restrict__ G,
-                                            float* g_sh, int M, float (&acc)[ST]) {
-  const int m = threadIdx.x;
-  const int nkt = M / KT;
-  __syncthreads();  // every earlier reader of g_sh and writer of xs is done
-  load_ktile(G, g_sh, 0, M);
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (kt + 1 < nkt) {
-      load_ktile(G, g_sh + ((kt + 1) & 1) * KT * M, kt + 1, M);
-      cp_async_wait<1>();  // K-tile kt has landed (kt+1 may still fly)
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // ... for every thread's share of it
-    const float* gt = g_sh + (kt & 1) * KT * M;
-    const int k0 = kt * KT;
-    // four K steps per pass: the row operand is one 16-byte broadcast load
-    for (int kk = 0; kk < KT; kk += 4) {
-      const float g0 = gt[kk * M + m], g1 = gt[(kk + 1) * M + m];
-      const float g2 = gt[(kk + 2) * M + m], g3 = gt[(kk + 3) * M + m];
-#pragma unroll
-      for (int i = 0; i < ST; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(xs + i * M + k0 + kk);
-        acc[i] = fmaf(a.x, g0, acc[i]);
-        acc[i] = fmaf(a.y, g1, acc[i]);
-        acc[i] = fmaf(a.z, g2, acc[i]);
-        acc[i] = fmaf(a.w, g3, acc[i]);
-      }
-    }
-    __syncthreads();  // buffer kt & 1 is consumed before it is refilled
-  }
-}
 
 struct StepParams {
   int P, S, M, n_dof, use_stencil, n_rects, n_circles, nx, ny;
@@ -210,7 +100,7 @@ fused_planar_step_kernel(const float* __restrict__ means, const float* __restric
     float acc[ST];
 #pragma unroll
     for (int i = 0; i < ST; ++i) acc[i] = 0.0f;
-    tile_matmul(x_sh, W, g_sh, M, acc);
+    tile_matmul<ST, KT>(x_sh, W, g_sh, M, acc);
     __syncthreads();  // every thread is done reading the eps tile
     float xv[ST];
 #pragma unroll
@@ -224,7 +114,7 @@ fused_planar_step_kernel(const float* __restrict__ means, const float* __restric
     if (!prm.use_stencil) {
 #pragma unroll
       for (int i = 0; i < ST; ++i) acc[i] = 0.0f;
-      tile_matmul(x_sh, A, g_sh, M, acc);
+      tile_matmul<ST, KT>(x_sh, A, g_sh, M, acc);
     }
     // --- 4./5. per-row sums: quad, linear, collision, importance ------------
 #pragma unroll  // acc and xv stay in registers only under full unrolling

@@ -6,16 +6,20 @@ across dofs: the dense ``[M, M]`` precision/cost/sampling matrices are
 permuted block-diagonals of ``n_dof`` identical ``[2T, 2T]`` blocks, kept
 here in plane order (per dof ``[p_0..p_{T-1}, v_0..v_{T-1}]``).
 
-On the planar main path this module supplies two things: the exact O(T)
-factor-graph stencil ``Sigma^{-1} mu`` (``DofFactoredPrior.matvec_flat``,
-the importance term's input) and the per-dof ``[2, 2]`` weights the fused
-kernel reads (``DofQuadraticCost``). The plane-layout evaluators of the dof
-planner path are not ported yet (dof slice).
+The planar main path takes two things from it: the exact O(T) factor-graph
+stencil ``Sigma^{-1} mu`` (``DofFactoredPrior.matvec_flat``, the importance
+term's input) and the per-dof ``[2, 2]`` weights the fused kernels read
+(``DofQuadraticCost``). The dof path (``planners/stoch_gpmp.py``) runs in
+the dof-leading plane layout ``[d, ..., 2T]`` (``to_dof_planes``): sampling
+against the shared ``[2T, 2T]`` factor (``sample_planes``), the plane
+stencil ``matvec_planes`` and the residual-form quadratic
+``DofQuadraticCost.eval_dof_planes`` (kernel K3 on the card).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -60,6 +64,38 @@ def _dof2_block(k: torch.Tensor, n_dof: int) -> torch.Tensor:
     return torch.stack([
         torch.stack([k[0, 0], k[0, d]]), torch.stack([k[d, 0], k[d, d]]),
     ])
+
+
+def to_dof_planes(x: torch.Tensor) -> torch.Tensor:
+    """``[..., T, 2d] -> [d, ..., 2T]``: per dof its position plane then its
+    velocity plane, dof axis leading (contiguous)."""
+    t, d2 = x.shape[-2], x.shape[-1]
+    d = d2 // 2
+    y = x.reshape(x.shape[:-2] + (t, 2, d))
+    nb = y.dim() - 3
+    y = y.permute((y.dim() - 1,) + tuple(range(nb)) + (y.dim() - 2, y.dim() - 3))
+    return y.reshape((d,) + x.shape[:-2] + (2 * t,))
+
+
+def from_dof_planes(x_planes: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`to_dof_planes`: ``[d, ..., 2T] -> [..., T, 2d]``."""
+    d, t2 = x_planes.shape[0], x_planes.shape[-1]
+    t = t2 // 2
+    y = x_planes.reshape((d,) + x_planes.shape[1:-1] + (2, t))
+    nb = y.dim() - 3
+    y = y.permute(tuple(range(1, nb + 1)) + (y.dim() - 1, y.dim() - 2, 0))
+    return y.reshape(x_planes.shape[1:-1] + (t, 2 * d))
+
+
+def _plane_residuals(x_planes, dt, t):
+    """Per-factor residuals of ``[..., 2T]`` planes: ``r_t = phi x_t -
+    x_{t+1}`` as ``(rp, rv)`` of ``[..., T-1]``, with the positions ``p`` and
+    velocities ``v``."""
+    p = x_planes[..., :t]
+    v = x_planes[..., t:]
+    rp = p[..., :-1] + dt * v[..., :-1] - p[..., 1:]
+    rv = v[..., :-1] - v[..., 1:]
+    return p, v, rp, rv
 
 
 def _lane_slices(x, n_dof):
@@ -137,6 +173,37 @@ class DofFactoredPrior:
         """``Sigma^{-1} x`` on flat ``[..., T, 2d]`` trajectories by the
         exact O(T) stencil."""
         return stencil_matvec_flat(x, self.q_i2, self.k_s2, self.k_g2, self.dt)
+
+    def sample_planes(self, generator, mu_planes: torch.Tensor, num_samples: int,
+                      eps: torch.Tensor | None = None):
+        """Draw ``[d, P, S, 2T]`` samples around ``mu_planes [d, P, 2T]``;
+        returns ``(samples, corr)`` with ``corr = eps @ w_dof``. ``eps
+        [d, P, S, 2T]`` replaces the draw from ``generator``."""
+        d, p, t2 = mu_planes.shape
+        if eps is None:
+            eps = torch.randn((d, p, num_samples, t2), generator=generator,
+                              dtype=mu_planes.dtype, device=mu_planes.device)
+        corr = (eps.reshape(-1, t2) @ self.w_dof).reshape(eps.shape)
+        return mu_planes[:, :, None] + corr, corr
+
+    def matvec_planes(self, x_planes: torch.Tensor) -> torch.Tensor:
+        """``Sigma^{-1} x`` per dof on ``[d, ..., 2T]`` planes by the
+        factor-graph stencil: per factor ``r_t = phi x_t - x_{t+1}``,
+        ``y_t += phi^T Q^{-1} r_t``, ``y_{t+1} -= Q^{-1} r_t``, plus the two
+        anchors."""
+        t = self.traj_len
+        p, v, rp, rv = _plane_residuals(x_planes, self.dt, t)
+        a = self.q_i2[0, 0] * rp + self.q_i2[0, 1] * rv  # (Q^{-1} r)_p
+        b = self.q_i2[1, 0] * rp + self.q_i2[1, 1] * rv  # (Q^{-1} r)_v
+        pad = torch.nn.functional.pad
+        yp = pad(a, (0, 1)) - pad(a, (1, 0))
+        yv = pad(self.dt * a + b, (0, 1)) - pad(b, (1, 0))  # (phi^T Q^{-1} r)_v
+        ks, kg = self.k_s2, self.k_g2
+        yp[..., 0] += ks[0, 0] * p[..., 0] + ks[0, 1] * v[..., 0]
+        yv[..., 0] += ks[1, 0] * p[..., 0] + ks[1, 1] * v[..., 0]
+        yp[..., -1] += kg[0, 0] * p[..., -1] + kg[0, 1] * v[..., -1]
+        yv[..., -1] += kg[1, 0] * p[..., -1] + kg[1, 1] * v[..., -1]
+        return torch.cat([yp, yv], dim=-1)
 
 
 def make_dof_factored_prior(
@@ -244,3 +311,48 @@ class DofQuadraticCost:
             q_i2=q_i, k_s2=k_s, k_g2=k_g2, s_pd=s_pd, g_pd=g_pd,
             dt=float(phi[0, 1]),
         )
+
+    def supports_dof_planes(self) -> bool:
+        return True
+
+    @cached_property
+    def stencil_weights(self) -> tuple[float, ...]:
+        """``(q11, q12, q22, ks11, ks12, ks22, kg11, kg12, kg22)`` as Python
+        floats, read from the device once per object (the kernels take them
+        as launch arguments)."""
+        w = torch.stack([self.q_i2, self.k_s2, self.k_g2]).detach().double().cpu()
+        return tuple(float(w[k][i, j]) for k in range(3) for i, j in ((0, 0), (0, 1), (1, 1)))
+
+    def eval_dof_planes(self, x_planes: torch.Tensor, observation=None) -> torch.Tensor:
+        """``x_planes [d, B, 2T]`` (goal-major batch) -> ``[B]`` costs in
+        factor-graph residual form: the quadratic ``x A x - 2 b x + c``
+        rewritten as sums of local quadratics, with no cancellation. Kernel
+        K3 on a CUDA tensor, its plain version on a CPU tensor."""
+        from stoch_gpmp_tpu_torch.ops.kernels.stencil import dof_quad_eval
+
+        return dof_quad_eval(self, x_planes)
+
+    def grad_dof_planes(self, x_planes: torch.Tensor) -> torch.Tensor:
+        """``b - A x`` per dof on ``[d, B, 2T]`` planes (goal-major batch),
+        half the negative cost gradient, in factor-graph residual form: each
+        factor's ``J^T W r`` with the small residual ``r`` formed before the
+        large weight touches it."""
+        d, bsz, _ = x_planes.shape
+        t = self.traj_len
+        p, v, rp, rv = _plane_residuals(x_planes, self.dt, t)
+        a = self.q_i2[0, 0] * rp + self.q_i2[0, 1] * rv
+        b = self.q_i2[1, 0] * rp + self.q_i2[1, 1] * rv
+        pad = torch.nn.functional.pad
+        yp = pad(a, (0, 1)) - pad(a, (1, 0))
+        yv = pad(self.dt * a + b, (0, 1)) - pad(b, (1, 0))
+        ks, kg = self.k_s2, self.k_g2
+        r0p = p[..., 0] - self.s_pd[:, None, 0]
+        r0v = v[..., 0] - self.s_pd[:, None, 1]
+        yp[..., 0] += ks[0, 0] * r0p + ks[0, 1] * r0v
+        yv[..., 0] += ks[1, 0] * r0p + ks[1, 1] * r0v
+        ppg = bsz // self.num_goals
+        rgp = p[..., -1].reshape(d, self.num_goals, ppg) - self.g_pd[..., 0].T[:, :, None]
+        rgv = v[..., -1].reshape(d, self.num_goals, ppg) - self.g_pd[..., 1].T[:, :, None]
+        yp[..., -1] += (kg[0, 0] * rgp + kg[0, 1] * rgv).reshape(d, bsz)
+        yv[..., -1] += (kg[1, 0] * rgp + kg[1, 1] * rgv).reshape(d, bsz)
+        return -torch.cat([yp, yv], dim=-1)

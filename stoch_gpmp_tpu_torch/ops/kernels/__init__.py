@@ -1,8 +1,12 @@
 """Hand-written CUDA kernels for Hopper (sources in ``csrc/``), each with a
 launch-counting wrapper and a plain PyTorch version in the same module.
 
-- ``fields.raster_primitive_cost``: the raster collision field;
-- ``fused_step.fused_planar_step``: the whole planar iteration.
+- ``fields.raster_primitive_cost`` (K1): the raster collision field;
+- ``fused_step.fused_planar_step`` (K2): the whole planar iteration;
+- ``stencil.dof_quad_eval`` (K3): the dof-plane stencil energy;
+- ``panda_fields.fk_link_fields_cost_rows`` (K4): FK + link fields;
+- ``panda_step_dof.fused_panda_dof_step`` (K5): the whole dof Panda
+  iteration.
 
 A wrapper launches its kernel for a CUDA tensor and runs the plain version
 only for a CPU tensor; it never falls back from one to the other.

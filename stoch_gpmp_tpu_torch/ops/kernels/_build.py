@@ -1,14 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, on first use, and loaded with
-``ctypes``. The library's name carries a hash of the sources and flags, so
-an edited source is rebuilt and a stale build is never loaded. The build
-goes to ``build/kernels/`` at the repository root (git ignores ``build/``).
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, all of them started together, on
+first use, and loaded with ``ctypes``. A library's name carries a hash of
+its source, the headers and the flags, so an edited source is rebuilt and a
+stale build is never loaded. The builds go to ``build/kernels/`` at the
+repository root (git ignores ``build/``).
 
 No ``--use_fast_math``: the kernels floor a division by the cell size and
 must land in the same cell as the plain PyTorch version, so division,
-``sqrtf``, ``logf`` and ``sincosf`` stay IEEE.
+``sqrtf``, ``logf``, ``expf`` and ``sincosf`` stay IEEE.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -41,6 +43,21 @@ SIGNATURES = {
         _F, _F, _I, _I,  # cell_size, inv_cell_size, nx, ny
         _P, _P,  # out, stream
     ],
+    "dof_quad_eval_launch": [
+        _P, _P, _P, _P, _P,  # x, pu (or null), s_pd, g_pd, out
+        _I, _I, _I, _I, _I,  # D, B, T, rows_per_goal, S
+        _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,  # q11 q12 q22, ks.., kg.., dt
+        _F, _P,  # temperature, stream
+    ],
+    "fk_fields_launch": [
+        _P, _L, _L, _L, _I, _I,  # q, stride_dof, stride_b, stride_t, B, T
+        _P, _I, _F, _F, _F,  # spheres, n_obst, inv_2m2, w_self, w_obst
+        _P, _P, _P,  # FkChain*, out, stream
+    ],
+    "fused_panda_dof_step_launch": [
+        _P, _P, _P, _P, _P, _P,  # means, prec_u, g_pd, W, spheres, eps (or null)
+        _P, _P, _P, _P, _P,  # new_means, costs, DofStepParams*, FkChain*, stream
+    ],
     "fused_planar_step_launch": [
         _P, _P, _P, _P, _P,  # means, prec_u, W, lin_rows, A (or null)
         _P, _I, _P, _I,  # rect_bounds, R, circles, C
@@ -55,7 +72,7 @@ SIGNATURES = {
 }
 
 _LIB = None
-build_info: dict = {}
+build_info: dict = {}  # per source: seconds, ptxas log, library path
 
 
 def _nvcc() -> str:
@@ -72,44 +89,61 @@ def _nvcc() -> str:
 
 
 def load_library():
-    """Compile (once per source hash) and load the kernel library."""
+    """Compile (once per source hash, one nvcc per source, in parallel) and
+    load the kernel libraries; returns one namespace holding every
+    launcher of ``SIGNATURES``."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cu*")):
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    headers = hashlib.sha256()
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        headers.update(hdr.name.encode())
+        headers.update(hdr.read_bytes())
+    headers.update(" ".join(NVCC_FLAGS).encode())
     out_dir = _PKG.parent / "build" / "kernels"
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / f"libstoch_gpmp_kernels_{digest.hexdigest()[:16]}.so"
-    if not lib_path.exists():
-        t0 = time.perf_counter()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = {}
+    t0 = time.perf_counter()
+    for src in sorted(CSRC.glob("*.cu")):
+        digest = headers.copy()
+        digest.update(src.read_bytes())
+        lib_path = out_dir / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
+        build_info[src.name] = {"path": str(lib_path), "seconds": 0.0, "log": "(cached)"}
+        if not lib_path.exists():
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs[src.name] = (proc, tmp, lib_path)
+    failed = []
+    for name, (proc, tmp, lib_path) in jobs.items():
+        out, err = proc.communicate()
+        build_info[name].update(seconds=time.perf_counter() - t0, log=err)
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
-        build_info.update(seconds=time.perf_counter() - t0, log=proc.stderr)
-    else:
-        build_info.update(seconds=0.0, log="(cached)")
-    build_info["path"] = str(lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.stoch_gpmp_error_string.argtypes = [ctypes.c_int]
-    lib.stoch_gpmp_error_string.restype = ctypes.c_char_p
-    _LIB = lib
-    return lib
+            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{out}\n{err}")
+        else:
+            os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    kernels = SimpleNamespace()
+    for info in build_info.values():
+        lib = ctypes.CDLL(info["path"])
+        for name, argtypes in SIGNATURES.items():
+            if hasattr(lib, name):
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                setattr(kernels, name, fn)
+        if hasattr(lib, "stoch_gpmp_error_string"):
+            lib.stoch_gpmp_error_string.argtypes = [ctypes.c_int]
+            lib.stoch_gpmp_error_string.restype = ctypes.c_char_p
+            kernels.stoch_gpmp_error_string = lib.stoch_gpmp_error_string
+    missing = [n for n in [*SIGNATURES, "stoch_gpmp_error_string"] if not hasattr(kernels, n)]
+    if missing:
+        raise RuntimeError(f"kernel libraries lack {missing}")
+    _LIB = kernels
+    return kernels
 
 
 def check(err: int, name: str) -> None:

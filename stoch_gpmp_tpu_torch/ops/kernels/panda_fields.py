@@ -1,0 +1,158 @@
+"""FK + link fields per trajectory (kernel K4): wrapper and plain version.
+
+Replaces the TPU kernel ``stoch_gpmp_tpu/ops/pallas/panda_fields.py``
+``fk_link_fields_cost_rows`` (``_fk_fields_rows_kernel``), and the one-hot
+selection matmul of ``fk_link_fields_cost_flat`` in front of it: the kernel
+reads the joint-angle planes through their strides, so the dof planes
+``[d, B, 2T]`` and the flat ``[B, T, 2d]`` batch are both read in place.
+
+Per trajectory ``b`` the value is ``sum_{t >= 1}`` of, at ``q[:, b, t]``,
+the forward kinematics of the chain's selected links, then
+
+    w_self * (sum_{i < j} 2 exp(-|p_i - p_j|^2 / (2 margin^2)) + L)
+  + w_obst * sum_{l, k} exp(-0.5 |p_l - c_k|^2 / r_k^2)
+
+(the self field sums all ordered link pairs with the diagonal, as the
+reference does). The CUDA source is ``csrc/fk_fields.cu`` with the chain
+walk in ``csrc/fk_chain.cuh``: one thread per ``(b, t)`` point, one block
+per trajectory reducing over ``t``. It is bound by the special-function
+unit: 81 ``exp`` and 7 ``sincos`` per point.
+
+``fk_link_fields_cost_rows`` launches the kernel for CUDA tensors and runs
+``fk_link_fields_cost_rows_plain`` only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import weakref
+
+import torch
+
+from stoch_gpmp_tpu_torch.ops.kernels import _build
+
+FK_MAX_JOINTS = 16  # csrc/fk_chain.cuh
+
+
+class FkChainC(ctypes.Structure):
+    """``struct FkChain`` of ``csrc/fk_chain.cuh``."""
+
+    _fields_ = [
+        ("n_joints", ctypes.c_int), ("n_links", ctypes.c_int),
+        ("type", ctypes.c_int * FK_MAX_JOINTS), ("dof", ctypes.c_int * FK_MAX_JOINTS),
+        ("slot", ctypes.c_int * FK_MAX_JOINTS),
+        ("rot", ctypes.c_float * (9 * FK_MAX_JOINTS)),
+        ("trans", ctypes.c_float * (3 * FK_MAX_JOINTS)),
+        ("axis", ctypes.c_float * (3 * FK_MAX_JOINTS)),
+    ]
+
+
+def _exp(v):
+    """``exp`` of a tensor or of a Python float (a link position the FK
+    folded to a constant)."""
+    return torch.exp(v) if torch.is_tensor(v) else math.exp(v)
+
+
+_TABLES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def fk_chain_c(chain) -> FkChainC:
+    """The chain's joint table as the kernels' ``FkChain`` (float32), built
+    once per chain."""
+    if chain not in _TABLES:
+        tab = chain.joint_table()
+        n = len(tab["type"])
+        if n > FK_MAX_JOINTS:
+            raise ValueError(f"FK kernels take at most {FK_MAX_JOINTS} joints, got {n}")
+        c = FkChainC()
+        c.n_joints, c.n_links = n, len(chain.link_names)
+        for name in ("type", "dof", "slot"):
+            getattr(c, name)[:n] = [int(v) for v in tab[name]]
+        for name in ("rot", "trans", "axis"):
+            flat = tab[name].reshape(n, -1).astype("float32").ravel().tolist()
+            getattr(c, name)[: len(flat)] = flat
+        _TABLES[chain] = c
+    return _TABLES[chain]
+
+
+def link_fields_plain(pos, spheres, *, margin: float, w_self: float, w_obst: float):
+    """Self RBF + obstacle RBF at link positions ``pos`` (per link a
+    ``[x, y, z]`` list of tensors or Python floats) with ``spheres [O, 4]``
+    (or None); the formula of the module docstring, term by term in the TPU
+    kernel's order."""
+    n_links = len(pos)
+    acc = 0.0
+    if w_self != 0.0:
+        inv = 1.0 / (2.0 * margin * margin)
+        s = 0.0
+        for i in range(n_links):
+            for j in range(i + 1, n_links):
+                dx = pos[i][0] - pos[j][0]
+                dy = pos[i][1] - pos[j][1]
+                dz = pos[i][2] - pos[j][2]
+                s = s + 2.0 * _exp(-(dx * dx + dy * dy + dz * dz) * inv)
+        acc = acc + w_self * (s + float(n_links))
+    if w_obst != 0.0 and spheres is not None and spheres.shape[0]:
+        o = 0.0
+        for li in range(n_links):
+            for k in range(spheres.shape[0]):
+                dx = pos[li][0] - spheres[k, 0]
+                dy = pos[li][1] - spheres[k, 1]
+                dz = pos[li][2] - spheres[k, 2]
+                r = spheres[k, 3]
+                o = o + _exp(-0.5 * (dx * dx + dy * dy + dz * dz) / (r * r))
+        acc = acc + w_obst * o
+    return acc
+
+
+def fk_link_fields_cost_rows_plain(chain, q, spheres, *, margin, w_self, w_obst):
+    """Plain PyTorch version of K4: ``q [d, B, T]`` joint-angle planes (any
+    strides) -> ``[B]``, the fields at ``t >= 1`` summed per trajectory,
+    through the folded FK of ``chain.fk_planes_from_scalars``."""
+    qs = [q[i, :, 1:] for i in range(chain.n_dofs)]
+    pos = [p for _, p in chain.fk_planes_from_scalars(qs)]
+    vals = link_fields_plain(pos, spheres, margin=margin, w_self=w_self, w_obst=w_obst)
+    if not torch.is_tensor(vals):  # both weights zero
+        return q.new_zeros(q.shape[1])
+    return torch.sum(vals, dim=-1)
+
+
+def _spheres(spheres, dev):
+    if spheres is None:
+        return torch.zeros((0, 4), dtype=torch.float32, device=dev)
+    return spheres.reshape(-1, 4).to(device=dev, dtype=torch.float32).contiguous()
+
+
+def fk_link_fields_cost_rows(chain, q, spheres, *, margin, w_self, w_obst):
+    """``q [d, B, T]`` joint-angle planes (any strides: a view of the dof
+    planes or of a flat batch) -> ``[B]`` summed link fields: kernel K4 for
+    a CUDA tensor (float32), the plain version for a CPU tensor.
+    ``spheres``: ``[..., 4]`` obstacle spheres or None."""
+    if q.device.type == "cpu":
+        sp = None if spheres is None else spheres.reshape(-1, 4).to(q.dtype)
+        return fk_link_fields_cost_rows_plain(chain, q, sp, margin=margin, w_self=w_self,
+                                              w_obst=w_obst)
+    if q.device.type != "cuda":
+        raise ValueError(f"fk fields kernel: unsupported device {q.device}")
+    d, b, t = q.shape
+    if q.dtype != torch.float32 or d != chain.n_dofs:
+        raise ValueError(f"fk fields kernel takes float32 [{chain.n_dofs}, B, T] joint "
+                         f"planes, got {q.dtype} {tuple(q.shape)}")
+    sp = _spheres(spheres, q.device)
+    out = torch.empty((b,), dtype=torch.float32, device=q.device)
+    if b == 0:
+        return out
+    table = fk_chain_c(chain)
+    lib = _build.load_library()
+    err = lib.fk_fields_launch(
+        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2), b, t,
+        sp.data_ptr(), int(sp.shape[0]), 1.0 / (2.0 * margin * margin), float(w_self),
+        float(w_obst), ctypes.byref(table), out.data_ptr(), _build.stream_ptr(q.device),
+    )
+    _build.check(err, "fk_fields_launch")
+    fk_link_fields_cost_rows.launches += 1
+    return out
+
+
+fk_link_fields_cost_rows.launches = 0

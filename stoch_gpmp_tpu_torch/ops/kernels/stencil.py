@@ -1,20 +1,31 @@
-"""Factor-graph (stencil) quadratic shared by the fused planar step.
+"""Factor-graph (stencil) quadratic: the fused planar step's helpers and
+kernel K3, the per-dof plane energy of the dof path.
 
-PyTorch counterpart of the planar half of ``stoch_gpmp_tpu/ops/pallas/stencil.py``:
-host helpers that turn a ``DofQuadraticCost`` into the fused step's
-operands (numpy, float64 assembly), the ``needs_stencil`` conditioning
-gate, and the plain version of ``flat_quad_cost`` — the exact GP + anchor
-energy of flat t-major sample rows, which ``csrc/fused_planar_step.cu``
-evaluates per lane in its stencil branch.
+PyTorch counterpart of ``stoch_gpmp_tpu/ops/pallas/stencil.py``:
 
-The per-dof plane kernel (``dof_quad_eval_pallas``) belongs to the dof
-path and is not ported yet (dof slice).
+- host helpers that turn a ``DofQuadraticCost`` into the fused steps'
+  operands (numpy, float64 assembly), the ``needs_stencil`` conditioning
+  gate, and the plain version of ``flat_quad_cost`` (the exact GP + anchor
+  energy of flat t-major rows, which ``csrc/fused_planar_step.cu`` evaluates
+  per lane in its stencil branch);
+- K3, ``dof_quad_eval``: replaces the TPU kernel ``dof_quad_eval_pallas``
+  (``_dof_quad_kernel``). The CUDA source is ``csrc/dof_quad_eval.cu``: one
+  warp per sample row, the ``t+1`` neighbour by a warp shuffle, the dofs
+  summed in the kernel, so the TPU kernel's ``[B, d]`` column table (a
+  Mosaic tiling workaround) does not exist. Memory bound: it reads the
+  ``[d, B, 2T]`` planes once (73 MB at config 5).
+
+``dof_quad_eval`` launches the kernel for a CUDA tensor and runs
+``dof_quad_eval_plain`` only for a CPU tensor.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from stoch_gpmp_tpu_torch.gp.dof_factored import _plane_residuals
+from stoch_gpmp_tpu_torch.ops.kernels import _build
 
 
 def _np64(t) -> np.ndarray:
@@ -131,3 +142,80 @@ def flat_quad_cost(x, anch_rows, masks, quad_stencil, n_dof: int):
     es = (ks11 * diff * diff + 2.0 * ks12 * diff * diffd + ks22 * diffd * diffd) * masks[1]
     eg = (kg11 * diff * diff + 2.0 * kg12 * diff * diffd + kg22 * diffd * diffd) * masks[2]
     return cost + torch.sum(es + eg, dim=-1)
+
+
+def dof_anchor_rows(dof_quad, b: int) -> torch.Tensor:
+    """Per-(dof, row) anchor values ``[d, B, 4]`` (start pos/vel, goal
+    pos/vel) of a goal-major batch of ``B`` rows."""
+    d = dof_quad.n_dof
+    s_rows = dof_quad.s_pd[:, None, :].expand(d, b, 2)
+    g_rows = dof_quad.g_pd.permute(1, 0, 2).repeat_interleave(b // dof_quad.num_goals, dim=1)
+    return torch.cat([s_rows, g_rows], dim=-1)
+
+
+def dof_quad_eval_plain(dof_quad, x_planes, *, pu=None, temperature=None, num_samples=None):
+    """Plain PyTorch version of K3: the factor-graph residual energy of
+    ``x_planes [d, B, 2T]`` (goal-major rows) per dof, summed over dofs ->
+    ``[B]``. With ``pu [d, P, 2T]`` (``B = P * num_samples``, samples minor)
+    it adds the importance term ``temperature * x . pu`` of each row's
+    particle."""
+    d, b, t2 = x_planes.shape
+    t = t2 // 2
+    q, ks, kg = dof_quad.q_i2, dof_quad.k_s2, dof_quad.k_g2
+    p, v, rp, rv = _plane_residuals(x_planes, dof_quad.dt, t)
+    e = torch.sum(q[0, 0] * rp * rp + 2.0 * q[0, 1] * rp * rv + q[1, 1] * rv * rv, dim=-1)
+    anch = dof_anchor_rows(dof_quad, b)
+    r0p, r0v = p[..., 0] - anch[..., 0], v[..., 0] - anch[..., 1]
+    e = e + (ks[0, 0] * r0p * r0p + 2.0 * ks[0, 1] * r0p * r0v + ks[1, 1] * r0v * r0v)
+    rgp, rgv = p[..., -1] - anch[..., 2], v[..., -1] - anch[..., 3]
+    e = e + (kg[0, 0] * rgp * rgp + 2.0 * kg[0, 1] * rgp * rgv + kg[1, 1] * rgv * rgv)
+    if pu is not None:
+        xs = x_planes.reshape(d, -1, num_samples, t2)
+        e = e + temperature * torch.sum(xs * pu[:, :, None], dim=-1).reshape(d, b)
+    return e.sum(0)
+
+
+def _check_f32(name, t, shape, dev):
+    if (t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(
+            f"dof quad kernel: {name} must be contiguous 16-byte aligned float32 "
+            f"{tuple(shape)} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def dof_quad_eval(dof_quad, x_planes, *, pu=None, temperature=None, num_samples=None):
+    """``DofQuadraticCost.eval_dof_planes`` (plus the fused importance term
+    with ``pu``): kernel K3 for a CUDA tensor (contiguous float32 planes,
+    ``T % 4 == 0``), the plain version for a CPU tensor."""
+    if pu is not None and (temperature is None or num_samples is None):
+        raise ValueError("pu needs temperature and num_samples")
+    if x_planes.device.type == "cpu":
+        return dof_quad_eval_plain(dof_quad, x_planes, pu=pu, temperature=temperature,
+                                   num_samples=num_samples)
+    if x_planes.device.type != "cuda":
+        raise ValueError(f"dof quad kernel: unsupported device {x_planes.device}")
+    d, b, t2 = x_planes.shape
+    t = t2 // 2
+    dev = x_planes.device
+    if t % 4 or b % dof_quad.num_goals or (pu is not None and b % num_samples):
+        raise ValueError(f"dof quad kernel: T = {t} must be a multiple of 4 and the "
+                         f"{b} rows whole goal (and sample) groups")
+    _check_f32("x_planes", x_planes, (d, b, t2), dev)
+    if pu is not None:
+        _check_f32("pu", pu, (d, b // num_samples, t2), dev)
+    s_pd = dof_quad.s_pd.to(device=dev, dtype=torch.float32).contiguous()
+    g_pd = dof_quad.g_pd.to(device=dev, dtype=torch.float32).contiguous()
+    out = torch.empty((b,), dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    err = lib.dof_quad_eval_launch(
+        x_planes.data_ptr(), None if pu is None else pu.data_ptr(), s_pd.data_ptr(),
+        g_pd.data_ptr(), out.data_ptr(), d, b, t, b // dof_quad.num_goals,
+        1 if pu is None else int(num_samples), *dof_quad.stencil_weights, float(dof_quad.dt),
+        0.0 if pu is None else float(temperature), _build.stream_ptr(dev),
+    )
+    _build.check(err, "dof_quad_eval_launch")
+    dof_quad_eval.launches += 1
+    return out
+
+
+dof_quad_eval.launches = 0

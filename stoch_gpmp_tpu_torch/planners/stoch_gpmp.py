@@ -6,9 +6,14 @@ for every particle, evaluates the cost stack, adds the importance term
 ``tau * x . Sigma^{-1} mu``, takes a softmax over each particle's samples and
 moves the mean by the weighted average of ``x - mu``.
 
-``stoch_gpmp_optimize`` runs the flat path: ``opt_iters - 1`` steps in a
-Python loop (the JAX ``lax.scan``), then a final step whose aux is returned.
-The dof-factored and plane (long-horizon) paths are not ported yet; a
+``stoch_gpmp_optimize`` routes a problem as the JAX package does: the
+dof-factored path (``_stoch_gpmp_optimize_dof``: means and samples as
+dof-leading planes ``[d, P(, S), 2T]``, sampling against the shared
+``[2T, 2T]`` factor, the quadratic and importance term in kernel K3, the
+rest of the stack on the planes) for every dof-capable stack with a
+128-aligned horizon, otherwise the flat path (``stoch_gpmp_step`` in a
+Python loop, the JAX ``lax.scan``). Either returns the final state and the
+last iteration's aux. The plane (long-horizon) path is not ported yet; a
 problem that the JAX package would route there raises
 ``NotImplementedError`` rather than silently taking another path.
 
@@ -25,6 +30,7 @@ import torch
 
 from stoch_gpmp_tpu_torch.gp.prior import GPPrior, make_gp_prior
 from stoch_gpmp_tpu_torch.gp.tridiag import BlockTridiag
+from stoch_gpmp_tpu_torch.utils.device import resolve_device
 
 
 @dataclass
@@ -141,21 +147,89 @@ def stoch_gpmp_step(
     )
 
 
-def check_flat_route(sampler, cost, traj_len: int, sample_method: str = "dense") -> None:
-    """Raise ``NotImplementedError`` where the JAX package's
-    ``stoch_gpmp_optimize`` would leave the flat path."""
+def _route(sampler, cost, traj_len: int, sample_method: str = "dense") -> str:
+    """``"dof"`` or ``"flat"``, the JAX package's gate
+    (``stoch_gpmp_optimize``): the dof path for a sampler with the per-dof
+    factor and a dof-capable stack, opted in by ``sample_method="dof"`` or by
+    a horizon that is a multiple of 128. Raises ``NotImplementedError`` where
+    the JAX package would take the plane (long-horizon) path."""
+    if (sampler.dof is not None and cost.supports_dof_planes()
+            and (sample_method == "dof" or (sample_method == "dense" and traj_len % 128 == 0))):
+        return "dof"
     if sample_method != "dense" or sampler.weight_t is None:
         raise NotImplementedError(
-            f"sample_method={sample_method!r} / a sampler without the dense "
-            "factor takes the dof-factored or plane path, not ported yet "
-            "(dof and long-horizon slices)"
-        )
-    if (sampler.dof is not None and traj_len % 128 == 0
-            and cost.supports_dof_planes()):
-        raise NotImplementedError(
-            f"traj_len={traj_len} (a multiple of 128) with a dof-capable cost "
-            "stack takes the dof-factored path, not ported yet (dof slice)"
-        )
+            f"sample_method={sample_method!r} / a sampler without the dense factor "
+            "takes the plane (long-horizon) path, not ported yet")
+    return "flat"
+
+
+def _dof_quad_split(cost):
+    """``(DofQuadraticCost, rest)`` when the stack holds exactly one
+    quadratic component (bare or with a ``dof_form``), else ``(None, None)``."""
+    from stoch_gpmp_tpu_torch.gp.dof_factored import DofQuadraticCost
+
+    comps = list(getattr(cost, "costs", None) or [cost])
+    quads = [
+        (i, c if isinstance(c, DofQuadraticCost) else c.dof_form)
+        for i, c in enumerate(comps)
+        if isinstance(c, DofQuadraticCost) or getattr(c, "dof_form", None) is not None
+    ]
+    if len(quads) != 1:
+        return None, None
+    i, dq = quads[0]
+    return dq, [c for j, c in enumerate(comps) if j != i]
+
+
+def _stoch_gpmp_optimize_dof(
+    sampler, cost, state, observation, *, opt_iters, num_samples, temperature,
+    step_size, collect_metrics=False, eps=None,
+):
+    """The dof-factored path: means and samples as dof-leading planes
+    ``[d, P(, S), 2T]``; per iteration ``x = mu + eps @ w_dof`` per dof, the
+    quadratic and ``tau * x . Sigma^{-1} mu`` in one pass (kernel K3; the
+    JAX package runs its kernel only on the TPU, the port on every CUDA
+    tensor), the rest of the stack on the planes, softmax, mean update.
+    ``eps``: optional per-iteration list of ``[d, P, S, 2T]`` draws."""
+    from stoch_gpmp_tpu_torch.gp.dof_factored import from_dof_planes, to_dof_planes
+    from stoch_gpmp_tpu_torch.ops.kernels.stencil import dof_quad_eval
+
+    p, t, _ = state.particle_means.shape
+    dof = sampler.dof
+    dq, rest = _dof_quad_split(cost)
+
+    def step(mu, eps_i):
+        x, corr = dof.sample_planes(state.generator, mu, num_samples, eps=eps_i)
+        x_flat = x.reshape(x.shape[0], p * num_samples, 2 * t)
+        pu = dof.matvec_planes(mu)  # exact stencil Sigma^{-1} mu, [d, P, 2T]
+        if dq is not None:
+            costs = dof_quad_eval(dq, x_flat, pu=pu, temperature=temperature,
+                                  num_samples=num_samples)
+            for c in rest:
+                costs = costs + c.eval_dof_planes(x_flat, observation=observation)
+            costs = costs.reshape(p, num_samples)
+        else:
+            costs = cost.eval_dof_planes(x_flat, observation=observation).reshape(
+                p, num_samples) + temperature * torch.sum(x * pu[:, :, None], dim=(0, -1))
+        weights = torch.softmax(-costs / temperature, dim=1)
+        grad = torch.einsum("ps,dpsk->dpk", weights, corr)
+        return mu + step_size * grad, costs, weights, grad, x
+
+    mu = to_dof_planes(state.particle_means)
+    metrics = []
+    for i in range(opt_iters):
+        mu, costs, weights, grad, x = step(mu, None if eps is None else eps[i])
+        if collect_metrics:
+            metrics.append(IterMetrics(
+                cost_mean=costs.mean(), cost_min=costs.min(),
+                weight_entropy=-torch.sum(weights * torch.log(weights + 1e-30), dim=1).mean(),
+                update_norm=(step_size * torch.sqrt(torch.sum(grad * grad, dim=(0, -1)))).mean(),
+            ))
+    out_state = replace(state, particle_means=from_dof_planes(mu))
+    aux = StochGPMPAux(samples=from_dof_planes(x), costs=costs, weights=weights,
+                       grad=from_dof_planes(grad))
+    if collect_metrics:
+        return out_state, aux, IterMetrics.stack(metrics)
+    return out_state, aux
 
 
 def stoch_gpmp_optimize(
@@ -174,12 +248,18 @@ def stoch_gpmp_optimize(
 ):
     """Run ``opt_iters`` updates; returns the final state and the last
     iteration's aux (plus stacked ``IterMetrics`` with ``collect_metrics``).
-    ``eps``: optional per-iteration list of ``[P, S, M]`` draws."""
+    ``eps``: optional per-iteration list of draws, ``[P, S, M]`` on the flat
+    path and ``[d, P, S, 2T]`` on the dof path."""
     if opt_iters < 1:
         raise ValueError(f"opt_iters must be >= 1, got {opt_iters}")
     if eps is not None and len(eps) != opt_iters:
         raise ValueError(f"eps holds {len(eps)} draws for {opt_iters} iterations")
-    check_flat_route(sampler, cost, state.particle_means.shape[1], sample_method)
+    if _route(sampler, cost, state.particle_means.shape[1], sample_method) == "dof":
+        return _stoch_gpmp_optimize_dof(
+            sampler, cost, state, observation, opt_iters=opt_iters, num_samples=num_samples,
+            temperature=temperature, step_size=step_size, collect_metrics=collect_metrics,
+            eps=eps,
+        )
     metrics = []
     aux = None
     for i in range(opt_iters):
@@ -200,10 +280,14 @@ class StochGPMP:
     ``optimize``, ``get_recent_samples``, ``get_traj``,
     ``sample_trajectories``).
 
-    ``fused_kernel=True`` runs ``opt_iters - 1`` iterations through the
-    fused planar step (``planners/fused_exec.py``: the CUDA kernel on the
-    card, its plain version on the CPU) and the final iteration on the flat
-    path, so the reference-shaped 6-tuple comes from a real iteration."""
+    ``fused_kernel=True`` runs ``opt_iters - 1`` iterations through a
+    fused iteration kernel (``planners/fused_exec.py``: the dof Panda step
+    K5 or the planar step K2, each its CUDA kernel on the card and its plain
+    version on the CPU) and the final iteration on the normal path, so the
+    reference-shaped 6-tuple comes from a real iteration.
+
+    ``device=None`` means the CUDA card (raises without one); pass
+    ``device="cpu"`` for the plain PyTorch versions on the CPU."""
 
     def __init__(
         self,
@@ -235,7 +319,7 @@ class StochGPMP:
     ):
         if mesh is not None:
             raise NotImplementedError("mesh= is not ported yet (multi-device slice)")
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.fused_kernel = fused_kernel
         self._fused = None  # (key, run): one slot, rebuilt when the key changes
         self.n_dof = n_dof
@@ -321,7 +405,7 @@ class StochGPMP:
         observation = dict(observation or {})
         observation.update(obs_kwargs)
         iters = self.opt_iters if opt_iters is None else opt_iters
-        check_flat_route(self.sampler, self.cost, self.traj_len, self.sample_method)
+        _route(self.sampler, self.cost, self.traj_len, self.sample_method)
         if self.fused_kernel and not collect_metrics and iters > 1:
             self.state = self._fused_runner(observation)(self.state, iters - 1)
             iters = 1  # final iteration on the flat path -> full aux
@@ -346,8 +430,11 @@ class StochGPMP:
 
     def _fused_runner(self, observation: dict):
         """The fused executor, kept in one slot keyed on what it bakes in:
-        the cost object and the statics (the sampler is reset with it)."""
-        key = (id(self.cost), self.num_samples, self.temperature, self.step_size)
+        the cost object, the obstacle spheres and the statics (the sampler is
+        reset with it)."""
+        spheres = observation.get("obstacle_spheres", None)
+        skey = None if spheres is None else torch.as_tensor(spheres).cpu().numpy().tobytes()
+        key = (id(self.cost), skey, self.num_samples, self.temperature, self.step_size)
         if self._fused is None or self._fused[0] != key:
             from stoch_gpmp_tpu_torch.planners.fused_exec import build_fused_executor
 

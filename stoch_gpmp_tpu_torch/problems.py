@@ -1,17 +1,30 @@
-"""The planar parity workload, built natively in the port.
+"""The port's workloads, built natively (no JAX).
 
-Counterpart of ``__graft_entry__._build_problem(fast=True)``: the reference's
-``examples/planar_environment.py`` at 3 goals x 5 particles per goal,
-T = 64, 2 DOF, 15 random obstacles from ``generate_obstacle_map(rng=0)``,
-with the fused quadratic ``CostComposite([QuadraticCost,
-CostCollision(RasterPrimitive2DField)])``. ``sigma_goal_prior`` is the
-goal anchor of the cost (1e-3 gives weights of 1e6, the matmul quadratic;
-1e-5 gives 1e10 and the stencil quadratic).
+- ``build_planar_problem``: counterpart of
+  ``__graft_entry__._build_problem(fast=True)``, the reference's
+  ``examples/planar_environment.py`` at 3 goals x 5 particles per goal,
+  T = 64, 2 DOF, 15 random obstacles from ``generate_obstacle_map(rng=0)``,
+  with ``CostComposite([QuadraticCost, CostCollision(RasterPrimitive2DField)])``.
+  ``sigma_goal_prior`` is the goal anchor of the cost (1e-3 gives weights of
+  1e6, the matmul quadratic; 1e-5 gives 1e10 and the stencil quadratic).
+- ``build_panda_problem``: counterpart of ``benchmarks/run.py
+  _panda_problem(fast=True)``, the Panda 7-DOF stack
+  ``CostComposite([QuadraticCost, PlaneFieldsCost])`` with the same start,
+  goals and obstacle spheres from ``numpy.random.default_rng(0)``; config 5
+  is 10 goals x 128 particles, T = 128, 8 samples.
+
+``device=None`` means the CUDA card (raises without one); pass
+``device="cpu"`` to build on the CPU.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
+
+from stoch_gpmp_tpu_torch.utils.device import resolve_device
 
 START = [-9.0, -9.0, 0.0, 0.0]
 GOALS = [[9.0, 6.0, 0.0, 0.0], [9.0, -3.0, 0.0, 0.0], [-3.0, 9.0, 0.0, 0.0]]
@@ -23,6 +36,7 @@ SAMPLE_SIGMAS = (1e-3, 3.0, 1e-3)
 def build_planar_cost(traj_len=64, dtype=torch.float32, device=None,
                       with_obstacles=True, sigma_goal_prior=1e-3):
     """The parity cost stack; returns ``(cost, field_or_None)``."""
+    device = resolve_device(device)
     from stoch_gpmp_tpu_torch.costs import (
         CostCollision,
         CostComposite,
@@ -63,6 +77,7 @@ def build_planar_problem(traj_len=64, ppg=5, dtype=torch.float32, device=None,
     from stoch_gpmp_tpu_torch.gp.prior import make_gp_prior
     from stoch_gpmp_tpu_torch.planners import SamplerModel, StochGPMPState
 
+    device = resolve_device(device)
     cost, _ = build_planar_cost(traj_len, dtype, device, with_obstacles, sigma_goal_prior)
     s_start, s_gp, s_goal = SAMPLE_SIGMAS
     prior = make_gp_prior(
@@ -71,6 +86,60 @@ def build_planar_problem(traj_len=64, ppg=5, dtype=torch.float32, device=None,
     )
     state = StochGPMPState(
         particle_means=prior.means.repeat_interleave(ppg, dim=0),
-        generator=torch.Generator(device=device or "cpu").manual_seed(seed),
+        generator=torch.Generator(device=device).manual_seed(seed),
     )
     return SamplerModel.from_prior(prior), cost, state
+
+
+PANDA_START_Q = [0.012, -0.57, 0.0, -2.81, 0.0, 3.037, 0.741]
+PANDA_DT = 0.05
+# the sampling prior's sigmas: (start, gp, goal)
+PANDA_SAMPLE_SIGMAS = (0.001, 0.1, 0.07)
+
+
+def build_panda_problem(num_goals=1, ppg=5, traj_len=64, num_samples=32, *,
+                        dtype=torch.float32, device=None, seed=0):
+    """``(sampler, cost, state, observation, num_samples)`` of the Panda
+    workload: goals ``start_q + U(-0.3, 0.3)`` and five spheres (centres
+    ``U([0.6, -0.2, 0.6], [1.0, 0.2, 1.0])``, radii ``U(0.1, 0.2)``), both
+    from ``default_rng(0)``; the target pose ``Rz(-pi) Ry(-pi)`` at
+    ``(0.3, 0.3, 0.3)``; the state's means are the straight start-to-goal
+    lines, ``ppg`` per goal, and its generator is seeded with ``seed``."""
+    from stoch_gpmp_tpu_torch.costs import CostComposite, CostGP, CostGoalPrior, QuadraticCost
+    from stoch_gpmp_tpu_torch.costs.fused_fields import PlaneFieldsCost
+    from stoch_gpmp_tpu_torch.gp.prior import make_gp_prior
+    from stoch_gpmp_tpu_torch.kinematics import franka_panda, homogeneous, y_rot, z_rot
+    from stoch_gpmp_tpu_torch.planners import SamplerModel, StochGPMPState
+
+    device = resolve_device(device)
+    chain = franka_panda()
+    n_dof = chain.n_dofs
+    as_t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)  # noqa: E731
+    target_h = homogeneous(z_rot(as_t(-math.pi)) @ y_rot(as_t(-math.pi)), as_t([0.3, 0.3, 0.3]))
+    start_q = as_t(PANDA_START_Q)
+    start_state = torch.cat([start_q, torch.zeros_like(start_q)])
+    rng = np.random.default_rng(0)
+    goals_q = start_q[None] + as_t(rng.uniform(-0.3, 0.3, (num_goals, n_dof)))
+    goals = torch.cat([goals_q, torch.zeros_like(goals_q)], dim=-1)
+
+    cost_gp = CostGP.create(n_dof, traj_len, start_state, PANDA_DT,
+                            {"sigma_start": 0.0001, "sigma_gp": 0.0007}, dtype=dtype, device=device)
+    cost_goal = CostGoalPrior.create(n_dof, traj_len, goals, sigma_goal_prior=20.0,
+                                     dtype=dtype, device=device)
+    cost = CostComposite.create(n_dof, traj_len, [
+        QuadraticCost.from_gp_and_goal_prior(cost_gp, cost_goal, traj_len),
+        PlaneFieldsCost.create(n_dof, traj_len, chain, target_h, margin=0.03,
+                               sigma_self=0.01, sigma_coll=0.01, sigma_goal=0.00007),
+    ])
+    s_start, s_gp, s_goal = PANDA_SAMPLE_SIGMAS
+    prior = make_gp_prior(n_dof, traj_len, PANDA_DT, start_state, s_start, s_gp,
+                          sigma_goal=s_goal, goal_states=goals, dtype=dtype, device=device)
+    state = StochGPMPState(
+        particle_means=prior.means.repeat_interleave(ppg, dim=0),
+        generator=torch.Generator(device=device).manual_seed(seed),
+    )
+    spheres = np.zeros((1, 5, 4))
+    spheres[0, :, :3] = rng.uniform([0.6, -0.2, 0.6], [1.0, 0.2, 1.0], (5, 3))
+    spheres[0, :, 3] = rng.uniform(0.1, 0.2, 5)
+    observation = {"obstacle_spheres": as_t(spheres)}
+    return SamplerModel.from_prior(prior), cost, state, observation, num_samples

@@ -63,7 +63,7 @@ def _edge_points(dtype):
 
 @pytest.mark.parametrize("case", ["random", "edges", "no_rects", "no_circles"])
 def test_raster_plain_equals_jax_float32(case):
-    _, field = build_planar_cost(dtype=torch.float32)
+    _, field = build_planar_cost(dtype=torch.float32, device="cpu")
     rb, ci = field.rect_bounds, field.circles
     if case == "no_rects":
         rb = rb[:0]
@@ -82,7 +82,7 @@ def test_raster_plain_equals_jax_float32(case):
 
 def test_raster_plain_equals_jax_float64_strided():
     """float64, and the strided ``[B, T-1, 2]`` slice the planner passes."""
-    _, field = build_planar_cost(dtype=torch.float64)
+    _, field = build_planar_cost(dtype=torch.float64, device="cpu")
     trajs = np.random.default_rng(1).uniform(-11, 11, (1920, 64, 4))
     want = np.asarray(jax_raster(
         jnp.asarray(field.rect_bounds.numpy()), jnp.asarray(field.circles.numpy()),
@@ -95,7 +95,33 @@ def test_raster_plain_equals_jax_float64_strided():
 
 
 def test_raster_wrapper_rejects_other_devices():
-    _, field = build_planar_cost(dtype=torch.float32)
+    _, field = build_planar_cost(dtype=torch.float32, device="cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         raster_primitive_cost(field.rect_bounds, field.circles,
                               torch.zeros((2, 2), device="meta"), cell_size=0.1, nx=200, ny=200)
+
+
+@pytest.mark.parametrize("layout", ["dof_planes", "separate"])
+def test_raster_planes_match_jax(layout):
+    """``RasterPrimitive2DField.compute_cost_planes`` and
+    ``CostCollision.eval_dof_planes`` against JAX's, float64, exactly: the
+    dof path's position planes ``x_planes[0/1, :, :T]`` (read in place as one
+    strided point set) and two separate planes (stacked)."""
+    from stoch_gpmp_tpu.costs import CostCollision as JColl
+    from stoch_gpmp_tpu.costs.fields import RasterPrimitive2DField as JField
+    from stoch_gpmp_tpu_torch.costs import CostCollision
+
+    _, field = build_planar_cost(dtype=torch.float64, device="cpu")
+    jfield = JField(rect_bounds=jnp.asarray(field.rect_bounds.numpy()),
+                    circles=jnp.asarray(field.circles.numpy()), cell_size=0.1, nx=200, ny=200)
+    xp = torch.from_numpy(np.random.default_rng(2).uniform(-11, 11, (2, 96, 256)))
+    x, y = xp[0, :, :128], xp[1, :, :128]
+    if layout == "separate":
+        x, y = x.clone(), y.clone()
+    want = np.asarray(jfield.compute_cost_planes(jnp.asarray(x.numpy()), jnp.asarray(y.numpy())))
+    np.testing.assert_array_equal(field.compute_cost_planes(x, y).numpy(), want)
+    coll = CostCollision.create(2, 128, field, sigma_coll=1e-5)
+    jcoll = JColl.create(2, 128, jfield, sigma_coll=1e-5)
+    np.testing.assert_array_equal(coll.eval_dof_planes(xp).numpy(),
+                                  np.asarray(jcoll.eval_dof_planes(jnp.asarray(xp.numpy()))))
+    assert coll.supports_dof_planes() and want.sum() > 0

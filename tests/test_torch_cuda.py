@@ -9,7 +9,11 @@ The checks and their tolerances are those of ``chip_smoke.py`` (see its
 module constants): K1 exact; K2 per-sample costs within a relative 2e-4, at
 most 1% of samples off by a multiple of k_coll (a position within float32
 roundoff of an obstacle's cell edge), new means within 1e-3 where the best
-sample agrees; Philox moments within (0.85, 1.15).
+sample agrees; Philox moments within (0.85, 1.15). At config 5: K3 within
+1e-3 and K4 within 1e-4 relative of float64 oracles; K5 costs within 1e-4 of
+its plain version with the best sample agreeing, the RNG-free tiers within
+3e-4 / 1e-3 of float64 oracles, Philox moments within (0.85, 1.15); the
+Panda main path's descent, start-anchor and launch-count gates.
 """
 
 import sys
@@ -48,3 +52,32 @@ def test_fused_step_philox_moments(dev):
 
     r = chip_smoke.moments_check(dev)
     assert 0.85 < r["var_ratio_median"] < 1.15
+
+
+def test_dof_quad_kernel_matches_oracle(dev):
+    import chip_smoke
+
+    assert chip_smoke.dof_quad_check(dev)["max_rel"] <= chip_smoke.K3_RTOL
+
+
+def test_fk_fields_kernel_matches_oracle(dev):
+    import chip_smoke
+
+    r = chip_smoke.fk_fields_check(dev)
+    assert r["max_rel"] <= chip_smoke.K4_RTOL and r["flat_rel"] <= 1e-6
+
+
+@pytest.mark.parametrize("check", ["eps", "rng_free", "moments"])
+def test_fused_dof_step_kernel(dev, check):
+    import chip_smoke
+
+    fn = {"eps": chip_smoke.fused_dof_check, "rng_free": chip_smoke.fused_dof_rng_free_check,
+          "moments": chip_smoke.fused_dof_moments_check}[check]
+    assert fn(dev)  # each check raises on failure
+
+
+def test_panda_main_path(dev):
+    import chip_smoke
+
+    r = chip_smoke.panda_main_path(dev)
+    assert r["fused"]["launches"]["fused_panda_dof_step"] == chip_smoke.PANDA_ITERS - 1

@@ -60,9 +60,10 @@ def problem():
         2, 64, [QuadraticCost.from_gp_and_goal_prior(gp, goal, 64), jc.costs[1]])
     return {
         "jax": (js, {"matmul": jc, "stencil": jc_st}, jst),
-        "torch": (convert.sampler_from_jax(js),
-                  {"matmul": convert.cost_from_jax(jc), "stencil": convert.cost_from_jax(jc_st)},
-                  convert.state_from_jax(jst)),
+        "torch": (convert.sampler_from_jax(js, device="cpu"),
+                  {"matmul": convert.cost_from_jax(jc, device="cpu"),
+                   "stencil": convert.cost_from_jax(jc_st, device="cpu")},
+                  convert.state_from_jax(jst, device="cpu")),
     }
 
 
@@ -177,8 +178,8 @@ def test_fused_step_wrapper_contract(problem):
 def test_native_build_equals_converted(problem):
     js, jcs, jst = problem["jax"]
     jc = jcs["matmul"]
-    ns, nc, nst = build_planar_problem(dtype=torch.float64)
-    cs, cc = convert.sampler_from_jax(js), convert.cost_from_jax(jc)
+    ns, nc, nst = build_planar_problem(dtype=torch.float64, device="cpu")
+    cs, cc = convert.sampler_from_jax(js, device="cpu"), convert.cost_from_jax(jc, device="cpu")
     np.testing.assert_allclose(ns.weight_t.numpy(), cs.weight_t.numpy(), rtol=0, atol=1e-12)
     for name in ("a_dense", "b", "c"):
         np.testing.assert_array_equal(getattr(nc.costs[0], name).numpy(),
@@ -189,7 +190,7 @@ def test_native_build_equals_converted(problem):
                                       getattr(cc.costs[1].field, name).numpy())
     # straight start-to-goal lines: linspace rounds differently in the last bit
     np.testing.assert_allclose(nst.particle_means.numpy(),
-                               convert.state_from_jax(jst).particle_means.numpy(),
+                               convert.state_from_jax(jst, device="cpu").particle_means.numpy(),
                                rtol=1e-13, atol=1e-13)
 
 
@@ -203,7 +204,7 @@ def test_cost_stack_eval(problem, branch):
     _, jcs, jst = problem["jax"]
     jcost = jcs[branch]
     tcost = problem["torch"][1][branch]
-    native, _ = build_planar_cost(dtype=torch.float64,
+    native, _ = build_planar_cost(dtype=torch.float64, device="cpu",
                                   sigma_goal_prior=1e-5 if branch == "stencil" else 1e-3)
     assert tcost.costs[0].stencil_required == native.costs[0].stencil_required == (
         branch == "stencil")
@@ -216,8 +217,8 @@ def test_cost_stack_eval(problem, branch):
 
 
 def _planner(fused, **kw):
-    cost, _ = build_planar_cost(dtype=torch.float32)
-    args = dict(
+    cost, _ = build_planar_cost(dtype=torch.float32, device="cpu")
+    args = dict(device="cpu",
         num_particles_per_goal=5, num_samples=S, traj_len=64, dt=0.02, n_dof=2,
         opt_iters=20, temperature=TAU, start_state=START, multi_goal_states=GOALS,
         cost=cost, step_size=STEP, sigma_start_init=1e-3, sigma_goal_init=1e-3,
@@ -251,15 +252,46 @@ def test_class_api(fused):
 
 
 def test_collect_metrics_and_routing():
+    """Metrics over the flat path; ``mesh=`` raises; the planar stack at
+    T = 128 takes the dof-factored path, as in the JAX package, and with the
+    JAX draws injected its two iterations (metrics included) match JAX's dof
+    path to rtol 1e-9 (float64)."""
+    from stoch_gpmp_tpu.planners import stoch_gpmp_optimize as jopt
+    from stoch_gpmp_tpu_torch.planners.stoch_gpmp import _route
+
     planner, _ = _planner(False, opt_iters=3)
     planner.optimize(collect_metrics=True)
     assert planner.last_metrics.cost_mean.shape == (3,)
     with pytest.raises(NotImplementedError, match="multi-device"):
         _planner(False, mesh=object())
-    cost128, _ = build_planar_cost(traj_len=128, dtype=torch.float32)
+    from __graft_entry__ import _build_problem
+
+    js, jc, jst = _build_problem(traj_len=128, fast=True, dtype=jnp.float64)
+    ts, tc = convert.sampler_from_jax(js, device="cpu"), convert.cost_from_jax(jc, device="cpu")
+    tst = convert.state_from_jax(jst, device="cpu")
+    cost128, _ = build_planar_cost(traj_len=128, dtype=torch.float32, device="cpu")
     planner128, _ = _planner(False, traj_len=128, cost=cost128, opt_iters=2)
-    with pytest.raises(NotImplementedError, match="dof-factored"):
-        planner128.optimize()
+    assert _route(planner128.sampler, cost128, 128) == _route(ts, tc, 128) == "dof"
+    p, t, d = jst.particle_means.shape
+    eps = []
+    key = jst.key
+    for _ in range(2):
+        key, sub = jax.random.split(key)
+        eps.append(torch.from_numpy(np.array(
+            jax.random.normal(sub, (d // 2, p, S, 2 * t), dtype=jnp.float64))))
+    jn, ja, jm = jax.jit(lambda s, c, st: jopt(
+        s, c, st, {}, opt_iters=2, num_samples=S, temperature=TAU, step_size=STEP,
+        collect_metrics=True))(js, jc, jst)
+    tn, ta, tm = stoch_gpmp_optimize(ts, tc, tst, {}, opt_iters=2, num_samples=S,
+                                     temperature=TAU, step_size=STEP, collect_metrics=True,
+                                     eps=eps)
+    _close(tn.particle_means, jn.particle_means)
+    _close(ta.costs, ja.costs)
+    _close(ta.weights, ja.weights)
+    for name in ("cost_mean", "cost_min", "weight_entropy", "update_norm"):
+        _close(getattr(tm, name), getattr(jm, name))
+    out = planner128.optimize()
+    assert out[2].shape == (15, S, 128, 2) and bool(torch.isfinite(out[4]).all())
 
 
 def test_fused_kernel_ineligible_stack_raises():
@@ -273,14 +305,15 @@ def test_fused_kernel_ineligible_stack_raises():
 
     obst_map, _ = generate_obstacle_map(
         map_dim=(20, 20), cell_size=0.1, random_gen=True, num_obst=15,
-        rand_limits=[[-7.5, 7.5], [-7.5, 7.5]], rand_rect_shape=[2, 2], rng=0)
+        rand_limits=[[-7.5, 7.5], [-7.5, 7.5]], rand_rect_shape=[2, 2], rng=0, device="cpu")
     cost = CostComposite.create(2, 64, [
         CostGP.create(2, 64, START, 0.02, {"sigma_start": 1e-3, "sigma_gp": 0.1}),
         CostGoalPrior.create(2, 64, GOALS, sigma_goal_prior=1e-3),
         CostCollision.create(2, 64, obst_map.as_field(), sigma_coll=1e-5),
     ])
     planner, _ = _planner(True, cost=cost, opt_iters=3)
-    with pytest.raises(ValueError, match="dof Panda kernel not yet ported; planar kernel: "
+    with pytest.raises(ValueError, match=r"panda kernel: cost must be CostComposite\(\["
+                                         r"QuadraticCost, PlaneFieldsCost\]\); planar kernel: "
                                          "cost must be CostComposite"):
         planner.optimize()
 
@@ -312,12 +345,15 @@ def test_package_never_imports_jax():
         "stoch_gpmp_tpu_torch.planners", "stoch_gpmp_tpu_torch.planners.fused_exec",
         "stoch_gpmp_tpu_torch.utils", "stoch_gpmp_tpu_torch.ops.kernels.fields",
         "stoch_gpmp_tpu_torch.ops.kernels.stencil", "stoch_gpmp_tpu_torch.ops.kernels.fused_step",
+        "stoch_gpmp_tpu_torch.kinematics", "stoch_gpmp_tpu_torch.costs.fused_fields",
+        "stoch_gpmp_tpu_torch.ops.kernels.panda_fields",
+        "stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof",
     ]
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "from stoch_gpmp_tpu_torch.problems import build_planar_problem\n"
-        "build_planar_problem()\n"
+        "build_planar_problem(device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'stoch_gpmp_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
