@@ -32,7 +32,23 @@ Phases, one line each; any failure exits non-zero before the result line:
 10. the Panda main path: ``build_panda_problem`` at config 5 through
     ``StochGPMP(fused_kernel=True)`` and ``StochGPMP`` on the dof path, 200
     iterations each, with descent, start-anchor and launch-count gates and
-    updates/s, wall and device ms per iteration and the busy share.
+    updates/s, wall and device ms per iteration and the busy share;
+11. K6, the fused flat Panda iteration at config 4: eps operand against its
+    plain version, the RNG-free tiers (``W = 0``) against float64 oracles,
+    and the Philox moments;
+12. K7, the link fields at link positions, and K8, FK + link fields per
+    configuration, against float64 oracles at 1.30 M points (config 5's
+    planner-regime and joint-range rows, spheres on links), K7 also at
+    config 4's strided ``[160, 63, 9, 3]`` view, and K8 per point against
+    K7 on ``chain.fk_compact`` positions of the same joint angles;
+13. the Panda parity main path, config 4 (1 goal x 5 particles, 32 samples,
+    T = 64), ``PANDA4_ITERS`` iterations on each route: (a) the fused K6 loop
+    (``make_fused_panda_step`` + ``fused_panda_optimize``), and through
+    ``StochGPMP`` (b) the fast stack ``QuadraticCost + PlaneFieldsCost``
+    (K4), (c) the reference-shaped stack on ``fk=chain.fk_compact`` and (d)
+    the same with ``FusedLinkFieldsCost`` (K7); descent, start-anchor,
+    launch-count and stack-equality gates, updates/s, wall and device ms per
+    iteration, the busy share and the largest kernels.
 
 Times: ``ms``/``plain_ms`` are per call over back-to-back calls through
 the wrapper (CUDA events), which includes the host's launch cost where it
@@ -108,6 +124,15 @@ K5_TIER1_RTOL, K5_TIER2_RTOL, K5_STILL_ATOL = 3e-4, 1e-3, 1e-5
 # paths, the fused descent is more than half the dof path's, and every
 # particle's t = 0 position stays within 2e-2 of the start.
 PANDA_DESCENT_SHARE, PANDA_START_TOL = 0.5, 2e-2
+# The Panda parity workload, benchmarks/run.py config 4: 1 goal x 5
+# particles, 32 samples, T = 64, the same spheres; its gates are config 5's
+# (the JAX package's tests/test_fused_panda_tpu.py:97-160), K6's tolerances
+# K5's. On the same means the reference-shaped stacks (c) and (d) equal the
+# fast stack (b) within STACK_RTOL: they are the same function, summed in
+# another order in float32 (tests/test_fused_fields.py:94-120).
+PANDA4 = dict(num_goals=1, ppg=5, traj_len=64, num_samples=32)
+PANDA4_ITERS = 500
+STACK_RTOL = 1e-4
 # Peak rates of one H100 SXM (data sheet) for the bound_ms column.
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
 
@@ -174,13 +199,19 @@ def kernel_counters() -> dict:
     launches in ``.launches``."""
     from stoch_gpmp_tpu_torch.ops.kernels.fields import raster_primitive_cost
     from stoch_gpmp_tpu_torch.ops.kernels.fused_step import fused_planar_step
-    from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import fk_link_fields_cost_rows
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (
+        fk_link_fields_cost,
+        fk_link_fields_cost_rows,
+        fused_link_fields_cost,
+    )
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_step import fused_panda_step
     from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import fused_panda_dof_step
     from stoch_gpmp_tpu_torch.ops.kernels.stencil import dof_quad_eval
 
     return {"raster_field": raster_primitive_cost, "fused_planar_step": fused_planar_step,
             "dof_quad_eval": dof_quad_eval, "fk_fields": fk_link_fields_cost_rows,
-            "fused_panda_dof_step": fused_panda_dof_step}
+            "fused_panda_dof_step": fused_panda_dof_step, "fused_panda_step": fused_panda_step,
+            "link_fields": fused_link_fields_cost, "fk_fields_points": fk_link_fields_cost}
 
 
 def reset_counters() -> None:
@@ -474,6 +505,29 @@ def dof_quad_check(dev) -> dict:
                 bound=bound(nb, ops))
 
 
+def _field_check_rows(state, s, dev):
+    """``[P * S, T, 2d]`` rows of the field checks: half the planner regime
+    (the means + 0.05 spreads), half drawn uniformly across the joint limits
+    (links within the 3 cm margin of each other)."""
+    rows = _planner_rows(state.particle_means, s, 0.05, 4, dev)
+    half = rows.shape[0] // 2
+    lo = torch.tensor([-2.8973, -1.7628, -2.8973, -3.0718, -2.8973, -0.0175, -2.8973], device=dev)
+    hi = torch.tensor([2.8973, 1.7628, 2.8973, -0.0698, 2.8973, 3.7525, 2.8973], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    u = torch.rand((rows.shape[0] - half, rows.shape[1], 7), generator=gen, device=dev)
+    rows[half:, :, :7] = lo + (hi - lo) * u
+    return rows
+
+
+def _spheres_on_links(spheres, links):
+    """The spheres with the last two moved onto link positions of ``links
+    [>= 2, >= 5, L, 3]`` (radius 0.1), so some points sit inside a sphere."""
+    sp = spheres.reshape(-1, 4).clone()
+    sp[3, :3], sp[4, :3] = links[0, 0, -1].to(sp.dtype), links[1, 4, 3].to(sp.dtype)
+    sp[3:, 3] = 0.1
+    return sp
+
+
 # FP32 operations per (trajectory, t) point of K4, as counted for bound_ms:
 # 36 self pairs and 45 sphere pairs of ~10 operations each (differences,
 # squared norm, scale, exp, accumulate) and ~45 per joint of the FK walk.
@@ -496,20 +550,12 @@ def fk_fields_check(dev) -> dict:
     _, cost, state, obs, s = panda_problem(dev)
     fields = cost.costs[1]
     chain = fields.chain
-    rows = _planner_rows(state.particle_means, s, 0.05, 4, dev)
-    half = rows.shape[0] // 2
-    lo = torch.tensor([-2.8973, -1.7628, -2.8973, -3.0718, -2.8973, -0.0175, -2.8973], device=dev)
-    hi = torch.tensor([2.8973, 1.7628, 2.8973, -0.0698, 2.8973, 3.7525, 2.8973], device=dev)
-    gen = torch.Generator(device=dev).manual_seed(5)
-    u = torch.rand((rows.shape[0] - half, rows.shape[1], 7), generator=gen, device=dev)
-    rows[half:, :, :7] = lo + (hi - lo) * u
+    rows = _field_check_rows(state, s, dev)
     xp = to_dof_planes(rows).contiguous()  # [7, B, 2T]
     t = xp.shape[-1] // 2
     q = xp[:, :, :t]  # the dof path's strided view
-    links = chain.fk_compact(rows[:2, 5:10, :7].double()).positions  # [2, 5, L, 3]
-    spheres = obs["obstacle_spheres"].reshape(-1, 4).clone()
-    spheres[3, :3], spheres[4, :3] = links[0, 0, -1].float(), links[1, 4, 3].float()
-    spheres[3:, 3] = 0.1
+    spheres = _spheres_on_links(obs["obstacle_spheres"],
+                                chain.fk_compact(rows[:2, 5:10, :7].double()).positions)
     kw = dict(margin=fields.margin, w_self=1.0 / fields.sigma_self**2,
               w_obst=1.0 / fields.sigma_coll**2)
     got = fk_link_fields_cost_rows(chain, q, spheres, **kw)
@@ -739,6 +785,306 @@ def panda_main_path(dev) -> dict:
     return out
 
 
+def panda4_problem(dev, dtype=torch.float32, fast=True):
+    from stoch_gpmp_tpu_torch.problems import build_panda_problem
+
+    return build_panda_problem(**PANDA4, dtype=dtype, device=dev, fast=fast)
+
+
+def make_flat_step(sampler, cost, obs, p, s, **over):
+    """K6's step object for config 4's fast stack."""
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_step import make_fused_panda_step
+
+    quad, fields = cost.costs
+    kw = dict(
+        chain=fields.chain, weight_t=sampler.weight_t, dof_prior=sampler.dof,
+        dof_quad=quad.dof_form, num_particles=p, spheres=obs["obstacle_spheres"],
+        target_h=fields.target_h, n_dof=fields.n_dof, traj_len=fields.traj_len, num_samples=s,
+        margin=fields.margin, w_self=1.0 / fields.sigma_self**2,
+        w_obst=1.0 / fields.sigma_coll**2, w_goal=1.0 / fields.sigma_goal**2,
+        temperature=PANDA_TAU, step_size=PANDA_STEP)
+    kw.update(over)
+    return make_fused_panda_step(**kw)
+
+
+def fused_flat_check(dev) -> dict:
+    """K6 with an eps operand vs its plain version at config 4."""
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_step import (
+        fused_panda_step,
+        fused_panda_step_plain,
+    )
+
+    sampler, cost, state, obs, s = panda4_problem(dev)
+    p = state.particle_means.shape[0]
+    step = make_flat_step(sampler, cost, obs, p, s)
+    means = state.particle_means.reshape(p, -1).contiguous()
+    prec_u = sampler.dof.matvec_flat(state.particle_means).reshape(p, -1)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    m = means.shape[1]
+    eps = torch.randn((p, s, m), generator=gen, device=dev)
+    new_k, cost_k = fused_panda_step(step, means, prec_u, eps=eps)
+    new_p, cost_p = fused_panda_step_plain(step, means, prec_u, eps)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(cost_k).all() and torch.isfinite(new_k).all()):
+        fail("K6: non-finite output")
+    rel = float(((cost_k - cost_p).abs() / cost_p.abs()).max())
+    if rel > K5_COST_RTOL:
+        fail(f"K6: costs differ from the plain version by {rel:.3g} relative (> {K5_COST_RTOL})")
+    agree = cost_k.argmin(1) == cost_p.argmin(1)
+    if not bool(agree.all()):
+        fail(f"K6: best sample agrees for only {int(agree.sum())}/{p} particles")
+    mean_err = float((new_k - new_p).abs().max())
+    if mean_err > K5_MEAN_ATOL:
+        fail(f"K6: new means differ by {mean_err:.3g} (> {K5_MEAN_ATOL})")
+    kernel = lambda: fused_panda_step(step, means, prec_u, seed=3)  # noqa: E731
+    plain = lambda: fused_panda_step_plain(  # noqa: E731
+        step, means, prec_u, torch.randn(eps.shape, generator=gen, device=dev))
+    t = step.traj_len
+    flops = 2 * p * s * m * m + p * s * (t - 1) * K4_OPS_PER_POINT
+    nb = 4 * (m * m + 4 * p * m + p * s)  # W, means, prec_u, anchors, new means, costs
+    # the same operations on the p SMs that one block per particle occupies
+    sms_ms = flops / (FP32_FLOP_PER_S * p / 132) * 1e3
+    return dict(cost_max_rel=rel, argmax_agree=int(agree.sum()), particles=p,
+                max_abs_err=mean_err, ms=cuda_ms(kernel, 100), plain_ms=cuda_ms(plain, 20),
+                device_ms=device_ms(kernel, 50), plain_device_ms=device_ms(plain, 10),
+                bound=bound(nb, flops), bound_on_sms_ms=sms_ms)
+
+
+def fused_flat_rng_free_check(dev) -> dict:
+    """K6 with ``W = 0`` (every sample is its particle's mean), the tiers of
+    the JAX package's TPU test: fields + goal + importance with the
+    quadratic zeroed, then the full stack, against float64 oracles built on
+    the CPU; the means must not move."""
+    sampler, cost, state, obs, s = panda4_problem(dev)
+    _, cost64, _, obs64, _ = panda4_problem("cpu", torch.float64)
+    means = state.particle_means
+    p = means.shape[0]
+    prec_u = sampler.dof.matvec_flat(means).reshape(p, -1)
+    m64 = means.double().cpu()
+    imp = torch.sum(m64.reshape(p, -1) * prec_u.double().cpu(), dim=-1)
+    ref_f = cost64.costs[1].eval(m64, observation=obs64) + imp
+    ref = cost64.costs[0].eval(m64) + ref_f  # the float64 stencil quadratic
+    dq = cost.costs[0].dof_form
+    z = torch.zeros((2, 2), device=dev)
+    zero_w = torch.zeros_like(sampler.weight_t)
+    out = {}
+    for tier, dquad, want, rtol in (("tier1", replace(dq, q_i2=z, k_s2=z, k_g2=z), ref_f,
+                                     K5_TIER1_RTOL), ("tier2", dq, ref, K5_TIER2_RTOL)):
+        step = make_flat_step(sampler, cost, obs, p, s, weight_t=zero_w, dof_quad=dquad)
+        new, costs = step(means, seed=0)
+        torch.cuda.synchronize()
+        rel = float(((costs.double().cpu() - want[:, None]).abs() / want.abs()[:, None]).max())
+        still = float((new - means).abs().max())
+        if rel > rtol or still > K5_STILL_ATOL:
+            fail(f"K6 RNG-free {tier}: costs {rel:.3g} relative from the float64 oracle "
+                 f"(> {rtol}) or means moved {still:.3g}")
+        out[tier] = dict(max_rel=rel, means_moved=still)
+    return out
+
+
+def fused_flat_moments_check(dev) -> dict:
+    """K6 with Philox draws and uniform weights (quadratic, importance and
+    fields removed, temperature 1e30, step 1): the update is the sample mean
+    of ``eps @ W``, so its per-lane variance is ``diag(W^T W) / S`` and its
+    per-lane mean is 0 within a few standard errors."""
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_step import fused_panda_step
+
+    sampler, cost, state, obs, s = panda4_problem(dev)
+    p = state.particle_means.shape[0]
+    z = torch.zeros((2, 2), device=dev)
+    step = make_flat_step(sampler, cost, obs, p, s, dof_quad=replace(
+        cost.costs[0].dof_form, q_i2=z, k_s2=z, k_g2=z), w_self=0.0, w_obst=0.0, w_goal=0.0,
+        temperature=1e30, step_size=1.0)
+    means = state.particle_means.reshape(p, -1).contiguous()
+    zeros = torch.zeros_like(means)
+    d = torch.stack([fused_panda_step(step, means, zeros, seed=3000 + k)[0] - means
+                     for k in range(40)]).double()  # [seeds, P, M]
+    n = d.shape[0] * d.shape[1]
+    want_var = (step.weight_t.double() ** 2).sum(0) / s
+    ratio = float((d.var(dim=(0, 1)) / want_var).median())
+    z_max = float((d.mean(dim=(0, 1)).abs() / (want_var / n).sqrt()).max())
+    if not 0.85 < ratio < 1.15:
+        fail(f"K6 Philox: median variance ratio {ratio:.4f} outside (0.85, 1.15)")
+    if not z_max < 5.0:
+        fail(f"K6 Philox: a lane mean is {z_max:.2f} standard errors from 0")
+    return dict(var_ratio_median=ratio, max_lane_mean_z=z_max)
+
+
+def link_fields_check(dev) -> dict:
+    """K7 and K8 against float64 oracles at config 5's 1.30 M points (the
+    planner-regime rows and rows drawn across the joint limits of the K4
+    check, two spheres on links), K7 also at config 4's strided ``[160, 63,
+    9, 3]`` view; and K8 per point against K7 on ``chain.fk_compact``
+    positions of the same joint angles."""
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (
+        fk_link_fields_cost,
+        fk_link_fields_cost_plain,
+        fused_link_fields_cost,
+        fused_link_fields_cost_plain,
+    )
+
+    _, cost, state, obs, s = panda_problem(dev)
+    fields = cost.costs[1]
+    chain = fields.chain
+    rows = _field_check_rows(state, s, dev)
+    b, t, _ = rows.shape
+    q = rows[..., :7].reshape(-1, 7)  # [B * T, 7], a strided view
+    positions = chain.fk_compact(q).positions  # [B * T, L, 3]
+    pos = positions.reshape(b, t, -1, 3)[:, 1:]  # what FusedLinkFieldsCost passes: a view
+    spheres = _spheres_on_links(obs["obstacle_spheres"], pos)
+    kw = dict(margin=fields.margin, w_self=1.0 / fields.sigma_self**2,
+              w_obst=1.0 / fields.sigma_coll**2)
+    sp64 = spheres.double()
+
+    def rel_to(got, want):
+        return float(((got.double() - want).abs() / want.abs()).max())
+
+    k7 = fused_link_fields_cost(pos, spheres, **kw)
+    k7_rel = rel_to(k7, fused_link_fields_cost_plain(pos.double(), sp64, **kw))
+    k8 = fk_link_fields_cost(chain, q, spheres, **kw)
+    want8 = fk_link_fields_cost_plain(chain, q.double(), sp64, **kw)
+    k8_rel = rel_to(k8, want8)
+    k8_k7 = rel_to(k8, fused_link_fields_cost(positions, spheres, **kw).double())
+    # config 4's main-path size: planner-regime rows around config 4's means
+    _, _, state4, obs4, s4 = panda4_problem(dev)
+    rows4 = _planner_rows(state4.particle_means, s4, 0.05, 6, dev)
+    b4, t4, _ = rows4.shape
+    pos4 = chain.fk_compact(rows4[..., :7].reshape(-1, 7)).positions.reshape(b4, t4, -1, 3)[:, 1:]
+    sp4 = obs4["obstacle_spheres"].reshape(-1, 4)
+    k7_4 = fused_link_fields_cost(pos4, sp4, **kw)
+    want7_4 = fused_link_fields_cost_plain(pos4.double(), sp4.double(), **kw)
+    k7_4_rel = rel_to(k7_4, want7_4)
+    torch.cuda.synchronize()
+    for name, r in (("K7", k7_rel), ("K7 at config 4", k7_4_rel), ("K8", k8_rel),
+                    ("K8 against K7", k8_k7)):
+        if not r <= K4_RTOL:
+            fail(f"{name} differs from its reference by {r:.3g} relative (> {K4_RTOL})")
+    if not (torch.isfinite(k7).all() and torch.isfinite(k8).all()):
+        fail("K7/K8: non-finite output")
+    n_links, n_obst = pos.shape[-2], spheres.shape[0]
+    ops = (n_links * (n_links - 1) // 2 + n_links * n_obst) * 10  # K4_OPS_PER_POINT less FK
+    k7_kernel = lambda: fused_link_fields_cost(pos4, sp4, **kw)  # noqa: E731
+    k7_plain = lambda: fused_link_fields_cost_plain(pos4, sp4, **kw)  # noqa: E731
+    big_kernel = lambda: fused_link_fields_cost(pos, spheres, **kw)  # noqa: E731
+    k8_kernel = lambda: fk_link_fields_cost(chain, q, spheres, **kw)  # noqa: E731
+    k8_plain = lambda: fk_link_fields_cost_plain(chain, q, spheres, **kw)  # noqa: E731
+    n4, n_big, n_q = pos4.shape[0] * pos4.shape[1], pos.shape[0] * pos.shape[1], q.shape[0]
+    return {
+        "K7": dict(points=n_big, max_rel=k7_rel, config4_points=n4, config4_max_rel=k7_4_rel,
+                   max_abs_err=float((k7_4.double() - want7_4).abs().max()),
+                   ms=cuda_ms(k7_kernel, 200), plain_ms=cuda_ms(k7_plain, 50),
+                   device_ms=device_ms(k7_kernel, 100), plain_device_ms=device_ms(k7_plain, 20),
+                   big_ms=cuda_ms(big_kernel, 20), big_device_ms=device_ms(big_kernel, 10),
+                   bound=bound(n4 * (12 * n_links + 4), n4 * ops),
+                   big_bound=bound(n_big * (12 * n_links + 4), n_big * ops)),
+        "K8": dict(points=n_q, max_rel=k8_rel, k7_rel=k8_k7,
+                   max_abs_err=float((k8.double() - want8).abs().max()),
+                   ms=cuda_ms(k8_kernel, 20), plain_ms=cuda_ms(k8_plain, 5),
+                   device_ms=device_ms(k8_kernel, 10), plain_device_ms=device_ms(k8_plain, 3),
+                   bound=bound(n_q * (4 * q.shape[1] + 4), n_q * K4_OPS_PER_POINT)),
+    }
+
+
+def panda4_main_path(dev) -> dict:
+    """Config 4 through its four routes, ``PANDA4_ITERS`` iterations each
+    from the same straight-line means: (a) the fused K6 loop, and through
+    ``StochGPMP`` (b) the fast stack, (c) the reference-shaped stack and (d)
+    the same with ``FusedLinkFieldsCost``."""
+    from stoch_gpmp_tpu_torch.costs import CostComposite, FusedLinkFieldsCost
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_step import fused_panda_optimize
+    from stoch_gpmp_tpu_torch.planners import StochGPMP, stoch_gpmp_optimize
+    from stoch_gpmp_tpu_torch.problems import PANDA_DT, PANDA_START_Q
+
+    sampler, fast, state, obs, s = panda4_problem(dev)
+    _, ref, _, _, _ = panda4_problem(dev, fast=False)
+    stacks = {"b": fast, "c": ref, "d": CostComposite.create(
+        ref.n_dof, ref.traj_len,
+        [ref.costs[0], ref.costs[1], FusedLinkFieldsCost.create(ref.n_dof, ref.traj_len),
+         ref.costs[4]], fk=ref.fk)}
+    p, t, n = state.particle_means.shape[0], PANDA4["traj_len"], 7
+    means0 = state.particle_means
+    start_q = torch.tensor(PANDA_START_Q, device=dev)
+    dq = fast.costs[0].dof_form
+    goals = torch.cat([dq.g_pd[..., 0], dq.g_pd[..., 1]], dim=-1)
+    names = ("fk_fields", "fused_panda_step", "link_fields", "fk_fields_points")
+    counters = {k: fn for k, fn in kernel_counters().items() if k in names}
+    expect = {"a": "fused_panda_step", "b": "fk_fields", "c": None, "d": "link_fields"}
+
+    def cost_of(means):
+        return float(fast.eval(means, observation=obs).mean())
+
+    c0 = cost_of(means0)
+    step = make_flat_step(sampler, fast, obs, p, s)
+    out = {}
+    for route in ("a", "b", "c", "d"):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if route != "a":
+            planner = StochGPMP(
+                num_particles_per_goal=PANDA4["ppg"], num_samples=s, traj_len=t, dt=PANDA_DT,
+                n_dof=n, opt_iters=PANDA4_ITERS, temperature=PANDA_TAU, step_size=PANDA_STEP,
+                start_state=torch.cat([start_q, torch.zeros_like(start_q)]),
+                multi_goal_states=goals, initial_particle_means=means0, cost=stacks[route],
+                sigma_start_sample=1e-3, sigma_goal_sample=0.07, sigma_gp_sample=0.1, seed=0,
+                dtype=torch.float32, device=dev)
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if route == "a":
+            means = fused_panda_optimize(step, means0, gen, PANDA4_ITERS)
+        else:
+            res = planner.optimize(observation=obs)
+            means = planner.particle_means
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        want = {k: PANDA4_ITERS if k == expect[route] else 0 for k in names}
+        if launches != want:
+            fail(f"panda4 ({route}): launches {launches}, expected {want}")
+        if route != "a":
+            shapes = [tuple(o.shape) for o in res]
+            if shapes != [(p, t, n), (p, t, n), (p, s, t, n), (p, s, t, n), (p, s), (p, t, 2 * n)]:
+                fail(f"panda4 ({route}): unexpected 6-tuple shapes {shapes}")
+            if not all(bool(torch.isfinite(o).all()) for o in res):
+                fail(f"panda4 ({route}): non-finite output")
+        if not bool(torch.isfinite(means).all()):
+            fail(f"panda4 ({route}): non-finite means")
+        c1 = cost_of(means)
+        start_err = float((means[:, 0, :n] - start_q).abs().max())
+        if not c1 < c0 or start_err > PANDA_START_TOL:
+            fail(f"panda4 ({route}): mean cost {c0:.6g} -> {c1:.6g}, start moved {start_err:.3g}")
+        if route == "a":
+            window = lambda: fused_panda_optimize(step, means, gen, 20)  # noqa: E731
+        else:
+            window = lambda: stoch_gpmp_optimize(  # noqa: E731
+                planner.sampler, stacks[route], planner.state, obs, opt_iters=20,
+                num_samples=s, temperature=PANDA_TAU, step_size=PANDA_STEP)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) / 20 * 1e3
+        dev_ms, top = device_breakdown(window, 1)
+        out[route] = dict(
+            top_kernels_ms_per_iter=[(k, ms / 20) for k, ms in top], launches=launches,
+            cost0=c0, cost=c1, start_err=start_err, optimize_seconds=seconds,
+            updates_per_s=p * PANDA4_ITERS / seconds, iter_wall_ms=wall,
+            iter_device_ms=None if dev_ms is None else dev_ms / 20,
+            device_busy=None if dev_ms is None else dev_ms / 20 / wall)
+        if route == "b":
+            means_b = means
+    drop = {r: c0 - out[r]["cost"] for r in out}
+    if not drop["a"] > PANDA_DESCENT_SHARE * drop["b"]:
+        fail(f"panda4: the K6 loop's descent {drop['a']:.6g} not above {PANDA_DESCENT_SHARE} x "
+             f"the fast stack's {drop['b']:.6g}")
+    want = fast.eval(means_b, observation=obs).double()
+    stack_rel = {r: float(((stacks[r].eval(means_b, observation=obs).double() - want).abs()
+                           / want.abs()).max()) for r in ("c", "d")}
+    if max(stack_rel.values()) > STACK_RTOL:
+        fail(f"panda4: stacks (c), (d) differ from (b) on its means by {stack_rel} (> {STACK_RTOL})")
+    out["stack_rel"] = stack_rel
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--log-dir", default=None, help="write the nvcc log and details here")
@@ -829,8 +1175,55 @@ def main() -> int:
                             f"{fmt_ms(r['iter_device_ms'])}/iter, device busy {busy} on {smi}")
         phase("panda-main", f"{k}: device ms per iteration by kernel: " + "; ".join(
             f"{n} {ms:.4f}" for n, ms in r["top_kernels_ms_per_iter"]))
+    k6 = fused_flat_check(dev)
+    phase("K6", f"eps operand: costs within {k6['cost_max_rel']:.2e} relative (rtol "
+                f"{K5_COST_RTOL}), best sample agrees {k6['argmax_agree']}/{k6['particles']}, "
+                f"means max err {k6['max_abs_err']:.2e}; per call kernel {k6['ms']:.4f} ms, "
+                f"plain {k6['plain_ms']:.4f} ms; device time kernel {fmt_ms(k6['device_ms'])},"
+                f" plain {fmt_ms(k6['plain_device_ms'])}; bound {k6['bound'][0]:.4f} ms "
+                f"({k6['bound'][1]}), {k6['bound_on_sms_ms']:.4f} ms on the "
+                f"{k6['particles']} SMs it occupies")
+    k6_free = fused_flat_rng_free_check(dev)
+    phase("K6-rng-free", " | ".join(
+        f"{k}: costs within {v['max_rel']:.2e} relative, means moved {v['means_moved']:.1e}"
+        for k, v in k6_free.items()))
+    k6_mom = fused_flat_moments_check(dev)
+    phase("K6-philox", f"variance ratio median {k6_mom['var_ratio_median']:.4f}, largest lane "
+                       f"mean {k6_mom['max_lane_mean_z']:.2f} standard errors")
+    lf = link_fields_check(dev)
+    k7, k8 = lf["K7"], lf["K8"]
+    phase("K7", f"link fields on {k7['points']} points within {k7['max_rel']:.2e} relative of "
+                f"the float64 oracle, on config 4's {k7['config4_points']} within "
+                f"{k7['config4_max_rel']:.2e} (rtol {K4_RTOL}); config 4: per call kernel "
+                f"{k7['ms']:.4f} ms, plain {k7['plain_ms']:.4f} ms; device time kernel "
+                f"{fmt_ms(k7['device_ms'])}, plain {fmt_ms(k7['plain_device_ms'])}; bound "
+                f"{k7['bound'][0]:.4f} ms ({k7['bound'][1]}); {k7['points']} points: per call "
+                f"{k7['big_ms']:.4f} ms, device {fmt_ms(k7['big_device_ms'])}, bound "
+                f"{k7['big_bound'][0]:.4f} ms ({k7['big_bound'][1]})")
+    phase("K8", f"FK + fields on {k8['points']} configurations within {k8['max_rel']:.2e} "
+                f"relative of the float64 oracle and {k8['k7_rel']:.2e} of K7 on fk_compact "
+                f"positions (rtol {K4_RTOL}); per call kernel {k8['ms']:.4f} ms, plain "
+                f"{k8['plain_ms']:.4f} ms; device time kernel {fmt_ms(k8['device_ms'])}, plain "
+                f"{fmt_ms(k8['plain_device_ms'])}; bound {k8['bound'][0]:.4f} ms "
+                f"({k8['bound'][1]})")
+    p4 = panda4_main_path(dev)
+    for k in ("a", "b", "c", "d"):
+        r = p4[k]
+        busy = "not measured" if r["device_busy"] is None else format(r["device_busy"], ".1%")
+        phase("panda4-main", f"({k}): {PANDA4_ITERS} iters, launches {r['launches']}, mean cost "
+                             f"{r['cost0']:.6g} -> {r['cost']:.6g}, start err "
+                             f"{r['start_err']:.2e}; {r['updates_per_s']:.0f} updates/s over "
+                             f"{'the K6 loop' if k == 'a' else 'optimize()'}; 20-iteration "
+                             f"window {r['iter_wall_ms']:.4f} ms/iter wall, device time "
+                             f"{fmt_ms(r['iter_device_ms'])}/iter, device busy {busy} on {smi}")
+        phase("panda4-main", f"({k}): device ms per iteration by kernel: " + "; ".join(
+            f"{n} {ms:.4f}" for n, ms in r["top_kernels_ms_per_iter"]))
+    phase("panda4-main", "stacks (c), (d) on route (b)'s means: " + ", ".join(
+        f"({k}) within {v:.2e} relative of (b)" for k, v in p4["stack_rel"].items())
+        + f" (rtol {STACK_RTOL})")
     details.update(K1=k1, K2=k2, moments=mom, main=mp, K3=k3, K4=k4, K5=k5,
-                   K5_rng_free=k5_free, K5_moments=k5_mom, panda_main=pm)
+                   K5_rng_free=k5_free, K5_moments=k5_mom, panda_main=pm, K6=k6,
+                   K6_rng_free=k6_free, K6_moments=k6_mom, K7=k7, K8=k8, panda4_main=p4)
     if args.log_dir:
         out = Path(args.log_dir)
         out.mkdir(parents=True, exist_ok=True)
@@ -856,6 +1249,13 @@ def main() -> int:
         ("fused_panda_dof_step", "fused_panda_dof_step.cu",
          "stoch_gpmp_tpu/ops/pallas/panda_step_dof.py:225",
          pm["fused"]["launches"]["fused_panda_dof_step"], k5, k5["bound"]),
+        ("fused_panda_step", "fused_panda_step.cu", "stoch_gpmp_tpu/ops/pallas/panda_step.py:199",
+         p4["a"]["launches"]["fused_panda_step"], k6, k6["bound"]),
+        ("link_fields", "link_fields.cu", "stoch_gpmp_tpu/ops/pallas/panda_fields.py:73",
+         p4["d"]["launches"]["link_fields"], k7, k7["bound"]),
+        # K8 has no caller on any route (nor in the JAX package): 0 launches
+        ("fk_fields_points", "fk_fields.cu", "stoch_gpmp_tpu/ops/pallas/panda_fields.py:175",
+         sum(p4[r]["launches"]["fk_fields_points"] for r in "abcd"), k8, k8["bound"]),
     ]
     kernels = [
         {"name": n, "route": "cuda", "source": f"stoch_gpmp_tpu_torch/csrc/{src}",

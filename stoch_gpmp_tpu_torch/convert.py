@@ -1,10 +1,12 @@
 """Carry a problem built by the JAX package over to the port.
 
 ``sampler_from_jax``, ``cost_from_jax``, ``state_from_jax``,
-``chain_from_jax`` and ``observation_from_jax`` read the JAX objects' fields
-through ``np.asarray`` and rebuild the port's objects on a given device and
-dtype. They dispatch on class names, so this module never imports JAX. The
-PRNG key does not cross: the port's generator is seeded separately.
+``chain_from_jax``, ``link_state_from_jax`` and ``observation_from_jax``
+read the JAX objects' fields through ``np.asarray`` and rebuild the port's
+objects on a given device and dtype. They dispatch on class names, so this
+module never imports JAX. A composite's ``fk=`` (a JAX chain's ``fk`` or
+``fk_compact``) becomes the same method of the converted chain. The PRNG
+key does not cross: the port's generator is seeded separately.
 ``device=None`` means the CUDA card (raises without one); pass
 ``device="cpu"`` to build on the CPU.
 """
@@ -14,13 +16,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stoch_gpmp_tpu_torch.costs.costs import CostCollision, CostComposite, CostGP, CostGoalPrior
-from stoch_gpmp_tpu_torch.costs.fields import OccupancyGridField, RasterPrimitive2DField
-from stoch_gpmp_tpu_torch.costs.fused_fields import PlaneFieldsCost
+from stoch_gpmp_tpu_torch.costs.costs import (
+    CostCollision,
+    CostComposite,
+    CostGP,
+    CostGoal,
+    CostGoalPrior,
+)
+from stoch_gpmp_tpu_torch.costs.fields import (
+    EESE3DistanceField,
+    LinkDistanceField,
+    LinkSelfDistanceField,
+    OccupancyGridField,
+    RasterPrimitive2DField,
+)
+from stoch_gpmp_tpu_torch.costs.fused_fields import FusedLinkFieldsCost, PlaneFieldsCost
 from stoch_gpmp_tpu_torch.costs.quadratic import QuadraticCost
 from stoch_gpmp_tpu_torch.gp.dof_factored import DofFactoredPrior, DofQuadraticCost
 from stoch_gpmp_tpu_torch.gp.tridiag import BlockTridiag
-from stoch_gpmp_tpu_torch.kinematics import JointSpec, KinematicChain, RobotModel
+from stoch_gpmp_tpu_torch.kinematics import JointSpec, KinematicChain, LinkState, RobotModel
 from stoch_gpmp_tpu_torch.planners.stoch_gpmp import SamplerModel, StochGPMPState
 from stoch_gpmp_tpu_torch.utils.device import resolve_device
 
@@ -63,7 +77,31 @@ def _field_from_jax(field, dtype, device):
     if kind == "OccupancyGridField":
         return OccupancyGridField(grid=_t(field.grid, dtype, device),
                                   cell_size=float(field.cell_size))
+    if kind == "LinkDistanceField":
+        return LinkDistanceField(
+            field_type=field.field_type, clamp_sdf=bool(field.clamp_sdf),
+            num_interpolate=int(field.num_interpolate),
+            link_interpolate_range=tuple(field.link_interpolate_range))
+    if kind == "LinkSelfDistanceField":
+        return LinkSelfDistanceField(
+            margin=float(field.margin), num_interpolate=int(field.num_interpolate),
+            link_interpolate_range=tuple(field.link_interpolate_range))
+    if kind == "EESE3DistanceField":
+        return EESE3DistanceField(target_h=_t(field.target_h, dtype, device),
+                                  w_pos=float(field.w_pos), w_rot=float(field.w_rot),
+                                  square=bool(field.square))
     raise NotImplementedError(f"field {kind} is not ported yet")
+
+
+def _fk_from_jax(fk):
+    """A JAX chain's bound ``fk`` / ``fk_compact`` as the same method of the
+    converted chain."""
+    if fk is None:
+        return None
+    name = getattr(fk, "__name__", None)
+    if name not in ("fk", "fk_compact") or not hasattr(fk, "__self__"):
+        raise NotImplementedError(f"fk={fk!r}: only a chain's fk or fk_compact is ported")
+    return getattr(chain_from_jax(fk.__self__), name)
 
 
 def _dof_quad_from_jax(dq, dtype, device):
@@ -77,18 +115,17 @@ def _dof_quad_from_jax(dq, dtype, device):
 
 
 def cost_from_jax(cost, *, device=None, dtype=torch.float64):
-    """``CostComposite`` of ``QuadraticCost`` / ``CostGP`` / ``CostGoalPrior``
-    / ``CostCollision(RasterPrimitive2DField | OccupancyGridField)`` /
+    """``CostComposite`` (with its ``fk``) of ``QuadraticCost`` / ``CostGP``
+    / ``CostGoalPrior`` / ``CostCollision`` (a 2D or a link field) /
+    ``CostGoal(EESE3DistanceField)`` / ``FusedLinkFieldsCost`` /
     ``PlaneFieldsCost``, or one of those alone."""
     device = resolve_device(device)
     t = lambda x: _t(x, dtype, device)  # noqa: E731
     kind = _kind(cost)
     if kind == "CostComposite":
-        if cost.fk is not None:
-            raise NotImplementedError("forward-kinematics stacks are not ported yet")
         return CostComposite(
             costs=tuple(cost_from_jax(c, device=device, dtype=dtype) for c in cost.costs),
-            n_dof=int(cost.n_dof), traj_len=int(cost.traj_len),
+            n_dof=int(cost.n_dof), traj_len=int(cost.traj_len), fk=_fk_from_jax(cost.fk),
         )
     if kind == "QuadraticCost":
         return QuadraticCost(
@@ -110,6 +147,12 @@ def cost_from_jax(cost, *, device=None, dtype=torch.float64):
             sigma_coll=float(cost.sigma_coll), n_dof=int(cost.n_dof),
             traj_range=tuple(cost.traj_range),
         )
+    if kind == "CostGoal":
+        return CostGoal(field=_field_from_jax(cost.field, dtype, device),
+                        sigma_goal=float(cost.sigma_goal), n_dof=int(cost.n_dof))
+    if kind == "FusedLinkFieldsCost":
+        return FusedLinkFieldsCost(margin=float(cost.margin), sigma_self=float(cost.sigma_self),
+                                   sigma_coll=float(cost.sigma_coll))
     if kind == "PlaneFieldsCost":
         return PlaneFieldsCost(
             chain=chain_from_jax(cost.chain), target_h=t(cost.target_h),
@@ -134,6 +177,13 @@ def chain_from_jax(chain) -> KinematicChain:
     )
     return KinematicChain(RobotModel(name=model.name, joints=joints, links=tuple(model.links)),
                           link_names=list(chain.link_names))
+
+
+def link_state_from_jax(links, *, device=None, dtype=torch.float64) -> LinkState:
+    """A JAX ``LinkState`` (link positions and end-effector rotation)."""
+    device = resolve_device(device)
+    return LinkState(positions=_t(links.positions, dtype, device),
+                     ee_rot=_t(links.ee_rot, dtype, device))
 
 
 def observation_from_jax(observation: dict, *, device=None, dtype=torch.float64) -> dict:

@@ -3,10 +3,17 @@ from stoch_gpmp_tpu_torch.costs.costs import (
     CostCollision,
     CostComposite,
     CostGP,
+    CostGoal,
     CostGoalPrior,
 )
-from stoch_gpmp_tpu_torch.costs.fields import OccupancyGridField, RasterPrimitive2DField
-from stoch_gpmp_tpu_torch.costs.fused_fields import PlaneFieldsCost
+from stoch_gpmp_tpu_torch.costs.fields import (
+    EESE3DistanceField,
+    LinkDistanceField,
+    LinkSelfDistanceField,
+    OccupancyGridField,
+    RasterPrimitive2DField,
+)
+from stoch_gpmp_tpu_torch.costs.fused_fields import FusedLinkFieldsCost, PlaneFieldsCost
 from stoch_gpmp_tpu_torch.costs.quadratic import QuadraticCost
 
 __all__ = [
@@ -14,7 +21,12 @@ __all__ = [
     "CostCollision",
     "CostComposite",
     "CostGP",
+    "CostGoal",
     "CostGoalPrior",
+    "EESE3DistanceField",
+    "FusedLinkFieldsCost",
+    "LinkDistanceField",
+    "LinkSelfDistanceField",
     "OccupancyGridField",
     "PlaneFieldsCost",
     "RasterPrimitive2DField",

@@ -4,9 +4,12 @@ PyTorch counterpart of the ``eval`` half of ``stoch_gpmp_tpu/costs/costs.py``
 (reference ``stoch_gpmp/costs/cost_functions.py``). Conventions match:
 
 - ``trajs``: ``[batch, traj_len, 2*n_dof]`` (positions then velocities);
+- ``x_trajs``: optional FK link poses of every timestep, homogeneous
+  ``[batch, traj_len, L, 4, 4]`` or a compact ``LinkState``, computed once
+  by a ``CostComposite`` with ``fk`` and passed to every child;
 - ``observation``: dict of runtime data;
-- collision costs skip timestep 0; the goal prior anchors the final state
-  of a goal-major batch.
+- collision costs skip timestep 0; field goal costs read only the final
+  timestep; the goal prior anchors the final state of a goal-major batch.
 
 ``eval_dof_planes`` evaluates on the dof-leading plane batch ``[d, B, 2T]``
 of the dof path. The Gauss-Newton contributions (``gn_contrib``/
@@ -17,7 +20,7 @@ not ported yet (GN and long-horizon slices).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import torch
 
@@ -31,7 +34,7 @@ class Cost:
     def __call__(self, trajs, **kwargs):
         return self.eval(trajs, **kwargs)
 
-    def eval(self, trajs, observation=None):  # pragma: no cover
+    def eval(self, trajs, x_trajs=None, observation=None):  # pragma: no cover
         raise NotImplementedError
 
     def supports_dof_planes(self) -> bool:
@@ -61,7 +64,7 @@ class CostGP(Cost):
             phi=phi_matrix(n_dof, dt, dtype=dtype, device=device),
         )
 
-    def eval(self, trajs, observation=None):
+    def eval(self, trajs, x_trajs=None, observation=None):
         err0 = unary_error(trajs[..., 0, :], self.start_state)
         err = gp_error(trajs, self.phi)
         return quadratic_cost(err0, self.k_start) + torch.sum(
@@ -89,7 +92,7 @@ class CostGoalPrior(Cost):
             num_goals=goals.shape[0],
         )
 
-    def eval(self, trajs, observation=None):
+    def eval(self, trajs, x_trajs=None, observation=None):
         batch, d = trajs.shape[0], trajs.shape[-1]
         x_final = trajs[..., -1, :].reshape(self.num_goals, -1, d)
         err = unary_error(x_final, self.multi_goal_states[:, None])
@@ -98,9 +101,10 @@ class CostGoalPrior(Cost):
 
 @dataclass
 class CostCollision(Cost):
-    """Obstacle cost of a 2D field over the timestep slice ``traj_range``
-    (default ``1..T-1``), evaluated on configuration positions:
-    ``k * sum_t field(x_t)`` with ``k = 1 / sigma_coll^2``."""
+    """Obstacle cost of a field over the timestep slice ``traj_range``
+    (default ``1..T-1``): ``k * sum_t field(.)`` with ``k = 1 /
+    sigma_coll^2``. The field evaluates on the FK link poses when the
+    composite passes them, otherwise on the configuration positions."""
 
     field: Any
     sigma_coll: float
@@ -115,16 +119,15 @@ class CostCollision(Cost):
         return cls(field=field, sigma_coll=sigma_coll, n_dof=n_dof,
                    traj_range=tuple(traj_range))
 
-    def _field_errors(self, trajs, observation):
-        obs = observation or {}
-        # a strided view: the field reads it in place
-        states = trajs[:, slice(*self.traj_range), : self.n_dof]
-        return self.field.compute_cost(
-            states, obstacle_spheres=obs.get("obstacle_spheres", None)
-        )
+    def _field_errors(self, trajs, x_trajs, observation):
+        spheres = (observation or {}).get("obstacle_spheres", None)
+        sl = slice(*self.traj_range)
+        # strided views: the fields read them in place
+        states = x_trajs[:, sl] if x_trajs is not None else trajs[:, sl, : self.n_dof]
+        return self.field.compute_cost(states, obstacle_spheres=spheres)
 
-    def eval(self, trajs, observation=None):
-        err = self._field_errors(trajs, observation)  # [B, T-1]
+    def eval(self, trajs, x_trajs=None, observation=None):
+        err = self._field_errors(trajs, x_trajs, observation)  # [B, T-1]
         return (1.0 / self.sigma_coll**2) * torch.sum(err, dim=-1)
 
     def supports_dof_planes(self) -> bool:
@@ -139,25 +142,45 @@ class CostCollision(Cost):
 
 
 @dataclass
+class CostGoal(Cost):
+    """Field cost of the final timestep only, ``k * field(.)`` with ``k = 1
+    / sigma_goal^2`` (the SE(3) end-effector target): on the last link poses
+    when the composite passes them, otherwise on the last positions."""
+
+    field: Any
+    sigma_goal: float
+    n_dof: int
+
+    @classmethod
+    def create(cls, n_dof, traj_len, field, sigma_goal, **kw):
+        del traj_len, kw
+        return cls(field=field, sigma_goal=sigma_goal, n_dof=n_dof)
+
+    def eval(self, trajs, x_trajs=None, observation=None):
+        if x_trajs is not None:
+            err = self.field.compute_cost(x_trajs[:, -1])
+        else:
+            err = self.field.compute_cost(trajs[:, -1, : self.n_dof])
+        return (1.0 / self.sigma_goal**2) * err
+
+
+@dataclass
 class CostComposite(Cost):
-    """Sums child costs on a ``[B, T, 2*n_dof]`` batch. A composite that
-    computes FK once for its children (``fk``) is not ported yet: the Panda
-    stack evaluates its own FK (``costs/fused_fields.py``)."""
+    """Sums child costs on a ``[B, T, 2*n_dof]`` batch. With ``fk`` (a
+    chain's ``fk`` or ``fk_compact``) it computes the link poses of every
+    timestep once and passes them to every child."""
 
     costs: tuple
     n_dof: int
     traj_len: int
+    fk: Callable | None = None
 
     @classmethod
     def create(cls, n_dof, traj_len, cost_list: Sequence[Cost], fk=None):
-        if fk is not None:
-            raise NotImplementedError(
-                "CostComposite(fk=...) stacks are not ported yet; use PlaneFieldsCost"
-            )
-        return cls(costs=tuple(cost_list), n_dof=n_dof, traj_len=traj_len)
+        return cls(costs=tuple(cost_list), n_dof=n_dof, traj_len=traj_len, fk=fk)
 
     def supports_dof_planes(self) -> bool:
-        return all(c.supports_dof_planes() for c in self.costs)
+        return self.fk is None and all(c.supports_dof_planes() for c in self.costs)
 
     def eval_dof_planes(self, x_planes, observation=None):
         """Sum of child costs on the dof-factored batch ``[d, B, 2T]``."""
@@ -167,9 +190,23 @@ class CostComposite(Cost):
             total = v if total is None else total + v
         return total
 
-    def eval(self, trajs, observation=None):
+    def _fk_trajs(self, trajs):
+        """Link poses of ``trajs [B, T, 2d]``: ``[B, T, L, 4, 4]`` from
+        ``fk``, or a ``[B, T]``-batched ``LinkState`` from ``fk_compact``;
+        None without ``fk``."""
+        if self.fk is None:
+            return None
+        batch = trajs.shape[0]
+        out = self.fk(trajs.reshape(-1, trajs.shape[-1])[:, : self.n_dof])
+        if hasattr(out, "positions"):
+            return out.reshape(batch, self.traj_len)
+        return out.reshape(batch, self.traj_len, -1, 4, 4)
+
+    def eval(self, trajs, x_trajs=None, observation=None):
         trajs = trajs.reshape(-1, self.traj_len, 2 * self.n_dof)
+        if x_trajs is None:
+            x_trajs = self._fk_trajs(trajs)
         total = trajs.new_zeros(trajs.shape[0])
         for cost in self.costs:
-            total = total + cost.eval(trajs, observation=observation)
+            total = total + cost.eval(trajs, x_trajs=x_trajs, observation=observation)
         return total

@@ -1,23 +1,174 @@
-"""2D collision fields of the planar main path.
+"""Distance fields: task-space collision and goal costs.
 
-PyTorch counterpart of the 2D fields of ``stoch_gpmp_tpu/costs/fields.py``:
+PyTorch counterpart of ``stoch_gpmp_tpu/costs/fields.py``:
 
+- the link fields of the reference-shaped Panda stack, evaluated on FK
+  link poses (homogeneous ``[..., L, 4, 4]`` or a compact ``LinkState``):
+  ``LinkDistanceField`` (robot links against obstacle spheres),
+  ``LinkSelfDistanceField`` (all link pairs) and ``EESE3DistanceField``
+  (the end-effector pose against a target), in plain PyTorch;
 - ``OccupancyGridField``: ``grid[cell(y), cell(x)]`` by a gather, which a
   GPU serves directly (what ``ObstacleMap.as_field`` returns);
 - ``RasterPrimitive2DField``: the same occupancy, evaluated analytically
   from the primitives the grid was rasterized from (exact grid parity),
   through the raster-field kernel (``ops/kernels/fields.py``).
 
-The link fields of the Panda stack live in ``costs/fused_fields.py``.
+The fused forms of the link fields live in ``costs/fused_fields.py``. The
+mesh-sphere fields are not ported yet.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from math import ceil
+from typing import Sequence
 
 import numpy as np
 import torch
+
+from stoch_gpmp_tpu_torch.kinematics.se3 import se3_distance
+
+
+def _link_pos(link_tensor) -> torch.Tensor:
+    """Link positions ``[..., L, 3]`` from homogeneous ``[..., L, 4, 4]``
+    poses or a compact ``LinkState``."""
+    if hasattr(link_tensor, "positions"):
+        return link_tensor.positions
+    return link_tensor[..., :3, -1]
+
+
+def _ee_pose(link_tensor) -> torch.Tensor:
+    """End-effector pose ``[..., 4, 4]`` from either representation (the
+    last link is the end-effector)."""
+    if hasattr(link_tensor, "ee_pose"):
+        return link_tensor.ee_pose()
+    return link_tensor[..., -1, :, :]
+
+
+def _interpolate_links(link_pos: torch.Tensor, num_interpolate: int,
+                       interpolate_range: Sequence[int]) -> torch.Tensor:
+    """Append ``num_interpolate`` points along each consecutive link segment
+    in ``interpolate_range``: ``[..., L, 3] -> [..., L + n_extra, 3]``."""
+    if num_interpolate <= 0:
+        return link_pos
+    alpha = torch.linspace(0.0, 1.0, num_interpolate + 2, dtype=link_pos.dtype,
+                           device=link_pos.device)[1: num_interpolate + 1][:, None]
+    extras = []
+    for i in range(interpolate_range[0], interpolate_range[1]):
+        x1 = link_pos[..., i, None, :]
+        x2 = link_pos[..., i + 1, None, :]
+        extras.append(x1 + (x2 - x1) * alpha)
+    return torch.cat([link_pos] + extras, dim=-2)
+
+
+@dataclass
+class LinkDistanceField:
+    """Robot links against obstacle spheres. ``field_type``: ``'rbf'``
+    (Gaussian bumps summed), ``'sdf'`` (largest signed penetration,
+    optionally clamped at 0) or ``'occupancy'`` (links inside a sphere)."""
+
+    field_type: str = "rbf"
+    clamp_sdf: bool = False
+    num_interpolate: int = 0
+    link_interpolate_range: tuple = (5, 7)
+
+    def _link_positions(self, link_tensor) -> torch.Tensor:
+        return _interpolate_links(_link_pos(link_tensor), self.num_interpolate,
+                                  self.link_interpolate_range)
+
+    def distances(self, link_tensor, obstacle_spheres: torch.Tensor) -> torch.Tensor:
+        """Centre distances minus radii: ``[..., L, n_obst]``."""
+        link_pos = _link_pos(link_tensor)[..., None, :]
+        return (torch.linalg.norm(link_pos - obstacle_spheres[..., :3], dim=-1)
+                - obstacle_spheres[..., 3])
+
+    def compute_collision(self, link_tensor, obstacle_spheres=None, buffer: float = 0.02):
+        if obstacle_spheres is None:
+            return torch.zeros(_link_pos(link_tensor).shape[:-2], dtype=torch.bool,
+                               device=_link_pos(link_tensor).device)
+        d = self.distances(link_tensor, obstacle_spheres)
+        return (d < buffer).flatten(-2).any(dim=-1)
+
+    def compute_distance(self, link_tensor, obstacle_spheres=None, **kw):
+        lp = _link_pos(link_tensor)
+        if obstacle_spheres is None:
+            return torch.tensor(1e10, dtype=lp.dtype, device=lp.device)
+        return self.distances(link_tensor, obstacle_spheres).sum((-1, -2))
+
+    def compute_cost(self, link_tensor, obstacle_spheres=None, **kw) -> torch.Tensor:
+        """Link poses and ``obstacle_spheres [..., n_obst, 4]`` (centre,
+        radius) -> ``[...]``, reduced over links and obstacles."""
+        if obstacle_spheres is None:
+            lp = _link_pos(link_tensor)
+            return lp.new_zeros(lp.shape[:-2])
+        link_pos = self._link_positions(link_tensor)[..., None, :]  # [..., L, 1, 3]
+        centers, radii = obstacle_spheres[..., :3], obstacle_spheres[..., 3]
+        if self.field_type == "rbf":
+            sq = torch.sum(torch.square(link_pos - centers), dim=-1)
+            return torch.exp(-0.5 * sq / torch.square(radii)).sum((-1, -2))
+        if self.field_type == "sdf":
+            sdf = -torch.linalg.norm(link_pos - centers, dim=-1) + radii
+            if self.clamp_sdf:
+                sdf = torch.clamp(sdf, max=0.0)
+            return sdf.amax(dim=(-1, -2))
+        if self.field_type == "occupancy":
+            inside = torch.linalg.norm(link_pos - centers, dim=-1) < radii
+            return inside.sum((-1, -2)).to(link_pos.dtype)
+        raise ValueError(f"unknown field_type: {self.field_type}")
+
+
+@dataclass
+class LinkSelfDistanceField:
+    """Self-collision RBF over all ordered link pairs, the diagonal
+    included."""
+
+    margin: float = 0.03
+    num_interpolate: int = 0
+    link_interpolate_range: tuple = (5, 7)
+
+    def distances(self, link_tensor) -> torch.Tensor:
+        pos = _link_pos(link_tensor)
+        return torch.linalg.norm(pos[..., None, :] - pos[..., None, :, :], dim=-1)
+
+    def compute_collision(self, link_tensor, buffer: float = 0.05) -> torch.Tensor:
+        """Any pair of links at least two apart (``rows >= cols + 2``)
+        closer than ``buffer``."""
+        d = self.distances(link_tensor)
+        n = d.shape[-1]
+        idx = torch.arange(n, device=d.device)
+        mask = idx[:, None] >= idx[None, :] + 2
+        return ((d < buffer) & mask).flatten(-2).any(dim=-1)
+
+    def compute_distance(self, link_tensor) -> torch.Tensor:
+        return self.distances(link_tensor).sum((-1, -2))
+
+    def compute_cost(self, link_tensor, **kw) -> torch.Tensor:
+        pos = _interpolate_links(_link_pos(link_tensor), self.num_interpolate,
+                                 self.link_interpolate_range)
+        sq = torch.sum(torch.square(pos[..., None, :] - pos[..., None, :, :]), dim=-1)
+        return torch.exp(sq / (-(self.margin**2) * 2.0)).sum((-1, -2))
+
+
+@dataclass
+class EESE3DistanceField:
+    """End-effector SE(3) pose distance to a target transform (the last
+    link is the end-effector), squared unless ``square`` is False."""
+
+    target_h: torch.Tensor  # [4, 4]
+    w_pos: float = 1.0
+    w_rot: float = 1.0
+    square: bool = True
+
+    def update_target(self, target_h: torch.Tensor) -> "EESE3DistanceField":
+        return replace(self, target_h=target_h)
+
+    def compute_distance(self, link_tensor) -> torch.Tensor:
+        return se3_distance(_ee_pose(link_tensor), self.target_h, w_pos=self.w_pos,
+                            w_rot=self.w_rot)
+
+    def compute_cost(self, link_tensor, **kw) -> torch.Tensor:
+        dist = self.compute_distance(link_tensor)
+        return torch.square(dist) if self.square else dist
 
 
 @dataclass

@@ -1,8 +1,13 @@
-"""The Panda field stack evaluated on joint-angle planes.
+"""Fused forms of the Panda link-field costs.
 
-PyTorch counterpart of ``PlaneFieldsCost`` in
-``stoch_gpmp_tpu/costs/fused_fields.py``: self-collision RBF + obstacle RBF
-+ terminal SE(3) goal, equal in value to
+PyTorch counterpart of ``stoch_gpmp_tpu/costs/fused_fields.py``:
+
+- ``FusedLinkFieldsCost``: the pair ``CostCollision(LinkSelfDistanceField
+  (margin)) + CostCollision(LinkDistanceField('rbf'))`` in a
+  ``CostComposite`` with ``fk``, in one pass over the link positions of
+  timesteps ``1..T-1`` (kernel K7, ``ops/kernels/panda_fields.py``);
+- ``PlaneFieldsCost``: self-collision RBF + obstacle RBF + terminal SE(3)
+  goal on the joint angles, equal in value to
 
     CostCollision(LinkSelfDistanceField(margin), sigma_self)
   + CostCollision(LinkDistanceField('rbf'), sigma_coll)
@@ -22,7 +27,11 @@ from typing import Any
 import torch
 
 from stoch_gpmp_tpu_torch.costs.costs import Cost
-from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import fk_link_fields_cost_rows
+from stoch_gpmp_tpu_torch.costs.fields import _link_pos
+from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (
+    fk_link_fields_cost_rows,
+    fused_link_fields_cost,
+)
 
 
 def ee_goal_distance(chain, q_last, target_h, *, w_pos: float, w_rot: float, acos=torch.arccos):
@@ -42,6 +51,32 @@ def ee_goal_distance(chain, q_last, target_h, *, w_pos: float, w_rot: float, aco
             tr = tr + r_ee[i][j] * th[i, j]
     cos = torch.clamp((tr - 1.0) * 0.5, -1.0 + 1e-7, 1.0 - 1e-7)
     return w_pos * torch.sqrt(sq) + w_rot * acos(cos)
+
+
+@dataclass
+class FusedLinkFieldsCost(Cost):
+    """Self RBF + obstacle RBF over timesteps 1..T-1 from the FK link poses
+    that a ``CostComposite`` with ``fk`` passes, summed over time."""
+
+    margin: float = 0.03
+    sigma_self: float = 0.01
+    sigma_coll: float = 0.01
+
+    @classmethod
+    def create(cls, n_dof, traj_len, margin=0.03, sigma_self=0.01, sigma_coll=0.01, **kw):
+        del n_dof, traj_len, kw
+        return cls(margin=margin, sigma_self=sigma_self, sigma_coll=sigma_coll)
+
+    def eval(self, trajs, x_trajs=None, observation=None):
+        if x_trajs is None:
+            raise ValueError("FusedLinkFieldsCost requires FK link poses")
+        spheres = (observation or {}).get("obstacle_spheres", None)
+        vals = fused_link_fields_cost(
+            _link_pos(x_trajs)[:, 1:], spheres, margin=self.margin,  # [B, T-1, L, 3], a view
+            w_self=1.0 / self.sigma_self**2,
+            w_obst=1.0 / self.sigma_coll**2 if spheres is not None else 0.0,
+        )
+        return torch.sum(vals, dim=-1)
 
 
 @dataclass
@@ -82,7 +117,7 @@ class PlaneFieldsCost(Cost):
                                 w_pos=self.w_pos, w_rot=self.w_rot)
         return coll + dist * dist / self.sigma_goal**2
 
-    def eval(self, trajs, observation=None):
+    def eval(self, trajs, x_trajs=None, observation=None):
         """Flat ``[B, T, 2d]`` (or ``[B, M]``) batch: the position columns
         are read in place as ``[d, B, T]`` planes."""
         trajs = trajs.reshape(-1, self.traj_len, 2 * self.n_dof)

@@ -80,7 +80,7 @@ class QuadraticCost(Cost):
         on the card)."""
         return self.dof_form.eval_dof_planes(x_planes, observation=observation)
 
-    def eval(self, trajs, observation=None):
+    def eval(self, trajs, x_trajs=None, observation=None):
         batch = trajs.shape[0]
         if self.dof_form is not None and self.stencil_required:
             return self._eval_stencil(trajs)

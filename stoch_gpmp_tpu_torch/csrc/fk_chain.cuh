@@ -1,5 +1,7 @@
-// Forward kinematics of a serial chain and the link RBF fields at one
-// configuration, shared by fk_fields.cu (K4) and fused_panda_dof_step.cu (K5).
+// Forward kinematics of a serial chain, the link RBF fields and the SE(3)
+// goal distance at one configuration, shared by fk_fields.cu (K4, K8),
+// link_fields.cu (K7), fused_panda_step.cu (K6) and fused_panda_dof_step.cu
+// (K5).
 //
 // The TPU kernels fold the chain into their trace (KinematicChain
 // .fk_planes_from_scalars: Python-float constants, 0/+-1 entries dropped).
@@ -128,6 +130,42 @@ __device__ __forceinline__ float link_fields(const float* pos, int stride, int n
     acc += w_obst * o;
   }
   return acc;
+}
+
+// arccos by Abramowitz & Stegun 4.4.46 (|err| <= 2e-8 rad), as the TPU
+// kernels (ops/pallas/panda_step.py, panda_step_dof.py) compute it.
+__device__ __forceinline__ float acos_poly(float x) {
+  const float az = fabsf(x);
+  const float poly =
+      1.5707963050f +
+      az * (-0.2145988016f +
+            az * (0.0889789874f +
+                  az * (-0.0501743046f +
+                        az * (0.0308918810f +
+                              az * (-0.0170881256f +
+                                    az * (0.0066700901f + az * -0.0012624911f))))));
+  const float r = sqrtf(1.0f - az) * poly;
+  return x >= 0.0f ? r : 3.14159265358979323846f - r;
+}
+
+// w_pos |p_ee - p*| + w_rot acos_poly(clamp((tr(R_ee^T R*) - 1) / 2)) with
+// the end-effector position in the last link's column of pos (as fk_walk
+// writes it), its rotation ee_r and the row-major 4x4 target.
+__device__ __forceinline__ float ee_goal_distance(const float* pos, int stride, int n_links,
+                                                  const float (&ee_r)[9], const float* target,
+                                                  float w_pos, float w_rot) {
+  float sq = 0.0f, tr = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float dd = pos[(3 * (n_links - 1) + c) * stride] - target[4 * c + 3];
+    sq += dd * dd;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) tr += ee_r[3 * i + j] * target[4 * i + j];
+  const float cosang = fminf(fmaxf((tr - 1.0f) * 0.5f, -1.0f + 1e-7f), 1.0f - 1e-7f);
+  return w_pos * sqrtf(sq) + w_rot * acos_poly(cosang);
 }
 
 }  // namespace

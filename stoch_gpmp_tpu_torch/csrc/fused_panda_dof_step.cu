@@ -56,21 +56,6 @@ __device__ __forceinline__ float quad2(float a11, float a12, float a22, float r,
   return a11 * r * r + 2.0f * a12 * r * s + a22 * s * s;
 }
 
-// arccos by Abramowitz & Stegun 4.4.46, as ops/pallas/panda_step_dof.py.
-__device__ __forceinline__ float acos_poly(float x) {
-  const float az = fabsf(x);
-  const float poly =
-      1.5707963050f +
-      az * (-0.2145988016f +
-            az * (0.0889789874f +
-                  az * (-0.0501743046f +
-                        az * (0.0308918810f +
-                              az * (-0.0170881256f +
-                                    az * (0.0066700901f + az * -0.0012624911f))))));
-  const float r = sqrtf(1.0f - az) * poly;
-  return x >= 0.0f ? r : 3.14159265358979323846f - r;
-}
-
 __host__ __device__ __forceinline__ int round_up(int v, int k) { return (v + k - 1) / k * k; }
 
 __global__ void __launch_bounds__(MAX_LANES)
@@ -168,18 +153,8 @@ fused_panda_dof_step_kernel(const float* __restrict__ means, const float* __rest
     if (t == T - 1) {
       float g = 0.0f;
       if (prm.w_goal != 0.0f) {
-        float sq = 0.0f, tr = 0.0f;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float dd = pos_sh[(3 * (L - 1) + c) * M + m] - prm.target[4 * c + 3];
-          sq += dd * dd;
-        }
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-          for (int j = 0; j < 3; ++j) tr += ee_r[3 * i + j] * prm.target[4 * i + j];
-        const float cosang = fminf(fmaxf((tr - 1.0f) * 0.5f, -1.0f + 1e-7f), 1.0f - 1e-7f);
-        const float dist = prm.w_pos * sqrtf(sq) + prm.w_rot * acos_poly(cosang);
+        const float dist =
+            ee_goal_distance(pos_sh + m, M, L, ee_r, prm.target, prm.w_pos, prm.w_rot);
         g = prm.w_goal * (dist * dist);
       }
       goal_sh[s] = g;

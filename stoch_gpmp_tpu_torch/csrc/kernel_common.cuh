@@ -1,8 +1,8 @@
 // Device helpers shared by the fused iteration kernels
-// (fused_planar_step.cu, fused_panda_dof_step.cu): the Philox4x32-10
-// counter-based generator with a dual-output Box-Muller, warp and block
-// reductions, and the cp.async K-tile pipeline that multiplies a tile of
-// rows in shared memory by a matrix streamed from device memory.
+// (fused_planar_step.cu, fused_panda_step.cu, fused_panda_dof_step.cu): the
+// Philox4x32-10 counter-based generator with a dual-output Box-Muller, warp
+// and block reductions, and the cp.async K-tile pipeline that multiplies a
+// tile of rows in shared memory by a matrix streamed from device memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -87,14 +87,14 @@ __device__ __forceinline__ void load_ktile(const float* __restrict__ G, float* b
   cp_async_commit();
 }
 
-// acc[i] += sum_k xs[i][k] * G[k][m] for the ST rows of the tile in shared
-// memory, m = threadIdx.x (one thread per column, blockDim.x == M); G [M, M]
-// streams through the two KT-row buffers of g_sh, the copy of K-tile kt+1
-// overlapping the products of K-tile kt. M must be a multiple of KT and 4.
-template <int ST, int KT>
-__device__ __forceinline__ void tile_matmul(const float* xs, const float* __restrict__ G,
-                                            float* g_sh, int M, float (&acc)[ST]) {
-  const int m = threadIdx.x;
+// acc[c][i] += sum_k xs[i][k] * G[k][m] for the ST rows of the tile in
+// shared memory and the C columns m = threadIdx.x + c * blockDim.x of each
+// thread (C * blockDim.x == M); G [M, M] streams through the two KT-row
+// buffers of g_sh, the copy of K-tile kt+1 overlapping the products of
+// K-tile kt. M must be a multiple of KT and 4.
+template <int ST, int KT, int C>
+__device__ __forceinline__ void tile_matmul_cols(const float* xs, const float* __restrict__ G,
+                                                 float* g_sh, int M, float (&acc)[C][ST]) {
   const int nkt = M / KT;
   __syncthreads();  // every earlier reader of g_sh and writer of xs is done
   load_ktile<KT>(G, g_sh, 0, M);
@@ -110,19 +110,34 @@ __device__ __forceinline__ void tile_matmul(const float* xs, const float* __rest
     const int k0 = kt * KT;
     // four K steps per pass: the row operand is one 16-byte broadcast load
     for (int kk = 0; kk < KT; kk += 4) {
-      const float g0 = gt[kk * M + m], g1 = gt[(kk + 1) * M + m];
-      const float g2 = gt[(kk + 2) * M + m], g3 = gt[(kk + 3) * M + m];
+      float g[C][4];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int m = threadIdx.x + c * blockDim.x;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) g[c][j] = gt[(kk + j) * M + m];
+      }
 #pragma unroll
       for (int i = 0; i < ST; ++i) {
         const float4 a = *reinterpret_cast<const float4*>(xs + i * M + k0 + kk);
-        acc[i] = fmaf(a.x, g0, acc[i]);
-        acc[i] = fmaf(a.y, g1, acc[i]);
-        acc[i] = fmaf(a.z, g2, acc[i]);
-        acc[i] = fmaf(a.w, g3, acc[i]);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          acc[c][i] = fmaf(a.x, g[c][0], acc[c][i]);
+          acc[c][i] = fmaf(a.y, g[c][1], acc[c][i]);
+          acc[c][i] = fmaf(a.z, g[c][2], acc[c][i]);
+          acc[c][i] = fmaf(a.w, g[c][3], acc[c][i]);
+        }
       }
     }
     __syncthreads();  // buffer kt & 1 is consumed before it is refilled
   }
+}
+
+// tile_matmul_cols with one column per thread (blockDim.x == M).
+template <int ST, int KT>
+__device__ __forceinline__ void tile_matmul(const float* xs, const float* __restrict__ G,
+                                            float* g_sh, int M, float (&acc)[ST]) {
+  tile_matmul_cols<ST, KT, 1>(xs, G, g_sh, M, reinterpret_cast<float(&)[1][ST]>(acc));
 }
 
 }  // namespace

@@ -8,6 +8,7 @@ from stoch_gpmp_tpu_torch.kinematics.se3 import (
     homogeneous,
     rotation_angle,
     rpy_to_matrix,
+    se3_distance,
     x_rot,
     y_rot,
     z_rot,
@@ -23,6 +24,7 @@ __all__ = [
     "homogeneous",
     "rotation_angle",
     "rpy_to_matrix",
+    "se3_distance",
     "x_rot",
     "y_rot",
     "z_rot",

@@ -36,6 +36,21 @@ class LinkState:
     positions: torch.Tensor
     ee_rot: torch.Tensor
 
+    @property
+    def shape(self):
+        return self.positions.shape
+
+    def __getitem__(self, idx):
+        """Index the leading (batch) axes of both fields."""
+        return LinkState(positions=self.positions[idx], ee_rot=self.ee_rot[idx])
+
+    def reshape(self, *batch):
+        """Reshape the leading (batch) axes; the link and coordinate axes
+        stay."""
+        n_links = self.positions.shape[-2]
+        return LinkState(positions=self.positions.reshape(*batch, n_links, 3),
+                         ee_rot=self.ee_rot.reshape(*batch, 3, 3))
+
     def ee_pose(self) -> torch.Tensor:
         return homogeneous(self.ee_rot, self.positions[..., -1, :])
 

@@ -1,8 +1,9 @@
 """SE(3) / SO(3) helpers of the Panda slice.
 
 PyTorch counterpart of part of ``stoch_gpmp_tpu/kinematics/se3.py``:
-axis rotations, URDF roll-pitch-yaw, homogeneous assembly and the clamped
-geodesic rotation angle. Batched over leading axes.
+axis rotations, URDF roll-pitch-yaw, homogeneous assembly, the clamped
+geodesic rotation angle and the weighted SE(3) pose distance. Batched over
+leading axes.
 """
 
 from __future__ import annotations
@@ -55,3 +56,11 @@ def rotation_angle(r1: torch.Tensor, r2: torch.Tensor, eps: float = 1e-7) -> tor
     tr = torch.einsum("...ji,...ji->...", r1, r2)
     cos = torch.clamp((tr - 1.0) * 0.5, -1.0 + eps, 1.0 - eps)
     return torch.arccos(cos)
+
+
+def se3_distance(h1: torch.Tensor, h2: torch.Tensor, w_pos: float = 1.0,
+                 w_rot: float = 1.0) -> torch.Tensor:
+    """Weighted SE(3) pose distance between homogeneous transforms:
+    ``w_pos * |t1 - t2| + w_rot * geodesic_angle(R1, R2)``."""
+    pos = torch.linalg.norm(h1[..., :3, -1] - h2[..., :3, -1], dim=-1)
+    return w_pos * pos + w_rot * rotation_angle(h1[..., :3, :3], h2[..., :3, :3])

@@ -6,7 +6,12 @@ launch-counting wrapper and a plain PyTorch version in the same module.
 - ``stencil.dof_quad_eval`` (K3): the dof-plane stencil energy;
 - ``panda_fields.fk_link_fields_cost_rows`` (K4): FK + link fields;
 - ``panda_step_dof.fused_panda_dof_step`` (K5): the whole dof Panda
-  iteration.
+  iteration;
+- ``panda_step.fused_panda_step`` (K6): the whole flat Panda iteration;
+- ``panda_fields.fused_link_fields_cost`` (K7): link fields at given link
+  positions;
+- ``panda_fields.fk_link_fields_cost`` (K8): FK + link fields per
+  configuration.
 
 A wrapper launches its kernel for a CUDA tensor and runs the plain version
 only for a CPU tensor; it never falls back from one to the other.

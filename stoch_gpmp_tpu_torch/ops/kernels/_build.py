@@ -54,6 +54,20 @@ SIGNATURES = {
         _P, _I, _F, _F, _F,  # spheres, n_obst, inv_2m2, w_self, w_obst
         _P, _P, _P,  # FkChain*, out, stream
     ],
+    "fk_fields_points_launch": [
+        _P, _L, _L, _L,  # q, stride_n, stride_dof, N
+        _P, _I, _F, _F, _F,  # spheres, n_obst, inv_2m2, w_self, w_obst
+        _P, _P, _P,  # FkChain*, out, stream
+    ],
+    "link_fields_launch": [
+        _P, _L, _L, _L, _L, _L, _L, _I,  # pos, N0, N1, strides (0, 1, link, coord), L
+        _P, _I, _F, _F, _F,  # spheres, n_obst, inv_2m2, w_self, w_obst
+        _P, _P,  # out, stream
+    ],
+    "fused_panda_step_launch": [
+        _P, _P, _P, _P, _P, _P,  # means, prec_u, anchors, W, spheres, eps (or null)
+        _P, _P, _P, _P, _P,  # new_means, costs, PandaStepParams*, FkChain*, stream
+    ],
     "fused_panda_dof_step_launch": [
         _P, _P, _P, _P, _P, _P,  # means, prec_u, g_pd, W, spheres, eps (or null)
         _P, _P, _P, _P, _P,  # new_means, costs, DofStepParams*, FkChain*, stream

@@ -1,25 +1,37 @@
-"""FK + link fields per trajectory (kernel K4): wrapper and plain version.
+"""Link RBF fields: FK + fields per trajectory (kernel K4), fields at given
+link positions (K7) and FK + fields per configuration (K8); wrappers and
+plain versions.
 
-Replaces the TPU kernel ``stoch_gpmp_tpu/ops/pallas/panda_fields.py``
-``fk_link_fields_cost_rows`` (``_fk_fields_rows_kernel``), and the one-hot
-selection matmul of ``fk_link_fields_cost_flat`` in front of it: the kernel
-reads the joint-angle planes through their strides, so the dof planes
-``[d, B, 2T]`` and the flat ``[B, T, 2d]`` batch are both read in place.
-
-Per trajectory ``b`` the value is ``sum_{t >= 1}`` of, at ``q[:, b, t]``,
-the forward kinematics of the chain's selected links, then
+All three evaluate, at the link positions ``p_l`` of one configuration,
 
     w_self * (sum_{i < j} 2 exp(-|p_i - p_j|^2 / (2 margin^2)) + L)
   + w_obst * sum_{l, k} exp(-0.5 |p_l - c_k|^2 / r_k^2)
 
 (the self field sums all ordered link pairs with the diagonal, as the
-reference does). The CUDA source is ``csrc/fk_fields.cu`` with the chain
-walk in ``csrc/fk_chain.cuh``: one thread per ``(b, t)`` point, one block
-per trajectory reducing over ``t``. It is bound by the special-function
-unit: 81 ``exp`` and 7 ``sincos`` per point.
+reference does), term by term in the TPU kernels' order.
 
-``fk_link_fields_cost_rows`` launches the kernel for CUDA tensors and runs
-``fk_link_fields_cost_rows_plain`` only for CPU tensors.
+- K4, ``fk_link_fields_cost_rows``: replaces the TPU kernel
+  ``stoch_gpmp_tpu/ops/pallas/panda_fields.py fk_link_fields_cost_rows``
+  (``_fk_fields_rows_kernel``), and the one-hot selection matmul of
+  ``fk_link_fields_cost_flat`` in front of it. It reads the joint-angle
+  planes ``q [d, B, T]`` through their strides, so the dof planes
+  ``[d, B, 2T]`` and the flat ``[B, T, 2d]`` batch are both read in place,
+  and sums the fields over ``t >= 1`` per trajectory. The CUDA source is
+  ``csrc/fk_fields.cu`` with the chain walk in ``csrc/fk_chain.cuh``: one
+  thread per ``(b, t)`` point, one block per trajectory reducing over ``t``.
+  It is bound by the special-function unit: 81 ``exp`` and 7 ``sincos`` per
+  point.
+- K7, ``fused_link_fields_cost``: replaces ``fused_link_fields_cost``
+  (``_kernel``): the fields at link positions ``[..., L, 3]`` read through
+  their strides, one thread per point (``csrc/link_fields.cu``). Bound by
+  its bytes (108 B per point with 9 links).
+- K8, ``fk_link_fields_cost``: replaces ``fk_link_fields_cost``
+  (``_fk_fields_kernel``): FK + fields per row of ``q [N, d]``, read in
+  place, one thread per row (the second entry of ``csrc/fk_fields.cu``).
+  Bound as K4.
+
+Each wrapper launches its kernel for a CUDA tensor and runs its plain
+version only for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -156,3 +168,88 @@ def fk_link_fields_cost_rows(chain, q, spheres, *, margin, w_self, w_obst):
 
 
 fk_link_fields_cost_rows.launches = 0
+
+
+def fused_link_fields_cost_plain(positions, spheres, *, margin, w_self, w_obst):
+    """Plain PyTorch version of K7: link positions ``[..., L, 3]`` (any
+    strides) -> ``[...]``."""
+    pos = [[positions[..., l, c] for c in range(3)] for l in range(positions.shape[-2])]
+    vals = link_fields_plain(pos, spheres, margin=margin, w_self=w_self, w_obst=w_obst)
+    return vals + positions.new_zeros(positions.shape[:-2])
+
+
+def fused_link_fields_cost(positions, spheres, *, margin, w_self, w_obst):
+    """``w_self * LinkSelfDistanceField(margin) + w_obst *
+    LinkDistanceField('rbf')`` at link positions ``[..., L, 3]`` (any
+    strides) -> ``[...]``: kernel K7 for a CUDA tensor (float32), the plain
+    version for a CPU tensor. ``spheres``: ``[..., 4]`` obstacle spheres or
+    None."""
+    if positions.device.type == "cpu":
+        sp = None if spheres is None else spheres.reshape(-1, 4).to(positions.dtype)
+        return fused_link_fields_cost_plain(positions, sp, margin=margin, w_self=w_self,
+                                            w_obst=w_obst)
+    if positions.device.type != "cuda":
+        raise ValueError(f"link fields kernel: unsupported device {positions.device}")
+    if positions.dtype != torch.float32 or positions.dim() < 2 or positions.shape[-1] != 3:
+        raise ValueError("link fields kernel takes float32 [..., L, 3] link positions, got "
+                         f"{positions.dtype} {tuple(positions.shape)}")
+    batch = positions.shape[:-2]
+    out = torch.empty(batch, dtype=torch.float32, device=positions.device)
+    if out.numel() == 0:
+        return out
+    # two batch axes read through their strides; more are merged first
+    pos = positions.reshape((-1,) + positions.shape[-3:]) if len(batch) > 2 else \
+        positions.reshape((1,) * (2 - len(batch)) + positions.shape)
+    sp = _spheres(spheres, positions.device)
+    lib = _build.load_library()
+    err = lib.link_fields_launch(
+        pos.data_ptr(), pos.shape[0], pos.shape[1], *pos.stride(), pos.shape[2],
+        sp.data_ptr(), int(sp.shape[0]), 1.0 / (2.0 * margin * margin), float(w_self),
+        float(w_obst), out.data_ptr(), _build.stream_ptr(positions.device),
+    )
+    _build.check(err, "link_fields_launch")
+    fused_link_fields_cost.launches += 1
+    return out
+
+
+fused_link_fields_cost.launches = 0
+
+
+def fk_link_fields_cost_plain(chain, q, spheres, *, margin, w_self, w_obst):
+    """Plain PyTorch version of K8: ``q [N, d]`` (any strides) -> ``[N]``,
+    through the folded FK of ``chain.fk_planes_from_scalars``."""
+    pos = [p for _, p in chain.fk_planes_from_scalars([q[:, i] for i in range(chain.n_dofs)])]
+    vals = link_fields_plain(pos, spheres, margin=margin, w_self=w_self, w_obst=w_obst)
+    return vals + q.new_zeros(q.shape[0])
+
+
+def fk_link_fields_cost(chain, q, spheres, *, margin, w_self, w_obst):
+    """FK + link fields per configuration, ``q [N, d]`` (any strides) ->
+    ``[N]``: kernel K8 for a CUDA tensor (float32), the plain version for a
+    CPU tensor. Equal to :func:`fused_link_fields_cost` on
+    ``chain.fk_compact(q).positions`` up to float32 roundoff."""
+    if q.device.type == "cpu":
+        sp = None if spheres is None else spheres.reshape(-1, 4).to(q.dtype)
+        return fk_link_fields_cost_plain(chain, q, sp, margin=margin, w_self=w_self,
+                                         w_obst=w_obst)
+    if q.device.type != "cuda":
+        raise ValueError(f"fk point fields kernel: unsupported device {q.device}")
+    if q.dtype != torch.float32 or q.dim() != 2 or q.shape[1] != chain.n_dofs:
+        raise ValueError(f"fk point fields kernel takes float32 [N, {chain.n_dofs}] joint "
+                         f"angles, got {q.dtype} {tuple(q.shape)}")
+    out = torch.empty((q.shape[0],), dtype=torch.float32, device=q.device)
+    if q.shape[0] == 0:
+        return out
+    sp = _spheres(spheres, q.device)
+    lib = _build.load_library()
+    err = lib.fk_fields_points_launch(
+        q.data_ptr(), q.stride(0), q.stride(1), q.shape[0], sp.data_ptr(), int(sp.shape[0]),
+        1.0 / (2.0 * margin * margin), float(w_self), float(w_obst),
+        ctypes.byref(fk_chain_c(chain)), out.data_ptr(), _build.stream_ptr(q.device),
+    )
+    _build.check(err, "fk_fields_points_launch")
+    fk_link_fields_cost.launches += 1
+    return out
+
+
+fk_link_fields_cost.launches = 0

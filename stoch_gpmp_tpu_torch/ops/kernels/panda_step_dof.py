@@ -249,12 +249,14 @@ def fused_panda_dof_step(step: FusedPandaDofStep, means, prec_u, *, eps=None, se
 fused_panda_dof_step.launches = 0
 
 
-def fused_panda_dof_optimize(step: FusedPandaDofStep, means_planes, generator, opt_iters: int):
-    """``opt_iters`` fused iterations; one seed per iteration, all drawn from
-    ``generator`` up front (one host read, not one per iteration)."""
+def fused_panda_dof_optimize(step, means, generator, opt_iters: int):
+    """``opt_iters`` iterations of a fused step called as ``step(means,
+    seed=...)`` (K5's on dof planes, K6's on ``[P, T, 2d]`` means); one seed
+    per iteration, all drawn from ``generator`` up front (one host read, not
+    one per iteration)."""
     seeds = torch.randint(
         0, _SEED_HIGH, (opt_iters,), generator=generator, device=generator.device
     ).tolist()
     for seed in seeds:
-        means_planes, _ = step(means_planes, seed=seed)
-    return means_planes
+        means, _ = step(means, seed=seed)
+    return means

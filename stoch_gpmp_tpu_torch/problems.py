@@ -8,10 +8,15 @@
   ``sigma_goal_prior`` is the goal anchor of the cost (1e-3 gives weights of
   1e6, the matmul quadratic; 1e-5 gives 1e10 and the stencil quadratic).
 - ``build_panda_problem``: counterpart of ``benchmarks/run.py
-  _panda_problem(fast=True)``, the Panda 7-DOF stack
-  ``CostComposite([QuadraticCost, PlaneFieldsCost])`` with the same start,
-  goals and obstacle spheres from ``numpy.random.default_rng(0)``; config 5
-  is 10 goals x 128 particles, T = 128, 8 samples.
+  _panda_problem``, the Panda 7-DOF problem with the same start, goals and
+  obstacle spheres from ``numpy.random.default_rng(0)``. ``fast=True``
+  builds the fast stack ``CostComposite([QuadraticCost, PlaneFieldsCost])``;
+  ``fast=False`` the reference-shaped stack of
+  ``examples/panda_environment.py``: ``CostGP``, ``CostGoalPrior``, the
+  self and obstacle ``CostCollision``s and ``CostGoal(EESE3DistanceField)``
+  on the link poses of ``fk=chain.fk_compact``. The defaults are config 4
+  (1 goal x 5 particles, T = 64, 32 samples); config 5 is 10 goals x 128
+  particles, T = 128, 8 samples.
 
 ``device=None`` means the CUDA card (raises without one); pass
 ``device="cpu"`` to build on the CPU.
@@ -98,15 +103,25 @@ PANDA_SAMPLE_SIGMAS = (0.001, 0.1, 0.07)
 
 
 def build_panda_problem(num_goals=1, ppg=5, traj_len=64, num_samples=32, *,
-                        dtype=torch.float32, device=None, seed=0):
+                        dtype=torch.float32, device=None, seed=0, fast=True):
     """``(sampler, cost, state, observation, num_samples)`` of the Panda
     workload: goals ``start_q + U(-0.3, 0.3)`` and five spheres (centres
     ``U([0.6, -0.2, 0.6], [1.0, 0.2, 1.0])``, radii ``U(0.1, 0.2)``), both
     from ``default_rng(0)``; the target pose ``Rz(-pi) Ry(-pi)`` at
     ``(0.3, 0.3, 0.3)``; the state's means are the straight start-to-goal
     lines, ``ppg`` per goal, and its generator is seeded with ``seed``."""
-    from stoch_gpmp_tpu_torch.costs import CostComposite, CostGP, CostGoalPrior, QuadraticCost
-    from stoch_gpmp_tpu_torch.costs.fused_fields import PlaneFieldsCost
+    from stoch_gpmp_tpu_torch.costs import (
+        CostCollision,
+        CostComposite,
+        CostGP,
+        CostGoal,
+        CostGoalPrior,
+        EESE3DistanceField,
+        LinkDistanceField,
+        LinkSelfDistanceField,
+        PlaneFieldsCost,
+        QuadraticCost,
+    )
     from stoch_gpmp_tpu_torch.gp.prior import make_gp_prior
     from stoch_gpmp_tpu_torch.kinematics import franka_panda, homogeneous, y_rot, z_rot
     from stoch_gpmp_tpu_torch.planners import SamplerModel, StochGPMPState
@@ -126,11 +141,22 @@ def build_panda_problem(num_goals=1, ppg=5, traj_len=64, num_samples=32, *,
                             {"sigma_start": 0.0001, "sigma_gp": 0.0007}, dtype=dtype, device=device)
     cost_goal = CostGoalPrior.create(n_dof, traj_len, goals, sigma_goal_prior=20.0,
                                      dtype=dtype, device=device)
-    cost = CostComposite.create(n_dof, traj_len, [
-        QuadraticCost.from_gp_and_goal_prior(cost_gp, cost_goal, traj_len),
-        PlaneFieldsCost.create(n_dof, traj_len, chain, target_h, margin=0.03,
-                               sigma_self=0.01, sigma_coll=0.01, sigma_goal=0.00007),
-    ])
+    if fast:
+        cost = CostComposite.create(n_dof, traj_len, [
+            QuadraticCost.from_gp_and_goal_prior(cost_gp, cost_goal, traj_len),
+            PlaneFieldsCost.create(n_dof, traj_len, chain, target_h, margin=0.03,
+                                   sigma_self=0.01, sigma_coll=0.01, sigma_goal=0.00007),
+        ])
+    else:
+        cost = CostComposite.create(n_dof, traj_len, [
+            cost_gp,
+            cost_goal,
+            CostCollision.create(n_dof, traj_len, LinkSelfDistanceField(margin=0.03),
+                                 sigma_coll=0.01),
+            CostCollision.create(n_dof, traj_len, LinkDistanceField(), sigma_coll=0.01),
+            CostGoal.create(n_dof, traj_len, EESE3DistanceField(target_h=target_h),
+                            sigma_goal=0.00007),
+        ], fk=chain.fk_compact)
     s_start, s_gp, s_goal = PANDA_SAMPLE_SIGMAS
     prior = make_gp_prior(n_dof, traj_len, PANDA_DT, start_state, s_start, s_gp,
                           sigma_goal=s_goal, goal_states=goals, dtype=dtype, device=device)

@@ -13,7 +13,10 @@ sample agrees; Philox moments within (0.85, 1.15). At config 5: K3 within
 1e-3 and K4 within 1e-4 relative of float64 oracles; K5 costs within 1e-4 of
 its plain version with the best sample agreeing, the RNG-free tiers within
 3e-4 / 1e-3 of float64 oracles, Philox moments within (0.85, 1.15); the
-Panda main path's descent, start-anchor and launch-count gates.
+Panda main path's descent, start-anchor and launch-count gates. At config 4:
+K6 as K5 (every particle's best sample agreeing); K7 and K8 within 1e-4
+relative of float64 oracles and K8 of K7; the four routes' descent,
+start-anchor, launch-count and stack-equality (1e-4) gates.
 """
 
 import sys
@@ -81,3 +84,29 @@ def test_panda_main_path(dev):
 
     r = chip_smoke.panda_main_path(dev)
     assert r["fused"]["launches"]["fused_panda_dof_step"] == chip_smoke.PANDA_ITERS - 1
+
+
+@pytest.mark.parametrize("check", ["eps", "rng_free", "moments"])
+def test_fused_flat_step_kernel(dev, check):
+    import chip_smoke
+
+    fn = {"eps": chip_smoke.fused_flat_check, "rng_free": chip_smoke.fused_flat_rng_free_check,
+          "moments": chip_smoke.fused_flat_moments_check}[check]
+    assert fn(dev)  # each check raises on failure
+
+
+def test_link_fields_kernels_match_oracles(dev):
+    import chip_smoke
+
+    r = chip_smoke.link_fields_check(dev)
+    assert max(r["K7"]["max_rel"], r["K7"]["config4_max_rel"], r["K8"]["max_rel"],
+               r["K8"]["k7_rel"]) <= chip_smoke.K4_RTOL
+
+
+def test_panda4_routes(dev):
+    import chip_smoke
+
+    r = chip_smoke.panda4_main_path(dev)
+    assert r["a"]["launches"]["fused_panda_step"] == chip_smoke.PANDA4_ITERS
+    assert r["d"]["launches"]["link_fields"] == chip_smoke.PANDA4_ITERS
+    assert max(r["stack_rel"].values()) <= chip_smoke.STACK_RTOL

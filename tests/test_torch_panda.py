@@ -403,16 +403,20 @@ def test_entry_points_default_to_cuda():
 
 
 def test_panda_slice_never_imports_jax():
-    """The Panda slice's modules and a CPU build of its problem load no JAX
-    and nothing of the JAX package."""
+    """The Panda slices' modules (the dof path's and the flat path's, K3-K8),
+    a CPU build of both stacks and an evaluation of each load no JAX and
+    nothing of the JAX package."""
     code = (
         "import sys, torch\n"
         "import stoch_gpmp_tpu_torch.kinematics, stoch_gpmp_tpu_torch.costs.fused_fields\n"
-        "import stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof\n"
+        "import stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof, stoch_gpmp_tpu_torch.ops.kernels.panda_step\n"
+        "import stoch_gpmp_tpu_torch.costs.fields, stoch_gpmp_tpu_torch.convert\n"
         "from stoch_gpmp_tpu_torch.problems import build_panda_problem\n"
         "from stoch_gpmp_tpu_torch.planners import stoch_gpmp_optimize\n"
         "sa, c, st, o, s = build_panda_problem(1, 2, 128, 2, device='cpu')\n"
         "stoch_gpmp_optimize(sa, c, st, o, opt_iters=1, num_samples=s, temperature=1.0, step_size=0.1)\n"
+        "sa, c, st, o, s = build_panda_problem(device='cpu', fast=False)\n"
+        "c.eval(st.particle_means, observation=o)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'stoch_gpmp_tpu.', 'benchmarks')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
