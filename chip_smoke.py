@@ -48,7 +48,28 @@ Phases, one line each; any failure exits non-zero before the result line:
     (K4), (c) the reference-shaped stack on ``fk=chain.fk_compact`` and (d)
     the same with ``FusedLinkFieldsCost`` (K7); descent, start-anchor,
     launch-count and stack-equality gates, updates/s, wall and device ms per
-    iteration, the busy share and the largest kernels.
+    iteration, the busy share and the largest kernels;
+14. K9, the planar iteration with one seed pair per particle
+    (``make_fused_planar_step``): eps operand against its plain version at
+    the parity shape on both quadratic branches under K2's gates, the Philox
+    moments with per-particle seeds, and ``fused_planar_optimize`` for 500
+    iterations at parity with the main path's goal and start gates;
+15. K10, the occupancy-grid lookup, and K11, the analytic primitive field,
+    against their plain versions with exact equality at the planner's
+    strided ``[1920, 63, 2]`` slice plus off-map, cell-edge and
+    primitive-boundary points (K10 also on a random 200 x 200 grid), timed
+    at that shape and at 1.31 M points;
+16. planar-ref-main: ``StochGPMP`` on the reference-shaped planar stack
+    (``CostGP + CostGoalPrior + CostCollision(field)``) at parity, 500
+    iterations on two routes, (g) the occupancy grid (K10) and (p) the
+    primitives (K11), with the main path's gates and launch counts;
+17. gn-main: Gauss-Newton ``GPMP`` on ``build_planar_gpmp_problem(96)``
+    (P = 192, T = 64), 100 iterations with ``cholesky`` and with
+    ``woodbury`` from the same initial means, and 3 iterations of
+    ``inverse`` against ``cholesky``; finite means, goal and start gates,
+    the methods' agreement and K10's launches per iteration, with
+    particle-updates/s, wall and device ms per iteration, the busy share
+    and the largest kernels.
 
 Times: ``ms``/``plain_ms`` are per call over back-to-back calls through
 the wrapper (CUDA events), which includes the host's launch cost where it
@@ -133,6 +154,24 @@ PANDA_DESCENT_SHARE, PANDA_START_TOL = 0.5, 2e-2
 PANDA4 = dict(num_goals=1, ppg=5, traj_len=64, num_samples=32)
 PANDA4_ITERS = 500
 STACK_RTOL = 1e-4
+# The fields K10/K11 are timed at the planner's shape and at BIG_POINTS
+# (20480 x 64) points.
+BIG_POINTS = 20480 * 64
+# Gauss-Newton GPMP on examples/planar_gpmp.py at the GN parity scale of
+# docs/PERFORMANCE.md: 2 goals x 96 particles, T = 64, 100 iterations. Gates:
+# end points within GN_GOAL_TOL of the goals (the example prints ~1e-2; the
+# JAX package in float32 on the CPU ends 0.0036 from them, start 0.0028),
+# starts within GN_START_TOL, and cholesky and woodbury means within
+# GN_METHOD_ATOL of each other after GN_ITERS: the JAX package in float32 on
+# the CPU, same configuration and initial means, puts them 2.9e-6 apart on
+# means of up to 9; the card sums in other orders, so the gate is ~35x that.
+# After 3 iterations the float32 solves of the ill-conditioned system (delta
+# 1e-2 against weights of 1e4..4e5) still disagree: inverse and cholesky
+# 0.016 apart in the JAX package (0.021 in the port), so that gate,
+# GN_INVERSE3_ATOL, is ~3x the JAX package's. Measured by
+# `python tests/test_torch_gpmp.py`.
+GN_PPG, GN_ITERS = 96, 100
+GN_GOAL_TOL, GN_START_TOL, GN_METHOD_ATOL, GN_INVERSE3_ATOL = 0.05, 0.02, 1e-4, 0.05
 # Peak rates of one H100 SXM (data sheet) for the bound_ms column.
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
 
@@ -177,9 +216,10 @@ def device_ms(fn, reps: int) -> float | None:
     return busy_us / 1e3 / reps if busy_us > 0 else None
 
 
-def device_breakdown(fn, reps: int, top: int = 8) -> tuple[float | None, list]:
-    """Like :func:`device_ms`, plus the ``top`` device kernels by time:
-    ``(total ms per call or None, [(name, ms per call), ...])``."""
+def device_breakdown(fn, reps: int, top: int = 8) -> tuple[float | None, list, float]:
+    """Like :func:`device_ms`, plus the ``top`` device kernels by time and
+    the number of device operations (kernels and copies) per call:
+    ``(total ms per call or None, [(name, ms per call), ...], ops per call)``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -188,17 +228,26 @@ def device_breakdown(fn, reps: int, top: int = 8) -> tuple[float | None, list]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3 / reps) for e in prof.key_averages()]
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows = [(e.key, e.self_device_time_total / 1e3 / reps) for e in events]
     busy = sum(ms for _, ms in rows)
-    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:top]
-    return (busy if busy > 0 else None), [(name[:48], ms) for name, ms in rows]
+    rows = sorted(rows, key=lambda r: -r[1])[:top]
+    ops = sum(e.count for e in events) / reps
+    return (busy if busy > 0 else None), [(name[:48], ms) for name, ms in rows], ops
 
 
 def kernel_counters() -> dict:
     """Every kernel wrapper of the port by its JSON name; each counts its
     launches in ``.launches``."""
-    from stoch_gpmp_tpu_torch.ops.kernels.fields import raster_primitive_cost
-    from stoch_gpmp_tpu_torch.ops.kernels.fused_step import fused_planar_step
+    from stoch_gpmp_tpu_torch.ops.kernels.fields import (
+        grid_lookup,
+        primitive_field_cost,
+        raster_primitive_cost,
+    )
+    from stoch_gpmp_tpu_torch.ops.kernels.fused_step import (
+        fused_planar_step,
+        fused_planar_step_per_particle,
+    )
     from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (
         fk_link_fields_cost,
         fk_link_fields_cost_rows,
@@ -211,7 +260,9 @@ def kernel_counters() -> dict:
     return {"raster_field": raster_primitive_cost, "fused_planar_step": fused_planar_step,
             "dof_quad_eval": dof_quad_eval, "fk_fields": fk_link_fields_cost_rows,
             "fused_panda_dof_step": fused_panda_dof_step, "fused_panda_step": fused_panda_step,
-            "link_fields": fused_link_fields_cost, "fk_fields_points": fk_link_fields_cost}
+            "link_fields": fused_link_fields_cost, "fk_fields_points": fk_link_fields_cost,
+            "fused_planar_step_per_particle": fused_planar_step_per_particle,
+            "grid_lookup": grid_lookup, "primitive_field": primitive_field_cost}
 
 
 def reset_counters() -> None:
@@ -238,6 +289,28 @@ def _cast(obj, dtype, device):
     return replace(obj, **{
         f.name: getattr(obj, f.name).to(device=device, dtype=dtype) for f in fields(obj)
         if torch.is_tensor(getattr(obj, f.name)) and getattr(obj, f.name).is_floating_point()})
+
+
+def planar_gates(what: str, means, out=None) -> tuple[float, float]:
+    """The planar paths' gates on the final ``means [15, T, 4]`` (and the
+    planner's 6-tuple ``out``, when given: its shapes and finite values):
+    end points within GOAL_TOL of their goals, starts within START_TOL.
+    Returns ``(goal_err, start_err)``."""
+    from stoch_gpmp_tpu_torch.problems import GOALS, START
+
+    p = means.shape[0]
+    if out is not None:
+        shapes = [tuple(o.shape) for o in out]
+        if shapes != [(p, T, 2), (p, T, 2), (p, S, T, 2), (p, S, T, 2), (p, S), (p, T, 4)]:
+            fail(f"{what}: unexpected 6-tuple shapes {shapes}")
+    if not all(bool(torch.isfinite(o).all()) for o in (out or (means,))):
+        fail(f"{what}: non-finite output")
+    ends = means.reshape(3, PPG, T, 4)[:, :, -1, :2].cpu()
+    goal_err = float((ends - torch.tensor(GOALS)[:, None, :2]).norm(dim=-1).max())
+    start_err = float((means[:, 0, :2].cpu() - torch.tensor(START[:2])).abs().max())
+    if goal_err >= GOAL_TOL or start_err >= START_TOL:
+        fail(f"{what}: end points {goal_err:.3g} from the goals, start {start_err:.3g}")
+    return goal_err, start_err
 
 
 def raster_check(dev) -> dict:
@@ -275,10 +348,14 @@ def raster_check(dev) -> dict:
                 device_ms=device_ms(kernel, 100), plain_device_ms=device_ms(plain, 20))
 
 
-def make_step(dev, sigma_goal_prior=1e-3, zero_quad=False):
-    """K2's step object for the parity problem (or the pure sampler of the
-    moments check: quadratic, importance and obstacles removed)."""
-    from stoch_gpmp_tpu_torch.ops.kernels.fused_step import make_fused_planar_step_batched
+def make_step(dev, sigma_goal_prior=1e-3, zero_quad=False, per_particle=False):
+    """K2's (or with ``per_particle`` K9's) step object for the parity
+    problem (or the pure sampler of the moments check: quadratic,
+    importance and obstacles removed)."""
+    from stoch_gpmp_tpu_torch.ops.kernels.fused_step import (
+        make_fused_planar_step,
+        make_fused_planar_step_batched,
+    )
     from stoch_gpmp_tpu_torch.problems import build_planar_problem
 
     sampler, cost, state = build_planar_problem(
@@ -293,7 +370,8 @@ def make_step(dev, sigma_goal_prior=1e-3, zero_quad=False):
         prior = replace(prior, q_i2=z, k_s2=z, k_g2=z)
         rects, circles = rects[:0], circles[:0]
         k_coll, tau, step_size = 0.0, 1e30, 1.0
-    step = make_fused_planar_step_batched(
+    make = make_fused_planar_step if per_particle else make_fused_planar_step_batched
+    step = make(
         weight_t=sampler.weight_t, dof_prior=prior, dof_quad=dq,
         num_particles=state.particle_means.shape[0], rect_bounds=rects, circles=circles,
         cell_size=coll.field.cell_size, nx=coll.field.nx, ny=coll.field.ny,
@@ -303,26 +381,31 @@ def make_step(dev, sigma_goal_prior=1e-3, zero_quad=False):
     return step, state
 
 
-def fused_check(dev, branch: str) -> dict:
-    """K2 (eps operand) vs its plain version on the card."""
+def fused_check(dev, branch: str, per_particle: bool = False) -> dict:
+    """K2 (or with ``per_particle`` K9), eps operand, vs its plain version
+    on the card."""
     from stoch_gpmp_tpu_torch.ops.kernels.fused_step import (
         fused_planar_step,
+        fused_planar_step_per_particle,
         fused_planar_step_plain,
     )
 
-    step, state = make_step(dev, sigma_goal_prior=1e-5 if branch == "stencil" else 1e-3)
+    kname = "K9" if per_particle else "K2"
+    step, state = make_step(dev, sigma_goal_prior=1e-5 if branch == "stencil" else 1e-3,
+                            per_particle=per_particle)
     if step.use_stencil != (branch == "stencil"):
-        fail(f"K2 {branch}: the gate picked the other quadratic")
+        fail(f"{kname} {branch}: the gate picked the other quadratic")
     p = state.particle_means.shape[0]
     means = state.particle_means.reshape(p, -1).contiguous()
     prec_u = step.dof_prior.matvec_flat(state.particle_means).reshape(p, -1)
     gen = torch.Generator(device=dev).manual_seed(1)
     eps = torch.randn((p, S, means.shape[1]), generator=gen, device=dev)
-    new_k, cost_k = fused_planar_step(step, means, prec_u, eps=eps)
+    wrapper = fused_planar_step_per_particle if per_particle else fused_planar_step
+    new_k, cost_k = wrapper(step, means, prec_u, eps=eps)
     new_p, cost_p = fused_planar_step_plain(step, means, prec_u, eps)
     torch.cuda.synchronize()
     if not (torch.isfinite(cost_k).all() and torch.isfinite(new_k).all()):
-        fail(f"K2 {branch}: non-finite output")
+        fail(f"{kname} {branch}: non-finite output")
     diff = (cost_k - cost_p).abs()
     tol = COST_RTOL * cost_p.abs()
     near = diff <= tol
@@ -331,21 +414,23 @@ def fused_check(dev, branch: str) -> dict:
     bad = ~(near | edge)
     edge_share = float(edge.float().mean())
     if bool(bad.any()):
-        fail(f"K2 {branch}: {int(bad.sum())} costs off by more than rtol {COST_RTOL} "
+        fail(f"{kname} {branch}: {int(bad.sum())} costs off by more than rtol {COST_RTOL} "
              f"(max rel {float((diff / cost_p.abs()).max()):.3g})")
     if edge_share > EDGE_SHARE:
-        fail(f"K2 {branch}: {edge_share:.3%} of the samples flipped a cell edge")
+        fail(f"{kname} {branch}: {edge_share:.3%} of the samples flipped a cell edge")
     agree = cost_k.argmin(1) == cost_p.argmin(1)
     if float(agree.float().mean()) < MIN_ARGMAX_AGREE:
-        fail(f"K2 {branch}: best sample agrees for only {int(agree.sum())}/{p} particles")
+        fail(f"{kname} {branch}: best sample agrees for only {int(agree.sum())}/{p} particles")
     mean_err = float((new_k - new_p)[agree].abs().max())
     if mean_err > MEAN_ATOL:
-        fail(f"K2 {branch}: new means differ by {mean_err:.3g} where the best sample agrees")
+        fail(f"{kname} {branch}: new means differ by {mean_err:.3g} where the best sample agrees")
     out = dict(cost_max_rel=float((diff[near] / cost_p.abs()[near]).max()),
                edge_flips=int(edge.sum()), argmax_agree=int(agree.sum()), particles=p,
                max_abs_err=mean_err)
     if branch == "matmul":  # time the main path's branch: seed mode vs plain + its draw
-        kernel = lambda: fused_planar_step(step, means, prec_u, seed=3)  # noqa: E731
+        rng = (dict(seeds=torch.randint(-(2**31), 2**31, (p, 2), generator=gen, device=dev,
+                                        dtype=torch.int32)) if per_particle else dict(seed=3))
+        kernel = lambda: wrapper(step, means, prec_u, **rng)  # noqa: E731
         plain = lambda: fused_planar_step_plain(  # noqa: E731
             step, means, prec_u, torch.randn((p, S, means.shape[1]), generator=gen, device=dev))
         out.update(ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 50),
@@ -353,28 +438,40 @@ def fused_check(dev, branch: str) -> dict:
     return out
 
 
-def moments_check(dev) -> dict:
-    """K2 with Philox draws and uniform weights: the update is the sample
-    mean of ``eps @ W``, so its per-lane variance is diag(W^T W) / S."""
-    from stoch_gpmp_tpu_torch.ops.kernels.fused_step import fused_planar_step
+def moments_check(dev, per_particle: bool = False) -> dict:
+    """K2 (or with ``per_particle`` K9, the configuration of the JAX
+    package's tests/test_fused_step_tpu.py:63-96) with Philox draws and
+    uniform weights: the update is the sample mean of ``eps @ W``, so its
+    per-lane variance is diag(W^T W) / S."""
+    from stoch_gpmp_tpu_torch.ops.kernels.fused_step import (
+        fused_planar_step,
+        fused_planar_step_per_particle,
+    )
 
-    step, state = make_step(dev, zero_quad=True)
+    step, state = make_step(dev, zero_quad=True, per_particle=per_particle)
     p = state.particle_means.shape[0]
     means = state.particle_means.reshape(p, -1).contiguous()
     prec_u = torch.zeros_like(means)
+    gen = torch.Generator(device=dev).manual_seed(7)
     diffs = []
     for seed in range(100):
-        new, _ = fused_planar_step(step, means, prec_u, seed=1000 + seed)
+        if per_particle:
+            seeds = torch.randint(-(2**31), 2**31, (p, 2), generator=gen, device=dev,
+                                  dtype=torch.int32)
+            new, _ = fused_planar_step_per_particle(step, means, prec_u, seeds=seeds)
+        else:
+            new, _ = fused_planar_step(step, means, prec_u, seed=1000 + seed)
         diffs.append(new - means)
     d = torch.stack(diffs).double()  # [seeds, P, M]
     emp_var = d.var(dim=(0, 1))
     want_var = (step.weight_t.double() ** 2).sum(0) / S
     ratio = float((emp_var / want_var).median())
     max_mean = float(d.mean(dim=(0, 1)).abs().max())
+    kname = "K9" if per_particle else "K2"
     if not 0.85 < ratio < 1.15:
-        fail(f"K2 Philox: median variance ratio {ratio:.4f} outside (0.85, 1.15)")
+        fail(f"{kname} Philox: median variance ratio {ratio:.4f} outside (0.85, 1.15)")
     if not max_mean < 0.02:
-        fail(f"K2 Philox: largest per-lane mean {max_mean:.4f} >= 0.02")
+        fail(f"{kname} Philox: largest per-lane mean {max_mean:.4f} >= 0.02")
     return dict(var_ratio_median=ratio, max_lane_mean=max_mean)
 
 
@@ -407,17 +504,7 @@ def main_path(dev) -> dict:
                 if k in ("raster_field", "fused_planar_step")}
     if min(launches.values()) < 1:
         fail(f"main path did not launch every kernel: {launches}")
-    shapes = [tuple(o.shape) for o in out]
-    if shapes != [(p, T, 2), (p, T, 2), (p, S, T, 2), (p, S, T, 2), (p, S), (p, T, 4)]:
-        fail(f"main path: unexpected 6-tuple shapes {shapes}")
-    means = planner.particle_means
-    if not all(bool(torch.isfinite(o).all()) for o in out):
-        fail("main path: non-finite output")
-    ends = means.reshape(3, PPG, T, 4)[:, :, -1, :2].cpu()
-    goal_err = float((ends - torch.tensor(GOALS)[:, None, :2]).norm(dim=-1).max())
-    start_err = float((means[:, 0, :2].cpu() - torch.tensor(START[:2])).abs().max())
-    if goal_err >= GOAL_TOL or start_err >= START_TOL:
-        fail(f"main path: end points {goal_err:.3g} from the goals, start {start_err:.3g}")
+    goal_err, start_err = planar_gates("main path", planner.particle_means, out)
 
     # the fused loop, kernel vs plain K2 on the card: plain, kernel, kernel, plain
     run = planner._fused_runner({})
@@ -769,7 +856,7 @@ def panda_main_path(dev) -> dict:
         window()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) / 20 * 1e3
-        dev_ms, top = device_breakdown(window, 1)
+        dev_ms, top, ops = device_breakdown(window, 1)
         out[name] = dict(
             top_kernels_ms_per_iter=[(k, ms / 20) for k, ms in top],
             launches=launches, cost0=c0, cost=c1, start_err=start_err,
@@ -1063,9 +1150,10 @@ def panda4_main_path(dev) -> dict:
         window()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) / 20 * 1e3
-        dev_ms, top = device_breakdown(window, 1)
+        dev_ms, top, ops = device_breakdown(window, 1)
         out[route] = dict(
             top_kernels_ms_per_iter=[(k, ms / 20) for k, ms in top], launches=launches,
+            device_ops_per_iter=ops / 20,
             cost0=c0, cost=c1, start_err=start_err, optimize_seconds=seconds,
             updates_per_s=p * PANDA4_ITERS / seconds, iter_wall_ms=wall,
             iter_device_ms=None if dev_ms is None else dev_ms / 20,
@@ -1082,6 +1170,228 @@ def panda4_main_path(dev) -> dict:
     if max(stack_rel.values()) > STACK_RTOL:
         fail(f"panda4: stacks (c), (d) differ from (b) on its means by {stack_rel} (> {STACK_RTOL})")
     out["stack_rel"] = stack_rel
+    return out
+
+
+def k9_loop(dev) -> dict:
+    """K9's loop, ``fused_planar_optimize`` (one seed pair per particle, all
+    drawn up front), for ``ITERS`` iterations at parity from the straight
+    lines, as the JAX package's tests/test_fused_step_tpu.py drives it:
+    the main path's goal and start gates."""
+    from stoch_gpmp_tpu_torch.ops.kernels.fused_step import fused_planar_optimize
+
+    step, state = make_step(dev, per_particle=True)
+    means0 = state.particle_means
+    p = means0.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    counters = {k: fn for k, fn in kernel_counters().items()
+                if k in ("fused_planar_step", "fused_planar_step_per_particle")}
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    means = fused_planar_optimize(step, means0, gen, ITERS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if launches != {"fused_planar_step": 0, "fused_planar_step_per_particle": ITERS}:
+        fail(f"K9 loop: launches {launches}")
+    goal_err, start_err = planar_gates("K9 loop", means)
+    busy = device_ms(lambda: fused_planar_optimize(step, means0, gen, 50), 1)
+    iter_ms = 1e3 * seconds / ITERS
+    return dict(launches=launches, goal_err=goal_err, start_err=start_err,
+                updates_per_s=p * ITERS / seconds, iter_wall_ms=iter_ms,
+                iter_device_ms=None if busy is None else busy / 50,
+                device_busy=None if busy is None else busy / 50 / iter_ms)
+
+
+def _edge_points(k, dev):
+    """``k [N, 2]`` points and their float32 neighbours on both sides."""
+    return torch.cat([k, torch.nextafter(k, torch.full_like(k, 1e9)),
+                      torch.nextafter(k, torch.full_like(k, -1e9)),
+                      torch.tensor([[50.0, -50.0], [-1e6, 1e6]], device=dev)])
+
+
+def field2d_check(dev) -> dict:
+    """K10 and K11 vs their plain versions, exact, at the planner's strided
+    ``[1920, 63, 2]`` slice plus off-map points, cell edges (K10) and
+    primitive boundaries (K11); K10 on the map's grid and on a random
+    200 x 200 grid. Timed at that shape and at ``BIG_POINTS``."""
+    from stoch_gpmp_tpu_torch.ops.kernels.fields import (
+        grid_lookup,
+        grid_lookup_plain,
+        primitive_field_cost,
+        primitive_field_cost_plain,
+    )
+    from stoch_gpmp_tpu_torch.problems import build_planar_cost
+
+    _, gfield = build_planar_cost(dtype=torch.float32, device=dev, fast=False, field="grid")
+    _, pfield = build_planar_cost(dtype=torch.float32, device=dev, fast=False,
+                                  field="primitive")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    view = (torch.rand((PPG * 3 * S, T, 4), generator=gen, device=dev) * 22 - 11)[:, 1:, :2]
+    big = (torch.rand((BIG_POINTS // T, T, 4), generator=gen, device=dev) * 22 - 11)[..., :2]
+    k = torch.arange(-110, 111, device=dev, dtype=torch.float32) * 0.1
+    cell_edges = _edge_points(torch.stack(torch.meshgrid(k, k, indexing="ij"), -1)
+                              .reshape(-1, 2), dev)
+    r, c = pfield.rects, pfield.circles
+    sx, sy = torch.tensor([1.0, -1.0, 1.0, -1.0], device=dev), torch.tensor(
+        [1.0, 1.0, -1.0, -1.0], device=dev)
+    corners = torch.stack([r[:, None, 0] + sx * 0.5 * r[:, None, 2],
+                           r[:, None, 1] + sy * 0.5 * r[:, None, 3]], -1).reshape(-1, 2)
+    ux, uy = torch.tensor([1.0, -1.0, 0.0, 0.0], device=dev), torch.tensor(
+        [0.0, 0.0, 1.0, -1.0], device=dev)
+    rims = torch.stack([c[:, None, 0] + ux * c[:, None, 2],
+                        c[:, None, 1] + uy * c[:, None, 2]], -1).reshape(-1, 2)
+    prim_edges = _edge_points(torch.cat([corners, rims]), dev)
+    rand_grid = torch.rand((200, 200), generator=gen, device=dev)
+    cases = {
+        "K10": (grid_lookup, grid_lookup_plain,
+                [(g, pts, 0.1) for g in (gfield.grid, rand_grid) for pts in (view, cell_edges)]),
+        "K11": (primitive_field_cost, primitive_field_cost_plain,
+                [(r, c, pts) for pts in (view, prim_edges)]),
+    }
+    out = {}
+    for name, (kernel, plain, arg_sets) in cases.items():
+        for args in arg_sets:
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"{name} differs from its plain version at {int((got != want).sum())} of "
+                     f"{want.numel()} points")
+        args = arg_sets[0]
+        big_args = args[:-1] + (big,) if name == "K11" else (args[0], big, args[2])
+        n, n_prims = view.shape[0] * view.shape[1], r.shape[0] + c.shape[0]
+        grid_bytes = 4 * gfield.grid.numel() if name == "K10" else 4 * (4 * r.shape[0]
+                                                                       + 3 * c.shape[0])
+        ops = 0.0 if name == "K10" else 6.0 * n_prims
+        out[name] = dict(
+            points=n, edge_points=(cell_edges if name == "K10" else prim_edges).shape[0],
+            max_abs_err=0.0, ms=cuda_ms(lambda: kernel(*args), 200),
+            plain_ms=cuda_ms(lambda: plain(*args), 50),
+            device_ms=device_ms(lambda: kernel(*args), 100),
+            plain_device_ms=device_ms(lambda: plain(*args), 20),
+            big_points=BIG_POINTS, big_ms=cuda_ms(lambda: kernel(*big_args), 50),
+            big_device_ms=device_ms(lambda: kernel(*big_args), 20),
+            bound=bound(12 * n + grid_bytes, ops * n),
+            big_bound=bound(12 * BIG_POINTS + grid_bytes, ops * BIG_POINTS),
+            hits=int((kernel(*args) > 0).sum()))
+    return out
+
+
+def planar_ref_main(dev) -> dict:
+    """``StochGPMP`` on the reference-shaped planar stack at parity,
+    ``ITERS`` iterations from the straight lines on two routes: (g) the
+    occupancy grid (K10) and (p) the analytic primitives (K11)."""
+    from stoch_gpmp_tpu_torch.planners import StochGPMP, stoch_gpmp_optimize
+    from stoch_gpmp_tpu_torch.problems import DT, GOALS, SAMPLE_SIGMAS, START, build_planar_cost
+
+    s_start, s_gp, s_goal = SAMPLE_SIGMAS
+    names = ("raster_field", "grid_lookup", "primitive_field")
+    counters = {k: fn for k, fn in kernel_counters().items() if k in names}
+    out = {}
+    for route, field, kname in (("g", "grid", "grid_lookup"),
+                                ("p", "primitive", "primitive_field")):
+        cost, _ = build_planar_cost(dtype=torch.float32, device=dev, fast=False, field=field)
+        planner = StochGPMP(
+            num_particles_per_goal=PPG, num_samples=S, traj_len=T, opt_iters=ITERS, dt=DT,
+            n_dof=2, step_size=STEP, temperature=TAU, start_state=START,
+            multi_goal_states=GOALS, initial_particle_means="const_vel", cost=cost,
+            sigma_start_sample=s_start, sigma_gp_sample=s_gp, sigma_goal_sample=s_goal,
+            seed=0, dtype=torch.float32, device=dev)
+        p = planner.num_particles
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = planner.optimize()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        want = {k: ITERS if k == kname else 0 for k in names}
+        if launches != want:
+            fail(f"planar-ref ({route}): launches {launches}, expected {want}")
+        goal_err, start_err = planar_gates(f"planar-ref ({route})", planner.particle_means, res)
+        window = lambda: stoch_gpmp_optimize(  # noqa: E731
+            planner.sampler, cost, planner.state, {}, opt_iters=20, num_samples=S,
+            temperature=TAU, step_size=STEP)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) / 20 * 1e3
+        dev_ms, top, ops = device_breakdown(window, 1)
+        out[route] = dict(
+            top_kernels_ms_per_iter=[(k, ms / 20) for k, ms in top], launches=launches,
+            device_ops_per_iter=ops / 20,
+            goal_err=goal_err, start_err=start_err, optimize_seconds=seconds,
+            updates_per_s=p * ITERS / seconds, iter_wall_ms=wall,
+            iter_device_ms=None if dev_ms is None else dev_ms / 20,
+            device_busy=None if dev_ms is None else dev_ms / 20 / wall)
+    return out
+
+
+def gn_main(dev) -> dict:
+    """Gauss-Newton ``GPMP`` on ``build_planar_gpmp_problem(GN_PPG)``:
+    ``GN_ITERS`` iterations with ``cholesky`` and with ``woodbury`` from the
+    same initial means (the cholesky planner's init-prior draw), then 3
+    iterations of ``inverse`` against 3 of ``cholesky``."""
+    from stoch_gpmp_tpu_torch.planners import gpmp_optimize
+    from stoch_gpmp_tpu_torch.problems import GPMP_GOALS, START, build_planar_gpmp_problem
+
+    first = build_planar_gpmp_problem(GN_PPG, method="cholesky", device=dev)
+    init = first.particle_means.clone()
+    goals = torch.tensor(GPMP_GOALS, device=dev)[:, None, :2]
+    out, means = {}, {}
+    for method in ("cholesky", "woodbury"):
+        planner = first if method == "cholesky" else build_planar_gpmp_problem(
+            GN_PPG, method=method, device=dev, initial_particle_means=init)
+        p = planner.num_particles
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vel, pos, costs = planner.optimize(opt_iters=GN_ITERS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernel_counters().items() if fn.launches}
+        # one field evaluation per linearisation, one for the returned costs
+        if launches != {"grid_lookup": GN_ITERS + 1}:
+            fail(f"gn ({method}): launches {launches}, expected grid_lookup {GN_ITERS + 1}")
+        if not all(bool(torch.isfinite(o).all()) for o in (vel, pos, costs)):
+            fail(f"gn ({method}): non-finite output")
+        goal_err = float((pos[:, -1].reshape(2, GN_PPG, 2) - goals).norm(dim=-1).max())
+        start_err = float((pos[:, 0] - torch.tensor(START[:2], device=dev)).abs().max())
+        if goal_err >= GN_GOAL_TOL or start_err >= GN_START_TOL:
+            fail(f"gn ({method}): end points {goal_err:.3g} from the goals, start "
+                 f"{start_err:.3g}")
+        means[method] = planner.particle_means
+        state = planner.state
+        window = lambda: gpmp_optimize(  # noqa: E731
+            planner.cost, state, {}, opt_iters=10, delta=1e-2, trust_region=False,
+            method=method, step_size=0.3, woodbury=planner._wb)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) / 10 * 1e3
+        dev_ms, top, ops = device_breakdown(window, 1)
+        out[method] = dict(
+            top_kernels_ms_per_iter=[(k, ms / 10) for k, ms in top], launches=launches,
+            device_ops_per_iter=ops / 10,
+            goal_err=goal_err, start_err=start_err, mean_cost=float(costs.mean()),
+            optimize_seconds=seconds, updates_per_s=p * GN_ITERS / seconds, iter_wall_ms=wall,
+            iter_device_ms=None if dev_ms is None else dev_ms / 10,
+            device_busy=None if dev_ms is None else dev_ms / 10 / wall)
+    diff = float((means["cholesky"] - means["woodbury"]).abs().max())
+    three = {}
+    for method in ("cholesky", "inverse"):
+        planner = build_planar_gpmp_problem(GN_PPG, method=method, device=dev,
+                                            initial_particle_means=init)
+        planner.optimize(opt_iters=3)
+        three[method] = planner.particle_means
+    diff3 = float((three["cholesky"] - three["inverse"]).abs().max())
+    if not diff <= GN_METHOD_ATOL or not diff3 <= GN_INVERSE3_ATOL:
+        fail(f"gn: cholesky vs woodbury means {diff:.3g} (atol {GN_METHOD_ATOL}), vs inverse "
+             f"after 3 iterations {diff3:.3g} (atol {GN_INVERSE3_ATOL})")
+    out.update(woodbury_vs_cholesky=diff, inverse_vs_cholesky_3=diff3)
     return out
 
 
@@ -1221,9 +1531,70 @@ def main() -> int:
     phase("panda4-main", "stacks (c), (d) on route (b)'s means: " + ", ".join(
         f"({k}) within {v:.2e} relative of (b)" for k, v in p4["stack_rel"].items())
         + f" (rtol {STACK_RTOL})")
+    k9 = {b: fused_check(dev, b, per_particle=True) for b in ("matmul", "stencil")}
+    for b, r in k9.items():
+        timing = "" if "ms" not in r else (
+            f"; per call kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; device time "
+            f"kernel {fmt_ms(r['device_ms'])}, plain {fmt_ms(r['plain_device_ms'])}")
+        phase("K9", f"{b}: costs within rtol {r['cost_max_rel']:.2e} (+{r['edge_flips']} "
+                    f"edge flips), best sample agrees {r['argmax_agree']}/{r['particles']}, "
+                    f"means max err {r['max_abs_err']:.2e}{timing}")
+    k9_mom = moments_check(dev, per_particle=True)
+    phase("K9-philox", f"per-particle seeds: variance ratio median "
+                       f"{k9_mom['var_ratio_median']:.4f}, max lane mean "
+                       f"{k9_mom['max_lane_mean']:.4f}")
+    k9_run = k9_loop(dev)
+    busy = ("not measured" if k9_run["device_busy"] is None
+            else format(k9_run["device_busy"], ".1%"))
+    phase("K9-loop", f"fused_planar_optimize {ITERS} iters: launches {k9_run['launches']}, "
+                     f"goal err {k9_run['goal_err']:.3f}, start err {k9_run['start_err']:.2e}; "
+                     f"{k9_run['updates_per_s']:.0f} updates/s, {k9_run['iter_wall_ms']:.4f} "
+                     f"ms/iter wall, device time {fmt_ms(k9_run['iter_device_ms'])}/iter, "
+                     f"device busy {busy} on {smi}")
+    f2 = field2d_check(dev)
+    for kname, what in (("K10", "grid lookup"), ("K11", "primitive field")):
+        r = f2[kname]
+        phase(kname, f"{what} exact on {r['points']} + {r['edge_points']} edge points "
+                     f"({r['hits']} hits); per call kernel {r['ms']:.4f} ms, plain "
+                     f"{r['plain_ms']:.4f} ms; device time kernel {fmt_ms(r['device_ms'])}, "
+                     f"plain {fmt_ms(r['plain_device_ms'])}; bound {r['bound'][0]:.5f} ms "
+                     f"({r['bound'][1]}); {r['big_points']} points: per call "
+                     f"{r['big_ms']:.4f} ms, device {fmt_ms(r['big_device_ms'])}, bound "
+                     f"{r['big_bound'][0]:.5f} ms ({r['big_bound'][1]})")
+    pr = planar_ref_main(dev)
+    for k, r in pr.items():
+        busy = "not measured" if r["device_busy"] is None else format(r["device_busy"], ".1%")
+        phase("planar-ref-main", f"({k}): {ITERS} iters, launches {r['launches']}, goal err "
+                                 f"{r['goal_err']:.3f}, start err {r['start_err']:.2e}; "
+                                 f"{r['updates_per_s']:.0f} updates/s over optimize(); "
+                                 f"20-iteration window {r['iter_wall_ms']:.4f} ms/iter wall, "
+                                 f"device time {fmt_ms(r['iter_device_ms'])}/iter in "
+                                 f"{r['device_ops_per_iter']:.0f} device operations, device "
+                                 f"busy {busy} on {smi}")
+        phase("planar-ref-main", f"({k}): device ms per iteration by kernel: " + "; ".join(
+            f"{n} {ms:.4f}" for n, ms in r["top_kernels_ms_per_iter"]))
+    gn = gn_main(dev)
+    for k in ("cholesky", "woodbury"):
+        r = gn[k]
+        busy = "not measured" if r["device_busy"] is None else format(r["device_busy"], ".1%")
+        phase("gn-main", f"{k}: {GN_ITERS} iters at P = {2 * GN_PPG}, launches "
+                         f"{r['launches']}, goal err {r['goal_err']:.2e}, start err "
+                         f"{r['start_err']:.2e}, mean cost {r['mean_cost']:.6g}; "
+                         f"{r['updates_per_s']:.0f} particle-updates/s over optimize(); "
+                         f"10-iteration window {r['iter_wall_ms']:.4f} ms/iter wall, device "
+                         f"time {fmt_ms(r['iter_device_ms'])}/iter in "
+                         f"{r['device_ops_per_iter']:.0f} device operations, device busy {busy} "
+                         f"on {smi}")
+        phase("gn-main", f"{k}: device ms per iteration by kernel: " + "; ".join(
+            f"{n} {ms:.4f}" for n, ms in r["top_kernels_ms_per_iter"]))
+    phase("gn-main", f"means: woodbury vs cholesky {gn['woodbury_vs_cholesky']:.2e} (atol "
+                     f"{GN_METHOD_ATOL}), inverse vs cholesky after 3 iterations "
+                     f"{gn['inverse_vs_cholesky_3']:.2e} (atol {GN_INVERSE3_ATOL})")
     details.update(K1=k1, K2=k2, moments=mom, main=mp, K3=k3, K4=k4, K5=k5,
                    K5_rng_free=k5_free, K5_moments=k5_mom, panda_main=pm, K6=k6,
-                   K6_rng_free=k6_free, K6_moments=k6_mom, K7=k7, K8=k8, panda4_main=p4)
+                   K6_rng_free=k6_free, K6_moments=k6_mom, K7=k7, K8=k8, panda4_main=p4,
+                   K9=k9, K9_moments=k9_mom, K9_loop=k9_run, K10=f2["K10"], K11=f2["K11"],
+                   planar_ref_main=pr, gn_main=gn)
     if args.log_dir:
         out = Path(args.log_dir)
         out.mkdir(parents=True, exist_ok=True)
@@ -1256,6 +1627,18 @@ def main() -> int:
         # K8 has no caller on any route (nor in the JAX package): 0 launches
         ("fk_fields_points", "fk_fields.cu", "stoch_gpmp_tpu/ops/pallas/panda_fields.py:175",
          sum(p4[r]["launches"]["fk_fields_points"] for r in "abcd"), k8, k8["bound"]),
+        # K9 is K2 with one int32 seed pair per particle: K2's work and bytes
+        # plus the seeds
+        ("fused_planar_step_per_particle", "fused_planar_step.cu",
+         "stoch_gpmp_tpu/ops/pallas/fused_step.py:159",
+         k9_run["launches"]["fused_planar_step_per_particle"],
+         dict(k9["matmul"], max_abs_err=max(r["max_abs_err"] for r in k9.values())),
+         bound(4 * (4 * 3 * PPG * m2 + 2 * m2 * m2 + 3 * PPG * S + 2 * 3 * PPG),
+               2 * 2 * 3 * PPG * S * m2 * m2)),
+        ("grid_lookup", "grid_lookup.cu", "stoch_gpmp_tpu/ops/pallas/fields.py:69",
+         pr["g"]["launches"]["grid_lookup"], f2["K10"], f2["K10"]["bound"]),
+        ("primitive_field", "primitive_field.cu", "stoch_gpmp_tpu/ops/pallas/fields.py:214",
+         pr["p"]["launches"]["primitive_field"], f2["K11"], f2["K11"]["bound"]),
     ]
     kernels = [
         {"name": n, "route": "cuda", "source": f"stoch_gpmp_tpu_torch/csrc/{src}",

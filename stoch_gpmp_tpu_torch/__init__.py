@@ -7,9 +7,12 @@ at the same relative path. Plain tensor code is PyTorch; the TPU kernels of
 version that the CPU tests use. This package never imports JAX.
 
 Ported: the planar StochGPMP main path (GP prior, planar cost stack, flat
-planner path, the fused planar iteration) and the Panda 7-DOF dof-factored
-path (kinematics, ``PlaneFieldsCost``, the dof planner path, the fused dof
-iteration). Entry points run on the CUDA card unless given
+planner path, the fused planar iterations), the reference-shaped planar
+stacks on the occupancy grid and the analytic primitives, Gauss-Newton
+``GPMP`` (structured Cholesky, dense and Woodbury solves), the Panda 7-DOF
+dof-factored path (kinematics, ``PlaneFieldsCost``, the dof planner path,
+the fused dof iteration) and the Panda parity workload (the
+reference-shaped link-field stack, the fused flat iteration). Entry points run on the CUDA card unless given
 ``device="cpu"``. Importing the package is light; submodules load on first
 use.
 """
@@ -22,6 +25,7 @@ def __getattr__(name):
 
     _exports = {
         "StochGPMP": "stoch_gpmp_tpu_torch.planners",
+        "GPMP": "stoch_gpmp_tpu_torch.planners",
         "GPPrior": "stoch_gpmp_tpu_torch.gp",
         "make_gp_prior": "stoch_gpmp_tpu_torch.gp",
         "CostComposite": "stoch_gpmp_tpu_torch.costs",

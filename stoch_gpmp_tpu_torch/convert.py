@@ -1,12 +1,14 @@
 """Carry a problem built by the JAX package over to the port.
 
 ``sampler_from_jax``, ``cost_from_jax``, ``state_from_jax``,
-``chain_from_jax``, ``link_state_from_jax`` and ``observation_from_jax``
-read the JAX objects' fields through ``np.asarray`` and rebuild the port's
+``gpmp_state_from_jax``, ``chain_from_jax``, ``link_state_from_jax`` and
+``observation_from_jax`` read the JAX objects' fields through ``np.asarray`` and rebuild the port's
 objects on a given device and dtype. They dispatch on class names, so this
 module never imports JAX. A composite's ``fk=`` (a JAX chain's ``fk`` or
-``fk_compact``) becomes the same method of the converted chain. The PRNG
-key does not cross: the port's generator is seeded separately.
+``fk_compact``) becomes the same method of the converted chain. An
+``OccupancyGridField``'s ``lookup=`` (a TPU execution choice with equal
+results) does not cross: the port has one grid field. The PRNG key does not
+cross: the port's generator is seeded separately.
 ``device=None`` means the CUDA card (raises without one); pass
 ``device="cpu"`` to build on the CPU.
 """
@@ -19,15 +21,17 @@ import torch
 from stoch_gpmp_tpu_torch.costs.costs import (
     CostCollision,
     CostComposite,
-    CostGP,
     CostGoal,
     CostGoalPrior,
+    CostGP,
+    CostGPTrajectory,
 )
 from stoch_gpmp_tpu_torch.costs.fields import (
     EESE3DistanceField,
     LinkDistanceField,
     LinkSelfDistanceField,
     OccupancyGridField,
+    Primitive2DField,
     RasterPrimitive2DField,
 )
 from stoch_gpmp_tpu_torch.costs.fused_fields import FusedLinkFieldsCost, PlaneFieldsCost
@@ -35,6 +39,7 @@ from stoch_gpmp_tpu_torch.costs.quadratic import QuadraticCost
 from stoch_gpmp_tpu_torch.gp.dof_factored import DofFactoredPrior, DofQuadraticCost
 from stoch_gpmp_tpu_torch.gp.tridiag import BlockTridiag
 from stoch_gpmp_tpu_torch.kinematics import JointSpec, KinematicChain, LinkState, RobotModel
+from stoch_gpmp_tpu_torch.planners.gpmp import GPMPState
 from stoch_gpmp_tpu_torch.planners.stoch_gpmp import SamplerModel, StochGPMPState
 from stoch_gpmp_tpu_torch.utils.device import resolve_device
 
@@ -74,6 +79,9 @@ def _field_from_jax(field, dtype, device):
             circles=_t(field.circles, dtype, device),
             cell_size=float(field.cell_size), nx=int(field.nx), ny=int(field.ny),
         )
+    if kind == "Primitive2DField":
+        return Primitive2DField(rects=_t(field.rects, dtype, device),
+                                circles=_t(field.circles, dtype, device))
     if kind == "OccupancyGridField":
         return OccupancyGridField(grid=_t(field.grid, dtype, device),
                                   cell_size=float(field.cell_size))
@@ -116,7 +124,8 @@ def _dof_quad_from_jax(dq, dtype, device):
 
 def cost_from_jax(cost, *, device=None, dtype=torch.float64):
     """``CostComposite`` (with its ``fk``) of ``QuadraticCost`` / ``CostGP``
-    / ``CostGoalPrior`` / ``CostCollision`` (a 2D or a link field) /
+    / ``CostGPTrajectory`` / ``CostGoalPrior`` / ``CostCollision`` (a 2D or a
+    link field) /
     ``CostGoal(EESE3DistanceField)`` / ``FusedLinkFieldsCost`` /
     ``PlaneFieldsCost``, or one of those alone."""
     device = resolve_device(device)
@@ -129,7 +138,8 @@ def cost_from_jax(cost, *, device=None, dtype=torch.float64):
         )
     if kind == "QuadraticCost":
         return QuadraticCost(
-            a_dense=t(cost.a_dense), b=t(cost.b), c=t(cost.c), num_goals=int(cost.num_goals),
+            a_dense=t(cost.a_dense), a_diag=t(cost.a_diag), a_lower=t(cost.a_lower),
+            b=t(cost.b), c=t(cost.c), num_goals=int(cost.num_goals),
             traj_len=int(cost.traj_len), state_dim=int(cost.state_dim),
             dof_form=None if cost.dof_form is None
             else _dof_quad_from_jax(cost.dof_form, dtype, device),
@@ -138,6 +148,8 @@ def cost_from_jax(cost, *, device=None, dtype=torch.float64):
     if kind == "CostGP":
         return CostGP(start_state=t(cost.start_state), k_start=t(cost.k_start),
                       q_inv=t(cost.q_inv), phi=t(cost.phi))
+    if kind == "CostGPTrajectory":
+        return CostGPTrajectory(q_inv=t(cost.q_inv), phi=t(cost.phi))
     if kind == "CostGoalPrior":
         return CostGoalPrior(multi_goal_states=t(cost.multi_goal_states),
                              k_goal=t(cost.k_goal), num_goals=int(cost.num_goals))
@@ -198,6 +210,16 @@ def state_from_jax(state, *, seed: int = 0, device=None, dtype=torch.float64) ->
     port's generator is seeded with ``seed``."""
     device = resolve_device(device)
     return StochGPMPState(
+        particle_means=_t(state.particle_means, dtype, device),
+        generator=torch.Generator(device=device).manual_seed(seed),
+    )
+
+
+def gpmp_state_from_jax(state, *, seed: int = 0, device=None, dtype=torch.float64) -> GPMPState:
+    """``GPMPState``: the particle means cross; the key does not, the port's
+    generator is seeded with ``seed``."""
+    device = resolve_device(device)
+    return GPMPState(
         particle_means=_t(state.particle_means, dtype, device),
         generator=torch.Generator(device=device).manual_seed(seed),
     )

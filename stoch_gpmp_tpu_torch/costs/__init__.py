@@ -5,12 +5,15 @@ from stoch_gpmp_tpu_torch.costs.costs import (
     CostGP,
     CostGoal,
     CostGoalPrior,
+    CostGPTrajectory,
+    GNContrib,
 )
 from stoch_gpmp_tpu_torch.costs.fields import (
     EESE3DistanceField,
     LinkDistanceField,
     LinkSelfDistanceField,
     OccupancyGridField,
+    Primitive2DField,
     RasterPrimitive2DField,
 )
 from stoch_gpmp_tpu_torch.costs.fused_fields import FusedLinkFieldsCost, PlaneFieldsCost
@@ -23,12 +26,15 @@ __all__ = [
     "CostGP",
     "CostGoal",
     "CostGoalPrior",
+    "CostGPTrajectory",
+    "GNContrib",
     "EESE3DistanceField",
     "FusedLinkFieldsCost",
     "LinkDistanceField",
     "LinkSelfDistanceField",
     "OccupancyGridField",
     "PlaneFieldsCost",
+    "Primitive2DField",
     "RasterPrimitive2DField",
     "QuadraticCost",
 ]

@@ -1,7 +1,7 @@
 """Composable trajectory cost stack.
 
-PyTorch counterpart of the ``eval`` half of ``stoch_gpmp_tpu/costs/costs.py``
-(reference ``stoch_gpmp/costs/cost_functions.py``). Conventions match:
+PyTorch counterpart of ``stoch_gpmp_tpu/costs/costs.py`` (reference
+``stoch_gpmp/costs/cost_functions.py``). Conventions match:
 
 - ``trajs``: ``[batch, traj_len, 2*n_dof]`` (positions then velocities);
 - ``x_trajs``: optional FK link poses of every timestep, homogeneous
@@ -12,9 +12,15 @@ PyTorch counterpart of the ``eval`` half of ``stoch_gpmp_tpu/costs/costs.py``
   timestep; the goal prior anchors the final state of a goal-major batch.
 
 ``eval_dof_planes`` evaluates on the dof-leading plane batch ``[d, B, 2T]``
-of the dof path. The Gauss-Newton contributions (``gn_contrib``/
-``gn_rank1``) and the per-dim plane evaluators of the long-horizon path are
-not ported yet (GN and long-horizon slices).
+of the dof path. ``gn_contrib`` gives each cost's Gauss-Newton normal-equation
+contribution in block-tridiagonal form (``GNContrib``) and ``gn_rank1`` the
+rank-1 form of a field cost, for ``planners/gpmp.py``. A field's Jacobian is
+``torch.autograd.grad`` of its summed errors with respect to the
+trajectories (the JAX package's ``jax.grad``), through FK when the composite
+has one. The 2D fields are piecewise constant and give a zero Jacobian, as
+in JAX (their kernel wrappers carry a zero backward,
+``ops/kernels/fields.py``); a field with no backward at all raises. The
+per-dim plane evaluators of the long-horizon path are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +32,29 @@ import torch
 
 from stoch_gpmp_tpu_torch.costs.factors import gp_error, quadratic_cost, unary_error
 from stoch_gpmp_tpu_torch.gp.lift import phi_matrix, q_inv_block, unary_weight
+
+
+@dataclass
+class GNContrib:
+    """One cost's contribution to the Gauss-Newton normal equations in
+    block form: ``J^T K J ~ (diag, lower)`` and ``g = A^T K b`` (the
+    reference's ``A = -dE/dx`` sign). ``diag [..., T, d, d]`` or None,
+    ``lower [..., T-1, d, d]`` or None, ``g [..., T, d]``."""
+
+    diag: torch.Tensor | None
+    lower: torch.Tensor | None
+    g: torch.Tensor
+
+
+def _field_jacobian(err_fn, trajs, fk_trajs):
+    """``(errors, -d sum(errors) / d trajs)`` of a field cost: one forward
+    on a copy of ``trajs`` that requires grad, FK included when
+    ``fk_trajs`` is given, then ``torch.autograd.grad``."""
+    tr = trajs.detach().requires_grad_(True)
+    with torch.enable_grad():
+        err = err_fn(tr, fk_trajs(tr) if fk_trajs is not None else None)
+        (grad,) = torch.autograd.grad(err.sum(), tr)
+    return err.detach(), -grad
 
 
 class Cost:
@@ -71,6 +100,51 @@ class CostGP(Cost):
             quadratic_cost(err, self.q_inv), dim=-1
         )
 
+    def gn_contrib(self, trajs, x_trajs=None, observation=None):
+        """Constant blocks (the prior precision's) and the gradient of the
+        start row (``A = +I`` on block 0) and the GP rows (``A = (+Phi,
+        -I)``)."""
+        t, d = trajs.shape[-2], trajs.shape[-1]
+        pqp = self.phi.T @ self.q_inv @ self.phi
+        diag = (self.q_inv + pqp).repeat(t, 1, 1)
+        diag[0] = self.k_start + pqp
+        diag[t - 1] = self.q_inv
+        lower = (-(self.q_inv @ self.phi)).repeat(t - 1, 1, 1)
+        lead = trajs.shape[:-2]
+        err0 = unary_error(trajs[..., 0, :], self.start_state)
+        qe = torch.einsum("ij,...tj->...ti", self.q_inv, gp_error(trajs, self.phi))
+        g = torch.zeros_like(trajs)
+        g[..., 0, :] += torch.einsum("ij,...j->...i", self.k_start, err0)
+        g[..., :-1, :] += torch.einsum("ji,...tj->...ti", self.phi, qe)
+        g[..., 1:, :] -= qe
+        return GNContrib(diag=diag.expand(lead + (t, d, d)),
+                         lower=lower.expand(lead + (t - 1, d, d)), g=g)
+
+
+@dataclass
+class CostGPTrajectory(Cost):
+    """GP smoothness only, no start anchor. Like the reference, it has no
+    linear system: ``gn_contrib`` raises."""
+
+    q_inv: torch.Tensor  # [d, d]
+    phi: torch.Tensor  # [d, d]
+
+    @classmethod
+    def create(cls, n_dof, traj_len, start_state, dt, sigma_params,
+               dtype=torch.float32, device=None):
+        del traj_len, start_state
+        return cls(
+            q_inv=q_inv_block(n_dof, dt, sigma=sigma_params["sigma_gp"], dtype=dtype,
+                              device=device),
+            phi=phi_matrix(n_dof, dt, dtype=dtype, device=device),
+        )
+
+    def eval(self, trajs, x_trajs=None, observation=None):
+        return torch.sum(quadratic_cost(gp_error(trajs, self.phi), self.q_inv), dim=-1)
+
+    def gn_contrib(self, trajs, x_trajs=None, observation=None):
+        raise NotImplementedError("reference parity: no linear system for this cost")
+
 
 @dataclass
 class CostGoalPrior(Cost):
@@ -97,6 +171,17 @@ class CostGoalPrior(Cost):
         x_final = trajs[..., -1, :].reshape(self.num_goals, -1, d)
         err = unary_error(x_final, self.multi_goal_states[:, None])
         return quadratic_cost(err, self.k_goal).reshape(batch)
+
+    def gn_contrib(self, trajs, x_trajs=None, observation=None):
+        """The goal anchor on the final state of the goal-major batch."""
+        batch, t, d = trajs.shape[0], trajs.shape[-2], trajs.shape[-1]
+        x_final = trajs[..., -1, :].reshape(self.num_goals, -1, d)
+        err = unary_error(x_final, self.multi_goal_states[:, None])  # [G, B/G, d]
+        g = torch.zeros_like(trajs)
+        g[..., -1, :] = torch.einsum("ij,...j->...i", self.k_goal, err).reshape(batch, d)
+        diag = trajs.new_zeros(trajs.shape[:-2] + (t, d, d))
+        diag[..., -1, :, :] = self.k_goal
+        return GNContrib(diag=diag, lower=None, g=g)
 
 
 @dataclass
@@ -140,6 +225,29 @@ class CostCollision(Cost):
         vals = self.field.compute_cost_planes(x_planes[0, :, :t], x_planes[1, :, :t])
         return (1.0 / self.sigma_coll**2) * torch.sum(vals[..., slice(*self.traj_range)], dim=-1)
 
+    def gn_rank1(self, trajs, x_trajs=None, observation=None, fk_trajs=None):
+        """Rank-1 structure of the GN contribution: per timestep the
+        diagonal block is ``k h_t h_t^T`` and the gradient ``k h_t e_t``.
+        Returns ``(h [B, T, n_dof], e [B, T], k)``, positions only, zero
+        outside ``traj_range``."""
+        sl = slice(*self.traj_range)
+        t = trajs.shape[-2]
+        err, grad = _field_jacobian(
+            lambda tr, x: self._field_errors(tr, x, observation), trajs, fk_trajs)
+        if fk_trajs is None and x_trajs is not None:  # errors on the given poses
+            err = self._field_errors(trajs, x_trajs, observation)
+        h = trajs.new_zeros(trajs.shape[:-2] + (t, self.n_dof))
+        h[..., sl, :] = grad[..., sl, : self.n_dof]
+        e = trajs.new_zeros(trajs.shape[:-2] + (t,))
+        e[..., sl] = err
+        return h, e, 1.0 / self.sigma_coll**2
+
+    def gn_contrib(self, trajs, x_trajs=None, observation=None, fk_trajs=None):
+        """``diag = k h h^T`` per timestep and ``g = k h e`` (the field's
+        Jacobian ``h`` on the positions)."""
+        h, e, k = self.gn_rank1(trajs, x_trajs, observation, fk_trajs)
+        return _rank1_contrib(trajs, h, e, k, self.n_dof)
+
 
 @dataclass
 class CostGoal(Cost):
@@ -156,12 +264,39 @@ class CostGoal(Cost):
         del traj_len, kw
         return cls(field=field, sigma_goal=sigma_goal, n_dof=n_dof)
 
-    def eval(self, trajs, x_trajs=None, observation=None):
+    def _field_error(self, trajs, x_trajs):
         if x_trajs is not None:
-            err = self.field.compute_cost(x_trajs[:, -1])
-        else:
-            err = self.field.compute_cost(trajs[:, -1, : self.n_dof])
-        return (1.0 / self.sigma_goal**2) * err
+            return self.field.compute_cost(x_trajs[:, -1])
+        return self.field.compute_cost(trajs[:, -1, : self.n_dof])
+
+    def eval(self, trajs, x_trajs=None, observation=None):
+        return (1.0 / self.sigma_goal**2) * self._field_error(trajs, x_trajs)
+
+    def gn_rank1(self, trajs, x_trajs=None, observation=None, fk_trajs=None):
+        """Rank-1 GN structure (see ``CostCollision.gn_rank1``): one active
+        column at the final timestep."""
+        t = trajs.shape[-2]
+        err, grad = _field_jacobian(self._field_error, trajs, fk_trajs)
+        if fk_trajs is None and x_trajs is not None:
+            err = self._field_error(trajs, x_trajs)
+        h = trajs.new_zeros(trajs.shape[:-2] + (t, self.n_dof))
+        h[..., -1, :] = grad[..., -1, : self.n_dof]
+        e = trajs.new_zeros(trajs.shape[:-2] + (t,))
+        e[..., -1] = err
+        return h, e, 1.0 / self.sigma_goal**2
+
+    def gn_contrib(self, trajs, x_trajs=None, observation=None, fk_trajs=None):
+        h, e, k = self.gn_rank1(trajs, x_trajs, observation, fk_trajs)
+        return _rank1_contrib(trajs, h, e, k, self.n_dof)
+
+
+def _rank1_contrib(trajs, h, e, k, n_dof) -> GNContrib:
+    """``GNContrib`` of a rank-1 field cost: ``h [B, T, n_dof]`` padded to
+    the state's velocity dims with zeros, ``diag = k h h^T``, ``g = k h e``."""
+    h_full = torch.zeros_like(trajs)
+    h_full[..., :n_dof] = h
+    diag = k * torch.einsum("...ti,...tj->...tij", h_full, h_full)
+    return GNContrib(diag=diag, lower=None, g=k * h_full * e[..., None])
 
 
 @dataclass
@@ -210,3 +345,26 @@ class CostComposite(Cost):
         for cost in self.costs:
             total = total + cost.eval(trajs, x_trajs=x_trajs, observation=observation)
         return total
+
+    def gn_contrib(self, trajs, x_trajs=None, observation=None):
+        """Sum of the children's ``GNContrib``; the field costs differentiate
+        through ``fk`` when the composite has one (and so compute the link
+        poses themselves)."""
+        trajs = trajs.reshape(-1, self.traj_len, 2 * self.n_dof)
+        t, d = self.traj_len, 2 * self.n_dof
+        diag = trajs.new_zeros(trajs.shape[:-2] + (t, d, d))
+        lower = trajs.new_zeros(trajs.shape[:-2] + (t - 1, d, d))
+        g = torch.zeros_like(trajs)
+        fk_trajs = self._fk_trajs if self.fk is not None else None
+        for cost in self.costs:
+            if isinstance(cost, (CostGoal, CostCollision)):
+                c = cost.gn_contrib(trajs, x_trajs=x_trajs, observation=observation,
+                                    fk_trajs=fk_trajs)
+            else:
+                c = cost.gn_contrib(trajs, x_trajs=x_trajs, observation=observation)
+            if c.diag is not None:
+                diag = diag + c.diag
+            if c.lower is not None:
+                lower = lower + c.lower
+            g = g + c.g
+        return GNContrib(diag=diag, lower=lower, g=g)

@@ -7,11 +7,16 @@ PyTorch counterpart of ``stoch_gpmp_tpu/costs/fields.py``:
   ``LinkDistanceField`` (robot links against obstacle spheres),
   ``LinkSelfDistanceField`` (all link pairs) and ``EESE3DistanceField``
   (the end-effector pose against a target), in plain PyTorch;
-- ``OccupancyGridField``: ``grid[cell(y), cell(x)]`` by a gather, which a
-  GPU serves directly (what ``ObstacleMap.as_field`` returns);
+- ``OccupancyGridField``: ``grid[cell(y), cell(x)]`` (what
+  ``ObstacleMap.as_field`` returns), through the grid-lookup kernel K10;
 - ``RasterPrimitive2DField``: the same occupancy, evaluated analytically
   from the primitives the grid was rasterized from (exact grid parity),
-  through the raster-field kernel (``ops/kernels/fields.py``).
+  through the raster-field kernel K1;
+- ``Primitive2DField``: the count of analytic rectangles and circles
+  containing each point, through the primitive-field kernel K11.
+
+The three 2D fields' kernels are in ``ops/kernels/fields.py``; their
+gradient with respect to the points is zero, as in the JAX package.
 
 The fused forms of the link fields live in ``costs/fused_fields.py``. The
 mesh-sphere fields are not ported yet.
@@ -171,30 +176,36 @@ class EESE3DistanceField:
         return torch.square(dist) if self.square else dist
 
 
+class _Occupancy2D:
+    """Collision and distance of a 2D occupancy-count field."""
+
+    def compute_collision(self, x: torch.Tensor, **kw) -> torch.Tensor:
+        return self.compute_cost(x) > 0
+
+    def compute_distance(self, x: torch.Tensor, **kw) -> torch.Tensor:
+        return -self.compute_cost(x)
+
+
 @dataclass
-class OccupancyGridField:
+class OccupancyGridField(_Occupancy2D):
     """Occupancy-grid lookup: ``floor(world / cell_size) + center offset``,
-    clamped to the grid, then ``grid[y, x]``."""
+    clamped to the grid, then ``grid[y, x]``. The JAX package's ``lookup=``
+    (``'gather'``/``'onehot'``) is a TPU execution choice with equal
+    results; the port has the one kernel."""
 
     grid: torch.Tensor  # [ny, nx]
     cell_size: float = 1.0
 
-    def _cells(self, x: torch.Tensor):
-        from stoch_gpmp_tpu_torch.ops.kernels.fields import snap_cells
-
-        ny, nx = self.grid.shape
-        cx = snap_cells(x[..., 0], self.cell_size, nx // 2, nx).long()
-        cy = snap_cells(x[..., 1], self.cell_size, ny // 2, ny).long()
-        return cy, cx
-
     def compute_cost(self, x: torch.Tensor, **kw) -> torch.Tensor:
-        """``x [..., 2]`` world positions -> ``[...]`` occupancy cost."""
-        cy, cx = self._cells(x)
-        return self.grid[cy, cx]
+        """``x [..., 2]`` world positions -> ``[...]`` occupancy cost (the
+        grid-lookup kernel on a CUDA tensor)."""
+        from stoch_gpmp_tpu_torch.ops.kernels.fields import grid_lookup
+
+        return grid_lookup(self.grid, x, self.cell_size)
 
 
 @dataclass
-class RasterPrimitive2DField:
+class RasterPrimitive2DField(_Occupancy2D):
     """Gather-free field with exact rasterized-occupancy-grid semantics: a
     rectangle's footprint is an integer cell-range test and a circle's a
     norm-vs-radius test of the snapped cell's world point, both evaluated on
@@ -262,3 +273,36 @@ class RasterPrimitive2DField:
         else:
             pts = torch.stack([x, y], dim=-1)
         return self.compute_cost(pts)
+
+
+@dataclass
+class Primitive2DField(_Occupancy2D):
+    """Analytic 2D obstacle field over rectangle and circle primitives: the
+    count of primitives containing each point, with no grid (equal to the
+    rasterized grid up to cell quantization)."""
+
+    rects: torch.Tensor  # [R, 4] cx, cy, width, height (R may be 0)
+    circles: torch.Tensor  # [C, 3] cx, cy, radius (C may be 0)
+
+    @classmethod
+    def from_obstacles(cls, obstacles, dtype=torch.float32, device=None) -> "Primitive2DField":
+        from stoch_gpmp_tpu_torch.envs.obst_map import ObstacleCircle, ObstacleRectangle
+
+        rects, circles = [], []
+        for o in obstacles:
+            if isinstance(o, ObstacleRectangle):
+                rects.append([o.center_x, o.center_y, o.width, o.height])
+            elif isinstance(o, ObstacleCircle):
+                circles.append([o.center_x, o.center_y, o.radius])
+            else:
+                raise TypeError(f"unsupported obstacle type {type(o)}")
+        as_t = lambda v, k: torch.as_tensor(  # noqa: E731
+            np.asarray(v, dtype=float).reshape(-1, k), dtype=dtype, device=device)
+        return cls(rects=as_t(rects, 4), circles=as_t(circles, 3))
+
+    def compute_cost(self, x: torch.Tensor, **kw) -> torch.Tensor:
+        """``x [..., 2]`` -> ``[...]`` number of primitives containing each
+        point (the primitive-field kernel on a CUDA tensor)."""
+        from stoch_gpmp_tpu_torch.ops.kernels.fields import primitive_field_cost
+
+        return primitive_field_cost(self.rects, self.circles, x)

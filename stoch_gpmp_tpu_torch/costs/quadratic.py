@@ -4,7 +4,9 @@ PyTorch counterpart of ``stoch_gpmp_tpu/costs/quadratic.py``: ``CostGP`` +
 ``CostGoalPrior`` as one quadratic in the flattened trajectory with a
 shared ``A`` and per-goal ``(b, c)``. ``eval`` uses the one-matmul form
 at mild weights and the exact factor-graph residual (stencil) form when
-``stencil_required`` (any weight above ``needs_stencil``'s threshold).
+``stencil_required`` (any weight above ``needs_stencil``'s threshold). The
+block-tridiagonal blocks of ``A`` are kept beside the dense matrix for the
+Gauss-Newton contribution (``gn_contrib``).
 """
 
 from __future__ import annotations
@@ -13,13 +15,15 @@ from dataclasses import dataclass
 
 import torch
 
-from stoch_gpmp_tpu_torch.costs.costs import Cost, CostGP, CostGoalPrior
+from stoch_gpmp_tpu_torch.costs.costs import Cost, CostGP, CostGoalPrior, GNContrib
 from stoch_gpmp_tpu_torch.gp.tridiag import BlockTridiag
 
 
 @dataclass
 class QuadraticCost(Cost):
     a_dense: torch.Tensor  # [M, M]
+    a_diag: torch.Tensor  # [T, d, d] block-tridiagonal form of A
+    a_lower: torch.Tensor  # [T-1, d, d]
     b: torch.Tensor  # [G, M]
     c: torch.Tensor  # [G]
     num_goals: int
@@ -67,7 +71,7 @@ class QuadraticCost(Cost):
         except ValueError:  # non-isotropic weights: dense form only
             dof_form = None
         return cls(
-            a_dense=a_dense, b=b, c=c,
+            a_dense=a_dense, a_diag=diag, a_lower=lower, b=b, c=c,
             num_goals=g, traj_len=traj_len, state_dim=d, dof_form=dof_form,
             stencil_required=dof_form is None or needs_stencil(dof_form),
         )
@@ -121,3 +125,24 @@ class QuadraticCost(Cost):
         return e + torch.sum(
             kg11 * rgp * rgp + 2.0 * kg12 * rgp * rgv + kg22 * rgv * rgv, dim=-1
         ).reshape(batch)
+
+    def gn_contrib(self, trajs, x_trajs=None, observation=None):
+        """The constant blocks of ``A`` and ``g = b - A x``, with ``A x`` by
+        the exact O(T) factor-graph stencil when the dof form exists (the
+        dense ``[M, M]`` product cancels at the reference's sigmas)."""
+        batch = trajs.shape[0]
+        t, d = self.traj_len, self.state_dim
+        trajs = trajs.reshape(batch, t, d)
+        df = self.dof_form
+        if df is not None and df.q_i2 is not None:
+            from stoch_gpmp_tpu_torch.gp.dof_factored import stencil_matvec_flat
+
+            ax = stencil_matvec_flat(trajs, df.q_i2, df.k_s2, df.k_g2, df.dt).reshape(batch, -1)
+        else:
+            ax = trajs.reshape(batch, -1) @ self.a_dense
+        bg = torch.repeat_interleave(self.b, batch // self.num_goals, dim=0)
+        return GNContrib(
+            diag=self.a_diag.expand(batch, t, d, d),
+            lower=self.a_lower.expand(batch, t - 1, d, d),
+            g=(bg - ax).reshape(batch, t, d),
+        )

@@ -1,9 +1,16 @@
 // One whole planar StochGPMP iteration per particle, in one kernel.
 //
-// Replaces the TPU kernel stoch_gpmp_tpu/ops/pallas/fused_step.py
+// Replaces two TPU kernels of stoch_gpmp_tpu/ops/pallas/fused_step.py:
 // make_fused_planar_step_batched (_kernel_batched, _box_muller, and the
-// stencil quadratic of ops/pallas/stencil.py flat_quad_cost). Per particle p
-// and sample s, with M = T * 2 * n_dof lanes:
+// stencil quadratic of ops/pallas/stencil.py flat_quad_cost) through
+// fused_planar_step_launch, and make_fused_planar_step (_kernel, one program
+// per particle with its own seed pair) through
+// fused_planar_step_per_particle_launch. On this card the two differ only in
+// where the Philox key comes from: one 64-bit seed per launch, with the
+// particle in the counter, or one int32 seed pair per particle (seeds
+// [P, 2]), with the particle's stream a function of its pair alone. The eps
+// operand mode is the same function for both. Per particle p and sample s,
+// with M = T * 2 * n_dof lanes:
 //   x      = mu_p + eps_s @ W                       (eps: operand or Philox)
 //   cost_s = x A x - 2 b_p.x                        (matmul branch; the
 //            per-goal constant c cancels in the softmax), or the exact
@@ -47,13 +54,18 @@ struct StepParams {
   uint2 key;
 };
 
+// kSeedPerParticle: Philox keyed on the particle's own int32 seed pair
+// (seeds [P, 2], K9) instead of the launch's key with the particle in the
+// counter (K2). A template parameter, so that K2's instantiation carries no
+// trace of K9's branch.
+template <bool kSeedPerParticle>
 __global__ void __launch_bounds__(MAX_LANES)
 fused_planar_step_kernel(const float* __restrict__ means, const float* __restrict__ prec_u,
                          const float* __restrict__ W, const float* __restrict__ lin_rows,
                          const float* __restrict__ A, const int* __restrict__ rects,
                          const float* __restrict__ circles, const float* __restrict__ eps,
-                         float* __restrict__ new_means, float* __restrict__ costs,
-                         float* __restrict__ xs, StepParams prm) {
+                         const int* __restrict__ seeds, float* __restrict__ new_means,
+                         float* __restrict__ costs, float* __restrict__ xs, StepParams prm) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int M = prm.M, S = prm.S, p = blockIdx.x, m = threadIdx.x;
@@ -79,6 +91,12 @@ fused_planar_step_kernel(const float* __restrict__ means, const float* __restric
   const bool mask_s = is_pos && m < sd;
   const bool mask_g = is_pos && m >= M - sd;
   const bool coll_lane = (m % sd) == 0 && m >= sd;  // x of step t >= 1
+  uint2 key = prm.key;         // Philox key and counter word
+  uint32_t pc = (uint32_t)p;
+  if (kSeedPerParticle) {
+    key = make_uint2((uint32_t)seeds[2 * p], (uint32_t)seeds[2 * p + 1]);
+    pc = 0u;
+  }
   __syncthreads();
 
   for (int s0 = 0; s0 < S; s0 += ST) {
@@ -89,8 +107,8 @@ fused_planar_step_kernel(const float* __restrict__ means, const float* __restric
         x_sh[i * M + m] = i < nr ? eps[((size_t)p * S + s0 + i) * M + m] : 0.0f;
     } else {
       for (int j = 0; j < ST / 2; ++j) {
-        const uint4 bits = philox4x32_10(
-            make_uint4((uint32_t)m, (uint32_t)(s0 + j), (uint32_t)p, 0u), prm.key);
+        const uint4 bits =
+            philox4x32_10(make_uint4((uint32_t)m, (uint32_t)(s0 + j), pc, 0u), key);
         const float2 z = box_muller(bits.x, bits.y);
         x_sh[j * M + m] = z.x;
         x_sh[(j + ST / 2) * M + m] = z.y;
@@ -186,16 +204,14 @@ fused_planar_step_kernel(const float* __restrict__ means, const float* __restric
   new_means[(size_t)p * M + m] = mu + prm.step_size * grad;
 }
 
-}  // namespace
-
-extern "C" int fused_planar_step_launch(
-    const float* means, const float* prec_u, const float* W, const float* lin_rows,
-    const float* A, const int* rects, int n_rects, const float* circles, int n_circles,
-    const float* eps, unsigned long long seed, float* new_means, float* costs, float* xs,
-    int P, int S, int M, int n_dof, int use_stencil, float dt, float q11, float q12,
-    float q22, float ks11, float ks12, float ks22, float kg11, float kg12, float kg22,
-    float cell_size, float inv_cell_size, int nx, int ny, float k_coll,
-    float temperature, float step_size, void* stream) {
+int launch(const float* means, const float* prec_u, const float* W,
+           const float* lin_rows, const float* A, const int* rects, int n_rects,
+           const float* circles, int n_circles, const float* eps, const int* seeds,
+           unsigned long long seed, float* new_means, float* costs, float* xs, int P,
+           int S, int M, int n_dof, int use_stencil, float dt, float q11, float q12,
+           float q22, float ks11, float ks12, float ks22, float kg11, float kg12,
+           float kg22, float cell_size, float inv_cell_size, int nx, int ny,
+           float k_coll, float temperature, float step_size, void* stream) {
   if (M % 32 != 0 || M > MAX_LANES || (!use_stencil && A == nullptr))
     return (int)cudaErrorInvalidValue;
   StepParams prm{P, S, M, n_dof, use_stencil, n_rects, n_circles, nx, ny,
@@ -205,10 +221,47 @@ extern "C" int fused_planar_step_launch(
   const size_t smem = sizeof(float) * ((size_t)ST * M + (size_t)2 * KT * M +
                                        (size_t)(M / 32) * ST * 4 + S + 32 +
                                        4 * n_rects + 3 * n_circles);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_planar_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // with eps the key is unused: K9's eps mode runs K2's instantiation
+  const auto kernel = seeds != nullptr ? fused_planar_step_kernel<true>
+                                       : fused_planar_step_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fused_planar_step_kernel<<<P, M, smem, (cudaStream_t)stream>>>(
-      means, prec_u, W, lin_rows, A, rects, circles, eps, new_means, costs, xs, prm);
+  kernel<<<P, M, smem, (cudaStream_t)stream>>>(means, prec_u, W, lin_rows, A, rects, circles,
+                                               eps, seeds, new_means, costs, xs, prm);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K2: eps (or null) and one 64-bit seed per launch
+extern "C" int fused_planar_step_launch(
+    const float* means, const float* prec_u, const float* W, const float* lin_rows,
+    const float* A, const int* rects, int n_rects, const float* circles, int n_circles,
+    const float* eps, unsigned long long seed, float* new_means, float* costs, float* xs,
+    int P, int S, int M, int n_dof, int use_stencil, float dt, float q11, float q12,
+    float q22, float ks11, float ks12, float ks22, float kg11, float kg12, float kg22,
+    float cell_size, float inv_cell_size, int nx, int ny, float k_coll,
+    float temperature, float step_size, void* stream) {
+  return launch(means, prec_u, W, lin_rows, A, rects, n_rects, circles, n_circles, eps,
+                nullptr, seed, new_means, costs, xs, P, S, M, n_dof, use_stencil, dt, q11,
+                q12, q22, ks11, ks12, ks22, kg11, kg12, kg22, cell_size, inv_cell_size, nx,
+                ny, k_coll, temperature, step_size, stream);
+}
+
+// K9: eps (or null) and one int32 seed pair per particle (seeds [P, 2], or
+// null with eps)
+extern "C" int fused_planar_step_per_particle_launch(
+    const float* means, const float* prec_u, const float* W, const float* lin_rows,
+    const float* A, const int* rects, int n_rects, const float* circles, int n_circles,
+    const float* eps, const int* seeds, float* new_means, float* costs, float* xs,
+    int P, int S, int M, int n_dof, int use_stencil, float dt, float q11, float q12,
+    float q22, float ks11, float ks12, float ks22, float kg11, float kg12, float kg22,
+    float cell_size, float inv_cell_size, int nx, int ny, float k_coll,
+    float temperature, float step_size, void* stream) {
+  if ((eps == nullptr) == (seeds == nullptr)) return (int)cudaErrorInvalidValue;
+  return launch(means, prec_u, W, lin_rows, A, rects, n_rects, circles, n_circles, eps,
+                seeds, 0ULL, new_means, costs, xs, P, S, M, n_dof, use_stencil, dt, q11,
+                q12, q22, ks11, ks12, ks22, kg11, kg12, kg22, cell_size, inv_cell_size, nx,
+                ny, k_coll, temperature, step_size, stream);
 }

@@ -11,7 +11,12 @@ launch-counting wrapper and a plain PyTorch version in the same module.
 - ``panda_fields.fused_link_fields_cost`` (K7): link fields at given link
   positions;
 - ``panda_fields.fk_link_fields_cost`` (K8): FK + link fields per
-  configuration.
+  configuration;
+- ``fused_step.fused_planar_step_per_particle`` (K9): the whole planar
+  iteration with one seed pair per particle;
+- ``fields.grid_lookup`` (K10): the occupancy-grid read;
+- ``fields.primitive_field_cost`` (K11): the analytic rectangle and circle
+  field.
 
 A wrapper launches its kernel for a CUDA tensor and runs the plain version
 only for a CPU tensor; it never falls back from one to the other.

@@ -35,12 +35,40 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+
+
+def _planar_step_args(rng):
+    """The planar step launchers' arguments; ``rng`` is the random-source
+    argument after eps (K2: a 64-bit seed, K9: per-particle seeds)."""
+    return [
+        _P, _P, _P, _P, _P,  # means, prec_u, W, lin_rows, A (or null)
+        _P, _I, _P, _I,  # rect_bounds, R, circles, C
+        _P, rng,  # eps (or null), seed or seeds
+        _P, _P, _P,  # new_means, costs, x scratch
+        _I, _I, _I, _I,  # P, S, M, n_dof
+        _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,  # use_stencil, dt, q11 q12 q22, ks.., kg..
+        _F, _F, _I, _I,  # cell_size, inv_cell_size, nx, ny
+        _F, _F, _F,  # k_coll, temperature, step_size
+        _P,  # stream
+    ]
+
+
 # C signatures of the launchers; each returns its cudaError_t as an int
 SIGNATURES = {
     "raster_field_launch": [
         _P, _L, _L, _L, _L, _L,  # points, B, L, stride_b, stride_l, stride_c
         _P, _I, _P, _I,  # rect_bounds, R, circles, C
         _F, _F, _I, _I,  # cell_size, inv_cell_size, nx, ny
+        _P, _P,  # out, stream
+    ],
+    "grid_lookup_launch": [
+        _P, _I, _I,  # grid, nx, ny
+        _P, _L, _L, _L, _L, _L,  # points, B, L, stride_b, stride_l, stride_c
+        _F, _P, _P,  # inv_cell_size, out, stream
+    ],
+    "primitive_field_launch": [
+        _P, _L, _L, _L, _L, _L,  # points, B, L, stride_b, stride_l, stride_c
+        _P, _I, _P, _I,  # rects, R, circles, C
         _P, _P,  # out, stream
     ],
     "dof_quad_eval_launch": [
@@ -72,17 +100,8 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P,  # means, prec_u, g_pd, W, spheres, eps (or null)
         _P, _P, _P, _P, _P,  # new_means, costs, DofStepParams*, FkChain*, stream
     ],
-    "fused_planar_step_launch": [
-        _P, _P, _P, _P, _P,  # means, prec_u, W, lin_rows, A (or null)
-        _P, _I, _P, _I,  # rect_bounds, R, circles, C
-        _P, ctypes.c_ulonglong,  # eps (or null), seed
-        _P, _P, _P,  # new_means, costs, x scratch
-        _I, _I, _I, _I,  # P, S, M, n_dof
-        _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,  # use_stencil, dt, q11 q12 q22, ks.., kg..
-        _F, _F, _I, _I,  # cell_size, inv_cell_size, nx, ny
-        _F, _F, _F,  # k_coll, temperature, step_size
-        _P,  # stream
-    ],
+    "fused_planar_step_launch": _planar_step_args(ctypes.c_ulonglong),  # seed
+    "fused_planar_step_per_particle_launch": _planar_step_args(_P),  # seeds [P, 2] or null
 }
 
 _LIB = None

@@ -1,14 +1,27 @@
-"""Raster collision field: wrapper and plain version of the CUDA kernel.
+"""The 2D collision fields: wrappers and plain versions of three CUDA kernels.
 
-Replaces the TPU kernel ``stoch_gpmp_tpu/ops/pallas/fields.py``
-``raster_primitive_cost`` (``_raster_kernel``). The CUDA source is
-``csrc/raster_field.cu``: one thread per point, points read through their
-strides, primitives in shared memory. It is memory and launch-latency bound
-(12 bytes per point, ~121k points per call at the planar parity shape); see
-the source for the design.
+Each replaces a TPU kernel of ``stoch_gpmp_tpu/ops/pallas/fields.py``:
 
-``raster_primitive_cost`` launches the kernel for a CUDA tensor and runs
-``raster_primitive_cost_plain`` only for a CPU tensor.
+- ``raster_primitive_cost`` (K1, ``csrc/raster_field.cu``): the count of
+  rasterized primitives covering each point's snapped cell;
+- ``grid_lookup`` (K10, ``csrc/grid_lookup.cu``): the occupancy-grid read
+  ``grid[cell(y), cell(x)]``;
+- ``primitive_field_cost`` (K11, ``csrc/primitive_field.cu``): the count of
+  analytic rectangles and circles containing each point.
+
+All three run one thread per point and read the points through their
+strides (the planner passes a strided ``[B, L, 2]`` slice of its sample
+batch, so no copy is made). They are bound by memory and launch latency (12
+bytes per point, ~121k points per call at the planar parity shape); see the
+sources for the design.
+
+Each wrapper launches its kernel for a CUDA tensor and runs its plain
+version only for a CPU tensor. The fields are piecewise constant, so their
+gradient with respect to the points is zero: the JAX package's ``jax.grad``
+through the ``int32`` cell index or the comparisons gives exactly that. The
+wrappers carry that zero backward (``_PiecewiseConstant``) on the CPU and
+the card alike, so the Gauss-Newton field Jacobians are zero here too,
+rather than an error or a graph cut silently by a raw pointer.
 """
 
 from __future__ import annotations
@@ -67,21 +80,57 @@ def raster_primitive_cost_plain(rect_bounds, circles, points, *, cell_size, nx, 
     return acc
 
 
+class _PiecewiseConstant(torch.autograd.Function):
+    """``fn(points)`` with a zero gradient with respect to the points."""
+
+    @staticmethod
+    def forward(ctx, points, fn):
+        ctx.meta = (points.shape, points.dtype, points.device)
+        return fn(points)
+
+    @staticmethod
+    def backward(ctx, grad):
+        shape, dtype, device = ctx.meta
+        return torch.zeros(shape, dtype=dtype, device=device), None
+
+
+def _piecewise_constant(points, fn):
+    if torch.is_grad_enabled() and points.requires_grad:
+        return _PiecewiseConstant.apply(points, fn)
+    return fn(points)
+
+
+def _check_points(points, name: str) -> None:
+    """Raise unless ``points`` is a float32 ``[..., 2]`` CUDA tensor."""
+    if points.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {points.device}")
+    if points.dtype != torch.float32 or points.shape[-1] != 2:
+        raise ValueError(
+            f"{name} kernel takes float32 [..., 2] points, got "
+            f"{points.dtype} {tuple(points.shape)}"
+        )
+
+
+def _as_bl2(points):
+    """``points`` as a ``[B, L, 2]`` view (a copy only when it has neither
+    three dimensions nor a flat layout)."""
+    return points if points.dim() == 3 else points.reshape(-1, 1, 2)
+
+
 def raster_primitive_cost(rect_bounds, circles, points, *, cell_size, nx, ny):
     """``RasterPrimitive2DField.compute_cost``: the CUDA kernel for a CUDA
     tensor (float32, any strides of a ``[B, L, 2]`` view), the plain version
-    for a CPU tensor."""
+    for a CPU tensor; zero gradient."""
+    return _piecewise_constant(points, lambda pts: _raster_primitive_cost(
+        rect_bounds, circles, pts, cell_size=cell_size, nx=nx, ny=ny))
+
+
+def _raster_primitive_cost(rect_bounds, circles, points, *, cell_size, nx, ny):
     if points.device.type == "cpu":
         return raster_primitive_cost_plain(
             rect_bounds, circles, points, cell_size=cell_size, nx=nx, ny=ny
         )
-    if points.device.type != "cuda":
-        raise ValueError(f"raster field: unsupported device {points.device}")
-    if points.dtype != torch.float32 or points.shape[-1] != 2:
-        raise ValueError(
-            f"raster field kernel takes float32 [..., 2] points, got "
-            f"{points.dtype} {tuple(points.shape)}"
-        )
+    _check_points(points, "raster field")
     if (rect_bounds.device != points.device or circles.device != points.device
             or rect_bounds.dtype != torch.int32 or circles.dtype != torch.float32
             or not rect_bounds.is_contiguous() or not circles.is_contiguous()
@@ -91,7 +140,7 @@ def raster_primitive_cost(rect_bounds, circles, points, *, cell_size, nx, ny):
             "float32 [C, 3] circles on the points' device"
         )
     batch_shape = points.shape[:-1]
-    pts = points if points.dim() == 3 else points.reshape(-1, 1, 2)
+    pts = _as_bl2(points)
     b, l = pts.shape[0], pts.shape[1]
     out = torch.empty((b, l), dtype=torch.float32, device=points.device)
     if b * l == 0:
@@ -110,3 +159,106 @@ def raster_primitive_cost(rect_bounds, circles, points, *, cell_size, nx, ny):
 
 
 raster_primitive_cost.launches = 0
+
+
+def grid_lookup_plain(grid, points, cell_size: float):
+    """Plain PyTorch version: ``grid [ny, nx]``, ``points [..., 2]`` ->
+    ``grid[cell(y), cell(x)]`` of shape ``[...]``, with K1's snapped and
+    clamped cell rule (``snap_cells``)."""
+    ny, nx = grid.shape
+    cx = snap_cells(points[..., 0], cell_size, nx // 2, nx).long()
+    cy = snap_cells(points[..., 1], cell_size, ny // 2, ny).long()
+    return grid[cy, cx]
+
+
+def grid_lookup(grid, points, cell_size: float):
+    """``OccupancyGridField.compute_cost``: the CUDA kernel for a CUDA
+    tensor (float32 points, any strides of a ``[B, L, 2]`` view; a
+    contiguous float32 grid), the plain version for a CPU tensor; zero
+    gradient."""
+    return _piecewise_constant(points, lambda pts: _grid_lookup(grid, pts, cell_size))
+
+
+def _grid_lookup(grid, points, cell_size):
+    if points.device.type == "cpu":
+        return grid_lookup_plain(grid, points, cell_size)
+    _check_points(points, "grid lookup")
+    if (grid.device != points.device or grid.dtype != torch.float32 or grid.dim() != 2
+            or not grid.is_contiguous()):
+        raise ValueError("grid lookup kernel takes a contiguous float32 [ny, nx] grid on "
+                         "the points' device")
+    batch_shape = points.shape[:-1]
+    pts = _as_bl2(points)
+    b, l = pts.shape[0], pts.shape[1]
+    out = torch.empty((b, l), dtype=torch.float32, device=points.device)
+    if b * l == 0:
+        return out.reshape(batch_shape)
+    ny, nx = grid.shape
+    lib = _build.load_library()
+    err = lib.grid_lookup_launch(
+        grid.data_ptr(), int(nx), int(ny),
+        pts.data_ptr(), b, l, pts.stride(0), pts.stride(1), pts.stride(2),
+        inv_cell_size(cell_size, torch.float32), out.data_ptr(),
+        _build.stream_ptr(points.device),
+    )
+    _build.check(err, "grid_lookup_launch")
+    grid_lookup.launches += 1
+    return out.reshape(batch_shape)
+
+
+grid_lookup.launches = 0
+
+
+def primitive_field_cost_plain(rects, circles, points):
+    """Plain PyTorch version: ``rects [R, 4]`` (cx, cy, w, h), ``circles
+    [C, 3]`` (cx, cy, r), ``points [..., 2]`` -> ``[...]`` count of the
+    primitives containing each point (boundaries included; circles by
+    squared distance), in the points' dtype."""
+    x, y = points[..., 0], points[..., 1]
+    acc = torch.zeros(x.shape, dtype=points.dtype, device=points.device)
+    for r in range(int(rects.shape[0])):
+        cx, cy, w, h = rects[r]
+        inside = ((x - cx).abs() <= 0.5 * w) & ((y - cy).abs() <= 0.5 * h)
+        acc = acc + inside.to(points.dtype)
+    for c in range(int(circles.shape[0])):
+        cx, cy, rad = circles[c]
+        dx, dy = x - cx, y - cy
+        acc = acc + (dx * dx + dy * dy <= rad * rad).to(points.dtype)
+    return acc
+
+
+def primitive_field_cost(rects, circles, points):
+    """``Primitive2DField.compute_cost``: the CUDA kernel for a CUDA tensor
+    (float32 points, any strides of a ``[B, L, 2]`` view; R or C may be 0),
+    the plain version for a CPU tensor; zero gradient."""
+    return _piecewise_constant(points, lambda pts: _primitive_field_cost(rects, circles, pts))
+
+
+def _primitive_field_cost(rects, circles, points):
+    if points.device.type == "cpu":
+        return primitive_field_cost_plain(rects, circles, points)
+    _check_points(points, "primitive field")
+    if (rects.device != points.device or circles.device != points.device
+            or rects.dtype != torch.float32 or circles.dtype != torch.float32
+            or not rects.is_contiguous() or not circles.is_contiguous()
+            or rects.shape[-1] != 4 or circles.shape[-1] != 3):
+        raise ValueError("primitive field kernel takes contiguous float32 [R, 4] rects and "
+                         "[C, 3] circles on the points' device")
+    batch_shape = points.shape[:-1]
+    pts = _as_bl2(points)
+    b, l = pts.shape[0], pts.shape[1]
+    out = torch.empty((b, l), dtype=torch.float32, device=points.device)
+    if b * l == 0:
+        return out.reshape(batch_shape)
+    lib = _build.load_library()
+    err = lib.primitive_field_launch(
+        pts.data_ptr(), b, l, pts.stride(0), pts.stride(1), pts.stride(2),
+        rects.data_ptr(), int(rects.shape[0]), circles.data_ptr(), int(circles.shape[0]),
+        out.data_ptr(), _build.stream_ptr(points.device),
+    )
+    _build.check(err, "primitive_field_launch")
+    primitive_field_cost.launches += 1
+    return out.reshape(batch_shape)
+
+
+primitive_field_cost.launches = 0

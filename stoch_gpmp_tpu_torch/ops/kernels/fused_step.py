@@ -1,21 +1,27 @@
-"""The whole planar StochGPMP iteration as one kernel: wrapper, plain version
-and the host loop.
+"""The whole planar StochGPMP iteration as one kernel: wrappers, plain
+version and the host loops.
 
-Replaces the TPU kernel ``stoch_gpmp_tpu/ops/pallas/fused_step.py``
-``make_fused_planar_step_batched`` (``_kernel_batched``). The CUDA source is
-``csrc/fused_planar_step.cu``: one block per particle and one thread per
-lane, sample tiles, ``W``/``A`` streamed in K-tiles through shared memory.
-At the planar parity shape only 15 blocks run, so it is latency bound on
-15 of the card's 132 SMs; see the source for the design.
+Replaces two TPU kernels of ``stoch_gpmp_tpu/ops/pallas/fused_step.py``,
+both through ``csrc/fused_planar_step.cu`` (one block per particle and one
+thread per lane, sample tiles, ``W``/``A`` streamed in K-tiles through
+shared memory; at the planar parity shape only 15 blocks run, so it is
+latency bound on 15 of the card's 132 SMs; see the source for the design):
 
-The random draws are either an ``eps [P, S, M]`` operand (the tests' mode)
-or a 64-bit seed per launch. With a seed the kernel draws N(0, 1) in-kernel
-from Philox4x32-10 keyed on ``(seed, particle, sample, lane)`` with a
-dual-output Box-Muller; the plain version on a CPU tensor draws from a
-``torch.Generator`` seeded with the same seed. The streams differ by design
-from each other and from the JAX package's; the moments agree.
+- K2, ``make_fused_planar_step_batched`` (``_kernel_batched``):
+  ``fused_planar_step``, one 64-bit seed per launch;
+- K9, ``make_fused_planar_step`` (``_kernel``, one program per particle with
+  its own seed pair): ``fused_planar_step_per_particle``, one int32 seed
+  pair per particle, and its loop ``fused_planar_optimize``.
 
-``fused_planar_step`` launches the kernel for CUDA tensors and runs
+The random draws are either an ``eps [P, S, M]`` operand (the tests' mode;
+the same function for K2 and K9) or seeds. With seeds the kernel draws
+N(0, 1) in-kernel from Philox4x32-10 keyed on the launch seed, or on the
+particle's seed pair, with a dual-output Box-Muller; the plain version on a
+CPU tensor draws from ``torch.Generator``s seeded with the same seeds. The
+streams differ by design from each other and from the JAX package's; the
+moments agree.
+
+Each wrapper launches the kernel for CUDA tensors and runs
 ``fused_planar_step_plain`` only for CPU tensors.
 """
 
@@ -84,12 +90,36 @@ class FusedPlanarStep:
         return new_flat.reshape(p, t, d), costs
 
 
-def make_fused_planar_step_batched(
-    *, weight_t, dof_prior, dof_quad, num_particles, rect_bounds, circles,
+class FusedPlanarStepPerParticle(FusedPlanarStep):
+    """K9's step: ``step(means, seeds)`` with ``seeds [P, 2]`` int32, one
+    seed pair per particle, or ``step(means, eps=eps)``."""
+
+    def __call__(self, means: torch.Tensor, seeds=None, *, eps=None):
+        p, t, d = means.shape
+        prec_u = self.dof_prior.matvec_flat(means).reshape(p, t * d)
+        new_flat, costs = fused_planar_step_per_particle(
+            self, means.reshape(p, t * d), prec_u, eps=eps, seeds=seeds
+        )
+        return new_flat.reshape(p, t, d), costs
+
+
+def make_fused_planar_step_batched(**kw) -> FusedPlanarStep:
+    """Build K2's step for one problem (keywords as
+    :func:`make_fused_planar_step`)."""
+    return _make_step(FusedPlanarStep, **kw)
+
+
+def make_fused_planar_step(**kw) -> FusedPlanarStepPerParticle:
+    """Build K9's step for one problem: one seed pair per particle."""
+    return _make_step(FusedPlanarStepPerParticle, **kw)
+
+
+def _make_step(
+    cls, *, weight_t, dof_prior, dof_quad, num_particles, rect_bounds, circles,
     cell_size, nx, ny, traj_len, state_dim, num_samples, k_coll,
     temperature, step_size,
-) -> FusedPlanarStep:
-    """Build the step for one problem; the conditioning gate
+):
+    """The step's constant operands; the conditioning gate
     (``needs_stencil``) picks the stencil or the matmul quadratic."""
     dtype, device = weight_t.dtype, weight_t.device
     p = num_particles
@@ -101,7 +131,7 @@ def make_fused_planar_step_batched(
     else:
         a, b_g = dense_quad_from_dof(dof_quad, traj_len, n_dof)
         lin_rows, quad_a = np.repeat(b_g, p // dof_quad.num_goals, axis=0), as_t(a)
-    return FusedPlanarStep(
+    return cls(
         weight_t=weight_t.contiguous(), dof_prior=dof_prior,
         lin_rows=as_t(lin_rows), quad_a=quad_a, masks=as_t(masks),
         quad_stencil=quad_stencil_consts(dof_quad),
@@ -171,8 +201,36 @@ def _check_cuda(step: FusedPlanarStep, means, prec_u, eps):
         raise ValueError(f"fused planar step kernel: {smem} B of shared memory > {_MAX_SMEM}")
 
 
+def _launch(step: FusedPlanarStep, means, prec_u, eps, launcher: str, rng):
+    """Launch ``launcher`` on CUDA tensors; ``rng`` is its seed argument."""
+    _check_cuda(step, means, prec_u, eps)
+    p, m, s = step.num_particles, means.shape[-1], step.num_samples
+    new_means = torch.empty_like(means)
+    costs = torch.empty((p, s), dtype=torch.float32, device=means.device)
+    xs = torch.empty((p, s, m), dtype=torch.float32, device=means.device)
+    (q, ks, kg, dt) = step.quad_stencil
+    lib = _build.load_library()
+    err = getattr(lib, launcher)(
+        means.data_ptr(), prec_u.data_ptr(), step.weight_t.data_ptr(),
+        step.lin_rows.data_ptr(),
+        None if step.quad_a is None else step.quad_a.data_ptr(),
+        step.rect_bounds.data_ptr(), int(step.rect_bounds.shape[0]),
+        step.circles.data_ptr(), int(step.circles.shape[0]),
+        None if eps is None else eps.data_ptr(), rng,
+        new_means.data_ptr(), costs.data_ptr(), xs.data_ptr(),
+        p, s, m, step.state_dim // 2, int(step.use_stencil), dt,
+        q[0, 0], q[0, 1], q[1, 1], ks[0, 0], ks[0, 1], ks[1, 1],
+        kg[0, 0], kg[0, 1], kg[1, 1],
+        step.cell_size, inv_cell_size(step.cell_size, torch.float32), step.nx, step.ny,
+        step.k_coll, step.temperature,
+        step.step_size, _build.stream_ptr(means.device),
+    )
+    _build.check(err, launcher)
+    return new_means, costs
+
+
 def fused_planar_step(step: FusedPlanarStep, means, prec_u, *, eps=None, seed=None):
-    """One fused iteration: the CUDA kernel for CUDA tensors, the plain
+    """One fused iteration (K2): the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. Exactly one of ``eps [P, S, M]`` and ``seed``
     (an int in ``[0, 2**63)``) is given."""
     if (eps is None) == (seed is None):
@@ -185,33 +243,62 @@ def fused_planar_step(step: FusedPlanarStep, means, prec_u, *, eps=None, seed=No
         return fused_planar_step_plain(step, means, prec_u, eps)
     if means.device.type != "cuda":
         raise ValueError(f"fused planar step: unsupported device {means.device}")
-    _check_cuda(step, means, prec_u, eps)
-    new_means = torch.empty_like(means)
-    costs = torch.empty((p, s), dtype=torch.float32, device=means.device)
-    xs = torch.empty((p, s, m), dtype=torch.float32, device=means.device)
-    (q, ks, kg, dt) = step.quad_stencil
-    lib = _build.load_library()
-    err = lib.fused_planar_step_launch(
-        means.data_ptr(), prec_u.data_ptr(), step.weight_t.data_ptr(),
-        step.lin_rows.data_ptr(),
-        None if step.quad_a is None else step.quad_a.data_ptr(),
-        step.rect_bounds.data_ptr(), int(step.rect_bounds.shape[0]),
-        step.circles.data_ptr(), int(step.circles.shape[0]),
-        None if eps is None else eps.data_ptr(), 0 if seed is None else int(seed),
-        new_means.data_ptr(), costs.data_ptr(), xs.data_ptr(),
-        p, s, m, step.state_dim // 2, int(step.use_stencil), dt,
-        q[0, 0], q[0, 1], q[1, 1], ks[0, 0], ks[0, 1], ks[1, 1],
-        kg[0, 0], kg[0, 1], kg[1, 1],
-        step.cell_size, inv_cell_size(step.cell_size, torch.float32), step.nx, step.ny,
-        step.k_coll, step.temperature,
-        step.step_size, _build.stream_ptr(means.device),
-    )
-    _build.check(err, "fused_planar_step_launch")
+    out = _launch(step, means, prec_u, eps, "fused_planar_step_launch",
+                  0 if seed is None else int(seed))
     fused_planar_step.launches += 1
-    return new_means, costs
+    return out
 
 
 fused_planar_step.launches = 0
+
+
+def _seed_pair(s0: int, s1: int) -> int:
+    """One int32 seed pair as the 64-bit seed of a ``torch.Generator``."""
+    return (s0 & 0xFFFFFFFF) | ((s1 & 0xFFFFFFFF) << 32)
+
+
+def fused_planar_step_per_particle(step: FusedPlanarStep, means, prec_u, *, eps=None,
+                                   seeds=None):
+    """One fused iteration with one seed pair per particle (K9): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors. Exactly one
+    of ``eps [P, S, M]`` and ``seeds [P, 2]`` (int32) is given."""
+    if (eps is None) == (seeds is None):
+        raise ValueError("give exactly one of eps and seeds")
+    p, m, s = step.num_particles, means.shape[-1], step.num_samples
+    if seeds is not None and (tuple(seeds.shape) != (p, 2) or seeds.dtype != torch.int32):
+        raise ValueError(f"seeds must be int32 [{p}, 2], got {seeds.dtype} {tuple(seeds.shape)}")
+    if means.device.type == "cpu":
+        if eps is None:
+            eps = torch.stack([
+                torch.randn((s, m), generator=torch.Generator().manual_seed(_seed_pair(a, b)),
+                            dtype=means.dtype)
+                for a, b in seeds.tolist()
+            ])
+        return fused_planar_step_plain(step, means, prec_u, eps)
+    if means.device.type != "cuda":
+        raise ValueError(f"fused planar step: unsupported device {means.device}")
+    if seeds is not None and (seeds.device != means.device or not seeds.is_contiguous()):
+        raise ValueError("fused planar step kernel: seeds must be contiguous on the means' device")
+    out = _launch(step, means, prec_u, eps, "fused_planar_step_per_particle_launch",
+                  None if seeds is None else seeds.data_ptr())
+    fused_planar_step_per_particle.launches += 1
+    return out
+
+
+fused_planar_step_per_particle.launches = 0
+
+
+def fused_planar_optimize(step: FusedPlanarStepPerParticle, means, generator, opt_iters: int):
+    """``opt_iters`` iterations of K9's step; the seeds ``[opt_iters, P, 2]``
+    are drawn from ``generator`` up front, on its device, so the loop reads
+    nothing back."""
+    seeds = torch.randint(
+        -(2**31), 2**31, (opt_iters, means.shape[0], 2), generator=generator,
+        device=generator.device, dtype=torch.int32,
+    ).to(means.device)
+    for i in range(opt_iters):
+        means, _ = step(means, seeds[i])
+    return means
 
 
 def fused_planar_optimize_batched(step: FusedPlanarStep, means, generator, opt_iters: int):

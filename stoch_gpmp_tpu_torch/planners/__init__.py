@@ -1,3 +1,12 @@
+from stoch_gpmp_tpu_torch.planners.gpmp import (
+    GPMP,
+    GPMPState,
+    WoodburyGN,
+    build_woodbury,
+    gpmp_optimize,
+    gpmp_step,
+    gpmp_step_woodbury,
+)
 from stoch_gpmp_tpu_torch.planners.stoch_gpmp import (
     IterMetrics,
     SamplerModel,
@@ -9,6 +18,13 @@ from stoch_gpmp_tpu_torch.planners.stoch_gpmp import (
 )
 
 __all__ = [
+    "GPMP",
+    "GPMPState",
+    "WoodburyGN",
+    "build_woodbury",
+    "gpmp_optimize",
+    "gpmp_step",
+    "gpmp_step_woodbury",
     "IterMetrics",
     "SamplerModel",
     "StochGPMP",

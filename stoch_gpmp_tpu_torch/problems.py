@@ -7,6 +7,16 @@
   with ``CostComposite([QuadraticCost, CostCollision(RasterPrimitive2DField)])``.
   ``sigma_goal_prior`` is the goal anchor of the cost (1e-3 gives weights of
   1e6, the matmul quadratic; 1e-5 gives 1e10 and the stencil quadratic).
+  ``fast=False`` builds the reference-shaped stack of that example run
+  without ``--fast``: ``CostComposite([CostGP, CostGoalPrior,
+  CostCollision(field)])``, with ``field`` the occupancy grid
+  (``"grid"``, ``ObstacleMap.as_field()``, kernel K10, the example's field),
+  the analytic primitives (``"primitive"``, ``Primitive2DField``, K11) or the
+  raster field (``"raster"``, K1).
+- ``build_planar_gpmp_problem``: ``examples/planar_gpmp.py``, Gauss-Newton
+  ``GPMP`` on 2 goals x ``ppg`` particles, T = 64, dt = 0.05, 10 random
+  obstacles from ``generate_obstacle_map(rng=seed)``, with
+  ``CostComposite([CostGP, CostGoalPrior, CostCollision(grid)])``.
 - ``build_panda_problem``: counterpart of ``benchmarks/run.py
   _panda_problem``, the Panda 7-DOF problem with the same start, goals and
   obstacle spheres from ``numpy.random.default_rng(0)``. ``fast=True``
@@ -38,9 +48,26 @@ DT = 0.02
 SAMPLE_SIGMAS = (1e-3, 3.0, 1e-3)
 
 
+def _planar_field(kind, obst_map, obst_list, dtype, device):
+    """The collision field of a planar map: ``"raster"``, ``"grid"`` or
+    ``"primitive"``."""
+    from stoch_gpmp_tpu_torch.costs import Primitive2DField, RasterPrimitive2DField
+
+    if kind == "raster":
+        return RasterPrimitive2DField.from_map(obst_map, obst_list, dtype=dtype, device=device)
+    if kind == "grid":
+        return obst_map.as_field()
+    if kind == "primitive":
+        return Primitive2DField.from_obstacles(obst_list, dtype=dtype, device=device)
+    raise ValueError(f"unknown planar field {kind!r}: raster, grid or primitive")
+
+
 def build_planar_cost(traj_len=64, dtype=torch.float32, device=None,
-                      with_obstacles=True, sigma_goal_prior=1e-3):
-    """The parity cost stack; returns ``(cost, field_or_None)``."""
+                      with_obstacles=True, sigma_goal_prior=1e-3, *, fast=True, field=None):
+    """The parity cost stack; returns ``(cost, field_or_None)``. ``fast``:
+    the fused quadratic, else the reference-shaped ``CostGP`` +
+    ``CostGoalPrior``; ``field``: ``"raster"`` (the default with ``fast``),
+    ``"grid"`` (the default without) or ``"primitive"``."""
     device = resolve_device(device)
     from stoch_gpmp_tpu_torch.costs import (
         CostCollision,
@@ -48,7 +75,6 @@ def build_planar_cost(traj_len=64, dtype=torch.float32, device=None,
         CostGP,
         CostGoalPrior,
         QuadraticCost,
-        RasterPrimitive2DField,
     )
     from stoch_gpmp_tpu_torch.envs import generate_obstacle_map
 
@@ -61,29 +87,34 @@ def build_planar_cost(traj_len=64, dtype=torch.float32, device=None,
         n_dof, traj_len, GOALS, sigma_goal_prior=sigma_goal_prior, dtype=dtype,
         device=device,
     )
-    costs = [QuadraticCost.from_gp_and_goal_prior(cost_gp, cost_goal, traj_len)]
-    field = None
+    costs = ([QuadraticCost.from_gp_and_goal_prior(cost_gp, cost_goal, traj_len)] if fast
+             else [cost_gp, cost_goal])
+    coll_field = None
     if with_obstacles:
         obst_map, obst_list = generate_obstacle_map(
             map_dim=(20, 20), cell_size=0.1, random_gen=True, num_obst=15,
             rand_limits=[[-7.5, 7.5], [-7.5, 7.5]], rand_rect_shape=[2, 2],
             rng=0, dtype=dtype, device=device,
         )
-        field = RasterPrimitive2DField.from_map(obst_map, obst_list, dtype=dtype, device=device)
-        costs.append(CostCollision.create(n_dof, traj_len, field, sigma_coll=1e-5))
-    return CostComposite.create(n_dof, traj_len, costs), field
+        kind = field or ("raster" if fast else "grid")
+        coll_field = _planar_field(kind, obst_map, obst_list, dtype, device)
+        costs.append(CostCollision.create(n_dof, traj_len, coll_field, sigma_coll=1e-5))
+    return CostComposite.create(n_dof, traj_len, costs), coll_field
 
 
 def build_planar_problem(traj_len=64, ppg=5, dtype=torch.float32, device=None,
-                         with_obstacles=True, sigma_goal_prior=1e-3, seed=0):
+                         with_obstacles=True, sigma_goal_prior=1e-3, seed=0, *,
+                         fast=True, field=None):
     """``(sampler, cost, state)`` of the parity workload; the state's means
     are the straight start-to-goal lines, ``ppg`` per goal, and its
-    generator is seeded with ``seed``."""
+    generator is seeded with ``seed``. ``fast``, ``field``: the cost stack
+    (:func:`build_planar_cost`)."""
     from stoch_gpmp_tpu_torch.gp.prior import make_gp_prior
     from stoch_gpmp_tpu_torch.planners import SamplerModel, StochGPMPState
 
     device = resolve_device(device)
-    cost, _ = build_planar_cost(traj_len, dtype, device, with_obstacles, sigma_goal_prior)
+    cost, _ = build_planar_cost(traj_len, dtype, device, with_obstacles, sigma_goal_prior,
+                                fast=fast, field=field)
     s_start, s_gp, s_goal = SAMPLE_SIGMAS
     prior = make_gp_prior(
         2, traj_len, DT, START, s_start, s_gp, sigma_goal=s_goal,
@@ -94,6 +125,50 @@ def build_planar_problem(traj_len=64, ppg=5, dtype=torch.float32, device=None,
         generator=torch.Generator(device=device).manual_seed(seed),
     )
     return SamplerModel.from_prior(prior), cost, state
+
+
+GPMP_GOALS = [[9.0, 6.0, 0.0, 0.0], [9.0, -3.0, 0.0, 0.0]]
+GPMP_DT = 0.05
+
+
+def build_planar_gpmp_problem(ppg=3, *, method="cholesky", traj_len=64, dtype=torch.float32,
+                              device=None, seed=0, initial_particle_means=None):
+    """The ``GPMP`` planner of ``examples/planar_gpmp.py``: start ``START``,
+    the goals ``GPMP_GOALS``, ``ppg`` particles per goal, a 20 x 20 map at
+    cell 0.1 with 10 random obstacles from ``rng=seed``, ``CostGP(0.01,
+    0.5)``, ``CostGoalPrior(0.01)``, ``CostCollision(obst_map.as_field(),
+    0.05)``, step 0.3, ``delta`` 1e-2 without trust region, ``method`` the
+    solve (``cholesky``, ``inverse`` or ``woodbury``). The initial means are
+    drawn from the init prior (sigmas 0.01 / 5.0 / 0.01) by the planner's
+    generator (seeded with ``seed``) unless ``initial_particle_means`` is
+    given."""
+    from stoch_gpmp_tpu_torch.costs import CostCollision, CostComposite, CostGP, CostGoalPrior
+    from stoch_gpmp_tpu_torch.envs import generate_obstacle_map
+    from stoch_gpmp_tpu_torch.planners import GPMP
+
+    device = resolve_device(device)
+    n_dof = 2
+    obst_map, _ = generate_obstacle_map(
+        map_dim=(20, 20), cell_size=0.1, random_gen=True, num_obst=10,
+        rand_limits=[[-7.5, 7.5], [-7.5, 7.5]], rand_rect_shape=[2, 2],
+        rng=seed, dtype=dtype, device=device,
+    )
+    cost = CostComposite.create(n_dof, traj_len, [
+        CostGP.create(n_dof, traj_len, START, GPMP_DT, {"sigma_start": 0.01, "sigma_gp": 0.5},
+                      dtype=dtype, device=device),
+        CostGoalPrior.create(n_dof, traj_len, GPMP_GOALS, sigma_goal_prior=0.01, dtype=dtype,
+                             device=device),
+        CostCollision.create(n_dof, traj_len, obst_map.as_field(), sigma_coll=0.05),
+    ])
+    return GPMP(
+        num_particles_per_goal=ppg, traj_len=traj_len, opt_iters=1, dt=GPMP_DT, n_dof=n_dof,
+        step_size=0.3, start_state=START, multi_goal_states=GPMP_GOALS,
+        initial_particle_means=initial_particle_means, cost=cost,
+        sigma_start_init=0.01, sigma_goal_init=0.01, sigma_gp_init=5.0,
+        sigma_start_sample=0.01, sigma_goal_sample=0.01, sigma_gp_sample=0.5,
+        solver_params={"delta": 1e-2, "trust_region": False, "method": method},
+        seed=seed, dtype=dtype, device=device,
+    )
 
 
 PANDA_START_Q = [0.012, -0.57, 0.0, -2.81, 0.0, 3.037, 0.741]

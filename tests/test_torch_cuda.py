@@ -16,7 +16,12 @@ its plain version with the best sample agreeing, the RNG-free tiers within
 Panda main path's descent, start-anchor and launch-count gates. At config 4:
 K6 as K5 (every particle's best sample agreeing); K7 and K8 within 1e-4
 relative of float64 oracles and K8 of K7; the four routes' descent,
-start-anchor, launch-count and stack-equality (1e-4) gates.
+start-anchor, launch-count and stack-equality (1e-4) gates. K9 as K2, with
+one seed pair per particle, and its 500-iteration loop under the planar
+goal (0.3) and start (0.15) gates; K10 and K11 exact; the reference-shaped
+planar routes on the grid and the primitives under the same gates; GN
+``GPMP`` at P = 192 with its goal (0.05), start (0.02) and method-agreement
+(1e-4) gates.
 """
 
 import sys
@@ -110,3 +115,42 @@ def test_panda4_routes(dev):
     assert r["a"]["launches"]["fused_panda_step"] == chip_smoke.PANDA4_ITERS
     assert r["d"]["launches"]["link_fields"] == chip_smoke.PANDA4_ITERS
     assert max(r["stack_rel"].values()) <= chip_smoke.STACK_RTOL
+
+
+@pytest.mark.parametrize("branch", ["matmul", "stencil"])
+def test_fused_step_per_particle_kernel_matches_plain(dev, branch):
+    import chip_smoke
+
+    assert chip_smoke.fused_check(dev, branch, per_particle=True)["argmax_agree"] >= 8
+
+
+def test_fused_step_per_particle_philox_and_loop(dev):
+    import chip_smoke
+
+    r = chip_smoke.moments_check(dev, per_particle=True)
+    assert 0.85 < r["var_ratio_median"] < 1.15
+    loop = chip_smoke.k9_loop(dev)
+    assert loop["launches"]["fused_planar_step_per_particle"] == chip_smoke.ITERS
+
+
+def test_grid_and_primitive_kernels_exact(dev):
+    import chip_smoke
+
+    r = chip_smoke.field2d_check(dev)
+    assert r["K10"]["max_abs_err"] == r["K11"]["max_abs_err"] == 0.0
+
+
+def test_planar_reference_routes(dev):
+    import chip_smoke
+
+    r = chip_smoke.planar_ref_main(dev)
+    assert r["g"]["launches"]["grid_lookup"] == chip_smoke.ITERS
+    assert r["p"]["launches"]["primitive_field"] == chip_smoke.ITERS
+
+
+def test_gauss_newton_main_path(dev):
+    import chip_smoke
+
+    r = chip_smoke.gn_main(dev)
+    assert r["woodbury_vs_cholesky"] <= chip_smoke.GN_METHOD_ATOL
+    assert r["cholesky"]["launches"]["grid_lookup"] == chip_smoke.GN_ITERS + 1

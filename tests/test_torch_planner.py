@@ -24,7 +24,10 @@ sys.path.insert(0, str(ROOT))
 
 from stoch_gpmp_tpu_torch import convert  # noqa: E402
 from stoch_gpmp_tpu_torch.ops.kernels.fused_step import (  # noqa: E402
+    fused_planar_optimize,
     fused_planar_step,
+    fused_planar_step_per_particle,
+    make_fused_planar_step,
     make_fused_planar_step_batched,
 )
 from stoch_gpmp_tpu_torch.planners import (  # noqa: E402
@@ -151,6 +154,67 @@ def test_fused_step_plain_matches_jax_step(problem, branch):
     np.testing.assert_allclose(costs.numpy(), want, rtol=RTOL, atol=RTOL * np.abs(want).max())
     _close(torch.softmax(-costs / TAU, dim=1), ja.weights)
     _close(new_means, jn.particle_means)
+
+
+def _k9_step(ts, quad, coll, p, num_samples=S):
+    field = coll.field
+    return make_fused_planar_step(
+        weight_t=ts.weight_t, dof_prior=ts.dof, dof_quad=quad.dof_form,
+        num_particles=p, rect_bounds=field.rect_bounds, circles=field.circles,
+        cell_size=field.cell_size, nx=field.nx, ny=field.ny, traj_len=64,
+        state_dim=4, num_samples=num_samples, k_coll=1.0 / coll.sigma_coll**2,
+        temperature=TAU, step_size=STEP,
+    )
+
+
+@pytest.mark.parametrize("branch", ["matmul", "stencil"])
+def test_fused_step_per_particle_plain_matches_jax_step(problem, branch):
+    """K9's plain version with an eps operand against JAX's flat
+    ``stoch_gpmp_step`` with the same eps, under K2's tolerances (the JAX
+    K9 seeds the TPU hardware PRNG and cannot run off the TPU): in the
+    matmul branch the costs omit the per-goal constant c."""
+    js, jcs, jst = problem["jax"]
+    ts, tcs, tst = problem["torch"]
+    quad, coll = tcs[branch].costs
+    p, t, d = jst.particle_means.shape
+    (eps,) = _jax_eps_chain(jst.key, (p, S, t * d), 1)
+    jn, ja = _jax_step(js, jcs[branch], jst)
+    step = _k9_step(ts, quad, coll, p)
+    assert step.use_stencil == (branch == "stencil")
+    new_means, costs = step(tst.particle_means, eps=eps)
+    want = np.asarray(ja.costs)
+    if branch == "matmul":
+        want = want - np.repeat(quad.c.numpy(), p // 3)[:, None]
+    np.testing.assert_allclose(costs.numpy(), want, rtol=RTOL, atol=RTOL * np.abs(want).max())
+    _close(torch.softmax(-costs / TAU, dim=1), ja.weights)
+    _close(new_means, jn.particle_means)
+
+
+def test_fused_step_per_particle_wrapper_contract(problem):
+    """K9 with seeds: a particle's draw depends on its own seed pair alone;
+    the same seeds repeat; exactly one of eps and seeds; CPU tensors take
+    the plain version and count no launch; ``fused_planar_optimize`` draws
+    all its seeds up front."""
+    ts, tcs, tst = problem["torch"]
+    quad, coll = tcs["matmul"].costs
+    step = _k9_step(ts, quad, coll, 15, num_samples=16)
+    means = tst.particle_means
+    seeds = torch.arange(30, dtype=torch.int32).reshape(15, 2) - 7
+    a, ca = step(means, seeds)
+    b, _ = step(means, seeds.clone())
+    other = seeds.clone()
+    other[1] = torch.tensor([2**31 - 1, -(2**31)], dtype=torch.int32)
+    c, cc = step(means, other)
+    assert torch.equal(a, b)
+    assert torch.equal(a[0], c[0]) and torch.equal(ca[2:], cc[2:]) and not torch.equal(a[1], c[1])
+    pu = ts.dof.matvec_flat(means).reshape(15, 256)
+    with pytest.raises(ValueError, match="exactly one"):
+        fused_planar_step_per_particle(step, means.reshape(15, 256), pu)
+    with pytest.raises(ValueError, match="int32"):
+        step(means, seeds.long())
+    out = fused_planar_optimize(step, means, torch.Generator().manual_seed(0), 2)
+    assert out.shape == means.shape and bool(torch.isfinite(out).all())
+    assert fused_planar_step_per_particle.launches == 0
 
 
 def test_fused_step_wrapper_contract(problem):
@@ -348,12 +412,16 @@ def test_package_never_imports_jax():
         "stoch_gpmp_tpu_torch.kinematics", "stoch_gpmp_tpu_torch.costs.fused_fields",
         "stoch_gpmp_tpu_torch.ops.kernels.panda_fields",
         "stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof",
+        "stoch_gpmp_tpu_torch.planners.gpmp",
     ]
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        "from stoch_gpmp_tpu_torch.problems import build_planar_problem\n"
+        "from stoch_gpmp_tpu_torch.problems import build_planar_gpmp_problem, build_planar_problem\n"
         "build_planar_problem(device='cpu')\n"
+        "for f in ('grid', 'primitive'):\n"
+        "    build_planar_problem(device='cpu', fast=False, field=f)\n"
+        "build_planar_gpmp_problem(device='cpu', traj_len=8).optimize(opt_iters=1)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'stoch_gpmp_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
