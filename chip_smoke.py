@@ -12,14 +12,18 @@ Phases, one line each; any failure exits non-zero before the result line:
 3. K1, the raster collision field, against its plain PyTorch version at the
    planner's shape (a strided ``[1920, 63, 2]`` slice) plus cell-edge and
    off-map points: exact equality;
-4. K2, the fused planar iteration, with an eps operand against its plain
-   version at the parity shape, matmul branch (parity) and stencil branch
-   (goal anchor sigma 1e-5);
+4. K2, the fused planar iteration (each particle a thread-block cluster of
+   CTAs that split its samples, ``Sigma^{-1} mu`` computed in the kernel),
+   with an eps operand against its plain version at the parity shape, matmul
+   branch (parity) and stencil branch (goal anchor sigma 1e-5); its launch
+   (CTAs per particle, CTAs launched, clusters resident at once, the bound on
+   the SMs it fills) and seed mode at 1 CTA per particle against the split;
 5. K2 with in-kernel Philox draws: the update's moments with uniform weights;
 6. the planar main path: ``StochGPMP(fused_kernel=True)`` on the parity
    problem for 500 iterations, with launch counts, goal reaching and
    updates/s of the kernel loop beside the same loop with the plain K2 on
-   the card, and the device's busy share over a window of the kernel loop;
+   the card, and the device's busy share and device operations per
+   iteration (at most 2) over a window of the kernel loop;
 7. K3, the dof-plane stencil energy, against a float64 plain oracle at
    config-5 shapes (``[7, 10240, 256]``), with and without the fused
    importance term;
@@ -33,9 +37,10 @@ Phases, one line each; any failure exits non-zero before the result line:
     ``StochGPMP(fused_kernel=True)`` and ``StochGPMP`` on the dof path, 200
     iterations each, with descent, start-anchor and launch-count gates and
     updates/s, wall and device ms per iteration and the busy share;
-11. K6, the fused flat Panda iteration at config 4: eps operand against its
-    plain version, the RNG-free tiers (``W = 0``) against float64 oracles,
-    and the Philox moments;
+11. K6, the fused flat Panda iteration at config 4 (cluster-split as K2):
+    eps operand against its plain version, its launch and seed mode at 1
+    CTA per particle against the split, the RNG-free tiers (``W = 0``)
+    against float64 oracles, and the Philox moments;
 12. K7, the link fields at link positions, and K8, FK + link fields per
     configuration, against float64 oracles at 1.30 M points (config 5's
     planner-regime and joint-range rows, spheres on links), K7 also at
@@ -47,13 +52,15 @@ Phases, one line each; any failure exits non-zero before the result line:
     ``StochGPMP`` (b) the fast stack ``QuadraticCost + PlaneFieldsCost``
     (K4), (c) the reference-shaped stack on ``fk=chain.fk_compact`` and (d)
     the same with ``FusedLinkFieldsCost`` (K7); descent, start-anchor,
-    launch-count and stack-equality gates, updates/s, wall and device ms per
-    iteration, the busy share and the largest kernels;
+    launch-count and stack-equality gates, updates/s, wall and device ms and
+    device operations per iteration (at most 2 on route (a)), the busy share
+    and the largest kernels;
 14. K9, the planar iteration with one seed pair per particle
     (``make_fused_planar_step``): eps operand against its plain version at
-    the parity shape on both quadratic branches under K2's gates, the Philox
-    moments with per-particle seeds, and ``fused_planar_optimize`` for 500
-    iterations at parity with the main path's goal and start gates;
+    the parity shape on both quadratic branches under K2's gates, its launch
+    and split check as K2's, the Philox moments with per-particle seeds, and
+    ``fused_planar_optimize`` for 500 iterations at parity with the main
+    path's goal and start gates (at most 2 device operations per iteration);
 15. K10, the occupancy-grid lookup, and K11, the analytic primitive field,
     against their plain versions with exact equality at the planner's
     strided ``[1920, 63, 2]`` slice plus off-map, cell-edge and
@@ -172,8 +179,16 @@ BIG_POINTS = 20480 * 64
 # `python tests/test_torch_gpmp.py`.
 GN_PPG, GN_ITERS = 96, 100
 GN_GOAL_TOL, GN_START_TOL, GN_METHOD_ATOL, GN_INVERSE3_ATOL = 0.05, 0.02, 1e-4, 0.05
+# K2, K9 and K6 with 1 CTA per particle against their split launch (same
+# draws): the cluster sums the mean update in another order, float32
+# roundoff on means of up to ~10.
+SPLIT_MEAN_ATOL = 1e-5
+# The fused loops (main, K9-loop, panda4-main (a)) launch one kernel per
+# iteration; the seeds' draw adds one or two operations per window.
+MAX_LOOP_OPS = 2
 # Peak rates of one H100 SXM (data sheet) for the bound_ms column.
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
+FP32_FLOP_PER_SM = FP32_FLOP_PER_S / 132
 
 
 def fail(msg: str) -> None:
@@ -397,12 +412,11 @@ def fused_check(dev, branch: str, per_particle: bool = False) -> dict:
         fail(f"{kname} {branch}: the gate picked the other quadratic")
     p = state.particle_means.shape[0]
     means = state.particle_means.reshape(p, -1).contiguous()
-    prec_u = step.dof_prior.matvec_flat(state.particle_means).reshape(p, -1)
     gen = torch.Generator(device=dev).manual_seed(1)
     eps = torch.randn((p, S, means.shape[1]), generator=gen, device=dev)
     wrapper = fused_planar_step_per_particle if per_particle else fused_planar_step
-    new_k, cost_k = wrapper(step, means, prec_u, eps=eps)
-    new_p, cost_p = fused_planar_step_plain(step, means, prec_u, eps)
+    new_k, cost_k = wrapper(step, means, eps=eps)
+    new_p, cost_p = fused_planar_step_plain(step, means, eps)
     torch.cuda.synchronize()
     if not (torch.isfinite(cost_k).all() and torch.isfinite(new_k).all()):
         fail(f"{kname} {branch}: non-finite output")
@@ -430,19 +444,75 @@ def fused_check(dev, branch: str, per_particle: bool = False) -> dict:
     if branch == "matmul":  # time the main path's branch: seed mode vs plain + its draw
         rng = (dict(seeds=torch.randint(-(2**31), 2**31, (p, 2), generator=gen, device=dev,
                                         dtype=torch.int32)) if per_particle else dict(seed=3))
-        kernel = lambda: wrapper(step, means, prec_u, **rng)  # noqa: E731
+        kernel = lambda: wrapper(step, means, **rng)  # noqa: E731
         plain = lambda: fused_planar_step_plain(  # noqa: E731
-            step, means, prec_u, torch.randn((p, S, means.shape[1]), generator=gen, device=dev))
+            step, means, torch.randn((p, S, means.shape[1]), generator=gen, device=dev))
         out.update(ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 50),
-                   device_ms=device_ms(kernel, 50), plain_device_ms=device_ms(plain, 20))
+                   device_ms=device_ms(kernel, 50), plain_device_ms=device_ms(plain, 20),
+                   **planar_launch(step, per_particle))
     return out
+
+
+def planar_launch(step, per_particle: bool) -> dict:
+    """K2's (K9's) launch at the step's shape, the matmul branch's bound on
+    the SMs its CTAs occupy (its two [S, M] x [M, M] products per particle
+    at the FP32 peak of those SMs) and how many waves of clusters the grid
+    runs in."""
+    from stoch_gpmp_tpu_torch.ops.kernels.fused_step import launch_shape
+
+    shape = launch_shape(step, per_particle=per_particle)
+    p, m = step.num_particles, step.traj_len * step.state_dim
+    flops = 2 * 2 * p * S * m * m
+    sms = min(132, shape["ctas_launched"])
+    return dict(shape, waves=-(-p // shape["max_active_clusters"]),
+                bound_on_sms_ms=flops / (FP32_FLOP_PER_SM * sms) * 1e3)
+
+
+def split_check(dev, kname: str) -> dict:
+    """K2, K9 or K6 in seed mode with 1 CTA per particle and with
+    ``ctas_per_particle``'s split, on the same means and seeds: the draws
+    do not depend on the split, so the costs agree within COST_RTOL
+    (K6: K5_COST_RTOL) and the new means within SPLIT_MEAN_ATOL (the
+    cluster sums the update in another order)."""
+    from stoch_gpmp_tpu_torch.ops.kernels import fused_step, panda_step
+
+    if kname == "K6":
+        sampler, cost, state, obs, s = panda4_problem(dev)
+        p = state.particle_means.shape[0]
+        step = make_flat_step(sampler, cost, obs, p, s)
+        run = lambda c: panda_step.fused_panda_step(step, means, seed=17, ctas=c)  # noqa: E731
+        split, rtol = panda_step.launch_shape(step)["ctas"], K5_COST_RTOL
+    else:
+        step, state = make_step(dev, per_particle=kname == "K9")
+        p = state.particle_means.shape[0]
+        if kname == "K9":
+            seeds = torch.arange(2 * p, device=dev, dtype=torch.int32).reshape(p, 2) * 7919 - 5
+            run = lambda c: fused_step.fused_planar_step_per_particle(  # noqa: E731
+                step, means, seeds=seeds, ctas=c)
+        else:
+            run = lambda c: fused_step.fused_planar_step(step, means, seed=17, ctas=c)  # noqa: E731
+        split = fused_step.launch_shape(step, per_particle=kname == "K9")["ctas"]
+        rtol = COST_RTOL
+    means = state.particle_means.reshape(p, -1).contiguous()
+    new_1, cost_1 = run(1)
+    new_c, cost_c = run(split)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(cost_c).all() and torch.isfinite(new_c).all()):
+        fail(f"{kname} split: non-finite output")
+    cost_rel = float(((cost_c - cost_1).abs() / cost_1.abs()).max())
+    mean_err = float((new_c - new_1).abs().max())
+    if cost_rel > rtol or mean_err > SPLIT_MEAN_ATOL:
+        fail(f"{kname}: {split} CTAs per particle against 1: costs {cost_rel:.3g} relative "
+             f"(> {rtol}) or new means {mean_err:.3g} apart (> {SPLIT_MEAN_ATOL})")
+    return dict(ctas=split, cost_max_rel=cost_rel, mean_max_err=mean_err)
 
 
 def moments_check(dev, per_particle: bool = False) -> dict:
     """K2 (or with ``per_particle`` K9, the configuration of the JAX
     package's tests/test_fused_step_tpu.py:63-96) with Philox draws and
-    uniform weights: the update is the sample mean of ``eps @ W``, so its
-    per-lane variance is diag(W^T W) / S."""
+    uniform weights (the cost's and the sampling prior's stencil weights
+    zeroed, so the in-kernel importance term is 0): the update is the sample
+    mean of ``eps @ W``, so its per-lane variance is diag(W^T W) / S."""
     from stoch_gpmp_tpu_torch.ops.kernels.fused_step import (
         fused_planar_step,
         fused_planar_step_per_particle,
@@ -451,16 +521,15 @@ def moments_check(dev, per_particle: bool = False) -> dict:
     step, state = make_step(dev, zero_quad=True, per_particle=per_particle)
     p = state.particle_means.shape[0]
     means = state.particle_means.reshape(p, -1).contiguous()
-    prec_u = torch.zeros_like(means)
     gen = torch.Generator(device=dev).manual_seed(7)
     diffs = []
     for seed in range(100):
         if per_particle:
             seeds = torch.randint(-(2**31), 2**31, (p, 2), generator=gen, device=dev,
                                   dtype=torch.int32)
-            new, _ = fused_planar_step_per_particle(step, means, prec_u, seeds=seeds)
+            new, _ = fused_planar_step_per_particle(step, means, seeds=seeds)
         else:
-            new, _ = fused_planar_step(step, means, prec_u, seed=1000 + seed)
+            new, _ = fused_planar_step(step, means, seed=1000 + seed)
         diffs.append(new - means)
     d = torch.stack(diffs).double()  # [seeds, P, M]
     emp_var = d.var(dim=(0, 1))
@@ -518,9 +587,8 @@ def main_path(dev) -> dict:
     def plain_loop():
         m = means0.reshape(p, -1)
         for _ in range(ITERS - 1):
-            pu = step.dof_prior.matvec_flat(m.reshape(p, T, 4)).reshape(p, -1)
             eps = torch.randn((p, S, m.shape[1]), generator=gen, device=dev)
-            m, _ = fused_planar_step_plain(step, m, pu, eps)
+            m, _ = fused_planar_step_plain(step, m, eps)
         return m
 
     times = {"kernel": [], "plain": []}
@@ -535,15 +603,37 @@ def main_path(dev) -> dict:
     # device busy share of the kernel loop: device time per iteration from a
     # profiled 50-iteration window over the wall time per iteration of the
     # unprofiled runs above (the profiler slows the host, not the device)
-    busy = device_ms(lambda: fused_planar_optimize_batched(step, means0, gen, 50), 1)
+    busy, _, ops = device_breakdown(lambda: fused_planar_optimize_batched(step, means0, gen, 50),
+                                    1)
     iter_ms = 1e3 * sum(times["kernel"]) / len(times["kernel"]) / (ITERS - 1)
+    loop_gate("main", ops / 50)
     return dict(launches=launches, goal_err=goal_err, start_err=start_err,
                 optimize_seconds=seconds, optimize_updates_per_s=p * ITERS / seconds,
                 loop_updates_per_s_kernel=per_s["kernel"],
                 loop_updates_per_s_plain=per_s["plain"],
-                loop_iter_wall_ms=iter_ms,
+                loop_iter_wall_ms=iter_ms, loop_device_ops_per_iter=ops / 50,
                 loop_iter_device_ms=None if busy is None else busy / 50,
                 loop_device_busy=None if busy is None else busy / 50 / iter_ms)
+
+
+def split_line(r: dict, split: dict, smi: str) -> str:
+    """The cluster-split phase line of K2, K9 or K6: the launch, the bound
+    on the SMs it fills, and seed mode at 1 CTA per particle against the
+    split."""
+    return (f"{r['ctas']} CTAs per particle, {r['ctas_launched']} CTAs launched in clusters "
+            f"of {r['ctas']} ({r['smem_bytes']} B of shared memory each), "
+            f"{r['max_active_clusters']} clusters resident at once ({r['waves']} wave(s)); "
+            f"bound {r['bound_on_sms_ms']:.4f} ms on the {min(132, r['ctas_launched'])} SMs "
+            f"used; seed mode at {split['ctas']} CTAs per particle against 1: costs within "
+            f"{split['cost_max_rel']:.2e} relative, new means within {split['mean_max_err']:.2e}"
+            f" on {smi}")
+
+
+def loop_gate(what: str, ops_per_iter: float) -> None:
+    """A fused loop runs one kernel launch per iteration (plus the seeds'
+    draw, once per window): at most MAX_LOOP_OPS device operations each."""
+    if not ops_per_iter <= MAX_LOOP_OPS:
+        fail(f"{what}: {ops_per_iter:.2f} device operations per iteration (> {MAX_LOOP_OPS})")
 
 
 def panda_problem(dev, dtype=torch.float32):
@@ -899,18 +989,18 @@ def fused_flat_check(dev) -> dict:
     from stoch_gpmp_tpu_torch.ops.kernels.panda_step import (
         fused_panda_step,
         fused_panda_step_plain,
+        launch_shape,
     )
 
     sampler, cost, state, obs, s = panda4_problem(dev)
     p = state.particle_means.shape[0]
     step = make_flat_step(sampler, cost, obs, p, s)
     means = state.particle_means.reshape(p, -1).contiguous()
-    prec_u = sampler.dof.matvec_flat(state.particle_means).reshape(p, -1)
     gen = torch.Generator(device=dev).manual_seed(7)
     m = means.shape[1]
     eps = torch.randn((p, s, m), generator=gen, device=dev)
-    new_k, cost_k = fused_panda_step(step, means, prec_u, eps=eps)
-    new_p, cost_p = fused_panda_step_plain(step, means, prec_u, eps)
+    new_k, cost_k = fused_panda_step(step, means, eps=eps)
+    new_p, cost_p = fused_panda_step_plain(step, means, eps)
     torch.cuda.synchronize()
     if not (torch.isfinite(cost_k).all() and torch.isfinite(new_k).all()):
         fail("K6: non-finite output")
@@ -923,18 +1013,20 @@ def fused_flat_check(dev) -> dict:
     mean_err = float((new_k - new_p).abs().max())
     if mean_err > K5_MEAN_ATOL:
         fail(f"K6: new means differ by {mean_err:.3g} (> {K5_MEAN_ATOL})")
-    kernel = lambda: fused_panda_step(step, means, prec_u, seed=3)  # noqa: E731
+    kernel = lambda: fused_panda_step(step, means, seed=3)  # noqa: E731
     plain = lambda: fused_panda_step_plain(  # noqa: E731
-        step, means, prec_u, torch.randn(eps.shape, generator=gen, device=dev))
+        step, means, torch.randn(eps.shape, generator=gen, device=dev))
     t = step.traj_len
     flops = 2 * p * s * m * m + p * s * (t - 1) * K4_OPS_PER_POINT
-    nb = 4 * (m * m + 4 * p * m + p * s)  # W, means, prec_u, anchors, new means, costs
-    # the same operations on the p SMs that one block per particle occupies
-    sms_ms = flops / (FP32_FLOP_PER_S * p / 132) * 1e3
+    nb = 4 * (m * m + 3 * p * m + p * s)  # W, means, anchors, new means, costs
+    shape = launch_shape(step)
+    # the same operations on the SMs that the kernel's CTAs occupy
+    sms_ms = flops / (FP32_FLOP_PER_SM * min(132, shape["ctas_launched"])) * 1e3
     return dict(cost_max_rel=rel, argmax_agree=int(agree.sum()), particles=p,
                 max_abs_err=mean_err, ms=cuda_ms(kernel, 100), plain_ms=cuda_ms(plain, 20),
                 device_ms=device_ms(kernel, 50), plain_device_ms=device_ms(plain, 10),
-                bound=bound(nb, flops), bound_on_sms_ms=sms_ms)
+                bound=bound(nb, flops), bound_on_sms_ms=sms_ms, **shape,
+                waves=-(-p // shape["max_active_clusters"]))
 
 
 def fused_flat_rng_free_check(dev) -> dict:
@@ -970,9 +1062,10 @@ def fused_flat_rng_free_check(dev) -> dict:
 
 
 def fused_flat_moments_check(dev) -> dict:
-    """K6 with Philox draws and uniform weights (quadratic, importance and
-    fields removed, temperature 1e30, step 1): the update is the sample mean
-    of ``eps @ W``, so its per-lane variance is ``diag(W^T W) / S`` and its
+    """K6 with Philox draws and uniform weights (quadratic, fields and the
+    sampling prior's stencil weights zeroed, so the in-kernel importance
+    term is 0; temperature 1e30, step 1): the update is the sample mean of
+    ``eps @ W``, so its per-lane variance is ``diag(W^T W) / S`` and its
     per-lane mean is 0 within a few standard errors."""
     from stoch_gpmp_tpu_torch.ops.kernels.panda_step import fused_panda_step
 
@@ -981,10 +1074,10 @@ def fused_flat_moments_check(dev) -> dict:
     z = torch.zeros((2, 2), device=dev)
     step = make_flat_step(sampler, cost, obs, p, s, dof_quad=replace(
         cost.costs[0].dof_form, q_i2=z, k_s2=z, k_g2=z), w_self=0.0, w_obst=0.0, w_goal=0.0,
-        temperature=1e30, step_size=1.0)
+        dof_prior=replace(sampler.dof, q_i2=z, k_s2=z, k_g2=z), temperature=1e30,
+        step_size=1.0)
     means = state.particle_means.reshape(p, -1).contiguous()
-    zeros = torch.zeros_like(means)
-    d = torch.stack([fused_panda_step(step, means, zeros, seed=3000 + k)[0] - means
+    d = torch.stack([fused_panda_step(step, means, seed=3000 + k)[0] - means
                      for k in range(40)]).double()  # [seeds, P, M]
     n = d.shape[0] * d.shape[1]
     want_var = (step.weight_t.double() ** 2).sum(0) / s
@@ -1151,6 +1244,8 @@ def panda4_main_path(dev) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) / 20 * 1e3
         dev_ms, top, ops = device_breakdown(window, 1)
+        if route == "a":
+            loop_gate("panda4 (a)", ops / 20)
         out[route] = dict(
             top_kernels_ms_per_iter=[(k, ms / 20) for k, ms in top], launches=launches,
             device_ops_per_iter=ops / 20,
@@ -1196,10 +1291,12 @@ def k9_loop(dev) -> dict:
     if launches != {"fused_planar_step": 0, "fused_planar_step_per_particle": ITERS}:
         fail(f"K9 loop: launches {launches}")
     goal_err, start_err = planar_gates("K9 loop", means)
-    busy = device_ms(lambda: fused_planar_optimize(step, means0, gen, 50), 1)
+    busy, _, ops = device_breakdown(lambda: fused_planar_optimize(step, means0, gen, 50), 1)
     iter_ms = 1e3 * seconds / ITERS
+    loop_gate("K9 loop", ops / 50)
     return dict(launches=launches, goal_err=goal_err, start_err=start_err,
                 updates_per_s=p * ITERS / seconds, iter_wall_ms=iter_ms,
+                device_ops_per_iter=ops / 50,
                 iter_device_ms=None if busy is None else busy / 50,
                 device_busy=None if busy is None else busy / 50 / iter_ms)
 
@@ -1439,6 +1536,8 @@ def main() -> int:
         phase("K2", f"{b}: costs within rtol {r['cost_max_rel']:.2e} (+{r['edge_flips']} "
                     f"edge flips), best sample agrees {r['argmax_agree']}/{r['particles']}, "
                     f"means max err {r['max_abs_err']:.2e}{timing}")
+    k2_split = split_check(dev, "K2")
+    phase("K2", split_line(k2["matmul"], k2_split, smi))
     mom = moments_check(dev)
     phase("K2-philox", f"variance ratio median {mom['var_ratio_median']:.4f}, "
                        f"max lane mean {mom['max_lane_mean']:.4f}")
@@ -1448,7 +1547,8 @@ def main() -> int:
                   f"updates/s; fused loop kernel {mp['loop_updates_per_s_kernel']:.0f} vs plain "
                   f"{mp['loop_updates_per_s_plain']:.0f} updates/s; kernel loop "
                   f"{mp['loop_iter_wall_ms']:.4f} ms/iter, device time "
-                  f"{fmt_ms(mp['loop_iter_device_ms'])}/iter, device busy "
+                  f"{fmt_ms(mp['loop_iter_device_ms'])}/iter in "
+                  f"{mp['loop_device_ops_per_iter']:.2f} device operations, device busy "
                   f"{'not measured' if mp['loop_device_busy'] is None else format(mp['loop_device_busy'], '.1%')}"
                   f" on {smi}")
     k3 = dof_quad_check(dev)
@@ -1492,7 +1592,9 @@ def main() -> int:
                 f"plain {k6['plain_ms']:.4f} ms; device time kernel {fmt_ms(k6['device_ms'])},"
                 f" plain {fmt_ms(k6['plain_device_ms'])}; bound {k6['bound'][0]:.4f} ms "
                 f"({k6['bound'][1]}), {k6['bound_on_sms_ms']:.4f} ms on the "
-                f"{k6['particles']} SMs it occupies")
+                f"{k6['ctas_launched']} SMs its CTAs occupy")
+    k6_split = split_check(dev, "K6")
+    phase("K6", split_line(k6, k6_split, smi))
     k6_free = fused_flat_rng_free_check(dev)
     phase("K6-rng-free", " | ".join(
         f"{k}: costs within {v['max_rel']:.2e} relative, means moved {v['means_moved']:.1e}"
@@ -1525,7 +1627,9 @@ def main() -> int:
                              f"{r['start_err']:.2e}; {r['updates_per_s']:.0f} updates/s over "
                              f"{'the K6 loop' if k == 'a' else 'optimize()'}; 20-iteration "
                              f"window {r['iter_wall_ms']:.4f} ms/iter wall, device time "
-                             f"{fmt_ms(r['iter_device_ms'])}/iter, device busy {busy} on {smi}")
+                             f"{fmt_ms(r['iter_device_ms'])}/iter in "
+                             f"{r['device_ops_per_iter']:.2f} device operations, device busy "
+                             f"{busy} on {smi}")
         phase("panda4-main", f"({k}): device ms per iteration by kernel: " + "; ".join(
             f"{n} {ms:.4f}" for n, ms in r["top_kernels_ms_per_iter"]))
     phase("panda4-main", "stacks (c), (d) on route (b)'s means: " + ", ".join(
@@ -1539,6 +1643,8 @@ def main() -> int:
         phase("K9", f"{b}: costs within rtol {r['cost_max_rel']:.2e} (+{r['edge_flips']} "
                     f"edge flips), best sample agrees {r['argmax_agree']}/{r['particles']}, "
                     f"means max err {r['max_abs_err']:.2e}{timing}")
+    k9_split = split_check(dev, "K9")
+    phase("K9", split_line(k9["matmul"], k9_split, smi))
     k9_mom = moments_check(dev, per_particle=True)
     phase("K9-philox", f"per-particle seeds: variance ratio median "
                        f"{k9_mom['var_ratio_median']:.4f}, max lane mean "
@@ -1549,8 +1655,9 @@ def main() -> int:
     phase("K9-loop", f"fused_planar_optimize {ITERS} iters: launches {k9_run['launches']}, "
                      f"goal err {k9_run['goal_err']:.3f}, start err {k9_run['start_err']:.2e}; "
                      f"{k9_run['updates_per_s']:.0f} updates/s, {k9_run['iter_wall_ms']:.4f} "
-                     f"ms/iter wall, device time {fmt_ms(k9_run['iter_device_ms'])}/iter, "
-                     f"device busy {busy} on {smi}")
+                     f"ms/iter wall, device time {fmt_ms(k9_run['iter_device_ms'])}/iter in "
+                     f"{k9_run['device_ops_per_iter']:.2f} device operations, device busy "
+                     f"{busy} on {smi}")
     f2 = field2d_check(dev)
     for kname, what in (("K10", "grid lookup"), ("K11", "primitive field")):
         r = f2[kname]
@@ -1590,11 +1697,12 @@ def main() -> int:
     phase("gn-main", f"means: woodbury vs cholesky {gn['woodbury_vs_cholesky']:.2e} (atol "
                      f"{GN_METHOD_ATOL}), inverse vs cholesky after 3 iterations "
                      f"{gn['inverse_vs_cholesky_3']:.2e} (atol {GN_INVERSE3_ATOL})")
-    details.update(K1=k1, K2=k2, moments=mom, main=mp, K3=k3, K4=k4, K5=k5,
+    details.update(K1=k1, K2=k2, K2_split=k2_split, moments=mom, main=mp, K3=k3, K4=k4, K5=k5,
                    K5_rng_free=k5_free, K5_moments=k5_mom, panda_main=pm, K6=k6,
-                   K6_rng_free=k6_free, K6_moments=k6_mom, K7=k7, K8=k8, panda4_main=p4,
-                   K9=k9, K9_moments=k9_mom, K9_loop=k9_run, K10=f2["K10"], K11=f2["K11"],
-                   planar_ref_main=pr, gn_main=gn)
+                   K6_split=k6_split, K6_rng_free=k6_free, K6_moments=k6_mom, K7=k7, K8=k8,
+                   panda4_main=p4, K9=k9, K9_split=k9_split, K9_moments=k9_mom,
+                   K9_loop=k9_run, K10=f2["K10"], K11=f2["K11"], planar_ref_main=pr,
+                   gn_main=gn)
     if args.log_dir:
         out = Path(args.log_dir)
         out.mkdir(parents=True, exist_ok=True)
@@ -1602,10 +1710,10 @@ def main() -> int:
 
     # bounds of K1 and K2 from this run's shapes: K1 reads 8 bytes and writes
     # 4 per point; K2 multiplies [S, M] by [M, M] twice per particle (matmul
-    # branch) and moves means, prec_u, lin_rows, W, A and the costs
+    # branch) and moves means, lin_rows, W, A, the new means and the costs
     m2 = T * 4
     k1_bound = bound(12 * k1["points"], 0.0)
-    k2_bound = bound(4 * (4 * 3 * PPG * m2 + 2 * m2 * m2 + 3 * PPG * S),
+    k2_bound = bound(4 * (3 * 3 * PPG * m2 + 2 * m2 * m2 + 3 * PPG * S),
                      2 * 2 * 3 * PPG * S * m2 * m2)
     record = [
         ("raster_field", "raster_field.cu", "stoch_gpmp_tpu/ops/pallas/fields.py:147",
@@ -1633,7 +1741,7 @@ def main() -> int:
          "stoch_gpmp_tpu/ops/pallas/fused_step.py:159",
          k9_run["launches"]["fused_planar_step_per_particle"],
          dict(k9["matmul"], max_abs_err=max(r["max_abs_err"] for r in k9.values())),
-         bound(4 * (4 * 3 * PPG * m2 + 2 * m2 * m2 + 3 * PPG * S + 2 * 3 * PPG),
+         bound(4 * (3 * 3 * PPG * m2 + 2 * m2 * m2 + 3 * PPG * S + 2 * 3 * PPG),
                2 * 2 * 3 * PPG * S * m2 * m2)),
         ("grid_lookup", "grid_lookup.cu", "stoch_gpmp_tpu/ops/pallas/fields.py:69",
          pr["g"]["launches"]["grid_lookup"], f2["K10"], f2["K10"]["bound"]),

@@ -118,38 +118,30 @@ def _lane_slices(x, n_dof):
 def stencil_matvec_flat(x, q_i2, k_s2, k_g2, dt):
     """``A x`` for the factor-graph block-tridiagonal ``A`` (start anchor +
     CV-GP chain + goal anchor, per-dof-isotropic 2x2 weights) on flat
-    ``[..., T, 2d]`` trajectories: the exact O(T) elementwise stencil, with
-    no ``[M, M]`` product."""
+    ``[..., T, 2d]`` trajectories: the exact O(T) stencil, with no ``[M, M]``
+    product, in the per-lane form the fused kernels compute
+    (``prec_u_lane`` of ``csrc/kernel_common.cuh``). With ``r_t = (p_t + dt
+    v_t - p_{t+1}, v_t - v_{t+1})`` the residual of the factor between steps
+    t and t+1: a position lane gets ``(Q^{-1} r_t)_p - (Q^{-1} r_{t-1})_p``,
+    a velocity lane ``dt (Q^{-1} r_t)_p + (Q^{-1} r_t)_v - (Q^{-1}
+    r_{t-1})_v`` (terms of a factor that does not exist are 0), plus ``K_s
+    (p, v)`` at t = 0 and ``K_g (p, v)`` at t = T-1."""
     d = x.shape[-1] // 2
-    t = x.shape[-2]
-    lead = x.shape[:-2]
-    m = t * 2 * d
-    sd = 2 * d
-    xf = x.reshape(lead + (m,))
-    x0, xd, x1, x1d, mask = _lane_slices(xf, d)
-    q11, q12 = q_i2[0, 0], q_i2[0, 1]
-    q21, q22 = q_i2[1, 0], q_i2[1, 1]
-    rp = (x0 + dt * xd - x1) * mask
-    rv = (xd - x1d) * mask
-    a = q11 * rp + q12 * rv  # (Q^{-1} r)_p at pos lane l
-    b = q21 * rp + q22 * rv  # (Q^{-1} r)_v
+    pos, vel = x[..., :d], x[..., d:]  # [..., T, d]
+    rp = pos[..., :-1, :] + dt * vel[..., :-1, :] - pos[..., 1:, :]
+    rv = vel[..., :-1, :] - vel[..., 1:, :]
+    a = q_i2[0, 0] * rp + q_i2[0, 1] * rv  # (Q^{-1} r_t)_p
+    b = q_i2[1, 0] * rp + q_i2[1, 1] * rv  # (Q^{-1} r_t)_v
     pad = torch.nn.functional.pad
-    # y += phi^T Q^{-1} r at step t (lanes l, l+d); -= Q^{-1} r at step t+1
-    # (lanes l+2d, l+3d)
-    y = (
-        pad(a, (0, 3 * d))
-        + pad(dt * a + b, (d, 2 * d))
-        - pad(a, (sd, d))
-        - pad(b, (3 * d, 0))
-    )
-    ks, kg = k_s2, k_g2
-    p0, v0 = xf[..., :d], xf[..., d:sd]
-    pl_, vl_ = xf[..., m - sd : m - d], xf[..., m - d :]
-    y[..., :d] += ks[0, 0] * p0 + ks[0, 1] * v0
-    y[..., d:sd] += ks[1, 0] * p0 + ks[1, 1] * v0
-    y[..., m - sd : m - d] += kg[0, 0] * pl_ + kg[0, 1] * vl_
-    y[..., m - d :] += kg[1, 0] * pl_ + kg[1, 1] * vl_
-    return y.reshape(x.shape)
+    after, before = (0, 0, 0, 1), (0, 0, 1, 0)  # the factor of step t, of t-1
+    yp = pad(a, after) - pad(a, before)
+    yv = pad(dt * a + b, after) - pad(b, before)
+    p0, v0, pl, vl = pos[..., 0, :], vel[..., 0, :], pos[..., -1, :], vel[..., -1, :]
+    yp[..., 0, :] += k_s2[0, 0] * p0 + k_s2[0, 1] * v0
+    yv[..., 0, :] += k_s2[1, 0] * p0 + k_s2[1, 1] * v0
+    yp[..., -1, :] += k_g2[0, 0] * pl + k_g2[0, 1] * vl
+    yv[..., -1, :] += k_g2[1, 0] * pl + k_g2[1, 1] * vl
+    return torch.cat([yp, yv], dim=-1)
 
 
 @dataclass

@@ -41,13 +41,14 @@ def _planar_step_args(rng):
     """The planar step launchers' arguments; ``rng`` is the random-source
     argument after eps (K2: a 64-bit seed, K9: per-particle seeds)."""
     return [
-        _P, _P, _P, _P, _P,  # means, prec_u, W, lin_rows, A (or null)
+        _P, _P, _P, _P,  # means, W, lin_rows, A (or null)
         _P, _I, _P, _I,  # rect_bounds, R, circles, C
         _P, rng,  # eps (or null), seed or seeds
-        _P, _P, _P,  # new_means, costs, x scratch
+        _P, _P,  # new_means, costs
         _I, _I, _I, _I,  # P, S, M, n_dof
-        _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,  # use_stencil, dt, q11 q12 q22, ks.., kg..
-        _F, _F, _I, _I,  # cell_size, inv_cell_size, nx, ny
+        _I, _I,  # use_stencil, CTAs per particle
+        _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,  # dt, q11 q12 q22, ks.., kg..
+        _P, _F, _F, _I, _I,  # PriorStencil*, cell_size, inv_cell_size, nx, ny
         _F, _F, _F,  # k_coll, temperature, step_size
         _P,  # stream
     ]
@@ -93,15 +94,21 @@ SIGNATURES = {
         _P, _P,  # out, stream
     ],
     "fused_panda_step_launch": [
-        _P, _P, _P, _P, _P, _P,  # means, prec_u, anchors, W, spheres, eps (or null)
-        _P, _P, _P, _P, _P,  # new_means, costs, PandaStepParams*, FkChain*, stream
+        _P, _P, _P, _P, _P,  # means, anchors, W, spheres, eps (or null)
+        _P, _P, _I,  # new_means, costs, CTAs per particle
+        _P, _P, _P,  # PandaStepParams*, FkChain*, stream
     ],
+    "fused_panda_step_max_clusters": [_P, _P, _I, _P],  # params, chain, CTAs, int shape[4]
     "fused_panda_dof_step_launch": [
         _P, _P, _P, _P, _P, _P,  # means, prec_u, g_pd, W, spheres, eps (or null)
         _P, _P, _P, _P, _P,  # new_means, costs, DofStepParams*, FkChain*, stream
     ],
     "fused_planar_step_launch": _planar_step_args(ctypes.c_ulonglong),  # seed
     "fused_planar_step_per_particle_launch": _planar_step_args(_P),  # seeds [P, 2] or null
+    "fused_planar_step_max_clusters": [
+        _I, _I, _I, _I, _I,  # P, S, M, n_dof, CTAs per particle
+        _I, _I, _I, _P,  # R, C, K9's instantiation, int shape[4]
+    ],
 }
 
 _LIB = None

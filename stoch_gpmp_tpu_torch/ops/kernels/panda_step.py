@@ -3,9 +3,10 @@ version and the host loop.
 
 Replaces the TPU kernel ``stoch_gpmp_tpu/ops/pallas/panda_step.py``
 ``make_fused_panda_step`` (``_kernel``), the Panda parity workload of
-``benchmarks/run.py`` config 4. Per particle, with the means and
-``Sigma^{-1} mu`` as flat t-major rows ``[P, M]``, ``M = T * 2d``:
+``benchmarks/run.py`` config 4. Per particle, with the means as flat
+t-major rows ``[P, M]``, ``M = T * 2d``:
 
+    pu     = Sigma^{-1} mu of the sampling prior        (prec_u_lanes)
     x_s    = mu + eps_s @ W                         (eps: operand or Philox)
     cost_s = flat stencil energy of x_s with the start/goal anchors
            + sum_{t >= 1} link fields at FK(pos_t(x_s))          (as K4)
@@ -16,16 +17,20 @@ Replaces the TPU kernel ``stoch_gpmp_tpu/ops/pallas/panda_step.py``
 
 The SE(3) angle uses the Abramowitz & Stegun 4.4.46 polynomial of the TPU
 kernel (|err| <= 2e-8 rad) in both the kernel and the plain version. The
-CUDA source is ``csrc/fused_panda_step.cu``: one block per particle, two
-lanes per thread, the S sample rows in shared memory, ``W`` streamed in
-K-tiles (``csrc/kernel_common.cuh``, shared with K2 and K5). It is bound by
-the FP32 sampling product: 2 P S M^2 = 257 MFLOP at config 4, on the 5 SMs
-of the 5 particles.
+CUDA source is ``csrc/fused_panda_step.cu`` (sm_90a): each particle is a
+thread-block cluster of ``ctas_per_particle(P, S, 4)`` CTAs that split its
+samples in 4-row tiles (8 CTAs of 4 rows at config 4, 40 in all); each CTA
+computes ``Sigma^{-1} mu`` itself, multiplies its rows by ``W`` (streamed in
+K-tiles, ``csrc/kernel_common.cuh``), runs FK and the fields on its rows,
+and the softmax and mean update run across the cluster through distributed
+shared memory. Every CTA streams all of ``W`` (3.2 MB at config 4) from
+L2, which sets its pace.
 
 The random draws are an ``eps [P, S, M]`` operand in the flat path's layout
 (the tests inject the JAX package's draw) or a 64-bit seed per launch:
 in-kernel Philox4x32-10 keyed on ``(seed, particle, sample pair, lane)``
-with the dual-output Box-Muller of K2; the plain version on a CPU tensor
+with the dual-output Box-Muller of K2 (a CTA holds whole sample pairs, so
+the draws do not depend on the split); the plain version on a CPU tensor
 draws from a ``torch.Generator`` seeded with the same seed. The streams
 differ by design; the moments agree.
 
@@ -43,13 +48,19 @@ import numpy as np
 import torch
 
 from stoch_gpmp_tpu_torch.ops.kernels import _build
+from stoch_gpmp_tpu_torch.ops.kernels.fused_step import (
+    PriorStencilC,
+    cluster_launch,
+    prec_u_lanes,
+    prior_stencil_c,
+    query_shape,
+)
 from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (
     FK_MAX_JOINTS,
     fk_chain_c,
     fk_link_fields_cost_rows_plain,
 )
 from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import (
-    _MAX_SMEM,
     acos_poly,
     fused_panda_dof_optimize,
 )
@@ -59,9 +70,9 @@ from stoch_gpmp_tpu_torch.ops.kernels.stencil import (
     quad_stencil_consts,
 )
 
-# csrc/fused_panda_step.cu: sample rows per tile, K rows of W per tile, lanes
-# per thread, threads per block at most
-_ST, _KT, _C, _MAX_THREADS = 16, 8, 2, 512
+# csrc/fused_panda_step.cu: sample rows per tile, lanes per thread, threads per
+# block at most
+_ST, _C, _MAX_THREADS = 4, 2, 512
 
 
 class PandaStepParamsC(ctypes.Structure):
@@ -77,7 +88,7 @@ class PandaStepParamsC(ctypes.Structure):
         ("inv_2m2", ctypes.c_float), ("w_self", ctypes.c_float), ("w_obst", ctypes.c_float),
         ("w_goal", ctypes.c_float), ("w_pos", ctypes.c_float), ("w_rot", ctypes.c_float),
         ("temperature", ctypes.c_float), ("step_size", ctypes.c_float),
-        ("key_lo", ctypes.c_uint), ("key_hi", ctypes.c_uint),
+        ("prior", PriorStencilC), ("key_lo", ctypes.c_uint), ("key_hi", ctypes.c_uint),
     ]
 
 
@@ -112,9 +123,7 @@ class FusedPandaStep:
 
     def __call__(self, means: torch.Tensor, *, seed: int | None = None, eps=None):
         p, t, sd = means.shape
-        prec_u = self.dof_prior.matvec_flat(means).reshape(p, t * sd)
-        new_flat, costs = fused_panda_step(
-            self, means.reshape(p, t * sd), prec_u, eps=eps, seed=seed)
+        new_flat, costs = fused_panda_step(self, means.reshape(p, t * sd), eps=eps, seed=seed)
         return new_flat.reshape(p, t, sd), costs
 
 
@@ -124,7 +133,8 @@ def make_fused_panda_step(
     step_size=0.1,
 ) -> FusedPandaStep:
     """Build the step for one problem (the JAX builder's arguments, without
-    its TPU block heuristic: one block per particle)."""
+    its TPU block heuristic: the kernel splits each particle's samples over
+    a cluster of CTAs)."""
     dtype, device = weight_t.dtype, weight_t.device
     target = np.asarray(target_h.cpu() if torch.is_tensor(target_h) else target_h,
                         dtype=np.float64)
@@ -138,6 +148,7 @@ def make_fused_panda_step(
         ks22=ks[1, 1], kg11=kg[0, 0], kg12=kg[0, 1], kg22=kg[1, 1],
         inv_2m2=1.0 / (2.0 * margin * margin), w_self=w_self, w_obst=w_obst, w_goal=w_goal,
         w_pos=w_pos, w_rot=w_rot, temperature=temperature, step_size=step_size,
+        prior=prior_stencil_c(dof_prior),
     )
     prm.target[:] = target.ravel().tolist()
     as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
@@ -151,14 +162,17 @@ def make_fused_panda_step(
     )
 
 
-def fused_panda_step_plain(step: FusedPandaStep, means, prec_u, eps):
-    """Plain PyTorch version of K6: ``means``/``prec_u [P, M]``, ``eps
-    [P, S, M]`` -> ``(new_means [P, M], costs [P, S])``, with the TPU
-    kernel's order of terms."""
+def fused_panda_step_plain(step: FusedPandaStep, means, eps):
+    """Plain PyTorch version of K6: ``means [P, M]``, ``eps [P, S, M]`` ->
+    ``(new_means [P, M], costs [P, S])``, with the TPU kernel's order of
+    terms (``Sigma^{-1} mu`` by ``prec_u_lanes``)."""
     from stoch_gpmp_tpu_torch.costs.fused_fields import ee_goal_distance
 
     p, m = means.shape
     s, t, d = step.num_samples, step.traj_len, step.n_dof
+    prior = step.dof_prior
+    prec_u = prec_u_lanes(means.reshape(p, t, 2 * d), prior.q_i2, prior.k_s2, prior.k_g2,
+                          prior.dt).reshape(p, m)
     x = means[:, None] + eps @ step.weight_t  # [P, S, M]
     cost = flat_quad_cost(x, step.anchors[:, None], step.masks, step.quad_stencil, d)
     q = x.reshape(p * s, t, 2 * d)[..., :d].permute(2, 0, 1)  # [d, P*S, T], a view
@@ -183,20 +197,30 @@ def _params(step: FusedPandaStep, seed: int) -> PandaStepParamsC:
     return prm
 
 
-def _smem_bytes(step: FusedPandaStep) -> int:
-    """Dynamic shared memory of one block, as the CUDA launcher computes it."""
-    m = 2 * step.n_dof * step.traj_len
-    nt, s = m // _C, step.num_samples
-    union = max(2 * _KT * m, 3 * len(step.chain.link_names) * nt)
-    return 4 * (-(-s // _ST) * _ST * m + union + (nt // 32) * s + s * (step.traj_len // 32 + 3)
-                + 4 * int(step.spheres.shape[0]))
+_SHAPES: dict = {}  # launch shape -> cluster_launch
 
 
-def _check_cuda(step: FusedPandaStep, means, prec_u, eps):
+def launch_shape(step: FusedPandaStep, ctas: int | None = None) -> dict:
+    """``cluster_launch`` at this step's shape (4-row tiles), asked once per
+    shape."""
+    p, s = step.num_particles, step.num_samples
+    dev = step.weight_t.device
+    key = (p, s, step.traj_len, step.n_dof, len(step.chain.link_names),
+           int(step.spheres.shape[0]), ctas, dev)
+    if key not in _SHAPES:
+        lib = _build.load_library()
+        _SHAPES[key] = cluster_launch(
+            "fused panda step kernel", p, s, _ST, ctas, dev,
+            lambda c: query_shape(lib.fused_panda_step_max_clusters, ctypes.byref(step.params),
+                                  ctypes.byref(fk_chain_c(step.chain)), c))
+    return _SHAPES[key]
+
+
+def _check_cuda(step: FusedPandaStep, means, eps):
     p, s, t, d = step.num_particles, step.num_samples, step.traj_len, step.n_dof
     m = 2 * d * t
     dev = means.device
-    want = {"means": (means, (p, m)), "prec_u": (prec_u, (p, m)),
+    want = {"means": (means, (p, m)),
             "anchors": (step.anchors, (p, m)), "weight_t": (step.weight_t, (m, m)),
             "spheres": (step.spheres, (step.spheres.shape[0], 4))}
     if eps is not None:
@@ -208,20 +232,19 @@ def _check_cuda(step: FusedPandaStep, means, prec_u, eps):
                 f"fused panda step kernel: {name} must be contiguous 16-byte aligned float32 "
                 f"{shape} on {dev}, got {ten.dtype} {tuple(ten.shape)} on {ten.device}")
     if (m % (32 * _C) or m // _C > _MAX_THREADS or t % 32 or d > FK_MAX_JOINTS
-            or d != step.chain.n_dofs or s > m // _C):
+            or d != step.chain.n_dofs):
         raise ValueError(
             f"fused panda step kernel: M = {m} lanes must be a multiple of {32 * _C} and at "
             f"most {_C * _MAX_THREADS} ({_C} lanes per thread), T = {t} a multiple of 32, "
-            f"d = the chain's dofs <= {FK_MAX_JOINTS}, S <= M / {_C}")
-    smem = _smem_bytes(step)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"fused panda step kernel: {smem} B of shared memory > {_MAX_SMEM}")
+            f"d = the chain's dofs <= {FK_MAX_JOINTS}")
 
 
-def fused_panda_step(step: FusedPandaStep, means, prec_u, *, eps=None, seed=None):
+def fused_panda_step(step: FusedPandaStep, means, *, eps=None, seed=None,
+                     ctas: int | None = None):
     """One fused iteration: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. ``means``/``prec_u [P, M]``; exactly one of
-    ``eps [P, S, M]`` and ``seed`` (an int in ``[0, 2**63)``) is given."""
+    version for CPU tensors. ``means [P, M]``; exactly one of ``eps [P, S,
+    M]`` and ``seed`` (an int in ``[0, 2**63)``) is given. ``ctas`` sets the
+    kernel's CTAs per particle (default ``ctas_per_particle``)."""
     if (eps is None) == (seed is None):
         raise ValueError("give exactly one of eps and seed")
     p, m = means.shape
@@ -229,18 +252,19 @@ def fused_panda_step(step: FusedPandaStep, means, prec_u, *, eps=None, seed=None
         if eps is None:
             gen = torch.Generator().manual_seed(int(seed))
             eps = torch.randn((p, step.num_samples, m), generator=gen, dtype=means.dtype)
-        return fused_panda_step_plain(step, means, prec_u, eps)
+        return fused_panda_step_plain(step, means, eps)
     if means.device.type != "cuda":
         raise ValueError(f"fused panda step: unsupported device {means.device}")
-    _check_cuda(step, means, prec_u, eps)
+    _check_cuda(step, means, eps)
+    shape = launch_shape(step, ctas)
     dev = means.device
     new_means = torch.empty_like(means)
     costs = torch.empty((p, step.num_samples), dtype=torch.float32, device=dev)
     lib = _build.load_library()
     err = lib.fused_panda_step_launch(
-        means.data_ptr(), prec_u.data_ptr(), step.anchors.data_ptr(), step.weight_t.data_ptr(),
+        means.data_ptr(), step.anchors.data_ptr(), step.weight_t.data_ptr(),
         step.spheres.data_ptr(), None if eps is None else eps.data_ptr(),
-        new_means.data_ptr(), costs.data_ptr(),
+        new_means.data_ptr(), costs.data_ptr(), shape["ctas"],
         ctypes.byref(_params(step, 0 if seed is None else int(seed))),
         ctypes.byref(fk_chain_c(step.chain)), _build.stream_ptr(dev),
     )

@@ -9,7 +9,10 @@ The checks and their tolerances are those of ``chip_smoke.py`` (see its
 module constants): K1 exact; K2 per-sample costs within a relative 2e-4, at
 most 1% of samples off by a multiple of k_coll (a position within float32
 roundoff of an obstacle's cell edge), new means within 1e-3 where the best
-sample agrees; Philox moments within (0.85, 1.15). At config 5: K3 within
+sample agrees; Philox moments within (0.85, 1.15); K2, K9 and K6 in seed
+mode at 1 CTA per particle against their cluster split (8 CTAs per
+particle at parity and config 4): costs within 2e-4 (K6 1e-4), new means
+within 1e-5. At config 5: K3 within
 1e-3 and K4 within 1e-4 relative of float64 oracles; K5 costs within 1e-4 of
 its plain version with the best sample agreeing, the RNG-free tiers within
 3e-4 / 1e-3 of float64 oracles, Philox moments within (0.85, 1.15); the
@@ -53,6 +56,17 @@ def test_fused_step_kernel_matches_plain(dev, branch):
     import chip_smoke
 
     assert chip_smoke.fused_check(dev, branch)["argmax_agree"] >= 8
+
+
+@pytest.mark.parametrize("kname", ["K2", "K9", "K6"])
+def test_fused_step_split_matches_one_cta(dev, kname):
+    """Seed mode at 1 CTA per particle against ``ctas_per_particle``'s
+    cluster split: the same draws, costs within COST_RTOL (K6
+    K5_COST_RTOL), new means within SPLIT_MEAN_ATOL."""
+    import chip_smoke
+
+    r = chip_smoke.split_check(dev, kname)
+    assert r["ctas"] == 8 and r["mean_max_err"] <= chip_smoke.SPLIT_MEAN_ATOL
 
 
 def test_fused_step_philox_moments(dev):

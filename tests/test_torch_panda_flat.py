@@ -35,6 +35,10 @@ from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (  # noqa: E402
     fk_link_fields_cost_rows,
     fused_link_fields_cost,
 )
+from stoch_gpmp_tpu_torch.ops.kernels.fused_step import (  # noqa: E402
+    ctas_per_particle,
+    prec_u_lanes,
+)
 from stoch_gpmp_tpu_torch.ops.kernels.panda_step import (  # noqa: E402
     fused_panda_optimize,
     fused_panda_step,
@@ -329,16 +333,47 @@ def test_fused_panda_step_wrapper_contract():
     sampler, stacks, state, obs, s = _routes_problem()
     step = _step(sampler, stacks["b"], obs)
     means = state.particle_means.reshape(P, -1)
-    pu = sampler.dof.matvec_flat(state.particle_means).reshape(P, -1)
     with pytest.raises(ValueError, match="exactly one"):
-        fused_panda_step(step, means, pu)
+        fused_panda_step(step, means)
     with pytest.raises(ValueError, match="exactly one"):
-        fused_panda_step(step, means, pu, seed=1, eps=torch.zeros((P, S, M)))
-    a, b = fused_panda_step(step, means, pu, seed=5), fused_panda_step(step, means, pu, seed=5)
-    assert torch.equal(a[0], b[0]) and not torch.equal(a[0], fused_panda_step(step, means, pu, seed=6)[0])
+        fused_panda_step(step, means, seed=1, eps=torch.zeros((P, S, M)))
+    a, b = fused_panda_step(step, means, seed=5), fused_panda_step(step, means, seed=5)
+    assert torch.equal(a[0], b[0]) and not torch.equal(a[0], fused_panda_step(step, means, seed=6)[0])
     eps = torch.randn((P, S, M), generator=torch.Generator().manual_seed(5))
-    assert torch.equal(a[1], fused_panda_step_plain(step, means, pu, eps)[1])
+    assert torch.equal(a[1], fused_panda_step_plain(step, means, eps)[1])
     assert (fused_panda_step.launches, fused_link_fields_cost.launches,
             fk_link_fields_cost.launches, fk_link_fields_cost_rows.launches) == (0, 0, 0, 0)
     with pytest.raises(ValueError, match="unsupported device"):
-        fused_panda_step(step, means.to("meta"), pu.to("meta"), seed=1)
+        fused_panda_step(step, means.to("meta"), seed=1)
+
+
+@pytest.mark.parametrize("which", ["means", "samples"])
+def test_prec_u_lanes_matches_jax_matvec_flat(problems, which):
+    """K6's per-lane ``Sigma^{-1} mu`` (``prec_u_lanes``) against the JAX
+    package's ``DofFactoredPrior.matvec_flat`` at the Panda shape (d = 7,
+    T = 64), float64, on config 4's means and on noisy samples around
+    them: rtol 1e-12 of the largest entry."""
+    js, _, jst, _ = problems["float64", "fast"]["jax"]
+    ts = problems["float64", "fast"]["torch"][0]
+    x = np.array(jst.particle_means)
+    if which == "samples":
+        x = x + np.random.default_rng(5).normal(scale=0.05, size=x.shape)
+    want = np.asarray(js.dof.matvec_flat(jnp.asarray(x)))
+    got = prec_u_lanes(torch.from_numpy(x), ts.dof.q_i2, ts.dof.k_s2, ts.dof.k_g2, ts.dof.dt)
+    assert got.shape == x.shape == (P, T, 2 * D)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
+def test_k6_cluster_split_at_config4():
+    """K6's split at config 4 on the H100 SXM's 132 SMs: 8 CTAs per particle
+    of one 4-row tile (40 CTAs); 1 where the particles alone fill the card
+    (P = 100: 2 x 100 > 132), doubled where a CTA of that split does not
+    fit (``fits`` standing for the kernel's answer); and a sample count
+    whose CTA rows fit at no split is refused."""
+    _, _, _, _, s = _routes_problem()
+    anything = lambda c: True  # noqa: E731
+    assert ctas_per_particle(P, s, 4, 132, anything) == 8
+    assert ctas_per_particle(100, s, 4, 132, anything) == 1
+    assert ctas_per_particle(100, s, 4, 132, lambda c: c >= 2) == 2
+    with pytest.raises(ValueError, match="fits a CTA's shared memory"):
+        ctas_per_particle(P, 8 * 64 + 4, 4, 132, lambda c: False)

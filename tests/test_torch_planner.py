@@ -24,11 +24,13 @@ sys.path.insert(0, str(ROOT))
 
 from stoch_gpmp_tpu_torch import convert  # noqa: E402
 from stoch_gpmp_tpu_torch.ops.kernels.fused_step import (  # noqa: E402
+    ctas_per_particle,
     fused_planar_optimize,
     fused_planar_step,
     fused_planar_step_per_particle,
     make_fused_planar_step,
     make_fused_planar_step_batched,
+    prec_u_lanes,
 )
 from stoch_gpmp_tpu_torch.planners import (  # noqa: E402
     StochGPMP,
@@ -207,9 +209,8 @@ def test_fused_step_per_particle_wrapper_contract(problem):
     c, cc = step(means, other)
     assert torch.equal(a, b)
     assert torch.equal(a[0], c[0]) and torch.equal(ca[2:], cc[2:]) and not torch.equal(a[1], c[1])
-    pu = ts.dof.matvec_flat(means).reshape(15, 256)
     with pytest.raises(ValueError, match="exactly one"):
-        fused_planar_step_per_particle(step, means.reshape(15, 256), pu)
+        fused_planar_step_per_particle(step, means.reshape(15, 256))
     with pytest.raises(ValueError, match="int32"):
         step(means, seeds.long())
     out = fused_planar_optimize(step, means, torch.Generator().manual_seed(0), 2)
@@ -227,16 +228,63 @@ def test_fused_step_wrapper_contract(problem):
         k_coll=1e10, temperature=TAU, step_size=STEP,
     )
     means = tst.particle_means.reshape(15, 256)
-    pu = ts.dof.matvec_flat(tst.particle_means).reshape(15, 256)
     with pytest.raises(ValueError, match="exactly one"):
-        fused_planar_step(step, means, pu)
-    a = fused_planar_step(step, means, pu, seed=7)
-    b = fused_planar_step(step, means, pu, seed=7)
-    c = fused_planar_step(step, means, pu, seed=8)
+        fused_planar_step(step, means)
+    a = fused_planar_step(step, means, seed=7)
+    b = fused_planar_step(step, means, seed=7)
+    c = fused_planar_step(step, means, seed=8)
     assert torch.equal(a[0], b[0]) and not torch.equal(a[0], c[0])
     assert fused_planar_step.launches == 0  # CPU tensors take the plain version
     with pytest.raises(ValueError, match="unsupported device"):
-        fused_planar_step(step, means.to("meta"), pu.to("meta"), seed=1)
+        fused_planar_step(step, means.to("meta"), seed=1)
+
+
+@pytest.mark.parametrize("which", ["means", "samples"])
+def test_prec_u_lanes_matches_jax_matvec_flat(problem, which):
+    """The fused kernels' per-lane ``Sigma^{-1} mu`` (``prec_u_lanes``, the
+    plain form of ``csrc/kernel_common.cuh prec_u_lane``) against the JAX
+    package's ``DofFactoredPrior.matvec_flat`` at the planar shape (d = 2,
+    T = 64), float64, on the parity means and on noisy samples around
+    them: rtol 1e-12 of the largest entry (the prior's weights reach 1.5e6
+    and the residuals cancel)."""
+    js, _, jst = problem["jax"]
+    ts = problem["torch"][0]
+    x = np.array(jst.particle_means)
+    if which == "samples":
+        x = x + np.random.default_rng(4).normal(scale=0.3, size=x.shape)
+    want = np.asarray(js.dof.matvec_flat(jnp.asarray(x)))
+    got = prec_u_lanes(torch.from_numpy(x), ts.dof.q_i2, ts.dof.k_s2, ts.dof.k_g2, ts.dof.dt)
+    assert got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("case", ["parity", "P192", "ragged", "config4", "refused", "doubled",
+                                  "pcie"])
+def test_ctas_per_particle(case):
+    """The cluster size of the split fused kernels on the H100 SXM's 132
+    SMs: 8 CTAs of one 16-row tile at planar parity (120 CTAs); 1 at
+    ``benchmarks/run.py`` configs 1-3's P = 192 (the particles alone fill
+    the card); S = 40 (3 tiles, not a multiple of 16 c) takes 2; config 4's
+    4-row tiles take 8 (40 CTAs). ``fits`` stands for the kernel's answer
+    whether a CTA's rows fit its shared memory, here at most 128 rows as
+    the parity kernel's 227 KB hold at M = 256: S = 1024 at P = 192 doubles
+    to 8 CTAs of 128 rows, and S = 2048 at parity, 256 rows per CTA even at
+    8 CTAs, is refused. On a 114-SM card parity takes 4 (15 x 8 > 114)."""
+    def holds_128(rows_per_tile, s):
+        tiles = -(-s // rows_per_tile)
+        return lambda c: -(-tiles // c) * rows_per_tile <= 128
+
+    if case == "refused":
+        with pytest.raises(ValueError, match="fits a CTA's shared memory"):
+            ctas_per_particle(15, 2048, 16, 132, holds_128(16, 2048))
+        return
+    p, s, tile, sms, want = {"parity": (15, 128, 16, 132, 8), "P192": (192, 128, 16, 132, 1),
+                             "ragged": (15, 40, 16, 132, 2), "config4": (5, 32, 4, 132, 8),
+                             "doubled": (192, 1024, 16, 132, 8),
+                             "pcie": (15, 128, 16, 114, 4)}[case]
+    anything = lambda c: True  # noqa: E731
+    assert ctas_per_particle(p, s, tile, sms, anything) == (1 if case == "doubled" else want)
+    assert ctas_per_particle(p, s, tile, sms, holds_128(tile, s)) == want
 
 
 def test_native_build_equals_converted(problem):
@@ -412,7 +460,7 @@ def test_package_never_imports_jax():
         "stoch_gpmp_tpu_torch.kinematics", "stoch_gpmp_tpu_torch.costs.fused_fields",
         "stoch_gpmp_tpu_torch.ops.kernels.panda_fields",
         "stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof",
-        "stoch_gpmp_tpu_torch.planners.gpmp",
+        "stoch_gpmp_tpu_torch.planners.gpmp", "stoch_gpmp_tpu_torch.tools.fused_timing",
     ]
     code = (
         "import importlib, sys\n"
