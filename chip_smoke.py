@@ -29,14 +29,27 @@ Phases, one line each; any failure exits non-zero before the result line:
    importance term;
 8. K4, FK + link fields, against a float64 plain oracle at config-5 shapes,
    with planner-regime rows, rows drawn across the joint limits and spheres
-   placed on links; and the flat-stride entry against the plane entry;
-9. K5, the fused dof Panda iteration: eps operand against its plain version
-   at config 5, the RNG-free tier (``W = 0``) against float64 oracles, and
-   the Philox moments;
+   placed on links, through the FK walk specialised for the Panda; the
+   flat-stride entry against the plane entry; then K4 and K8 through the
+   generic FK walk on a chain with an x-axis and a prismatic joint
+   (``generic_chain``) against float64 oracles, each counted as a generic
+   launch (``.generic_launches``), and K5 and K6 through it on a tilted
+   Panda;
+9. K5, the fused dof Panda iteration (persistent CTAs, ``Sigma^{-1} mu``
+   in the kernel, ``W_dof``'s zero half skipped): eps operand against its
+   plain version at config 5 with its launch; seed mode at the persistent
+   launch against one particle per CTA (equal to the last bit); the dense
+   instantiation on the prior's W (equal to the last bit) and on a W
+   without the zero half (against the plain version); at the other shapes
+   of ``K5_SHAPES`` (T = 224, 192; S = 16) against the plain version; the
+   RNG-free tier (``W = 0``) against float64 oracles, and the Philox
+   moments;
 10. the Panda main path: ``build_panda_problem`` at config 5 through
     ``StochGPMP(fused_kernel=True)`` and ``StochGPMP`` on the dof path, 200
-    iterations each, with descent, start-anchor and launch-count gates and
-    updates/s, wall and device ms per iteration and the busy share;
+    iterations each, with descent, start-anchor and launch-count gates (no
+    launch through the generic FK walk; at most 2 device operations per
+    fused iteration) and updates/s, wall and
+    device ms and device operations per iteration and the busy share;
 11. K6, the fused flat Panda iteration at config 4 (cluster-split as K2):
     eps operand against its plain version, its launch and seed mode at 1
     CTA per particle against the split, the RNG-free tiers (``W = 0``)
@@ -52,7 +65,8 @@ Phases, one line each; any failure exits non-zero before the result line:
     ``StochGPMP`` (b) the fast stack ``QuadraticCost + PlaneFieldsCost``
     (K4), (c) the reference-shaped stack on ``fk=chain.fk_compact`` and (d)
     the same with ``FusedLinkFieldsCost`` (K7); descent, start-anchor,
-    launch-count and stack-equality gates, updates/s, wall and device ms and
+    launch-count (none through the generic FK walk) and stack-equality
+    gates, updates/s, wall and device ms and
     device operations per iteration (at most 2 on route (a)), the busy share
     and the largest kernels;
 14. K9, the planar iteration with one seed pair per particle
@@ -183,6 +197,11 @@ GN_GOAL_TOL, GN_START_TOL, GN_METHOD_ATOL, GN_INVERSE3_ATOL = 0.05, 0.02, 1e-4, 
 # draws): the cluster sums the mean update in another order, float32
 # roundoff on means of up to ~10.
 SPLIT_MEAN_ATOL = 1e-5
+# K5 away from config 5 (T, S), 2 goals x 32 particles each, under K5's
+# gates: T = 224 (one K part per window, a last block of 2 warps) and T =
+# 192 (the packed W does not fit: the dense instantiation), and S = 16 at T =
+# 128 (two passes of 56 rows: the dense instantiation).
+K5_SHAPES = ((224, 8), (192, 8), (128, 16))
 # The fused loops (main, K9-loop, panda4-main (a)) launch one kernel per
 # iteration; the seeds' draw adds one or two operations per window.
 MAX_LOOP_OPS = 2
@@ -281,9 +300,18 @@ def kernel_counters() -> dict:
 
 
 def reset_counters() -> None:
-    """Set every kernel's launch count to 0, just before a main path runs."""
+    """Set every kernel's launch count (and the FK kernels' count of generic
+    walks) to 0, just before a main path runs."""
     for fn in kernel_counters().values():
         fn.launches = 0
+        if hasattr(fn, "generic_launches"):
+            fn.generic_launches = 0
+
+
+def generic_walks(counters: dict) -> dict:
+    """The FK kernels' launches through the generic walk, by JSON name."""
+    return {k: fn.generic_launches for k, fn in counters.items()
+            if hasattr(fn, "generic_launches")}
 
 
 def fmt_ms(v: float | None) -> str:
@@ -722,11 +750,14 @@ def fk_fields_check(dev) -> dict:
     from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (
         fk_link_fields_cost_rows,
         fk_link_fields_cost_rows_plain,
+        fk_variant,
     )
 
     _, cost, state, obs, s = panda_problem(dev)
     fields = cost.costs[1]
     chain = fields.chain
+    if fk_variant(chain) != 1:
+        fail("K4: the Panda chain did not take the specialised FK walk")
     rows = _field_check_rows(state, s, dev)
     xp = to_dof_planes(rows).contiguous()  # [7, B, 2T]
     t = xp.shape[-1] // 2
@@ -759,6 +790,134 @@ def fk_fields_check(dev) -> dict:
                 bound=bound(nb, b * (t - 1) * K4_OPS_PER_POINT))
 
 
+def generic_chain():
+    """A serial chain that no FK spec of the kernels matches: a fixed base,
+    a revolute joint about z, one about x under a general origin rotation, a
+    prismatic joint along y, a revolute joint about a tilted axis and a
+    fixed end-effector; 4 dofs, 5 links."""
+    from stoch_gpmp_tpu_torch.kinematics.chain import KinematicChain
+    from stoch_gpmp_tpu_torch.kinematics.urdf import JointSpec, RobotModel
+
+    joints = (
+        JointSpec("j0", "fixed", "base", "l0", origin_xyz=(0.0, 0.0, 0.1)),
+        JointSpec("j1", "revolute", "l0", "l1", origin_xyz=(0.0, 0.0, 0.2)),
+        JointSpec("j2", "revolute", "l1", "l2", origin_xyz=(0.1, 0.0, 0.15),
+                  origin_rpy=(0.3, 0.0, 0.2), axis=(1.0, 0.0, 0.0)),
+        JointSpec("j3", "prismatic", "l2", "l3", origin_xyz=(0.0, 0.05, 0.1),
+                  axis=(0.0, 1.0, 0.0)),
+        JointSpec("j4", "revolute", "l3", "l4", origin_xyz=(0.08, 0.0, 0.0),
+                  origin_rpy=(0.0, -0.4, 0.1), axis=(0.6, 0.0, 0.8)),
+        JointSpec("j5", "fixed", "l4", "ee", origin_xyz=(0.0, 0.0, 0.1)),
+    )
+    return KinematicChain(RobotModel("generic", joints), ["l1", "l2", "l3", "l4", "ee"])
+
+
+def fk_generic_check(dev) -> dict:
+    """K4 and K8 through the generic FK walk on ``generic_chain`` against
+    float64 oracles: 2048 trajectories of T = 64 joint values (revolute
+    U(-2.5, 2.5) rad, prismatic U(-0.2, 0.2) m), spheres on links of the
+    first rows, K4_RTOL."""
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (
+        fk_link_fields_cost,
+        fk_link_fields_cost_plain,
+        fk_link_fields_cost_rows,
+        fk_link_fields_cost_rows_plain,
+        fk_variant,
+    )
+
+    chain = generic_chain()
+    if fk_variant(chain) != 0:
+        fail("the test chain took a specialised FK walk")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    scale = torch.tensor([2.5, 2.5, 0.2, 2.5], device=dev)
+    q = (2 * torch.rand((2048, 64, 4), generator=gen, device=dev) - 1) * scale  # [B, T, d]
+    pos = chain.fk_compact(q[:2, :5].double()).positions  # [2, 5, L, 3]
+    spheres = torch.tensor([[0.3, 0.1, 0.4, 0.15], [0.0, 0.0, 0.3, 0.1], [0.1, -0.1, 0.5, 0.2],
+                            [0.0, 0.0, 0.0, 0.1], [0.0, 0.0, 0.0, 0.1]], device=dev)
+    spheres[3, :3], spheres[4, :3] = pos[0, 0, -1].float(), pos[1, 4, 2].float()
+    kw = dict(margin=0.03, w_self=1e4, w_obst=1e4)
+    planes = q.permute(2, 0, 1)  # [d, B, T], a view
+    before = (fk_link_fields_cost_rows.generic_launches, fk_link_fields_cost.generic_launches)
+    k4 = fk_link_fields_cost_rows(chain, planes, spheres, **kw)
+    want4 = fk_link_fields_cost_rows_plain(chain, planes.double(), spheres.double(), **kw)
+    flat = q.reshape(-1, 4)
+    k8 = fk_link_fields_cost(chain, flat, spheres, **kw)
+    walks = (fk_link_fields_cost_rows.generic_launches - before[0],
+             fk_link_fields_cost.generic_launches - before[1])
+    if walks != (1, 1):
+        fail(f"generic FK walk: K4 and K8 counted {walks} generic launches, expected (1, 1)")
+    want8 = fk_link_fields_cost_plain(chain, flat.double(), spheres.double(), **kw)
+    torch.cuda.synchronize()
+    rel4 = float(((k4.double() - want4).abs() / want4.abs()).max())
+    rel8 = float(((k8.double() - want8).abs() / want8.abs()).max())
+    if not (torch.isfinite(k4).all() and torch.isfinite(k8).all() and max(rel4, rel8) <= K4_RTOL):
+        fail(f"generic FK walk: K4 {rel4:.3g}, K8 {rel8:.3g} relative from the float64 oracle "
+             f"(> {K4_RTOL})")
+    return dict(trajectories=q.shape[0], points=flat.shape[0], k4_max_rel=rel4, k8_max_rel=rel8)
+
+
+def tilted_panda():
+    """The Panda with one Rx(90 deg) origin rotation tilted by 1e-3 rad: no
+    FK spec matches it, so the fused Panda kernels take the generic walk."""
+    from dataclasses import replace as dc_replace
+
+    from stoch_gpmp_tpu_torch.kinematics.chain import KinematicChain
+    from stoch_gpmp_tpu_torch.kinematics.panda_model import PANDA_FK_LINKS, franka_panda
+
+    panda = franka_panda(PANDA_FK_LINKS)
+    joints = list(panda.model.joints)
+    k = next(i for i, j in enumerate(joints) if j.joint_type == "revolute" and
+             abs(abs(j.origin_rpy[0]) - 1.5707963267948966) < 1e-9)
+    joints[k] = dc_replace(joints[k], origin_rpy=(joints[k].origin_rpy[0] + 1e-3, 0.0, 0.0))
+    return KinematicChain(dc_replace(panda.model, joints=tuple(joints)), PANDA_FK_LINKS)
+
+
+def fused_generic_walk_check(dev) -> dict:
+    """K5 (config 5) and K6 (config 4) with the eps operand on a chain no FK
+    spec matches (``tilted_panda``: the generic walk, K5's dense
+    instantiation) against their plain versions on the same chain, under
+    K5's gates (K6: every particle's best sample agreeing)."""
+    from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import fk_variant
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_step import (
+        fused_panda_step,
+        fused_panda_step_plain,
+    )
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import (
+        fused_panda_dof_step,
+        fused_panda_dof_step_plain,
+    )
+
+    chain = tilted_panda()
+    if fk_variant(chain) != 0:
+        fail("the tilted Panda took a specialised FK walk")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    before = (fused_panda_dof_step.generic_launches, fused_panda_step.generic_launches)
+    sampler, cost, state, obs, s = panda_problem(dev)
+    p = state.particle_means.shape[0]
+    step = make_dof_step(sampler, cost, obs, p, s, chain=chain)
+    means = to_dof_planes(state.particle_means).contiguous()
+    eps = torch.randn((7, p, s, means.shape[-1]), generator=gen, device=dev)
+    k5 = _k5_gates("K5 generic walk", *fused_panda_dof_step(step, means, eps=eps),
+                   *fused_panda_dof_step_plain(step, means, eps))
+    sampler4, cost4, state4, obs4, s4 = panda4_problem(dev)
+    p4 = state4.particle_means.shape[0]
+    step4 = make_flat_step(sampler4, cost4, obs4, p4, s4, chain=chain)
+    means4 = state4.particle_means.reshape(p4, -1).contiguous()
+    eps4 = torch.randn((p4, s4, means4.shape[1]), generator=gen, device=dev)
+    k6 = _k5_gates("K6 generic walk", *fused_panda_step(step4, means4, eps=eps4),
+                   *fused_panda_step_plain(step4, means4, eps4))
+    torch.cuda.synchronize()
+    if k6[1] != p4:
+        fail(f"K6 generic walk: best sample agrees for only {k6[1]}/{p4} particles")
+    walks = (fused_panda_dof_step.generic_launches - before[0],
+             fused_panda_step.generic_launches - before[1])
+    if walks != (1, 1):
+        fail(f"generic FK walk: K5 and K6 counted {walks} generic launches, expected (1, 1)")
+    return dict(k5_cost_max_rel=k5[0], k5_mean_max_err=k5[2], k6_cost_max_rel=k6[0],
+                k6_mean_max_err=k6[2])
+
+
 def make_dof_step(sampler, cost, obs, p, s, **over):
     from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import make_fused_panda_dof_step
 
@@ -773,45 +932,159 @@ def make_dof_step(sampler, cost, obs, p, s, **over):
     return make_fused_panda_dof_step(**kw)
 
 
+def _k5_gates(what: str, new_k, cost_k, new_p, cost_p) -> tuple[float, int, float]:
+    """K5's gates against its plain version: finite, costs within
+    K5_COST_RTOL, the best sample agreeing for MIN_ARGMAX_AGREE of the
+    particles and there the new means (dof planes [d, P, 2T], or K6's [P, M])
+    within K5_MEAN_ATOL."""
+    p = cost_k.shape[0]
+    if not (torch.isfinite(cost_k).all() and torch.isfinite(new_k).all()):
+        fail(f"{what}: non-finite output")
+    rel = float(((cost_k - cost_p).abs() / cost_p.abs()).max())
+    if rel > K5_COST_RTOL:
+        fail(f"{what}: costs differ from the plain version by {rel:.3g} relative "
+             f"(> {K5_COST_RTOL})")
+    agree = cost_k.argmin(1) == cost_p.argmin(1)
+    if float(agree.float().mean()) < MIN_ARGMAX_AGREE:
+        fail(f"{what}: best sample agrees for only {int(agree.sum())}/{p} particles")
+    diff = new_k - new_p
+    mean_err = float((diff[:, agree] if diff.dim() == 3 else diff[agree]).abs().max())
+    if mean_err > K5_MEAN_ATOL:
+        fail(f"{what}: new means differ by {mean_err:.3g} where the best sample agrees")
+    return rel, int(agree.sum()), mean_err
+
+
 def fused_dof_check(dev) -> dict:
-    """K5 with an eps operand vs its plain version at config 5."""
+    """K5 with an eps operand vs its plain version at config 5, through the
+    instantiation that skips W_dof's zero half (the prior's W), with its
+    launch; the bound counts the dense product, ``nonzero_bound`` only the
+    half of W the kernel reads."""
     from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
     from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import (
         fused_panda_dof_step,
         fused_panda_dof_step_plain,
+        launch_shape,
+    )
+
+    sampler, cost, state, obs, s = panda_problem(dev)
+    p = state.particle_means.shape[0]
+    step = make_dof_step(sampler, cost, obs, p, s)
+    if not step.triangular:
+        fail("K5: the prior's W_dof did not take the instantiation that skips its zero half")
+    means = to_dof_planes(state.particle_means).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    eps = torch.randn((7, p, s, means.shape[-1]), generator=gen, device=dev)
+    new_k, cost_k = fused_panda_dof_step(step, means, eps=eps)
+    new_p, cost_p = fused_panda_dof_step_plain(step, means, eps)
+    torch.cuda.synchronize()
+    rel, agree, mean_err = _k5_gates("K5", new_k, cost_k, new_p, cost_p)
+    kernel = lambda: fused_panda_dof_step(step, means, seed=3)  # noqa: E731
+    plain = lambda: fused_panda_dof_step_plain(  # noqa: E731
+        step, means, torch.randn(eps.shape, generator=gen, device=dev))
+    m, t = means.shape[-1], means.shape[-1] // 2
+    fields = p * s * (t - 1) * K4_OPS_PER_POINT
+    nb = 4 * (3 * means.numel() + m * m + p * s)
+    # the non-zero half: per row, 2 (T - t(m)) products per column m
+    nonzero_macs = 7 * p * s * 2 * t * (t + 1)
+    return dict(cost_max_rel=rel, argmax_agree=agree, particles=p,
+                max_abs_err=mean_err, ms=cuda_ms(kernel, 50), plain_ms=cuda_ms(plain, 10),
+                device_ms=device_ms(kernel, 20), plain_device_ms=device_ms(plain, 5),
+                bound=bound(nb, 2 * 7 * p * s * m * m + fields),
+                nonzero_bound=bound(4 * (3 * means.numel() + step.w_windows.numel() + p * s),
+                                    2 * nonzero_macs + fields),
+                launch=launch_shape(step))
+
+
+def fused_dof_split_check(dev) -> dict:
+    """K5 in seed mode at the persistent launch against one particle per CTA
+    (the same draws: the Philox counter does not depend on the CTA): costs
+    and new means equal to the last bit, and the means within SPLIT_MEAN_ATOL
+    in any case. Then the dense instantiation: on the prior's W (its zero
+    half multiplied, summed in the same order) equal to the last bit to the
+    instantiation that skips it, and on a W without the zeros (the prior's
+    plus noise of 1e-4 of its largest entry) against the plain version under
+    K5's gates."""
+    from dataclasses import replace as dc_replace
+
+    from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import (
+        fused_panda_dof_step,
+        fused_panda_dof_step_plain,
+        launch_shape,
     )
 
     sampler, cost, state, obs, s = panda_problem(dev)
     p = state.particle_means.shape[0]
     step = make_dof_step(sampler, cost, obs, p, s)
     means = to_dof_planes(state.particle_means).contiguous()
-    prec_u = sampler.dof.matvec_planes(means)
-    gen = torch.Generator(device=dev).manual_seed(6)
-    eps = torch.randn((7, p, s, means.shape[-1]), generator=gen, device=dev)
-    new_k, cost_k = fused_panda_dof_step(step, means, prec_u, eps=eps)
-    new_p, cost_p = fused_panda_dof_step_plain(step, means, prec_u, eps)
+    split = launch_shape(step)["ctas"]
+    new_1, cost_1 = fused_panda_dof_step(step, means, seed=17, ctas=p)
+    new_c, cost_c = fused_panda_dof_step(step, means, seed=17)
+    dense = dc_replace(step, w_windows=None)
+    new_d, cost_d = fused_panda_dof_step(dense, means, seed=17)
     torch.cuda.synchronize()
-    if not (torch.isfinite(cost_k).all() and torch.isfinite(new_k).all()):
-        fail("K5: non-finite output")
-    rel = float(((cost_k - cost_p).abs() / cost_p.abs()).max())
-    if rel > K5_COST_RTOL:
-        fail(f"K5: costs differ from the plain version by {rel:.3g} relative (> {K5_COST_RTOL})")
-    agree = cost_k.argmin(1) == cost_p.argmin(1)
-    if float(agree.float().mean()) < MIN_ARGMAX_AGREE:
-        fail(f"K5: best sample agrees for only {int(agree.sum())}/{p} particles")
-    mean_err = float((new_k - new_p)[:, agree].abs().max())
-    if mean_err > K5_MEAN_ATOL:
-        fail(f"K5: new means differ by {mean_err:.3g} where the best sample agrees")
-    kernel = lambda: fused_panda_dof_step(step, means, prec_u, seed=3)  # noqa: E731
-    plain = lambda: fused_panda_dof_step_plain(  # noqa: E731
-        step, means, prec_u, torch.randn(eps.shape, generator=gen, device=dev))
-    m = means.shape[-1]
-    flops = 2 * 7 * p * s * m * m + p * s * (m // 2 - 1) * K4_OPS_PER_POINT
-    nb = 4 * (3 * means.numel() + m * m + p * s)
-    return dict(cost_max_rel=rel, argmax_agree=int(agree.sum()), particles=p,
-                max_abs_err=mean_err, ms=cuda_ms(kernel, 50), plain_ms=cuda_ms(plain, 10),
-                device_ms=device_ms(kernel, 20), plain_device_ms=device_ms(plain, 5),
-                bound=bound(nb, flops))
+    mean_err = float((new_c - new_1).abs().max())
+    if not (torch.equal(cost_c, cost_1) and mean_err <= SPLIT_MEAN_ATOL):
+        fail(f"K5: {split} persistent CTAs against one per particle: costs "
+             f"{float((cost_c - cost_1).abs().max()):.3g} apart, new means {mean_err:.3g}")
+    if not (torch.equal(cost_d, cost_c) and torch.equal(new_d, new_c)):
+        fail("K5: the dense instantiation on the prior's W differs from the one that skips "
+             f"its zeros by {float((cost_d - cost_c).abs().max()):.3g}")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    w = sampler.dof.w_dof
+    w_noisy = w + 1e-4 * w.abs().max() * torch.randn(w.shape, generator=gen, device=dev)
+    over = make_dof_step(sampler, cost, obs, p, s, w_dof=w_noisy)
+    if over.triangular:
+        fail("K5: a W without the zero half took the triangular instantiation")
+    eps = torch.randn((7, p, s, means.shape[-1]), generator=gen, device=dev)
+    new_k, cost_k = fused_panda_dof_step(over, means, eps=eps)
+    new_p, cost_p = fused_panda_dof_step_plain(over, means, eps)
+    torch.cuda.synchronize()
+    rel, agree, err = _k5_gates("K5 dense", new_k, cost_k, new_p, cost_p)
+    return dict(ctas=split, particles=p, mean_max_err=mean_err, dense_cost_max_rel=rel,
+                dense_argmax_agree=agree, dense_mean_max_err=err)
+
+
+def fused_dof_shapes_check(dev) -> dict:
+    """K5 with an eps operand against its plain version at the shapes of
+    ``K5_SHAPES``, under K5's gates, with the launch each took. The Panda
+    problem's stencil weights, anchors, fields and spheres (2 goals x 32
+    particles), the dof-factored sampling prior built at each horizon (the
+    planner's flat prior refuses 14 T > 2048) and straight start-to-goal
+    means."""
+    from stoch_gpmp_tpu_torch.gp.dof_factored import make_dof_factored_prior
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import (
+        fused_panda_dof_step,
+        fused_panda_dof_step_plain,
+        launch_shape,
+    )
+    from stoch_gpmp_tpu_torch.problems import (
+        PANDA_DT,
+        PANDA_SAMPLE_SIGMAS,
+        build_panda_problem,
+    )
+
+    out = {}
+    for t, s in K5_SHAPES:
+        sampler, cost, state, obs, s = build_panda_problem(num_goals=2, ppg=32, num_samples=s,
+                                                           traj_len=128, device=dev)
+        p = state.particle_means.shape[0]
+        prior = make_dof_factored_prior(t, PANDA_DT, *PANDA_SAMPLE_SIGMAS, device=dev)
+        step = make_dof_step(sampler, cost, obs, p, s, traj_len=t, dof_prior=prior)
+        dq = cost.costs[0].dof_form
+        s0 = dq.s_pd[:, :1, None]  # [d, 1, 1] start positions
+        goal = dq.g_pd[..., 0].repeat_interleave(p // dq.num_goals, 0).T[:, :, None]  # [d, P, 1]
+        frac = torch.arange(t, device=dev) / (t - 1)
+        vel = ((goal - s0) / ((t - 1) * PANDA_DT)).expand(-1, -1, t)
+        means = torch.cat([s0 + (goal - s0) * frac, vel], dim=-1).contiguous()  # [d, P, 2T]
+        gen = torch.Generator(device=dev).manual_seed(11)
+        eps = torch.randn((7, p, s, 2 * t), generator=gen, device=dev)
+        rel, agree, err = _k5_gates(f"K5 at T = {t}, S = {s}",
+                                    *fused_panda_dof_step(step, means, eps=eps),
+                                    *fused_panda_dof_step_plain(step, means, eps))
+        out[f"T={t},S={s}"] = dict(cost_max_rel=rel, argmax_agree=agree, particles=p,
+                                   mean_max_err=err, launch=launch_shape(step))
+    return out
 
 
 def fused_dof_rng_free_check(dev) -> dict:
@@ -826,7 +1099,7 @@ def fused_dof_rng_free_check(dev) -> dict:
     _, cost64, _, obs64, _ = panda_problem("cpu", torch.float64)
     p = state.particle_means.shape[0]
     means = to_dof_planes(state.particle_means).contiguous()
-    prec_u = sampler.dof.matvec_planes(means)
+    prec_u = sampler.dof.matvec_planes(means)  # the kernel computes it from the means
     m64 = means.double().cpu()
     imp = torch.einsum("dpk,dpk->p", m64, prec_u.double().cpu())
     ref_f = cost64.costs[1].eval_dof_planes(m64, observation=obs64) + imp
@@ -850,10 +1123,11 @@ def fused_dof_rng_free_check(dev) -> dict:
 
 
 def fused_dof_moments_check(dev) -> dict:
-    """K5 with Philox draws and uniform weights (quadratic, importance and
-    fields removed, temperature 1e30, step 1): the update is the sample mean
-    of ``eps @ W_dof``, so its per-lane variance is ``diag(W^T W) / S`` and
-    its per-lane mean is 0 within a few standard errors."""
+    """K5 with Philox draws and uniform weights (quadratic, fields and the
+    sampling prior's stencil weights zeroed, so the in-kernel importance
+    term is 0; temperature 1e30, step 1): the update is the sample mean of
+    ``eps @ W_dof``, so its per-lane variance is ``diag(W^T W) / S`` and its
+    per-lane mean is 0 within a few standard errors."""
     from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
     from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import fused_panda_dof_step
 
@@ -862,10 +1136,10 @@ def fused_dof_moments_check(dev) -> dict:
     z = torch.zeros((2, 2), device=dev)
     step = make_dof_step(sampler, cost, obs, p, s, dof_quad=replace(
         cost.costs[0].dof_form, q_i2=z, k_s2=z, k_g2=z), w_self=0.0, w_obst=0.0, w_goal=0.0,
-        temperature=1e30, step_size=1.0)
+        dof_prior=replace(sampler.dof, q_i2=z, k_s2=z, k_g2=z), temperature=1e30,
+        step_size=1.0)
     means = to_dof_planes(state.particle_means).contiguous()
-    zeros = torch.zeros_like(means)
-    d = torch.stack([fused_panda_dof_step(step, means, zeros, seed=2000 + k)[0] - means
+    d = torch.stack([fused_panda_dof_step(step, means, seed=2000 + k)[0] - means
                      for k in range(10)]).double()  # [seeds, d, P, 2T]
     n = d.shape[0] * d.shape[1] * d.shape[2]
     want_var = (step.w_dof.double() ** 2).sum(0) / s
@@ -917,6 +1191,7 @@ def panda_main_path(dev) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
+        generic = generic_walks(counters)
         t, n = PANDA["traj_len"], 7
         shapes = [tuple(o.shape) for o in res]
         if shapes != [(p, t, n), (p, t, n), (p, s, t, n), (p, s, t, n), (p, s), (p, t, 2 * n)]:
@@ -930,6 +1205,8 @@ def panda_main_path(dev) -> dict:
                 {"dof_quad_eval": PANDA_ITERS, "fk_fields": PANDA_ITERS, "fused_panda_dof_step": 0})
         if launches != want:
             fail(f"panda {name}: launches {launches}, expected {want}")
+        if any(generic.values()):
+            fail(f"panda {name}: generic FK walks {generic}: the Panda takes the specialised one")
         if not c1 < c0 or start_err > PANDA_START_TOL:
             fail(f"panda {name}: mean cost {c0:.6g} -> {c1:.6g}, start moved {start_err:.3g}")
         # device time per iteration over a profiled window of the same loop
@@ -947,10 +1224,14 @@ def panda_main_path(dev) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) / 20 * 1e3
         dev_ms, top, ops = device_breakdown(window, 1)
+        if fused:
+            loop_gate("panda fused", ops / 20)
         out[name] = dict(
             top_kernels_ms_per_iter=[(k, ms / 20) for k, ms in top],
-            launches=launches, cost0=c0, cost=c1, start_err=start_err,
-            optimize_seconds=seconds, updates_per_s=p * PANDA_ITERS / seconds,
+            device_ops_per_iter=ops / 20,
+            launches=launches, generic_launches=generic, cost0=c0, cost=c1,
+            start_err=start_err, optimize_seconds=seconds,
+            updates_per_s=p * PANDA_ITERS / seconds,
             iter_wall_ms=wall, window_updates_per_s=p / wall * 1e3,
             iter_device_ms=None if dev_ms is None else dev_ms / 20,
             device_busy=None if dev_ms is None else dev_ms / 20 / wall)
@@ -1217,9 +1498,13 @@ def panda4_main_path(dev) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
+        generic = generic_walks(counters)
         want = {k: PANDA4_ITERS if k == expect[route] else 0 for k in names}
         if launches != want:
             fail(f"panda4 ({route}): launches {launches}, expected {want}")
+        if any(generic.values()):
+            fail(f"panda4 ({route}): generic FK walks {generic}: the Panda takes the "
+                 "specialised one")
         if route != "a":
             shapes = [tuple(o.shape) for o in res]
             if shapes != [(p, t, n), (p, t, n), (p, s, t, n), (p, s, t, n), (p, s), (p, t, 2 * n)]:
@@ -1248,7 +1533,7 @@ def panda4_main_path(dev) -> dict:
             loop_gate("panda4 (a)", ops / 20)
         out[route] = dict(
             top_kernels_ms_per_iter=[(k, ms / 20) for k, ms in top], launches=launches,
-            device_ops_per_iter=ops / 20,
+            generic_launches=generic, device_ops_per_iter=ops / 20,
             cost0=c0, cost=c1, start_err=start_err, optimize_seconds=seconds,
             updates_per_s=p * PANDA4_ITERS / seconds, iter_wall_ms=wall,
             iter_device_ms=None if dev_ms is None else dev_ms / 20,
@@ -1561,13 +1846,48 @@ def main() -> int:
                 f"the float64 oracle (rtol {K4_RTOL}), flat entry {k4['flat_rel']:.1e} from "
                 f"the plane entry; per call kernel {k4['ms']:.4f} ms, plain {k4['plain_ms']:.4f}"
                 f" ms; device time kernel {fmt_ms(k4['device_ms'])}, plain "
-                f"{fmt_ms(k4['plain_device_ms'])}; bound {k4['bound'][0]:.4f} ms")
+                f"{fmt_ms(k4['plain_device_ms'])}; bound {k4['bound'][0]:.4f} ms "
+                f"({k4['bound'][1]}); specialised FK walk on {smi}")
+    fkg = fk_generic_check(dev)
+    phase("K4-generic", f"generic FK walk on a chain with an x-axis and a prismatic joint: K4 "
+                        f"on {fkg['trajectories']} trajectories within {fkg['k4_max_rel']:.2e}, "
+                        f"K8 on {fkg['points']} configurations within {fkg['k8_max_rel']:.2e} "
+                        f"relative of the float64 oracle (rtol {K4_RTOL})")
+    fkg.update(fused_generic_walk_check(dev))
+    phase("K4-generic", f"generic FK walk in the fused kernels on a tilted Panda, eps operand "
+                        f"against the plain versions: K5 costs within "
+                        f"{fkg['k5_cost_max_rel']:.2e}, means {fkg['k5_mean_max_err']:.2e}; K6 "
+                        f"costs within {fkg['k6_cost_max_rel']:.2e}, means "
+                        f"{fkg['k6_mean_max_err']:.2e} (rtol {K5_COST_RTOL}, atol "
+                        f"{K5_MEAN_ATOL})")
     k5 = fused_dof_check(dev)
+    ln = k5["launch"]
     phase("K5", f"eps operand: costs within {k5['cost_max_rel']:.2e} relative (rtol "
                 f"{K5_COST_RTOL}), best sample agrees {k5['argmax_agree']}/{k5['particles']}, "
                 f"means max err {k5['max_abs_err']:.2e}; per call kernel {k5['ms']:.4f} ms, "
                 f"plain {k5['plain_ms']:.4f} ms; device time kernel {fmt_ms(k5['device_ms'])},"
-                f" plain {fmt_ms(k5['plain_device_ms'])}; bound {k5['bound'][0]:.4f} ms")
+                f" plain {fmt_ms(k5['plain_device_ms'])}; bound {k5['bound'][0]:.4f} ms "
+                f"({k5['bound'][1]}), non-zero work {k5['nonzero_bound'][0]:.4f} ms; "
+                f"{ln['ctas']} persistent CTAs of {ln['threads']} threads, {ln['smem_bytes']} B "
+                f"of shared memory, {ln['ctas_per_sm']} per SM, W's zero half skipped: "
+                f"{ln['triangular']}, FK variant {ln['variant']} on {smi}")
+    k5_split = fused_dof_split_check(dev)
+    phase("K5-split", f"seed mode at {k5_split['ctas']} persistent CTAs against "
+                      f"{k5_split['particles']} (one particle each): costs equal, new means "
+                      f"within {k5_split['mean_max_err']:.2e} (atol {SPLIT_MEAN_ATOL})")
+    phase("K5-dense", f"dense instantiation: on the prior's W equal to the last bit to the one "
+                      f"that skips its zeros; on a W without them costs within "
+                      f"{k5_split['dense_cost_max_rel']:.2e} relative of the plain version, best "
+                      f"sample agrees {k5_split['dense_argmax_agree']}/{k5_split['particles']}, "
+                      f"means max err {k5_split['dense_mean_max_err']:.2e}")
+    k5_shapes = fused_dof_shapes_check(dev)
+    for k, r in k5_shapes.items():
+        ln = r["launch"]
+        phase("K5-shapes", f"{k}, eps operand: costs within {r['cost_max_rel']:.2e} relative, "
+                           f"best sample agrees {r['argmax_agree']}/{r['particles']}, means max "
+                           f"err {r['mean_max_err']:.2e}; {ln['threads']} threads, "
+                           f"{ln['smem_bytes']} B of shared memory, W's zero half skipped: "
+                           f"{ln['triangular']}, FK variant {ln['variant']}")
     k5_free = fused_dof_rng_free_check(dev)
     phase("K5-rng-free", " | ".join(
         f"{k}: costs within {v['max_rel']:.2e} relative, means moved {v['means_moved']:.1e}"
@@ -1578,11 +1898,14 @@ def main() -> int:
     pm = panda_main_path(dev)
     for k, r in pm.items():
         busy = "not measured" if r["device_busy"] is None else format(r["device_busy"], ".1%")
-        phase("panda-main", f"{k}: {PANDA_ITERS} iters, launches {r['launches']}, mean cost "
+        phase("panda-main", f"{k}: {PANDA_ITERS} iters, launches {r['launches']}, generic FK "
+                            f"walks {r['generic_launches']}, mean cost "
                             f"{r['cost0']:.6g} -> {r['cost']:.6g}, start err {r['start_err']:.2e};"
                             f" {r['updates_per_s']:.0f} updates/s over optimize(); 20-iteration"
                             f" window {r['iter_wall_ms']:.4f} ms/iter wall, device time "
-                            f"{fmt_ms(r['iter_device_ms'])}/iter, device busy {busy} on {smi}")
+                            f"{fmt_ms(r['iter_device_ms'])}/iter in "
+                            f"{r['device_ops_per_iter']:.2f} device operations, device busy "
+                            f"{busy} on {smi}")
         phase("panda-main", f"{k}: device ms per iteration by kernel: " + "; ".join(
             f"{n} {ms:.4f}" for n, ms in r["top_kernels_ms_per_iter"]))
     k6 = fused_flat_check(dev)
@@ -1622,7 +1945,8 @@ def main() -> int:
     for k in ("a", "b", "c", "d"):
         r = p4[k]
         busy = "not measured" if r["device_busy"] is None else format(r["device_busy"], ".1%")
-        phase("panda4-main", f"({k}): {PANDA4_ITERS} iters, launches {r['launches']}, mean cost "
+        phase("panda4-main", f"({k}): {PANDA4_ITERS} iters, launches {r['launches']}, generic "
+                             f"FK walks {r['generic_launches']}, mean cost "
                              f"{r['cost0']:.6g} -> {r['cost']:.6g}, start err "
                              f"{r['start_err']:.2e}; {r['updates_per_s']:.0f} updates/s over "
                              f"{'the K6 loop' if k == 'a' else 'optimize()'}; 20-iteration "
@@ -1697,7 +2021,8 @@ def main() -> int:
     phase("gn-main", f"means: woodbury vs cholesky {gn['woodbury_vs_cholesky']:.2e} (atol "
                      f"{GN_METHOD_ATOL}), inverse vs cholesky after 3 iterations "
                      f"{gn['inverse_vs_cholesky_3']:.2e} (atol {GN_INVERSE3_ATOL})")
-    details.update(K1=k1, K2=k2, K2_split=k2_split, moments=mom, main=mp, K3=k3, K4=k4, K5=k5,
+    details.update(K1=k1, K2=k2, K2_split=k2_split, moments=mom, main=mp, K3=k3, K4=k4,
+                   K4_generic=fkg, K5=k5, K5_split=k5_split, K5_shapes=k5_shapes,
                    K5_rng_free=k5_free, K5_moments=k5_mom, panda_main=pm, K6=k6,
                    K6_split=k6_split, K6_rng_free=k6_free, K6_moments=k6_mom, K7=k7, K8=k8,
                    panda4_main=p4, K9=k9, K9_split=k9_split, K9_moments=k9_mom,

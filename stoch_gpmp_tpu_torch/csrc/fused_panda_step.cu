@@ -34,8 +34,9 @@
 // keeps its x rows in shared memory, sums
 // each row's stencil energy, anchors and importance (one warp per row) and
 // runs FK, the link fields and the SE(3) goal per (sample, t) point of its
-// rows, one thread per point, with the link positions in the shared memory
-// the W tiles used. The softmax over the S samples and the mean update run
+// rows, one thread per point (the walk specialised for the Panda, the link
+// positions in registers; the generic walk's in the shared memory the W
+// tiles used, fk_chain.cuh). The softmax over the S samples and the mean update run
 // across the cluster through distributed shared memory
 // (cluster_softmax_update), so no sample row goes to device memory.
 //
@@ -99,7 +100,9 @@ size_t union_floats(int M, int stages, int n_links) {
 }
 
 // minimum one block per SM: ptxas may then use up to 128 registers (65,536 /
-// 512) and needs no spills
+// 512) and needs no spills. VARIANT: the chain's FK spec (fk_spec.h; 1
+// FkPanda, link positions in registers; 0 the generic walk).
+template <int VARIANT>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 fused_panda_step_kernel(const float* __restrict__ means, const float* __restrict__ anchors,
                         const float* __restrict__ W, const float* __restrict__ spheres,
@@ -128,8 +131,8 @@ fused_panda_step_kernel(const float* __restrict__ means, const float* __restrict
   float* cost_sh = goal_sh + rows;                      // [rows]
   float* w_sh = cost_sh + rows;                         // [rows]
   float* scratch = w_sh + rows;                         // [32]
-  float* sph_sh = scratch + 32;                         // [n_obst][4]
-  for (int i = tid; i < 4 * prm.n_obst; i += NT) sph_sh[i] = spheres[i];
+  float4* sph = reinterpret_cast<float4*>(scratch + 32);  // [n_obst]
+  load_spheres(spheres, prm.n_obst, sph);
   for (int m = tid; m < M; m += NT) {
     mu_sh[m] = means[(size_t)p * M + m];
     anc_sh[m] = anchors[(size_t)p * M + m];
@@ -193,21 +196,33 @@ fused_panda_step_kernel(const float* __restrict__ means, const float* __restrict
   for (int pt = tid; pt < nrows * T; pt += NT) {
     const int s = pt / T, t = pt - s * T;
     const float* xt = rows_sh + (size_t)s * M + t * sd;
+    auto q = [&](int i) { return xt[i]; };
+    float f = 0.0f, g = 0.0f;
     float ee_r[9];
-    fk_walk(chain, [&](int i) { return xt[i]; }, pos_sh + tid, NT, ee_r);
-    float f = 0.0f;
-    if (t >= 1)
-      f = link_fields(pos_sh + tid, NT, L, sph_sh, prm.n_obst, prm.inv_2m2, prm.w_self,
-                      prm.w_obst);
-    if (t == T - 1) {
-      float g = 0.0f;
-      if (prm.w_goal != 0.0f) {
-        const float dist =
-            ee_goal_distance(pos_sh + tid, NT, L, ee_r, prm.target, prm.w_pos, prm.w_rot);
+    if constexpr (VARIANT == 1) {
+      float pos[FkPanda::NL][3];
+      fk_walk_spec<FkPanda>(chain, q, pos, ee_r);
+      if (t >= 1)
+        f = link_fields<FkPanda::NL>([&](int l, int c) { return pos[l][c]; }, FkPanda::NL, sph,
+                                     prm.n_obst, prm.inv_2m2, prm.w_self, prm.w_obst);
+      if (t == T - 1 && prm.w_goal != 0.0f) {
+        const float dist = ee_goal_distance(pos[FkPanda::NL - 1], ee_r, prm.target, prm.w_pos,
+                                            prm.w_rot);
         g = prm.w_goal * (dist * dist);
       }
-      goal_sh[s] = g;
+    } else {
+      float* col = pos_sh + tid;
+      fk_walk(chain, q, col, NT, ee_r);
+      auto pos = [&](int l, int c) { return col[(3 * l + c) * NT]; };
+      if (t >= 1)
+        f = link_fields<0>(pos, L, sph, prm.n_obst, prm.inv_2m2, prm.w_self, prm.w_obst);
+      if (t == T - 1 && prm.w_goal != 0.0f) {
+        const float ee[3] = {pos(L - 1, 0), pos(L - 1, 1), pos(L - 1, 2)};
+        const float dist = ee_goal_distance(ee, ee_r, prm.target, prm.w_pos, prm.w_rot);
+        g = prm.w_goal * (dist * dist);
+      }
     }
+    if (t == T - 1) goal_sh[s] = g;
     f = warp_sum(f);
     if (lane == 0) field_sh[s * wpr + (t >> 5)] = f;
   }
@@ -228,18 +243,23 @@ fused_panda_step_kernel(const float* __restrict__ means, const float* __restrict
                          prm.temperature, prm.step_size, new_means + (size_t)p * M);
 }
 
-bool valid(const PandaStepParams* prm, const FkChain* chain, int ctas) {
+bool valid(const PandaStepParams* prm, const FkChain* chain, int ctas, int variant) {
   const int M = 2 * prm->D * prm->T;
   return M % (32 * C) == 0 && M / C <= MAX_THREADS && prm->T % 32 == 0 && prm->D >= 1 &&
          prm->D <= FK_MAX_JOINTS && prm->S >= 1 && prm->P >= 1 && prm->n_obst >= 0 &&
-         chain->n_links >= 1 && chain->n_joints <= FK_MAX_JOINTS && ctas >= 1 &&
-         ctas <= MAX_CLUSTER;
+         ctas >= 1 && ctas <= MAX_CLUSTER && fk_variant_valid(*chain, variant);
+}
+
+using KernelFn = decltype(&fused_panda_step_kernel<0>);
+
+KernelFn kernel_for(int variant) {
+  return variant == 1 ? fused_panda_step_kernel<1> : fused_panda_step_kernel<0>;
 }
 
 // The launch at this shape: tiles per CTA, K-tile buffers and the dynamic
 // shared memory per CTA in bytes; refuses a CTA whose shared memory exceeds
 // kSmemLimit.
-cudaError_t configure(const PandaStepParams* prm, const FkChain* chain, int ctas,
+cudaError_t configure(const PandaStepParams* prm, const FkChain* chain, int ctas, int variant,
                       int* tiles_per_cta, int* stages, size_t* smem, cudaLaunchConfig_t* cfg,
                       cudaLaunchAttribute* attr, cudaStream_t stream) {
   const int M = 2 * prm->D * prm->T, tiles = (prm->S + ST - 1) / ST;
@@ -249,7 +269,7 @@ cudaError_t configure(const PandaStepParams* prm, const FkChain* chain, int ctas
   *smem = fixed + sizeof(float) * union_floats(M, *stages, chain->n_links);
   if (*smem > kSmemLimit) return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      fused_panda_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+      kernel_for(variant), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
   if (err != cudaSuccess) return err;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(prm->P * ctas);
@@ -269,18 +289,19 @@ cudaError_t configure(const PandaStepParams* prm, const FkChain* chain, int ctas
 
 extern "C" int fused_panda_step_launch(const float* means, const float* anchors,
                                        const float* W, const float* spheres, const float* eps,
-                                       float* new_means, float* costs, int ctas,
+                                       float* new_means, float* costs, int ctas, int variant,
                                        const PandaStepParams* prm, const FkChain* chain,
                                        void* stream) {
-  if (!valid(prm, chain, ctas)) return (int)cudaErrorInvalidValue;
+  if (!valid(prm, chain, ctas, variant)) return (int)cudaErrorInvalidValue;
   int tpc, stages;
   size_t smem;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err =
-      configure(prm, chain, ctas, &tpc, &stages, &smem, &cfg, &attr, (cudaStream_t)stream);
+      configure(prm, chain, ctas, variant, &tpc, &stages, &smem, &cfg, &attr,
+                (cudaStream_t)stream);
   if (err == cudaSuccess)
-    err = cudaLaunchKernelEx(&cfg, fused_panda_step_kernel, means, anchors, W, spheres, eps,
+    err = cudaLaunchKernelEx(&cfg, kernel_for(variant), means, anchors, W, spheres, eps,
                              new_means, costs, ctas, tpc, stages, *prm, *chain);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -291,18 +312,19 @@ extern "C" int fused_panda_step_launch(const float* means, const float* anchors,
 // fits), the dynamic shared memory per CTA in bytes, the K-tile buffers and
 // the tiles per CTA, as configure lays the CTA out.
 extern "C" int fused_panda_step_max_clusters(const PandaStepParams* prm, const FkChain* chain,
-                                             int ctas, int* shape) {
-  if (!valid(prm, chain, ctas)) return (int)cudaErrorInvalidValue;
+                                             int ctas, int variant, int* shape) {
+  if (!valid(prm, chain, ctas, variant)) return (int)cudaErrorInvalidValue;
   int tpc, stages;
   size_t smem;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  const cudaError_t err = configure(prm, chain, ctas, &tpc, &stages, &smem, &cfg, &attr, nullptr);
+  const cudaError_t err =
+      configure(prm, chain, ctas, variant, &tpc, &stages, &smem, &cfg, &attr, nullptr);
   shape[0] = 0;
   shape[1] = (int)smem;
   shape[2] = stages;
   shape[3] = tpc;
   if (smem > kSmemLimit) return (int)cudaSuccess;
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveClusters(shape, fused_panda_step_kernel, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(shape, (void*)kernel_for(variant), &cfg);
 }

@@ -1,12 +1,12 @@
 // Device helpers shared by the fused iteration kernels
 // (fused_planar_step.cu, fused_panda_step.cu, fused_panda_dof_step.cu): the
 // Philox4x32-10 counter-based generator with a dual-output Box-Muller, warp
-// and block reductions, the K-tile pipelines that multiply a tile of rows
-// in shared memory by a matrix streamed from device memory (cp.async with
-// one column per thread; TMA bulk copies into a ring, register-blocked 4 x 4
-// or split-K 4 x 8), the sampling prior's Sigma^{-1} mu at one lane, and the
-// thread-block-cluster softmax and mean update of the cluster-split kernels
-// (K2/K9, K6).
+// and block reductions, the K-tile pipeline that multiplies a tile of rows
+// in shared memory by a matrix streamed from device memory (TMA bulk copies
+// into a ring, register-blocked 4 x 4 or split-K 4 x 8), the sampling
+// prior's Sigma^{-1} mu at one lane (flat t-major rows and dof plane rows),
+// and the thread-block-cluster softmax and mean update of the cluster-split
+// kernels (K2/K9, K6).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -71,71 +71,6 @@ __device__ float block_reduce(float v, float* scratch) {
   float r = scratch[0];
   for (int w = 1; w < nwarps; ++w) r = IS_MAX ? fmaxf(r, scratch[w]) : r + scratch[w];
   return r;
-}
-
-// 16-byte asynchronous global -> shared copy (Ampere and later), so the next
-// K-tile is in flight while the current one is multiplied.
-__device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Issue the copy of K-tile kt of G [M, M] (KT rows) into buf.
-template <int KT>
-__device__ __forceinline__ void load_ktile(const float* __restrict__ G, float* buf, int kt,
-                                           int M) {
-  const float4* src = reinterpret_cast<const float4*>(G + (size_t)kt * KT * M);
-  float4* dst = reinterpret_cast<float4*>(buf);
-  for (int j = threadIdx.x; j < KT * M / 4; j += blockDim.x) cp_async16(dst + j, src + j);
-  cp_async_commit();
-}
-
-// acc[i] += sum_k xs[i][k] * G[k][m] for the ST rows of the tile in shared
-// memory and the column m = threadIdx.x of each thread (blockDim.x == M); G
-// [M, M] streams through the two KT-row buffers of g_sh, the copy of K-tile
-// kt+1 overlapping the products of K-tile kt. M must be a multiple of KT
-// and 4.
-template <int ST, int KT>
-__device__ __forceinline__ void tile_matmul(const float* xs, const float* __restrict__ G,
-                                            float* g_sh, int M, float (&acc)[ST]) {
-  const int nkt = M / KT, m = threadIdx.x;
-  __syncthreads();  // every earlier reader of g_sh and writer of xs is done
-  load_ktile<KT>(G, g_sh, 0, M);
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (kt + 1 < nkt) {
-      load_ktile<KT>(G, g_sh + ((kt + 1) & 1) * KT * M, kt + 1, M);
-      cp_async_wait<1>();  // K-tile kt has landed (kt+1 may still fly)
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // ... for every thread's share of it
-    const float* gt = g_sh + (kt & 1) * KT * M;
-    const int k0 = kt * KT;
-    // four K steps per pass: the row operand is one 16-byte broadcast load
-    for (int kk = 0; kk < KT; kk += 4) {
-      float g[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) g[j] = gt[(kk + j) * M + m];
-#pragma unroll
-      for (int i = 0; i < ST; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(xs + i * M + k0 + kk);
-        acc[i] = fmaf(a.x, g[0], acc[i]);
-        acc[i] = fmaf(a.y, g[1], acc[i]);
-        acc[i] = fmaf(a.z, g[2], acc[i]);
-        acc[i] = fmaf(a.w, g[3], acc[i]);
-      }
-    }
-    __syncthreads();  // buffer kt & 1 is consumed before it is refilled
-  }
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -365,6 +300,37 @@ __device__ __forceinline__ float prec_u_lane(const float* mu, int m, int M, int 
   }
   float y = ya - yb;
   const float p = mu[l], v = mu[l + d];
+  if (t == 0) y += pos ? k.ks11 * p + k.ks12 * v : k.ks21 * p + k.ks22 * v;
+  if (t == T - 1) y += pos ? k.kg11 * p + k.kg12 * v : k.kg21 * p + k.kg22 * v;
+  return y;
+}
+
+// (Sigma^{-1} mu)_m at lane m of one dof's plane row mu [2T] (lanes [0, T)
+// the positions, [T, 2T) the velocities): the plane twin of prec_u_lane,
+// DofFactoredPrior.matvec_planes per lane. With r_t = (p_t + dt v_t -
+// p_{t+1}, v_t - v_{t+1}):
+//   position lane t: (Q^{-1} r_t)_p - (Q^{-1} r_{t-1})_p
+//   velocity lane t: dt (Q^{-1} r_t)_p + (Q^{-1} r_t)_v - (Q^{-1} r_{t-1})_v
+// (terms of a factor that does not exist are 0), plus K_s (p, v)(0) at t = 0
+// and K_g (p, v)(T-1) at t = T-1. Reads lanes t - 1 .. t + 1 of both planes.
+__device__ __forceinline__ float prec_u_plane(const float* __restrict__ mu, int m, int T,
+                                              const PriorStencil& k) {
+  const bool pos = m < T;
+  const int t = pos ? m : m - T;
+  float ya = 0.0f, yb = 0.0f;
+  if (t < T - 1) {
+    const float rp = mu[t] + k.dt * mu[T + t] - mu[t + 1];
+    const float rv = mu[T + t] - mu[T + t + 1];
+    const float a = k.q11 * rp + k.q12 * rv;
+    ya = pos ? a : k.dt * a + (k.q21 * rp + k.q22 * rv);
+  }
+  if (t > 0) {
+    const float rp = mu[t - 1] + k.dt * mu[T + t - 1] - mu[t];
+    const float rv = mu[T + t - 1] - mu[T + t];
+    yb = pos ? k.q11 * rp + k.q12 * rv : k.q21 * rp + k.q22 * rv;
+  }
+  float y = ya - yb;
+  const float p = mu[t], v = mu[T + t];
   if (t == 0) y += pos ? k.ks11 * p + k.ks12 * v : k.ks21 * p + k.ks22 * v;
   if (t == T - 1) y += pos ? k.kg11 * p + k.kg12 * v : k.kg21 * p + k.kg22 * v;
   return y;

@@ -144,6 +144,27 @@ def stencil_matvec_flat(x, q_i2, k_s2, k_g2, dt):
     return torch.cat([yp, yv], dim=-1)
 
 
+def prec_u_planes(x_planes, q_i2, k_s2, k_g2, dt):
+    """``A x`` for the factor-graph block-tridiagonal ``A`` (start anchor +
+    CV-GP chain + goal anchor) per dof on ``[d, ..., 2T]`` planes (positions
+    then velocities): per factor ``r_t = phi x_t - x_{t+1}``, ``y_t += phi^T
+    Q^{-1} r_t``, ``y_{t+1} -= Q^{-1} r_t``, plus the two anchors. The plane
+    twin of :func:`stencil_matvec_flat`, in the per-lane form K5 computes
+    (``prec_u_plane`` of ``csrc/kernel_common.cuh``)."""
+    t = x_planes.shape[-1] // 2
+    p, v, rp, rv = _plane_residuals(x_planes, dt, t)
+    a = q_i2[0, 0] * rp + q_i2[0, 1] * rv  # (Q^{-1} r)_p
+    b = q_i2[1, 0] * rp + q_i2[1, 1] * rv  # (Q^{-1} r)_v
+    pad = torch.nn.functional.pad
+    yp = pad(a, (0, 1)) - pad(a, (1, 0))
+    yv = pad(dt * a + b, (0, 1)) - pad(b, (1, 0))  # (phi^T Q^{-1} r)_v
+    yp[..., 0] += k_s2[0, 0] * p[..., 0] + k_s2[0, 1] * v[..., 0]
+    yv[..., 0] += k_s2[1, 0] * p[..., 0] + k_s2[1, 1] * v[..., 0]
+    yp[..., -1] += k_g2[0, 0] * p[..., -1] + k_g2[0, 1] * v[..., -1]
+    yv[..., -1] += k_g2[1, 0] * p[..., -1] + k_g2[1, 1] * v[..., -1]
+    return torch.cat([yp, yv], dim=-1)
+
+
 @dataclass
 class DofFactoredPrior:
     """Shared per-dof sampling factor + precision in plane order.
@@ -180,22 +201,8 @@ class DofFactoredPrior:
 
     def matvec_planes(self, x_planes: torch.Tensor) -> torch.Tensor:
         """``Sigma^{-1} x`` per dof on ``[d, ..., 2T]`` planes by the
-        factor-graph stencil: per factor ``r_t = phi x_t - x_{t+1}``,
-        ``y_t += phi^T Q^{-1} r_t``, ``y_{t+1} -= Q^{-1} r_t``, plus the two
-        anchors."""
-        t = self.traj_len
-        p, v, rp, rv = _plane_residuals(x_planes, self.dt, t)
-        a = self.q_i2[0, 0] * rp + self.q_i2[0, 1] * rv  # (Q^{-1} r)_p
-        b = self.q_i2[1, 0] * rp + self.q_i2[1, 1] * rv  # (Q^{-1} r)_v
-        pad = torch.nn.functional.pad
-        yp = pad(a, (0, 1)) - pad(a, (1, 0))
-        yv = pad(self.dt * a + b, (0, 1)) - pad(b, (1, 0))  # (phi^T Q^{-1} r)_v
-        ks, kg = self.k_s2, self.k_g2
-        yp[..., 0] += ks[0, 0] * p[..., 0] + ks[0, 1] * v[..., 0]
-        yv[..., 0] += ks[1, 0] * p[..., 0] + ks[1, 1] * v[..., 0]
-        yp[..., -1] += kg[0, 0] * p[..., -1] + kg[0, 1] * v[..., -1]
-        yv[..., -1] += kg[1, 0] * p[..., -1] + kg[1, 1] * v[..., -1]
-        return torch.cat([yp, yv], dim=-1)
+        factor-graph stencil (:func:`prec_u_planes`)."""
+        return prec_u_planes(x_planes, self.q_i2, self.k_s2, self.k_g2, self.dt)
 
 
 def make_dof_factored_prior(

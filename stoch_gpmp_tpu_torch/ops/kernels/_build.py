@@ -1,10 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, all of them started together, on
-first use, and loaded with ``ctypes``. A library's name carries a hash of
-its source, the headers and the flags, so an edited source is rebuilt and a
-stale build is never loaded. The builds go to ``build/kernels/`` at the
+Each ``csrc/*.cu`` file (and ``csrc/*.cpp``, host code) is compiled by its
+own ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
+all of them started together, on first use, and loaded with ``ctypes``. A
+library's name carries a hash of its source, the headers and the flags, so
+an edited source is rebuilt and a stale build is never loaded. The builds go to ``build/kernels/`` at the
 repository root (git ignores ``build/``).
 
 No ``--use_fast_math``: the kernels floor a division by the cell size and
@@ -54,7 +54,7 @@ def _planar_step_args(rng):
     ]
 
 
-# C signatures of the launchers; each returns its cudaError_t as an int
+# C signatures of the entries; each returns an int, the launchers their cudaError_t
 SIGNATURES = {
     "raster_field_launch": [
         _P, _L, _L, _L, _L, _L,  # points, B, L, stride_b, stride_l, stride_c
@@ -81,12 +81,12 @@ SIGNATURES = {
     "fk_fields_launch": [
         _P, _L, _L, _L, _I, _I,  # q, stride_dof, stride_b, stride_t, B, T
         _P, _I, _F, _F, _F,  # spheres, n_obst, inv_2m2, w_self, w_obst
-        _P, _P, _P,  # FkChain*, out, stream
+        _P, _I, _P, _P,  # FkChain*, FK variant, out, stream
     ],
     "fk_fields_points_launch": [
         _P, _L, _L, _L,  # q, stride_n, stride_dof, N
         _P, _I, _F, _F, _F,  # spheres, n_obst, inv_2m2, w_self, w_obst
-        _P, _P, _P,  # FkChain*, out, stream
+        _P, _I, _P, _P,  # FkChain*, FK variant, out, stream
     ],
     "link_fields_launch": [
         _P, _L, _L, _L, _L, _L, _L, _I,  # pos, N0, N1, strides (0, 1, link, coord), L
@@ -95,14 +95,19 @@ SIGNATURES = {
     ],
     "fused_panda_step_launch": [
         _P, _P, _P, _P, _P,  # means, anchors, W, spheres, eps (or null)
-        _P, _P, _I,  # new_means, costs, CTAs per particle
+        _P, _P, _I, _I,  # new_means, costs, CTAs per particle, FK variant
         _P, _P, _P,  # PandaStepParams*, FkChain*, stream
     ],
-    "fused_panda_step_max_clusters": [_P, _P, _I, _P],  # params, chain, CTAs, int shape[4]
+    # params, chain, CTAs, FK variant, int shape[4]
+    "fused_panda_step_max_clusters": [_P, _P, _I, _I, _P],
     "fused_panda_dof_step_launch": [
-        _P, _P, _P, _P, _P, _P,  # means, prec_u, g_pd, W, spheres, eps (or null)
-        _P, _P, _P, _P, _P,  # new_means, costs, DofStepParams*, FkChain*, stream
+        _P, _P, _P, _P, _P,  # means, g_pd, W (or its windows), spheres, eps (or null)
+        _P, _P, _I, _I, _I,  # new_means, costs, CTAs, triangular, FK variant
+        _P, _P, _P,  # DofStepParams*, FkChain*, stream
     ],
+    # params, chain, triangular, FK variant, int shape[3]
+    "fused_panda_dof_step_config": [_P, _P, _I, _I, _P],
+    "fk_chain_variant": [_P],  # FkChain* -> the FK walk (csrc/fk_spec.cpp; not an error code)
     "fused_planar_step_launch": _planar_step_args(ctypes.c_ulonglong),  # seed
     "fused_planar_step_per_particle_launch": _planar_step_args(_P),  # seeds [P, 2] or null
     "fused_planar_step_max_clusters": [
@@ -136,7 +141,7 @@ def load_library():
     if _LIB is not None:
         return _LIB
     headers = hashlib.sha256()
-    for hdr in sorted(CSRC.glob("*.cuh")):
+    for hdr in sorted([*CSRC.glob("*.cuh"), *CSRC.glob("*.h")]):
         headers.update(hdr.name.encode())
         headers.update(hdr.read_bytes())
     headers.update(" ".join(NVCC_FLAGS).encode())
@@ -144,7 +149,7 @@ def load_library():
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
     t0 = time.perf_counter()
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cpp")]):
         digest = headers.copy()
         digest.update(src.read_bytes())
         lib_path = out_dir / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"

@@ -18,9 +18,9 @@ reference does), term by term in the TPU kernels' order.
   ``[d, B, 2T]`` and the flat ``[B, T, 2d]`` batch are both read in place,
   and sums the fields over ``t >= 1`` per trajectory. The CUDA source is
   ``csrc/fk_fields.cu`` with the chain walk in ``csrc/fk_chain.cuh``: one
-  thread per ``(b, t)`` point, one block per trajectory reducing over ``t``.
-  It is bound by the special-function unit: 81 ``exp`` and 7 ``sincos`` per
-  point.
+  thread per ``(b, t)`` point, two trajectories per 256-thread block at T =
+  128. It is bound by its arithmetic: ~1,200 FP32 operations and 81 ``exp2``
+  per point.
 - K7, ``fused_link_fields_cost``: replaces ``fused_link_fields_cost``
   (``_kernel``): the fields at link positions ``[..., L, 3]`` read through
   their strides, one thread per point (``csrc/link_fields.cu``). Bound by
@@ -29,6 +29,13 @@ reference does), term by term in the TPU kernels' order.
   (``_fk_fields_kernel``): FK + fields per row of ``q [N, d]``, read in
   place, one thread per row (the second entry of ``csrc/fk_fields.cu``).
   Bound as K4.
+
+K4 and K8 (and K5, K6) walk the chain unrolled with the link positions in
+registers where the chain has a spec compiled into the kernels (the Panda:
+``csrc/fk_spec.h FkPanda``), and generically otherwise; :func:`fk_variant`
+asks the kernels' own rule which walk a chain takes. Each wrapper counts its
+launches in ``.launches`` and, of those, the generic walk's in
+``.generic_launches``.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version only for a CPU tensor.
@@ -58,6 +65,21 @@ class FkChainC(ctypes.Structure):
         ("trans", ctypes.c_float * (3 * FK_MAX_JOINTS)),
         ("axis", ctypes.c_float * (3 * FK_MAX_JOINTS)),
     ]
+
+
+_VARIANTS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def fk_variant(chain, lib=None) -> int:
+    """The FK walk the kernels take for ``chain``, as ``csrc/fk_spec.h``
+    decides it (``fk_chain_variant``, the rule the launchers check): 1 the
+    walk specialised for the Panda (``FkPanda``), 0 the generic walk. Asked
+    once per chain; ``lib`` is a library that exports ``fk_chain_variant``
+    (default the kernels')."""
+    if chain not in _VARIANTS:
+        lib = _build.load_library() if lib is None else lib
+        _VARIANTS[chain] = int(lib.fk_chain_variant(ctypes.byref(fk_chain_c(chain))))
+    return _VARIANTS[chain]
 
 
 def _exp(v):
@@ -155,19 +177,22 @@ def fk_link_fields_cost_rows(chain, q, spheres, *, margin, w_self, w_obst):
     out = torch.empty((b,), dtype=torch.float32, device=q.device)
     if b == 0:
         return out
-    table = fk_chain_c(chain)
+    variant = fk_variant(chain)
     lib = _build.load_library()
     err = lib.fk_fields_launch(
         q.data_ptr(), q.stride(0), q.stride(1), q.stride(2), b, t,
         sp.data_ptr(), int(sp.shape[0]), 1.0 / (2.0 * margin * margin), float(w_self),
-        float(w_obst), ctypes.byref(table), out.data_ptr(), _build.stream_ptr(q.device),
+        float(w_obst), ctypes.byref(fk_chain_c(chain)), variant, out.data_ptr(),
+        _build.stream_ptr(q.device),
     )
     _build.check(err, "fk_fields_launch")
     fk_link_fields_cost_rows.launches += 1
+    fk_link_fields_cost_rows.generic_launches += int(variant == 0)
     return out
 
 
 fk_link_fields_cost_rows.launches = 0
+fk_link_fields_cost_rows.generic_launches = 0
 
 
 def fused_link_fields_cost_plain(positions, spheres, *, margin, w_self, w_obst):
@@ -241,15 +266,19 @@ def fk_link_fields_cost(chain, q, spheres, *, margin, w_self, w_obst):
     if q.shape[0] == 0:
         return out
     sp = _spheres(spheres, q.device)
+    variant = fk_variant(chain)
     lib = _build.load_library()
     err = lib.fk_fields_points_launch(
         q.data_ptr(), q.stride(0), q.stride(1), q.shape[0], sp.data_ptr(), int(sp.shape[0]),
         1.0 / (2.0 * margin * margin), float(w_self), float(w_obst),
-        ctypes.byref(fk_chain_c(chain)), out.data_ptr(), _build.stream_ptr(q.device),
+        ctypes.byref(fk_chain_c(chain)), variant, out.data_ptr(),
+        _build.stream_ptr(q.device),
     )
     _build.check(err, "fk_fields_points_launch")
     fk_link_fields_cost.launches += 1
+    fk_link_fields_cost.generic_launches += int(variant == 0)
     return out
 
 
 fk_link_fields_cost.launches = 0
+fk_link_fields_cost.generic_launches = 0

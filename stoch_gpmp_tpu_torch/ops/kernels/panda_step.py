@@ -59,6 +59,7 @@ from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (
     FK_MAX_JOINTS,
     fk_chain_c,
     fk_link_fields_cost_rows_plain,
+    fk_variant,
 )
 from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import (
     acos_poly,
@@ -212,7 +213,8 @@ def launch_shape(step: FusedPandaStep, ctas: int | None = None) -> dict:
         _SHAPES[key] = cluster_launch(
             "fused panda step kernel", p, s, _ST, ctas, dev,
             lambda c: query_shape(lib.fused_panda_step_max_clusters, ctypes.byref(step.params),
-                                  ctypes.byref(fk_chain_c(step.chain)), c))
+                                  ctypes.byref(fk_chain_c(step.chain)), c,
+                                  fk_variant(step.chain)))
     return _SHAPES[key]
 
 
@@ -260,20 +262,23 @@ def fused_panda_step(step: FusedPandaStep, means, *, eps=None, seed=None,
     dev = means.device
     new_means = torch.empty_like(means)
     costs = torch.empty((p, step.num_samples), dtype=torch.float32, device=dev)
+    variant = fk_variant(step.chain)
     lib = _build.load_library()
     err = lib.fused_panda_step_launch(
         means.data_ptr(), step.anchors.data_ptr(), step.weight_t.data_ptr(),
         step.spheres.data_ptr(), None if eps is None else eps.data_ptr(),
-        new_means.data_ptr(), costs.data_ptr(), shape["ctas"],
+        new_means.data_ptr(), costs.data_ptr(), shape["ctas"], variant,
         ctypes.byref(_params(step, 0 if seed is None else int(seed))),
         ctypes.byref(fk_chain_c(step.chain)), _build.stream_ptr(dev),
     )
     _build.check(err, "fused_panda_step_launch")
     fused_panda_step.launches += 1
+    fused_panda_step.generic_launches += int(variant == 0)  # the generic FK walk's
     return new_means, costs
 
 
 fused_panda_step.launches = 0
+fused_panda_step.generic_launches = 0
 
 
 # ``opt_iters`` fused iterations on ``means [P, T, 2d]``: the dof step's host

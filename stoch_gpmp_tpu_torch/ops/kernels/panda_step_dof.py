@@ -3,8 +3,9 @@ version and the host loop.
 
 Replaces the TPU kernel ``stoch_gpmp_tpu/ops/pallas/panda_step_dof.py``
 ``make_fused_panda_dof_step`` (``_kernel``). Per particle, with the means
-and ``Sigma^{-1} mu`` as dof planes ``[d, P, 2T]``:
+as dof planes ``[d, P, 2T]``:
 
+    pu_d     = Sigma^{-1} mu_d of the sampling prior   (prec_u_planes)
     x_{d,s}  = mu_d + eps_{d,s} @ W_dof            (eps: operand or Philox)
     cost_s   = sum_d stencil energy of x_{d,s} + tau * x_{d,s} . pu_d   (as K3)
              + sum_{t >= 1} link fields at FK(x_{:,s}[t])               (as K4)
@@ -14,17 +15,22 @@ and ``Sigma^{-1} mu`` as dof planes ``[d, P, 2T]``:
 
 The SE(3) angle uses the Abramowitz & Stegun 4.4.46 polynomial of the TPU
 kernel (|err| <= 2e-8 rad) in both the kernel and the plain version. The
-CUDA source is ``csrc/fused_panda_dof_step.cu``: one block per particle,
-one thread per plane lane; the ``d * S`` sample rows are multiplied by
-``W_dof`` in tiles of 32 rows with ``W`` streamed through shared memory in
-K-tiles (``csrc/kernel_common.cuh``, shared with K2). It is bound by the
-FP32 sampling product: 2 d P S (2T)^2 = 9.4 GFLOP at config 5.
+CUDA source is ``csrc/fused_panda_dof_step.cu``: persistent CTAs, one per
+SM, each looping over particles; ``W_dof``'s non-zero half (it is lower
+triangular in time within each ``T x T`` block, checked once when the step
+is built: :func:`time_lower_triangular`) stays packed in shared memory for
+the whole launch (:func:`pack_windows`) where the kernel reports that this
+CTA fits; a ``W`` without those zeros, or a shape where the packed CTA does
+not fit, runs the dense instantiation. See the source for the design and its
+bound. The CTA's layout lives in the source alone: :func:`kernel_config`
+asks the kernel for its shared memory, threads and resident CTAs.
 
 The random draws are an ``eps [d, P, S, 2T]`` operand (the tests' mode) or
 a 64-bit seed per launch: in-kernel Philox4x32-10 keyed on ``(seed,
-particle, dof, sample pair, lane)`` with the dual-output Box-Muller of K2;
-the plain version on a CPU tensor draws from a ``torch.Generator`` seeded
-with the same seed. The streams differ by design; the moments agree.
+particle, dof, sample pair, lane)`` with the dual-output Box-Muller of K2
+(the same draws whichever CTA runs a particle); the plain version on a CPU
+tensor draws from a ``torch.Generator`` seeded with the same seed. The
+streams differ by design; the moments agree.
 
 ``fused_panda_dof_step`` launches the kernel for CUDA tensors and runs
 ``fused_panda_dof_step_plain`` only for CPU tensors.
@@ -40,17 +46,19 @@ from typing import Any
 import numpy as np
 import torch
 
+from stoch_gpmp_tpu_torch.gp.dof_factored import prec_u_planes
 from stoch_gpmp_tpu_torch.ops.kernels import _build
+from stoch_gpmp_tpu_torch.ops.kernels.fused_step import PriorStencilC, prior_stencil_c
 from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (
     FK_MAX_JOINTS,
     fk_chain_c,
     fk_link_fields_cost_rows_plain,
+    fk_variant,
 )
 from stoch_gpmp_tpu_torch.ops.kernels.stencil import dof_quad_eval_plain
 
 _SEED_HIGH = 2**63 - 1
-_MAX_SMEM = 232448  # bytes of shared memory a block may opt into on the H100
-_RT, _KT = 32, 16  # csrc/fused_panda_dof_step.cu: sample rows per tile, K rows of W per tile
+_WIN = 32  # csrc/fused_panda_dof_step.cu: columns per window of the packed W
 
 
 class DofStepParamsC(ctypes.Structure):
@@ -67,7 +75,7 @@ class DofStepParamsC(ctypes.Structure):
         ("inv_2m2", ctypes.c_float), ("w_self", ctypes.c_float), ("w_obst", ctypes.c_float),
         ("w_goal", ctypes.c_float), ("w_pos", ctypes.c_float), ("w_rot", ctypes.c_float),
         ("temperature", ctypes.c_float), ("step_size", ctypes.c_float),
-        ("key_lo", ctypes.c_uint), ("key_hi", ctypes.c_uint),
+        ("prior", PriorStencilC), ("key_lo", ctypes.c_uint), ("key_hi", ctypes.c_uint),
     ]
 
 
@@ -90,6 +98,7 @@ class FusedPandaDofStep:
 
     chain: Any
     w_dof: torch.Tensor  # [2T, 2T]; x = mu + eps @ w_dof
+    w_windows: torch.Tensor | None  # w_dof's non-zero half packed (pack_windows), or None
     dof_prior: Any  # DofFactoredPrior: the exact stencil Sigma^{-1} mu
     dof_quad: Any  # DofQuadraticCost: stencil weights and anchors
     spheres: torch.Tensor  # [O, 4]
@@ -108,9 +117,39 @@ class FusedPandaDofStep:
     step_size: float
     params: DofStepParamsC  # the kernel's constants; a launch copies it and sets the key
 
+    @property
+    def triangular(self) -> bool:
+        """Whether the kernel skips ``w_dof``'s zero half (the TRI
+        instantiation)."""
+        return self.w_windows is not None
+
     def __call__(self, means_planes: torch.Tensor, *, seed: int | None = None, eps=None):
-        prec_u = self.dof_prior.matvec_planes(means_planes)
-        return fused_panda_dof_step(self, means_planes, prec_u, eps=eps, seed=seed)
+        return fused_panda_dof_step(self, means_planes, eps=eps, seed=seed)
+
+
+def time_lower_triangular(w: torch.Tensor, traj_len: int) -> bool:
+    """Whether ``w [2T, 2T]`` (plane order) holds exact zeros wherever the
+    row's time step precedes the column's, ``t(k) < t(m)`` with ``t(i) = i
+    mod T``, in each of its four ``T x T`` blocks, as ``L^{-1}`` of the
+    banded precision does. One read of the device."""
+    t = torch.arange(2 * traj_len, device=w.device) % traj_len
+    return bool((w[t[:, None] < t[None, :]] == 0).all())
+
+
+def pack_windows(w: torch.Tensor, traj_len: int) -> torch.Tensor:
+    """The non-zero half of a time-lower-triangular ``w [2T, 2T]`` as the
+    kernel keeps it: per plane of columns, per window of 32 columns from
+    time ``t0 = 32 j``, the rows of time ``>= t0`` of the position plane and
+    then of the velocity plane (``2 (T - t0)`` rows of 32 floats); ``2T (T +
+    32)`` floats in all."""
+    t = traj_len
+    out = []
+    for plane in range(2):
+        for t0 in range(0, t, _WIN):
+            rows = torch.cat([torch.arange(t0, t), t + torch.arange(t0, t)]).to(w.device)
+            cols = plane * t + t0
+            out.append(w[rows, cols:cols + _WIN].reshape(-1))
+    return torch.cat(out).contiguous()
 
 
 def make_fused_panda_dof_step(
@@ -119,7 +158,11 @@ def make_fused_panda_dof_step(
     step_size=0.1, w_dof=None,
 ) -> FusedPandaDofStep:
     """Build the step for one problem. ``w_dof`` overrides the sampling
-    factor (zeros give the RNG-free check)."""
+    factor (zeros give the RNG-free check). On the card, a factor that is
+    lower triangular in time (the prior's, zeros) is packed for the kernel
+    that skips its zero half where that kernel takes the chain (a
+    specialised FK walk, ``panda_fields.fk_variant``) and its CTA fits
+    (:func:`kernel_config`); else the dense kernel runs."""
     w = dof_prior.w_dof if w_dof is None else w_dof
     target = np.asarray(target_h.cpu() if torch.is_tensor(target_h) else target_h,
                         dtype=np.float64)
@@ -129,14 +172,18 @@ def make_fused_panda_dof_step(
         ppg=num_particles // dof_quad.num_goals, dt=float(dof_quad.dt),
         inv_2m2=1.0 / (2.0 * margin * margin), w_self=w_self, w_obst=w_obst, w_goal=w_goal,
         w_pos=w_pos, w_rot=w_rot, temperature=temperature, step_size=step_size,
+        prior=prior_stencil_c(dof_prior),
     )
     (prm.q11, prm.q12, prm.q22, prm.ks11, prm.ks12, prm.ks22,
      prm.kg11, prm.kg12, prm.kg22) = dof_quad.stencil_weights
     prm.s_pd[: 2 * n_dof] = dof_quad.s_pd.detach().double().cpu().numpy().ravel().tolist()
     prm.target[:] = target.ravel().tolist()
+    tri = (w.device.type == "cuda" and time_lower_triangular(w, traj_len)
+           and fk_variant(chain) != 0 and kernel_config(prm, chain, True)[0] > 0)
     return FusedPandaDofStep(
-        chain=chain, w_dof=w.contiguous(), dof_prior=dof_prior, dof_quad=dof_quad,
-        spheres=spheres, target_h=target, num_particles=num_particles,
+        chain=chain, w_dof=w.contiguous(), w_windows=pack_windows(w, traj_len) if tri else None,
+        dof_prior=dof_prior, dof_quad=dof_quad, spheres=spheres, target_h=target,
+        num_particles=num_particles,
         num_samples=num_samples, n_dof=n_dof, traj_len=traj_len, margin=float(margin),
         w_self=float(w_self), w_obst=float(w_obst), w_goal=float(w_goal), w_pos=float(w_pos),
         w_rot=float(w_rot), temperature=float(temperature), step_size=float(step_size),
@@ -144,13 +191,16 @@ def make_fused_panda_dof_step(
     )
 
 
-def fused_panda_dof_step_plain(step: FusedPandaDofStep, means, prec_u, eps):
-    """Plain PyTorch version of K5: ``means``/``prec_u [d, P, 2T]``, ``eps
-    [d, P, S, 2T]`` -> ``(new_means [d, P, 2T], costs [P, S])``."""
+def fused_panda_dof_step_plain(step: FusedPandaDofStep, means, eps):
+    """Plain PyTorch version of K5: ``means [d, P, 2T]``, ``eps [d, P, S,
+    2T]`` -> ``(new_means [d, P, 2T], costs [P, S])``, ``Sigma^{-1} mu`` by
+    :func:`prec_u_planes`."""
     from stoch_gpmp_tpu_torch.costs.fused_fields import ee_goal_distance
 
     d, p, t2 = means.shape
     t, s = t2 // 2, step.num_samples
+    prior = step.dof_prior
+    prec_u = prec_u_planes(means, prior.q_i2, prior.k_s2, prior.k_g2, prior.dt)
     corr = (eps.reshape(-1, t2) @ step.w_dof).reshape(eps.shape)
     x = means[:, :, None] + corr  # [d, P, S, 2T]
     rows = x.reshape(d, p * s, t2)
@@ -178,22 +228,54 @@ def _params(step: FusedPandaDofStep, seed: int) -> DofStepParamsC:
     return prm
 
 
-def _smem_bytes(step: FusedPandaDofStep) -> int:
-    """Dynamic shared memory of one block, as the CUDA launcher computes it."""
-    m = 2 * step.traj_len
-    r = step.n_dof * step.num_samples
-    r_pad = -(-r // _RT) * _RT
-    union = max(2 * _KT * m, 3 * len(step.chain.link_names) * m)
-    return 4 * (r_pad * m + union + (m // 32) * r + step.num_samples * (m // 32 + 3) + 32
-                + 4 * int(step.spheres.shape[0]))
+def kernel_config(params: DofStepParamsC, chain, triangular: bool) -> tuple[int, int, int]:
+    """The kernel's own launch configuration at ``params``' shape for the
+    chain's FK walk and the instantiation ``triangular`` (its
+    ``fused_panda_dof_step_config``): CTAs resident on one SM (0 where the
+    CTA does not fit or the kernel refuses the shape), shared memory per CTA
+    in bytes and threads per CTA."""
+    out = (ctypes.c_int * 3)()
+    err = _build.load_library().fused_panda_dof_step_config(
+        ctypes.byref(params), ctypes.byref(fk_chain_c(chain)), int(triangular),
+        fk_variant(chain), ctypes.byref(out))
+    return (int(out[0]) if err == 0 else 0), int(out[1]), int(out[2])
 
 
-def _check_cuda(step: FusedPandaDofStep, means, prec_u, eps):
+_SHAPES: dict = {}  # launch shape -> launch_shape's dict
+
+
+def launch_shape(step: FusedPandaDofStep, ctas: int | None = None) -> dict:
+    """The kernel's launch at this step's shape, as :func:`kernel_config`
+    reports it (asked once per shape): the instantiation (``triangular``,
+    the FK ``variant``), threads and shared memory per CTA, the CTAs
+    resident on one SM and the persistent CTAs launched (``ctas``, default
+    as many as are resident on the card, at most one per particle). Raises
+    where a CTA does not fit."""
+    dev = step.w_dof.device
+    variant = fk_variant(step.chain)
+    key = (step.num_particles, step.num_samples, step.traj_len, step.n_dof,
+           int(step.spheres.shape[0]), step.triangular, variant, ctas, dev)
+    if key not in _SHAPES:
+        per_sm, smem, threads = kernel_config(step.params, step.chain, step.triangular)
+        if per_sm < 1:
+            raise ValueError(f"fused panda dof step kernel: a CTA of {threads} threads and "
+                             f"{smem} B of shared memory does not fit on the device")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _SHAPES[key] = dict(
+            triangular=step.triangular, variant=variant, threads=threads, smem_bytes=smem,
+            ctas_per_sm=per_sm,
+            ctas=ctas if ctas is not None else min(step.num_particles, per_sm * sms))
+    return _SHAPES[key]
+
+
+def _check_cuda(step: FusedPandaDofStep, means, eps):
     d, p, s, t = step.n_dof, step.num_particles, step.num_samples, step.traj_len
     m = 2 * t
     dev = means.device
-    want = {"means": (means, (d, p, m)), "prec_u": (prec_u, (d, p, m)),
-            "w_dof": (step.w_dof, (m, m)), "spheres": (step.spheres, (step.spheres.shape[0], 4))}
+    want = {"means": (means, (d, p, m)), "w_dof": (step.w_dof, (m, m)),
+            "spheres": (step.spheres, (step.spheres.shape[0], 4))}
+    if step.triangular:
+        want["w_windows"] = (step.w_windows, (2 * t * (t + _WIN),))
     if eps is not None:
         want["eps"] = (eps, (d, p, s, m))
     for name, (ten, shape) in want.items():
@@ -206,17 +288,16 @@ def _check_cuda(step: FusedPandaDofStep, means, prec_u, eps):
             or p % step.dof_quad.num_goals):
         raise ValueError(
             f"fused panda dof step kernel: 2T = {m} lanes must be a multiple of 64 and at "
-            f"most 512 (one thread per lane), d = the chain's dofs <= {FK_MAX_JOINTS}, "
-            "goals dividing P")
-    smem = _smem_bytes(step)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"fused panda dof step kernel: {smem} B of shared memory > {_MAX_SMEM}")
+            f"most 512, d = the chain's dofs <= {FK_MAX_JOINTS}, goals dividing P")
 
 
-def fused_panda_dof_step(step: FusedPandaDofStep, means, prec_u, *, eps=None, seed=None):
+def fused_panda_dof_step(step: FusedPandaDofStep, means, *, eps=None, seed=None,
+                         ctas: int | None = None):
     """One fused iteration: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. Exactly one of ``eps [d, P, S, 2T]`` and
-    ``seed`` (an int in ``[0, 2**63)``) is given."""
+    ``seed`` (an int in ``[0, 2**63)``) is given; ``ctas`` sets the number
+    of persistent CTAs (default :func:`launch_shape`'s; ``num_particles``
+    runs one particle per CTA)."""
     if (eps is None) == (seed is None):
         raise ValueError("give exactly one of eps and seed")
     d, p, m = means.shape
@@ -225,28 +306,32 @@ def fused_panda_dof_step(step: FusedPandaDofStep, means, prec_u, *, eps=None, se
         if eps is None:
             gen = torch.Generator().manual_seed(int(seed))
             eps = torch.randn((d, p, s, m), generator=gen, dtype=means.dtype)
-        return fused_panda_dof_step_plain(step, means, prec_u, eps)
+        return fused_panda_dof_step_plain(step, means, eps)
     if means.device.type != "cuda":
         raise ValueError(f"fused panda dof step: unsupported device {means.device}")
-    _check_cuda(step, means, prec_u, eps)
+    _check_cuda(step, means, eps)
+    shape = launch_shape(step, ctas)
     dev = means.device
     g_pd = step.dof_quad.g_pd.to(device=dev, dtype=torch.float32).contiguous()
     new_means = torch.empty_like(means)
     costs = torch.empty((p, s), dtype=torch.float32, device=dev)
+    w = step.w_windows if step.triangular else step.w_dof
     lib = _build.load_library()
     err = lib.fused_panda_dof_step_launch(
-        means.data_ptr(), prec_u.data_ptr(), g_pd.data_ptr(), step.w_dof.data_ptr(),
-        step.spheres.data_ptr(), None if eps is None else eps.data_ptr(),
-        new_means.data_ptr(), costs.data_ptr(),
+        means.data_ptr(), g_pd.data_ptr(), w.data_ptr(), step.spheres.data_ptr(),
+        None if eps is None else eps.data_ptr(), new_means.data_ptr(), costs.data_ptr(),
+        shape["ctas"], int(shape["triangular"]), shape["variant"],
         ctypes.byref(_params(step, 0 if seed is None else int(seed))),
         ctypes.byref(fk_chain_c(step.chain)), _build.stream_ptr(dev),
     )
     _build.check(err, "fused_panda_dof_step_launch")
     fused_panda_dof_step.launches += 1
+    fused_panda_dof_step.generic_launches += int(shape["variant"] == 0)  # the generic FK walk's
     return new_means, costs
 
 
 fused_panda_dof_step.launches = 0
+fused_panda_dof_step.generic_launches = 0
 
 
 def fused_panda_dof_optimize(step, means, generator, opt_iters: int):

@@ -1,20 +1,29 @@
-"""Where the time of the cluster-split fused kernels K2 and K6 goes, on one
-NVIDIA GPU.
+"""Where the time of the fused kernels K2, K6 and K5 and of the FK + fields
+kernel K4 goes, on one NVIDIA GPU.
 
-    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing phases [--out DIR]
-    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing shapes
+    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing phases [--out DIR] [--only K5,K4]
+    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing shapes [--only K5,K4]
 
-``phases`` builds instrumented copies of ``csrc/fused_planar_step.cu`` (K2)
-and ``csrc/fused_panda_step.cu`` (K6) into ``DIR`` (default
-``build/phase_timing``): thread 0 of every CTA stamps ``clock64()`` at the
-phase boundaries. It runs K2 at the planar parity shape and K6 at Panda
-config 4 (seed mode, the wrapper's split and 1 CTA per particle; with 1 a
-phase that loops over tiles sums them and the stamps of the last tile
-count) through the port's wrappers with the instrumented launchers in
-place, and prints per phase the median and the largest cycle count over the
-CTAs and the largest total.
+``phases`` builds instrumented copies of ``csrc/fused_planar_step.cu`` (K2),
+``csrc/fused_panda_step.cu`` (K6), ``csrc/fused_panda_dof_step.cu`` (K5)
+and ``csrc/fk_fields.cu`` (K4, with its copy of ``csrc/fk_chain.cuh``) into
+``DIR`` (default ``build/phase_timing``): one thread of every CTA stamps
+``clock64()`` at the phase boundaries. The stamps are placed at anchor
+lines of the source; each kernel has one anchor set per design (this
+checkout's and the one before it), and the set whose anchors all occur
+once is used, so the module run from an older checkout (with ``tools/``
+copied in) stamps that checkout's kernels. It runs K2 at the planar parity
+shape and K6 at Panda config 4 (seed mode, the wrapper's split and 1 CTA
+per particle; with 1 a phase that loops over tiles sums them and the stamps
+of the last tile count), K5 at Panda config 5 (seed mode) and K4 on config
+5's dof planes, through the port's wrappers with the instrumented launchers
+in place, and prints per phase the median and the largest cycle count over
+the CTAs and the largest total, then ptxas's report of the shipped kernels.
 
-``shapes`` times K2 in seed mode at planar parity (P = 15, S = 128) and at
+``shapes`` times K5 (seed mode, also at 1 and 2 CTAs per SM and at half
+and all of the particles' CTAs, and its dense instantiation), K4, K8 and
+K7 at config 5 (K7 on the FK positions of K8's configurations) and K4 and
+K7 at config 4, and K2 in seed mode at planar parity (P = 15, S = 128) and at
 the planar shapes of ``benchmarks/run.py`` ``planar-parity-64ppg`` (P = 192,
 S = 128) and ``planar-512ppg`` (P = 1536, S = 32), and K6 at config 4 (P =
 5, S = 32) and at P = 128: per shape the device time per call of the kernel
@@ -40,41 +49,93 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from stoch_gpmp_tpu_torch.ops.kernels import _build, fused_step, panda_step
+from stoch_gpmp_tpu_torch.ops.kernels import _build, fused_step, panda_step, panda_step_dof
+from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import fk_link_fields_cost_rows
 
-STAMPS = '''
-__device__ long long g_phase_clock[4096][8];
-#define STAMP(k) if (threadIdx.x == 0) g_phase_clock[blockIdx.x][k] = clock64();
+STAMPS = '''#include <cuda_runtime.h>
+__device__ long long g_phase_clock[16384][8];
+#define STAMP(k) if (threadIdx.x == STAMP_THREAD && blockIdx.x < 16384) \\
+  g_phase_clock[blockIdx.x][k] = clock64();
 extern "C" int phase_clock_read(long long* host, int n) {
   return (int)cudaMemcpyFromSymbol(host, g_phase_clock, (size_t)n * 8 * sizeof(long long));
 }
 '''
-# (anchor line in the source, stamp index, stamp after the line or before it)
-K2_STAMPS = [
-    ("  const int p = blockIdx.x / prm.ctas;", 0, True),
-    ("  pu_sh[m] = prec_u_lane(mu_sh, m, M, nd, prm.prior);  // read after the next barrier",
-     1, True),
-    ("    // --- 2. x = mu + eps @ W ------------------------------------------------", 2, False),
-    ("    // --- 3. x A into the tile buffer (matmul branch) -------------------------", 3, False),
-    ("    // --- 4. per-row sums, one warp per row: quad, linear, collision, importance", 4, False),
-    ("    __syncthreads();  // the tile buffer is free for the next tile", 5, True),
-    ("                         new_means + (size_t)p * M);", 6, True),
-]
-K2_PHASES = ["prior pu", "draws", "x = mu + eps W", "x A", "per-row sums", "cluster combine"]
-K6_STAMPS = [
-    ("  const int p = blockIdx.x / ctas, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;",
-     0, True),
-    ("  for (int m = tid; m < M; m += NT) pu_sh[m] = prec_u_lane(mu_sh, m, M, D, prm.prior);",
-     1, True),
-    ("    tile_matmul_splitk<KT, KS, ST, ST>(tile_sh, M, ring, mu_sh,", 2, False),
-    ("  // --- 3. stencil energy + anchors + importance, one warp per sample row ----------",
-     3, False),
-    ("  // --- 5. per-sample cost ------------------------------------------------------------",
-     4, False),
-    ("                         prm.temperature, prm.step_size, new_means + (size_t)p * M);",
-     5, True),
-]
-K6_PHASES = ["prior pu", "draws", "x = mu + eps W", "stencil, FK, fields, goal", "cluster combine"]
+# Per kernel: its source, the phases, and per design an anchor set: the
+# stamping thread, then (file, anchor text, stamp index, stamp after the
+# anchor or before it); the file is the kernel's source or a header it
+# includes, whose instrumented copy sits beside the instrumented source.
+K2 = dict(src="fused_planar_step.cu", phases=[
+    "prior pu", "draws", "x = mu + eps W", "x A", "per-row sums", "cluster combine"], designs={
+    "cluster split": (0, [
+        (None, "  const int p = blockIdx.x / prm.ctas;", 0, True),
+        (None, "  pu_sh[m] = prec_u_lane(mu_sh, m, M, nd, prm.prior);  // read after the next "
+               "barrier", 1, True),
+        (None, "    // --- 2. x = mu + eps @ W ------------------------------------------------",
+         2, False),
+        (None, "    // --- 3. x A into the tile buffer (matmul branch) -------------------------",
+         3, False),
+        (None, "    // --- 4. per-row sums, one warp per row: quad, linear, collision, importance",
+         4, False),
+        (None, "    __syncthreads();  // the tile buffer is free for the next tile", 5, True),
+        (None, "                         new_means + (size_t)p * M);", 6, True)])})
+K6 = dict(src="fused_panda_step.cu", phases=[
+    "prior pu", "draws", "x = mu + eps W", "stencil, FK, fields, goal", "cluster combine"],
+    designs={"cluster split": (0, [
+        (None, "  const int p = blockIdx.x / ctas, tid = threadIdx.x, lane = tid & 31, warp = "
+               "tid >> 5;", 0, True),
+        (None, "  for (int m = tid; m < M; m += NT) pu_sh[m] = prec_u_lane(mu_sh, m, M, D, "
+               "prm.prior);", 1, True),
+        (None, "    tile_matmul_splitk<KT, KS, ST, ST>(tile_sh, M, ring, mu_sh,", 2, False),
+        (None, "  // --- 3. stencil energy + anchors + importance, one warp per sample row ------"
+               "----", 3, False),
+        (None, "  // --- 5. per-sample cost ----------------------------------------------------"
+               "--------", 4, False),
+        (None, "                         prm.temperature, prm.step_size, new_means + (size_t)p "
+               "* M);", 5, True)])})
+K5 = dict(src="fused_panda_dof_step.cu", phases=[
+    "draws (persistent: and pu)", "x = mu + eps W", "stencil, importance", "FK, fields, goal",
+    "cost, softmax", "update"], designs={
+    "persistent": (0, [  # the stamps of each CTA's last particle
+        (None, "    __syncthreads();  // the previous particle's rows are consumed", 0, True),
+        (None, "    // --- 2. x = mu + eps @ W, a pass of 56 rows at a time ---------------------"
+               "----", 1, False),
+        (None, "    // --- 3. stencil energy + anchors + importance, one warp per row -----------"
+               "----", 2, False),
+        (None, "    // --- 4. FK + link fields per (sample, t); SE(3) goal at t = T-1 -----------"
+               "--", 3, False),
+        (None, "    // --- 5. per-sample cost, the softmax over the S samples -------------------"
+               "-----", 4, False),
+        (None, "    // --- 6. the mean update ---------------------------------------------------"
+               "--------", 5, False),
+        (None, "      new_means[idx] = mu + prm.step_size * grad;\n    }", 6, True)]),
+    "one particle per CTA": (0, [
+        (None, "  const int p = blockIdx.x, m = threadIdx.x, lane = m & 31, warp = m >> 5;",
+         0, True),
+        (None, "  // --- 2. x = mu + eps @ W, RT rows at a time (in place) --------------------"
+               "-----", 1, False),
+        (None, "  // --- 3. stencil energy + anchors + importance, per row ---------------------"
+               "--", 2, False),
+        (None, "  // --- 4. FK + link fields per (sample, t); SE(3) goal at t = T-1 -----------"
+               "----", 3, False),
+        (None, "  // --- 5. per-sample cost ----------------------------------------------------"
+               "---", 4, False),
+        (None, "  for (int d = 0; d < D; ++d) {\n    const size_t idx", 5, False),
+        (None, "    new_means[idx] = mu + prm.step_size * grad;", 6, True)])})
+K4 = dict(src="fk_fields.cu", phases=["walk", "self field", "obstacle field", "reduction"],
+          designs={
+    "specialised walk": (1, [  # thread 0 holds t = 0, which is skipped
+        (None, "  const long long b = (long long)blockIdx.x * (NT / lanes) + g;", 0, True),
+        (None, "    fk_walk_spec<FkPanda>(chain, q, pos, ee_r);", 1, True),
+        ("fk_chain.cuh", "  if (w_obst != 0.0f && n_obst > 0) {", 2, False),
+        (None, "pos_sh + tid, sph, n_obst, inv_2m2, w_self, w_obst);\n    }\n  }", 3, True),
+        (None, "    out[b] = s;\n  }", 4, True)]),
+    "one trajectory per block": (1, [  # thread 0 holds t = 0, which is skipped
+        (None, "  const float* qb = q + (long long)blockIdx.x * sb;", 0, True),
+        (None, "    fk_walk(chain, [&](int i) { return qt[(long long)i * sd]; }, pos_sh + "
+               "threadIdx.x, nt, ee_r);", 1, True),
+        ("fk_chain.cuh", "  if (w_obst != 0.0f && n_obst > 0) {", 2, False),
+        (None, "                       w_self, w_obst);\n  }", 3, True),
+        (None, "  if (threadIdx.x == 0) out[blockIdx.x] = acc;", 4, True)])})
 # the planar parity step's temperature and step size (chip_smoke.py), and
 # config 4's (benchmarks/run.py)
 PLANAR_TAU, PLANAR_STEP, PANDA_TAU, PANDA_STEP = 1.0, 0.5, 1.0, 0.1
@@ -114,6 +175,52 @@ def panda_flat_step(dev, ppg: int):
     return step, state.particle_means.contiguous()
 
 
+def panda_dof_step(dev, w_dof=None):
+    """K5's step at Panda config 5 (10 goals x 128 particles, S = 8, T =
+    128, the fast stack) as ``StochGPMP(fused_kernel=True)`` builds it, and
+    the means as dof planes ``[7, P, 256]``."""
+    from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import make_fused_panda_dof_step
+    from stoch_gpmp_tpu_torch.problems import build_panda_problem
+
+    sampler, cost, state, obs, s = build_panda_problem(
+        num_goals=10, ppg=128, traj_len=128, num_samples=8, dtype=torch.float32, device=dev)
+    quad, fields = cost.costs
+    step = make_fused_panda_dof_step(
+        chain=fields.chain, dof_prior=sampler.dof, dof_quad=quad.dof_form,
+        num_particles=state.particle_means.shape[0], spheres=obs["obstacle_spheres"],
+        target_h=fields.target_h, n_dof=fields.n_dof, traj_len=fields.traj_len, num_samples=s,
+        margin=fields.margin, w_self=1.0 / fields.sigma_self**2,
+        w_obst=1.0 / fields.sigma_coll**2, w_goal=1.0 / fields.sigma_goal**2,
+        temperature=PANDA_TAU, step_size=PANDA_STEP, w_dof=w_dof)
+    return step, to_dof_planes(state.particle_means).contiguous()
+
+
+def fk_rows(dev, traj_len: int):
+    """K4's input on a Panda main path: the joint planes ``[7, B, T]`` of
+    the sample rows (each particle mean plus 0.05 normal noise), a view of
+    the dof planes at config 5 (``traj_len`` 128, B = 10240) or of the flat
+    ``[B, T, 14]`` batch at config 4 (64, B = 160); the spheres and the
+    field weights."""
+    from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
+    from stoch_gpmp_tpu_torch.problems import build_panda_problem
+
+    shape = (dict(num_goals=10, ppg=128, traj_len=128, num_samples=8) if traj_len == 128
+             else dict(num_goals=1, ppg=5, traj_len=64, num_samples=32))
+    _, cost, state, obs, s = build_panda_problem(**shape, dtype=torch.float32, device=dev)
+    fields = cost.costs[1]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = state.particle_means.repeat_interleave(s, dim=0)
+    rows = rows + 0.05 * torch.randn(rows.shape, generator=gen, device=dev)
+    if traj_len == 128:
+        q = to_dof_planes(rows).contiguous()[:, :, :traj_len]
+    else:
+        q = rows[..., :7].permute(2, 0, 1)
+    kw = dict(margin=fields.margin, w_self=1.0 / fields.sigma_self**2,
+              w_obst=1.0 / fields.sigma_coll**2)
+    return fields.chain, q, obs["obstacle_spheres"], kw
+
+
 def card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
                            "--format=csv,noheader", "-i", "0"], capture_output=True,
@@ -123,27 +230,41 @@ def card() -> str:
 # --- phases -------------------------------------------------------------------
 
 
-def instrumented(name: str, stamps, out_dir: Path) -> ctypes.CDLL:
-    src = (_build.CSRC / name).read_text()
-    src = src.replace('#include "kernel_common.cuh"', '#include "kernel_common.cuh"\n' + STAMPS)
-    for anchor, k, after in stamps:
-        if src.count(anchor) != 1:
-            raise RuntimeError(f"{name}: the phase anchor {anchor.strip()!r} is not unique")
-        src = src.replace(anchor, f"{anchor}\n  STAMP({k});" if after else f"  STAMP({k});\n{anchor}")
-    out_dir.mkdir(parents=True, exist_ok=True)
-    cu, so = out_dir / name, out_dir / name.replace(".cu", ".so")
-    cu.write_text(src)
+def instrumented(spec: dict, out_dir: Path) -> tuple[ctypes.CDLL, str]:
+    """Build ``spec``'s source with clock64 stamps at the anchors of the
+    design whose anchors all occur once; returns the library and the
+    design's name."""
+    name = spec["src"]
+    texts = {None: (_build.CSRC / name).read_text()}
+    for design, (thread, stamps) in spec["designs"].items():
+        files = {f: texts.get(f) or (_build.CSRC / f).read_text() for f, *_ in stamps}
+        if all(files[f].count(a) == 1 for f, a, *_ in stamps):
+            break
+    else:
+        raise RuntimeError(f"{name}: no anchor set matches this source")
+    for f, anchor, k, after in stamps:
+        files[f] = files[f].replace(
+            anchor, f"{anchor}\n  STAMP({k});" if after else f"  STAMP({k});\n{anchor}")
+    kdir = out_dir / Path(name).stem
+    kdir.mkdir(parents=True, exist_ok=True)
+    for f, text in files.items():
+        if f is not None:
+            (kdir / f).write_text(text)
+    cu, so = kdir / name, kdir / name.replace(".cu", ".so")
+    cu.write_text(f"#define STAMP_THREAD {thread}\n" + STAMPS + files[None])
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so),
                     str(cu)], check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     lib.phase_clock_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    return lib
+    return lib, design
 
 
 def report(what: str, lib, n_ctas: int, phases) -> None:
     clocks = np.zeros((n_ctas, 8), dtype=np.int64)
     if lib.phase_clock_read(clocks.ctypes.data, n_ctas) != 0:
         raise RuntimeError("reading the phase clocks failed")
+    clocks = clocks[(clocks[:, 0] != 0) & (clocks[:, len(phases)] != 0)]  # the CTAs launched
+    n_ctas = clocks.shape[0]
     d = np.diff(clocks[:, : len(phases) + 1], axis=1)
     total = int((clocks[:, len(phases)] - clocks[:, 0]).max())
     print(f"{what}: cycles per phase, median / largest over {n_ctas} CTAs:")
@@ -152,31 +273,65 @@ def report(what: str, lib, n_ctas: int, phases) -> None:
     print(f"  {'total, largest CTA':28s} {total:8d}")
 
 
-def phases(dev, out_dir: Path) -> None:
+def use(lib, so) -> None:
+    """Point the port's launchers at the instrumented library's."""
+    for name, argtypes in _build.SIGNATURES.items():
+        if hasattr(so, name):
+            fn = getattr(so, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            setattr(lib, name, fn)
+
+
+def phases(dev, out_dir: Path, only) -> None:
     lib = _build.load_library()
-    k2 = instrumented("fused_planar_step.cu", K2_STAMPS, out_dir)
-    k6 = instrumented("fused_panda_step.cu", K6_STAMPS, out_dir)
-    for name, so in (("fused_planar_step_launch", k2), ("fused_panda_step_launch", k6)):
-        fn = getattr(so, name)
-        fn.argtypes, fn.restype = _build.SIGNATURES[name], ctypes.c_int
-        setattr(lib, name, fn)
-    step, means = planar_step(dev, 5, 128)
-    p = means.shape[0]
-    means = means.reshape(p, -1)
-    for c in (fused_step.launch_shape(step)["ctas"], 1):
+    if "K2" in only:
+        k2, design = instrumented(K2, out_dir)
+        use(lib, k2)
+        step, means = planar_step(dev, 5, 128)
+        p = means.shape[0]
+        means = means.reshape(p, -1)
+        for c in (fused_step.launch_shape(step)["ctas"], 1):
+            for _ in range(3):
+                fused_step.fused_planar_step(step, means, seed=3, ctas=c)
+            torch.cuda.synchronize()
+            report(f"K2 ({design} design), planar parity, {c} CTAs per particle (matmul "
+                   "branch, seed mode)", k2, p * c, K2["phases"])
+    if "K6" in only:
+        k6, design = instrumented(K6, out_dir)
+        use(lib, k6)
+        step4, means4 = panda_flat_step(dev, 5)
+        p4 = means4.shape[0]
+        means4 = means4.reshape(p4, -1)
+        for c in (panda_step.launch_shape(step4)["ctas"], 1):
+            for _ in range(3):
+                panda_step.fused_panda_step(step4, means4, seed=3, ctas=c)
+            torch.cuda.synchronize()
+            report(f"K6 ({design} design), Panda config 4, {c} CTAs per particle (seed mode)",
+                   k6, p4 * c, K6["phases"])
+    if "K5" in only:
+        k5, design = instrumented(K5, out_dir)
+        use(lib, k5)
+        step5, planes = panda_dof_step(dev)
         for _ in range(3):
-            fused_step.fused_planar_step(step, means, seed=3, ctas=c)
+            step5(planes, seed=3)
         torch.cuda.synchronize()
-        report(f"K2, planar parity, {c} CTAs per particle (matmul branch, seed mode)", k2,
-               p * c, K2_PHASES)
-    step4, means4 = panda_flat_step(dev, 5)
-    p4 = means4.shape[0]
-    means4 = means4.reshape(p4, -1)
-    for c in (panda_step.launch_shape(step4)["ctas"], 1):
+        report(f"K5 ({design} design), Panda config 5 (seed mode)", k5,
+               min(16384, step5.num_particles), K5["phases"])
+    if "K4" in only:
+        k4, design = instrumented(K4, out_dir)
+        use(lib, k4)
+        chain, q, spheres, kw = fk_rows(dev, 128)
         for _ in range(3):
-            panda_step.fused_panda_step(step4, means4, seed=3, ctas=c)
+            fk_link_fields_cost_rows(chain, q, spheres, **kw)
         torch.cuda.synchronize()
-        report(f"K6, Panda config 4, {c} CTAs per particle (seed mode)", k6, p4 * c, K6_PHASES)
+        report(f"K4 ({design} design), Panda config 5 dof planes {tuple(q.shape)}, the first "
+               "16384 blocks", k4, 16384, K4["phases"])
+    for src, info in _build.build_info.items():
+        if src in {spec["src"] for k, spec in (("K2", K2), ("K6", K6), ("K5", K5), ("K4", K4))
+                   if k in only}:
+            used = [ln.split(":", 1)[-1].strip() for ln in info["log"].splitlines()
+                    if "Used" in ln or "spill" in ln or "stack" in ln]
+            print(f"ptxas {src}: {' | '.join(used)}")
 
 
 # --- shapes -------------------------------------------------------------------
@@ -230,14 +385,66 @@ def time_step(what: str, step, means, kernel: str, wrapper, module, reps: int = 
               f"{shape}", flush=True)
 
 
-def shapes(dev) -> None:
+def shapes(dev, only) -> None:
+    if "K5" in only:
+        step, planes = panda_dof_step(dev)
+        kern, every = device_per_call(lambda: step(planes, seed=3), 20, "fused_panda_dof_step")
+        print(f"K5 Panda config 5 P=1280 S=8 T=128: kernel {kern:.4f} ms, step {every:.4f} ms "
+              "device per call", flush=True)
+        wrapper = panda_step_dof.fused_panda_dof_step
+        if "ctas" in inspect.signature(wrapper).parameters:  # the launch's CTAs, as they loop
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            for c in (sms, 2 * sms, step.num_particles // 2, step.num_particles):
+                kern, _ = device_per_call(lambda: wrapper(step, planes, seed=3, ctas=c), 20,
+                                          "fused_panda_dof_step")
+                print(f"K5 Panda config 5, {c} CTAs: kernel {kern:.4f} ms device per call",
+                      flush=True)
+        if getattr(step, "triangular", False):  # the dense instantiation on the same W
+            from dataclasses import replace
+
+            dense = replace(step, w_windows=None)
+            kern, _ = device_per_call(lambda: dense(planes, seed=3), 20, "fused_panda_dof_step")
+            print(f"K5 Panda config 5, dense instantiation: kernel {kern:.4f} ms device per "
+                  "call", flush=True)
+    if "K4" in only:
+        for what, t in (("config 5 dof planes", 128), ("config 4 flat batch", 64)):
+            chain, q, spheres, kw = fk_rows(dev, t)
+            kern, _ = device_per_call(
+                lambda: fk_link_fields_cost_rows(chain, q, spheres, **kw), 50, "fk_fields")
+            print(f"K4 Panda {what} {tuple(q.shape)}: kernel {kern:.4f} ms device per call",
+                  flush=True)
+    if "K7" in only or "K8" in only:
+        from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (
+            fk_link_fields_cost,
+            fused_link_fields_cost,
+        )
+
+        chain, q, spheres, kw = fk_rows(dev, 128)
+        flat = q.permute(1, 2, 0).reshape(-1, q.shape[0])  # [B * T, 7], a strided view
+        kern, _ = device_per_call(lambda: fk_link_fields_cost(chain, flat, spheres, **kw), 20,
+                                  "fk_fields_points")
+        print(f"K8 Panda config 5 points {tuple(flat.shape)}: kernel {kern:.4f} ms device per "
+              "call", flush=True)
+        pos = chain.fk_compact(flat).positions  # [B * T, L, 3]
+        kern, _ = device_per_call(lambda: fused_link_fields_cost(pos, spheres, **kw), 20,
+                                  "link_fields")
+        print(f"K7 Panda config 5 link positions {tuple(pos.shape)}: kernel {kern:.4f} ms "
+              "device per call", flush=True)
+        chain4, q4, spheres4, _ = fk_rows(dev, 64)  # config 4's [B, T, 7] angles, a view
+        pos4 = chain4.fk_compact(q4.permute(1, 2, 0).reshape(-1, 7)).positions
+        pos4 = pos4.reshape(q4.shape[1], q4.shape[2], -1, 3)[:, 1:]  # what route (d) passes
+        kern, _ = device_per_call(lambda: fused_link_fields_cost(pos4, spheres4, **kw), 50,
+                                  "link_fields")
+        print(f"K7 Panda config 4 link positions {tuple(pos4.shape)}: kernel {kern:.4f} ms "
+              "device per call", flush=True)
     for what, ppg, s in (("K2 planar parity P=15 S=128", 5, 128),
                          ("K2 planar-parity-64ppg P=192 S=128", 64, 128),
-                         ("K2 planar-512ppg P=1536 S=32", 512, 32)):
+                         ("K2 planar-512ppg P=1536 S=32", 512, 32))[:3 * ("K2" in only)]:
         step, means = planar_step(dev, ppg, s)
         time_step(what, step, means, "fused_planar_step_kernel", fused_step.fused_planar_step,
                   fused_step)
-    for what, ppg in (("K6 Panda config 4 P=5 S=32", 5), ("K6 Panda P=128 S=32", 128)):
+    for what, ppg in (("K6 Panda config 4 P=5 S=32", 5),
+                      ("K6 Panda P=128 S=32", 128))[:2 * ("K6" in only)]:
         step, means = panda_flat_step(dev, ppg)
         time_step(what, step, means, "fused_panda_step_kernel", panda_step.fused_panda_step,
                   panda_step)
@@ -246,6 +453,7 @@ def shapes(dev) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("phases", "shapes"))
+    ap.add_argument("--only", default="K2,K6,K5,K4,K7,K8", help="kernels, comma-separated")
     ap.add_argument("--out", type=Path, default=Path("build") / "phase_timing",
                     help="where phases builds the instrumented kernels")
     args = ap.parse_args(argv)
@@ -253,9 +461,9 @@ def main(argv=None) -> int:
         raise SystemExit("needs one NVIDIA GPU")
     dev = torch.device("cuda", 0)
     if args.what == "phases":
-        phases(dev, args.out)
+        phases(dev, args.out, args.only.split(","))
     else:
-        shapes(dev)
+        shapes(dev, args.only.split(","))
     print(card())
     return 0
 

@@ -15,8 +15,16 @@ particle at parity and config 4): costs within 2e-4 (K6 1e-4), new means
 within 1e-5. At config 5: K3 within
 1e-3 and K4 within 1e-4 relative of float64 oracles; K5 costs within 1e-4 of
 its plain version with the best sample agreeing, the RNG-free tiers within
-3e-4 / 1e-3 of float64 oracles, Philox moments within (0.85, 1.15); the
-Panda main path's descent, start-anchor and launch-count gates. At config 4:
+3e-4 / 1e-3 of float64 oracles, Philox moments within (0.85, 1.15), its
+persistent launch equal to one particle per CTA (costs to the last bit,
+means within 1e-5), its dense instantiation equal to the last bit on the
+prior's W and under K5's gates on a W without the zero half, and K5 under
+its gates at T = 224, T = 192 and S = 16 (the dense instantiation where the
+packed W does not fit); K4 and K8 through the generic FK walk on a non-Panda
+chain within 1e-4 of float64 oracles, each counted as a generic launch, and
+K5 and K6 through it on a tilted Panda under K5's gates; the Panda main
+path's descent, start-anchor, launch-count (none through the generic walk)
+and loop (at most 2 device operations per fused iteration) gates. At config 4:
 K6 as K5 (every particle's best sample agreeing); K7 and K8 within 1e-4
 relative of float64 oracles and K8 of K7; the four routes' descent,
 start-anchor, launch-count and stack-equality (1e-4) gates. K9 as K2, with
@@ -96,6 +104,31 @@ def test_fused_dof_step_kernel(dev, check):
     fn = {"eps": chip_smoke.fused_dof_check, "rng_free": chip_smoke.fused_dof_rng_free_check,
           "moments": chip_smoke.fused_dof_moments_check}[check]
     assert fn(dev)  # each check raises on failure
+
+
+def test_fused_dof_step_split_and_dense(dev):
+    import chip_smoke
+
+    r = chip_smoke.fused_dof_split_check(dev)  # raises unless the costs are equal
+    assert r["mean_max_err"] <= chip_smoke.SPLIT_MEAN_ATOL
+
+
+def test_fused_dof_step_other_shapes(dev):
+    import chip_smoke
+
+    r = chip_smoke.fused_dof_shapes_check(dev)  # raises unless under K5's gates
+    assert len(r) == len(chip_smoke.K5_SHAPES)
+    assert not r["T=192,S=8"]["launch"]["triangular"]
+    assert not r["T=128,S=16"]["launch"]["triangular"]
+
+
+def test_fk_generic_walk_matches_oracle(dev):
+    import chip_smoke
+
+    r = chip_smoke.fk_generic_check(dev)
+    assert max(r["k4_max_rel"], r["k8_max_rel"]) <= chip_smoke.K4_RTOL
+    r = chip_smoke.fused_generic_walk_check(dev)  # K5 and K6 on a tilted Panda
+    assert max(r["k5_cost_max_rel"], r["k6_cost_max_rel"]) <= chip_smoke.K5_COST_RTOL
 
 
 def test_panda_main_path(dev):

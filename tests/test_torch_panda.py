@@ -293,8 +293,8 @@ def test_fused_dof_step_plain_matches_composed_jax_iteration(problem):
     np.testing.assert_allclose(torch.softmax(-costs / TAU, 1).numpy(), np.asarray(jw), atol=1e-9)
     _close(new, jnew)
     # the wrapper on CPU tensors is the plain version, eps or seed
-    assert torch.equal(fused_panda_dof_step(step, mu, ts.dof.matvec_planes(mu), eps=eps)[1],
-                       fused_panda_dof_step_plain(step, mu, ts.dof.matvec_planes(mu), eps)[1])
+    assert torch.equal(fused_panda_dof_step(step, mu, eps=eps)[1],
+                       fused_panda_dof_step_plain(step, mu, eps)[1])
 
 
 def _panda_planner(fused, cost, goals, **kw):
@@ -349,9 +349,8 @@ def test_panda_wrappers_contract(problem):
         chain=fields.chain, dof_prior=ts.dof, dof_quad=quad.dof_form, num_particles=P,
         spheres=tobs["obstacle_spheres"], target_h=fields.target_h, n_dof=D, traj_len=T,
         num_samples=S, margin=0.03, w_self=1e4, w_obst=1e4, w_goal=2e8)
-    pu = ts.dof.matvec_planes(mu)
     with pytest.raises(ValueError, match="exactly one"):
-        fused_panda_dof_step(step, mu, pu)
+        fused_panda_dof_step(step, mu)
     a, b = step(mu, seed=5), step(mu, seed=5)
     assert torch.equal(a[0], b[0]) and not torch.equal(a[0], step(mu, seed=6)[0])
     launches = (dof_quad_eval.launches, fk_link_fields_cost_rows.launches,
@@ -364,7 +363,7 @@ def test_panda_wrappers_contract(problem):
         fk_link_fields_cost_rows(fields.chain, meta[:, :, :T], None, margin=0.03, w_self=1.0,
                                  w_obst=0.0)
     with pytest.raises(ValueError, match="unsupported device"):
-        fused_panda_dof_step(step, meta, pu.to("meta"), seed=1)
+        fused_panda_dof_step(step, meta, seed=1)
 
 
 def test_convert_round_trips(problem):
