@@ -58,15 +58,20 @@ Phases, one line each; any failure exits non-zero before the result line:
     configuration, against float64 oracles at 1.30 M points (config 5's
     planner-regime and joint-range rows, spheres on links), K7 also at
     config 4's strided ``[160, 63, 9, 3]`` view, and K8 per point against
-    K7 on ``chain.fk_compact`` positions of the same joint angles;
+    K7 on ``chain.fk_compact`` positions of the same joint angles; then
+    K7-layouts: K7 at each lane group (1, 2, 4, 8 lanes per point) against
+    the float64 oracle on config 4's rows, for ``fk_compact`` positions
+    contiguous and sliced ``[:, 1:]`` and ``fk``'s homogeneous poses sliced
+    ``[..., :3, -1]``, at 9 links (unrolled) and 5 (the runtime link count,
+    each a generic launch), with spheres, without and with ``w_self = 0``;
 13. the Panda parity main path, config 4 (1 goal x 5 particles, 32 samples,
     T = 64), ``PANDA4_ITERS`` iterations on each route: (a) the fused K6 loop
     (``make_fused_panda_step`` + ``fused_panda_optimize``), and through
     ``StochGPMP`` (b) the fast stack ``QuadraticCost + PlaneFieldsCost``
     (K4), (c) the reference-shaped stack on ``fk=chain.fk_compact`` and (d)
     the same with ``FusedLinkFieldsCost`` (K7); descent, start-anchor,
-    launch-count (none through the generic FK walk) and stack-equality
-    gates, updates/s, wall and device ms and
+    launch-count (none through the generic FK walk or K7's runtime link
+    count) and stack-equality gates, updates/s, wall and device ms and
     device operations per iteration (at most 2 on route (a)), the busy share
     and the largest kernels;
 14. K9, the planar iteration with one seed pair per particle
@@ -79,7 +84,11 @@ Phases, one line each; any failure exits non-zero before the result line:
     against their plain versions with exact equality at the planner's
     strided ``[1920, 63, 2]`` slice plus off-map, cell-edge and
     primitive-boundary points (K10 also on a random 200 x 200 grid), timed
-    at that shape and at 1.31 M points;
+    at that shape and at 1.31 M points; then K11-shapes: K11 equal to its
+    plain version with no rectangles, no circles or neither, at point
+    counts that are no multiple of a thread's four points, on views whose
+    coordinates are not aligned pairs (odd strides, coordinate stride 2),
+    on the primitives' corners and rims, and at 1.31 M points;
 16. planar-ref-main: ``StochGPMP`` on the reference-shaped planar stack
     (``CostGP + CostGoalPrior + CostCollision(field)``) at parity, 500
     iterations on two routes, (g) the occupancy grid (K10) and (p) the
@@ -178,6 +187,13 @@ STACK_RTOL = 1e-4
 # The fields K10/K11 are timed at the planner's shape and at BIG_POINTS
 # (20480 x 64) points.
 BIG_POINTS = 20480 * 64
+# K7-layouts: K7 at every lane group against the float64 oracle under
+# K4_RTOL. An obstacle term of a far link underflows float32 (exp(-112) at
+# 1.5 m from a 0.1 m sphere) where float64 keeps it, so a value below
+# float32's smallest normal number times the largest weight counts as
+# absolute: K7_FLOOR.
+K7_LANES = (1, 2, 4, 8)
+K7_FLOOR = torch.finfo(torch.float32).tiny
 # Gauss-Newton GPMP on examples/planar_gpmp.py at the GN parity scale of
 # docs/PERFORMANCE.md: 2 goals x 96 particles, T = 64, 100 iterations. Gates:
 # end points within GN_GOAL_TOL of the goals (the example prints ~1e-2; the
@@ -1446,6 +1462,60 @@ def link_fields_check(dev) -> dict:
     }
 
 
+def link_fields_layouts_check(dev) -> dict:
+    """K7 against the float64 oracle at every lane group of ``K7_LANES`` on
+    config 4's rows (half planner regime, half across the joint limits, two
+    spheres on links): the layouts ``chain.fk_compact`` positions
+    contiguous and sliced ``[:, 1:]`` (the main path's) and ``chain.fk``'s
+    homogeneous poses sliced ``[..., :3, -1]``; all 9 links (the unrolled
+    instantiation) and the first 5 (the runtime-L one, each launch counted
+    in ``.generic_launches``); with the spheres, with none, and with ``w_self
+    = 0``."""
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (
+        fused_link_fields_cost,
+        fused_link_fields_cost_plain,
+    )
+
+    _, cost, state4, obs4, s4 = panda4_problem(dev)
+    fields = cost.costs[1]
+    chain = fields.chain
+    rows = _field_check_rows(state4, s4, dev)
+    b, t, _ = rows.shape
+    q = rows[..., :7].reshape(-1, 7)
+    compact = chain.fk_compact(q).positions.reshape(b, t, -1, 3)
+    homogeneous = chain.fk(q).reshape(b, t, -1, 4, 4)
+    layouts = {"contiguous": compact.contiguous(), "[:, 1:]": compact[:, 1:],
+               "[..., :3, -1]": homogeneous[:, 1:, :, :3, -1]}
+    spheres = _spheres_on_links(obs4["obstacle_spheres"], compact[:, 1:])
+    w_self, w_obst = 1.0 / fields.sigma_self**2, 1.0 / fields.sigma_coll**2
+    weights = {"spheres": (spheres, w_self, w_obst), "no spheres": (None, w_self, 0.0),
+               "w_self = 0": (spheres, 0.0, w_obst)}
+    generic0, cases, generic_cases, worst = fused_link_fields_cost.generic_launches, 0, 0, {}
+    for lname, pos in layouts.items():
+        for n_links in (9, 5):
+            view = pos[..., :n_links, :]
+            for wname, (sp, ws, wo) in weights.items():
+                kw = dict(margin=fields.margin, w_self=ws, w_obst=wo)
+                want = fused_link_fields_cost_plain(
+                    view.double(), None if sp is None else sp.double(), **kw)
+                floor = K7_FLOOR * max(ws, wo)
+                for g in K7_LANES:
+                    got = fused_link_fields_cost(view, sp, lanes=g, **kw).double()
+                    rel = float(((got - want).abs() / want.abs().clamp_min(floor)).max())
+                    key = f"{lname}, L = {n_links}, {wname}"
+                    worst[key] = max(worst.get(key, 0.0), rel)
+                    if not (torch.isfinite(got).all() and rel <= K4_RTOL):
+                        fail(f"K7-layouts: {key}, lanes = {g}: {rel:.3g} relative from the "
+                             f"float64 oracle (> {K4_RTOL})")
+                    cases += 1
+                    generic_cases += int(n_links != 9)
+    generic = fused_link_fields_cost.generic_launches - generic0
+    if generic != generic_cases:
+        fail(f"K7-layouts: {generic} generic launches, expected {generic_cases} (L = 5)")
+    return dict(cases=cases, points=b * (t - 1), generic_launches=generic,
+                generic_cases=generic_cases, max_rel=max(worst.values()), worst=worst)
+
+
 def panda4_main_path(dev) -> dict:
     """Config 4 through its four routes, ``PANDA4_ITERS`` iterations each
     from the same straight-line means: (a) the fused K6 loop, and through
@@ -1503,8 +1573,8 @@ def panda4_main_path(dev) -> dict:
         if launches != want:
             fail(f"panda4 ({route}): launches {launches}, expected {want}")
         if any(generic.values()):
-            fail(f"panda4 ({route}): generic FK walks {generic}: the Panda takes the "
-                 "specialised one")
+            fail(f"panda4 ({route}): generic launches {generic}: the Panda takes the "
+                 "specialised FK walk and K7's unrolled 9 links")
         if route != "a":
             shapes = [tuple(o.shape) for o in res]
             if shapes != [(p, t, n), (p, t, n), (p, s, t, n), (p, s, t, n), (p, s), (p, t, 2 * n)]:
@@ -1593,6 +1663,21 @@ def _edge_points(k, dev):
                       torch.tensor([[50.0, -50.0], [-1e6, 1e6]], device=dev)])
 
 
+def _primitive_edges(pfield, dev):
+    """The rectangles' corners and the circles' rims (at 0, 90, 180 and 270
+    degrees) of ``pfield`` and their float32 neighbours (``_edge_points``)."""
+    r, c = pfield.rects, pfield.circles
+    sx, sy = torch.tensor([1.0, -1.0, 1.0, -1.0], device=dev), torch.tensor(
+        [1.0, 1.0, -1.0, -1.0], device=dev)
+    corners = torch.stack([r[:, None, 0] + sx * 0.5 * r[:, None, 2],
+                           r[:, None, 1] + sy * 0.5 * r[:, None, 3]], -1).reshape(-1, 2)
+    ux, uy = torch.tensor([1.0, -1.0, 0.0, 0.0], device=dev), torch.tensor(
+        [0.0, 0.0, 1.0, -1.0], device=dev)
+    rims = torch.stack([c[:, None, 0] + ux * c[:, None, 2],
+                        c[:, None, 1] + uy * c[:, None, 2]], -1).reshape(-1, 2)
+    return _edge_points(torch.cat([corners, rims]), dev)
+
+
 def field2d_check(dev) -> dict:
     """K10 and K11 vs their plain versions, exact, at the planner's strided
     ``[1920, 63, 2]`` slice plus off-map points, cell edges (K10) and
@@ -1616,15 +1701,7 @@ def field2d_check(dev) -> dict:
     cell_edges = _edge_points(torch.stack(torch.meshgrid(k, k, indexing="ij"), -1)
                               .reshape(-1, 2), dev)
     r, c = pfield.rects, pfield.circles
-    sx, sy = torch.tensor([1.0, -1.0, 1.0, -1.0], device=dev), torch.tensor(
-        [1.0, 1.0, -1.0, -1.0], device=dev)
-    corners = torch.stack([r[:, None, 0] + sx * 0.5 * r[:, None, 2],
-                           r[:, None, 1] + sy * 0.5 * r[:, None, 3]], -1).reshape(-1, 2)
-    ux, uy = torch.tensor([1.0, -1.0, 0.0, 0.0], device=dev), torch.tensor(
-        [0.0, 0.0, 1.0, -1.0], device=dev)
-    rims = torch.stack([c[:, None, 0] + ux * c[:, None, 2],
-                        c[:, None, 1] + uy * c[:, None, 2]], -1).reshape(-1, 2)
-    prim_edges = _edge_points(torch.cat([corners, rims]), dev)
+    prim_edges = _primitive_edges(pfield, dev)
     rand_grid = torch.rand((200, 200), generator=gen, device=dev)
     cases = {
         "K10": (grid_lookup, grid_lookup_plain,
@@ -1658,6 +1735,52 @@ def field2d_check(dev) -> dict:
             big_bound=bound(12 * BIG_POINTS + grid_bytes, ops * BIG_POINTS),
             hits=int((kernel(*args) > 0).sum()))
     return out
+
+
+def primitive_field_shapes_check(dev) -> dict:
+    """K11 equal to its plain version (``torch.equal``) away from the
+    planner's view: no rectangles, no circles, neither; point counts that
+    are no multiple of the four points a thread takes or of a CTA's 512;
+    views whose coordinates are not 8-byte aligned pairs (odd strides, a
+    coordinate stride of 2: the scalar loads); and ``BIG_POINTS`` with the
+    primitives' corners and rims."""
+    from stoch_gpmp_tpu_torch.ops.kernels.fields import (
+        primitive_field_cost,
+        primitive_field_cost_plain,
+    )
+    from stoch_gpmp_tpu_torch.problems import build_planar_cost
+
+    _, pfield = build_planar_cost(dtype=torch.float32, device=dev, fast=False,
+                                  field="primitive")
+    r, c = pfield.rects, pfield.circles
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 22 - 11
+
+    edges = _primitive_edges(pfield, dev)
+    view = rand(PPG * 3 * S, T, 4)[:, 1:, :2]
+    big = rand(BIG_POINTS // T, T, 4)[..., :2]
+    k = min(T, edges.shape[0])
+    big[0, :k] = edges[:k]  # boundary points inside the big view too
+    cases = {
+        "R = 0": (r[:0], c, view), "C = 0": (r, c[:0], view), "R = C = 0": (r[:0], c[:0], view),
+        "[7, 13, 2]": (r, c, rand(7, 13, 2)), "[1, 1, 2]": (r, c, rand(1, 1, 2)),
+        "[1001, 2]": (r, c, rand(1001, 2)), "[3, 171, 2]": (r, c, rand(3, 171, 2)),
+        "odd strides [1920, 63, 5][..., 1:3]": (r, c, rand(1920, 63, 5)[..., 1:3]),
+        "coordinate stride 2": (r, c, rand(64, 63, 6)[..., 1:5:2]),
+        "edge points": (r, c, edges),
+        f"BIG_POINTS [{BIG_POINTS // T}, {T}, 2]": (r, c, big),
+    }
+    hits = {}
+    for name, (rr, cc, pts) in cases.items():
+        got, want = primitive_field_cost(rr, cc, pts), primitive_field_cost_plain(rr, cc, pts)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"K11-shapes: {name}: differs from the plain version at "
+                 f"{int((got != want).sum())} of {want.numel()} points")
+        hits[name] = int((got > 0).sum())
+    return dict(cases=len(cases), hits=hits)
 
 
 def planar_ref_main(dev) -> dict:
@@ -1935,6 +2058,13 @@ def main() -> int:
                 f"{k7['bound'][0]:.4f} ms ({k7['bound'][1]}); {k7['points']} points: per call "
                 f"{k7['big_ms']:.4f} ms, device {fmt_ms(k7['big_device_ms'])}, bound "
                 f"{k7['big_bound'][0]:.4f} ms ({k7['big_bound'][1]})")
+    k7_layouts = link_fields_layouts_check(dev)
+    for key, rel in k7_layouts["worst"].items():
+        phase("K7-layouts", f"{key}: lanes {K7_LANES} within {rel:.2e} relative of the float64 "
+                            f"oracle (rtol {K4_RTOL})")
+    phase("K7-layouts", f"{k7_layouts['cases']} launches on {k7_layouts['points']} points, "
+                        f"{k7_layouts['generic_launches']} through the runtime link count "
+                        f"(expected {k7_layouts['generic_cases']})")
     phase("K8", f"FK + fields on {k8['points']} configurations within {k8['max_rel']:.2e} "
                 f"relative of the float64 oracle and {k8['k7_rel']:.2e} of K7 on fk_compact "
                 f"positions (rtol {K4_RTOL}); per call kernel {k8['ms']:.4f} ms, plain "
@@ -1992,6 +2122,10 @@ def main() -> int:
                      f"({r['bound'][1]}); {r['big_points']} points: per call "
                      f"{r['big_ms']:.4f} ms, device {fmt_ms(r['big_device_ms'])}, bound "
                      f"{r['big_bound'][0]:.5f} ms ({r['big_bound'][1]})")
+    k11_shapes = primitive_field_shapes_check(dev)
+    phase("K11-shapes", f"primitive field equal to its plain version in {k11_shapes['cases']} "
+                        "cases: " + ", ".join(f"{k} ({v} hits)"
+                                             for k, v in k11_shapes["hits"].items()))
     pr = planar_ref_main(dev)
     for k, r in pr.items():
         busy = "not measured" if r["device_busy"] is None else format(r["device_busy"], ".1%")
@@ -2024,9 +2158,11 @@ def main() -> int:
     details.update(K1=k1, K2=k2, K2_split=k2_split, moments=mom, main=mp, K3=k3, K4=k4,
                    K4_generic=fkg, K5=k5, K5_split=k5_split, K5_shapes=k5_shapes,
                    K5_rng_free=k5_free, K5_moments=k5_mom, panda_main=pm, K6=k6,
-                   K6_split=k6_split, K6_rng_free=k6_free, K6_moments=k6_mom, K7=k7, K8=k8,
+                   K6_split=k6_split, K6_rng_free=k6_free, K6_moments=k6_mom, K7=k7,
+                   K7_layouts=k7_layouts, K8=k8,
                    panda4_main=p4, K9=k9, K9_split=k9_split, K9_moments=k9_mom,
-                   K9_loop=k9_run, K10=f2["K10"], K11=f2["K11"], planar_ref_main=pr,
+                   K9_loop=k9_run, K10=f2["K10"], K11=f2["K11"], K11_shapes=k11_shapes,
+                   planar_ref_main=pr,
                    gn_main=gn)
     if args.log_dir:
         out = Path(args.log_dir)

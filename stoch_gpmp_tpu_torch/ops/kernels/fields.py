@@ -9,11 +9,11 @@ Each replaces a TPU kernel of ``stoch_gpmp_tpu/ops/pallas/fields.py``:
 - ``primitive_field_cost`` (K11, ``csrc/primitive_field.cu``): the count of
   analytic rectangles and circles containing each point.
 
-All three run one thread per point and read the points through their
-strides (the planner passes a strided ``[B, L, 2]`` slice of its sample
-batch, so no copy is made). They are bound by memory and launch latency (12
-bytes per point, ~121k points per call at the planar parity shape); see the
-sources for the design.
+All three read the points through their strides (the planner passes a
+strided ``[B, L, 2]`` slice of its sample batch, so no copy is made); K1 and
+K10 run one thread per point, K11 four points per thread. They are bound by
+memory and launch latency (12 bytes per point, ~121k points per call at the
+planar parity shape); see the sources for the design.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version only for a CPU tensor. The fields are piecewise constant, so their
@@ -21,7 +21,8 @@ gradient with respect to the points is zero: the JAX package's ``jax.grad``
 through the ``int32`` cell index or the comparisons gives exactly that. The
 wrappers carry that zero backward (``_PiecewiseConstant``) on the CPU and
 the card alike, so the Gauss-Newton field Jacobians are zero here too,
-rather than an error or a graph cut silently by a raw pointer.
+rather than an error or a graph cut silently by a raw pointer; a call whose
+points need no gradient skips the ``autograd.Function``.
 """
 
 from __future__ import annotations
@@ -227,38 +228,54 @@ def primitive_field_cost_plain(rects, circles, points):
     return acc
 
 
-def primitive_field_cost(rects, circles, points):
-    """``Primitive2DField.compute_cost``: the CUDA kernel for a CUDA tensor
-    (float32 points, any strides of a ``[B, L, 2]`` view; R or C may be 0),
-    the plain version for a CPU tensor; zero gradient."""
-    return _piecewise_constant(points, lambda pts: _primitive_field_cost(rects, circles, pts))
-
-
-def _primitive_field_cost(rects, circles, points):
-    if points.device.type == "cpu":
-        return primitive_field_cost_plain(rects, circles, points)
-    _check_points(points, "primitive field")
-    if (rects.device != points.device or circles.device != points.device
+def check_primitives(rects, circles, device) -> None:
+    """Raise unless ``rects [R, 4]`` and ``circles [C, 3]`` are contiguous
+    float32 tensors on ``device``, as the primitive-field kernel takes them."""
+    if (rects.device != device or circles.device != device
             or rects.dtype != torch.float32 or circles.dtype != torch.float32
             or not rects.is_contiguous() or not circles.is_contiguous()
+            or rects.dim() != 2 or circles.dim() != 2
             or rects.shape[-1] != 4 or circles.shape[-1] != 3):
         raise ValueError("primitive field kernel takes contiguous float32 [R, 4] rects and "
                          "[C, 3] circles on the points' device")
-    batch_shape = points.shape[:-1]
+
+
+def primitive_points_view(points):
+    """``points [..., 2]`` as the ``[B, L, 2]`` view K11 reads (``_as_bl2``),
+    checked to index in 32 bits."""
     pts = _as_bl2(points)
-    b, l = pts.shape[0], pts.shape[1]
-    out = torch.empty((b, l), dtype=torch.float32, device=points.device)
-    if b * l == 0:
-        return out.reshape(batch_shape)
-    lib = _build.load_library()
-    err = lib.primitive_field_launch(
-        pts.data_ptr(), b, l, pts.stride(0), pts.stride(1), pts.stride(2),
-        rects.data_ptr(), int(rects.shape[0]), circles.data_ptr(), int(circles.shape[0]),
-        out.data_ptr(), _build.stream_ptr(points.device),
+    _build.check_index_range("primitive field kernel", pts)
+    return pts
+
+
+def primitive_field_cost(rects, circles, points, *, checked: bool = False):
+    """``Primitive2DField.compute_cost``: the CUDA kernel for a CUDA tensor
+    (float32 points, any strides of a ``[B, L, 2]`` view; R or C may be 0),
+    the plain version for a CPU tensor; zero gradient. ``checked``: the
+    caller has passed ``rects`` and ``circles`` through
+    :func:`check_primitives` for the points' device (a field does so once)."""
+    return _piecewise_constant(points, lambda pts: _primitive_field_cost(
+        rects, circles, pts, checked))
+
+
+def _primitive_field_cost(rects, circles, points, checked):
+    if points.device.type == "cpu":
+        return primitive_field_cost_plain(rects, circles, points)
+    _check_points(points, "primitive field")
+    if not checked:
+        check_primitives(rects, circles, points.device)
+    out = torch.empty(points.shape[:-1], dtype=torch.float32, device=points.device)
+    if out.numel() == 0:
+        return out
+    pts = primitive_points_view(points)
+    err = _build.load_library().primitive_field_launch(
+        pts.data_ptr(), pts.shape[0], pts.shape[1], *pts.stride(), rects.data_ptr(),
+        rects.shape[0], circles.data_ptr(), circles.shape[0], out.data_ptr(),
+        _build.stream_ptr(points.device),
     )
     _build.check(err, "primitive_field_launch")
     primitive_field_cost.launches += 1
-    return out.reshape(batch_shape)
+    return out
 
 
 primitive_field_cost.launches = 0

@@ -1,8 +1,10 @@
-"""Where the time of the fused kernels K2, K6 and K5 and of the FK + fields
-kernel K4 goes, on one NVIDIA GPU.
+"""Where the time of the port's kernels goes, on one NVIDIA GPU: the
+phases of the fused kernels K2, K6 and K5 and of the FK + fields kernel K4,
+the kernels' device time per call across shapes, and their instructions.
 
     python3 -m stoch_gpmp_tpu_torch.tools.fused_timing phases [--out DIR] [--only K5,K4]
-    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing shapes [--only K5,K4]
+    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing shapes [--only K5,K4,K7,lanes,floor]
+    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing sass [--only link_fields.cu]
 
 ``phases`` builds instrumented copies of ``csrc/fused_planar_step.cu`` (K2),
 ``csrc/fused_panda_step.cu`` (K6), ``csrc/fused_panda_dof_step.cu`` (K5)
@@ -29,9 +31,20 @@ S = 128) and ``planar-512ppg`` (P = 1536, S = 32), and K6 at config 4 (P =
 5, S = 32) and at P = 128: per shape the device time per call of the kernel
 alone and of the whole step (``torch.profiler``), at the wrapper's split
 and, where the wrapper takes ``ctas=``, at 1, 2, 4 and 8 CTAs per particle,
-with the launch's shared memory and resident clusters. It uses only the
-steps' public calls, so the same module run from an older checkout of the
-port times that checkout's kernels.
+with the launch's shared memory and resident clusters. It also times the
+point kernels: K7 at config 4's ``[160, 63, 9, 3]`` view and at 1.30 M
+points (at the wrapper's lane rule and, with ``lanes``, at each lane
+group), K10 and K11 at
+the planner's ``[1920, 63, 2]`` view and at 1.31 M points, and the launch
+floor (a one-element ``fill_``), each by ``torch.profiler``, by CUDA events
+around calls queued behind a sleeping kernel (so they run back to back on
+the device) and per call through the wrapper, then ptxas's report of their
+sources (``floor``, ``host``: the host's share of a wrapper call). It uses
+only the steps' and wrappers' public calls, so the same module run from an
+older checkout of the port times that checkout's kernels.
+
+``sass`` counts each kernel's SASS instructions by opcode (``cuobjdump``) in
+the sources ``--only`` names.
 
 Both print the card's name, power limit and SM clock. Needs one NVIDIA GPU
 and nvcc.
@@ -385,6 +398,171 @@ def time_step(what: str, step, means, kernel: str, wrapper, module, reps: int = 
               f"{shape}", flush=True)
 
 
+def events_per_call(fn, reps: int) -> float:
+    """Time per call of ``fn()`` over ``reps`` back-to-back calls, CUDA
+    events: the device's time, or the host's where launching is slower."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, n: int = 200) -> tuple[float, bool]:
+    """Device time per call of ``fn()``, CUDA events around ``n`` calls
+    queued behind a sleeping kernel, so that they run back to back on the
+    device whatever the host's launch cost (each call's device time plus the
+    gap between two launches); and whether the sleep outlasted the queueing
+    (else the figure is the host's)."""
+    per_call = events_per_call(fn, 20)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(4e6 * per_call * n))  # ~2 GHz: twice the queueing time
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    held = not start.query()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, held
+
+
+def time_point(what: str, fn, kernel: str, reps: int = 100) -> None:
+    """One line: ``fn``'s device ms per call by ``torch.profiler`` (the
+    kernels whose name holds ``kernel``, and every device operation) and by
+    CUDA events around queued launches, and its time per call through the
+    wrapper (CUDA events, back to back; the median and the least of 7 runs
+    of 200 calls, as the host's pace drifts)."""
+    kern, every = device_per_call(fn, reps, kernel)
+    queued, held = queued_ms(fn)
+    runs = [events_per_call(fn, 200) for _ in range(7)]
+    print(f"{what}: device {kern:.4f} ms kernel, {every:.4f} ms every operation "
+          f"(torch.profiler, {reps} calls); queued {queued:.4f} ms per call (CUDA events, 200 "
+          f"calls back to back on the device{'' if held else '; NOT held: the host'}); per "
+          f"call {float(np.median(runs)):.4f} ms, least {min(runs):.4f} ms (CUDA events, back "
+          "to back, 7 x 200)", flush=True)
+
+
+def link_positions(dev, traj_len: int):
+    """K7's input on a Panda main path: the link positions of ``fk_rows``'s
+    sample rows through ``chain.fk_compact``, as ``[B, T, L, 3][:, 1:]``
+    (what ``FusedLinkFieldsCost`` passes: a view), at config 4 (``traj_len``
+    64: ``[160, 63, 9, 3]``) or config 5 (128: ``[10240, 127, 9, 3]``, 1.30
+    M points); the chain, the spheres and the field weights."""
+    chain, q, spheres, kw = fk_rows(dev, traj_len)
+    b, t = q.shape[1], q.shape[2]
+    pos = chain.fk_compact(q.permute(1, 2, 0).reshape(-1, q.shape[0])).positions
+    return chain, pos.reshape(b, t, -1, 3)[:, 1:], spheres, kw
+
+
+def planar_points(dev, field: str):
+    """K10's (``field`` "grid") or K11's ("primitive") field of the planar
+    parity map and its points: the planner's strided ``[1920, 63, 2]`` slice
+    of a ``[1920, 64, 4]`` batch and a ``[20480, 64, 2]`` slice of ``[20480,
+    64, 4]`` (1.31 M points), uniform over the map."""
+    from stoch_gpmp_tpu_torch.problems import build_planar_cost
+
+    _, f = build_planar_cost(dtype=torch.float32, device=dev, fast=False, field=field)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    view = (torch.rand((1920, 64, 4), generator=gen, device=dev) * 22 - 11)[:, 1:, :2]
+    big = (torch.rand((20480, 64, 4), generator=gen, device=dev) * 22 - 11)[..., :2]
+    return f, view, big
+
+
+def point_kernels(dev, only) -> None:
+    """The launch floor (a one-element ``fill_``), K7 at config 4 and at
+    1.30 M points (at the wrapper's lane rule and, with ``lanes`` in
+    ``only`` and a wrapper that takes ``lanes=``, at each group size), K10
+    and K11 at the planner's view and at
+    1.31 M points, the host's share of a wrapper call, and ptxas's report of
+    the three sources. Only the wrappers' public calls: the module run from
+    an older checkout times that checkout's kernels."""
+    from stoch_gpmp_tpu_torch.ops.kernels import fields, panda_fields
+
+    _build.load_library()
+    if "floor" in only:
+        time_point("launch floor, torch.empty(1).fill_(0)",
+                   lambda: torch.empty(1, device=dev).fill_(0), "")
+    if "K7" in only:
+        k7 = panda_fields.fused_link_fields_cost
+        sweep = [1, 2, 4, 8] if "lanes" in only and "lanes" in inspect.signature(k7).parameters \
+            else []
+        for what, t in (("config 4", 64), ("config 5, 1.30 M points", 128)):
+            _, pos, spheres, kw = link_positions(dev, t)
+            for g in [None] + sweep:
+                extra = {} if g is None else {"lanes": g}
+                time_point(f"K7 {what} {tuple(pos.shape)}{'' if g is None else f', lanes={g}'}",
+                           lambda: k7(pos, spheres, **kw, **extra), "link_fields")
+    for kname, field in (("K10", "grid"), ("K11", "primitive")):
+        if kname in only:
+            f, view, big = planar_points(dev, field)
+            for pts in (view, big):
+                time_point(f"{kname} {tuple(pts.shape)}", lambda: f.compute_cost(pts),
+                           "grid_lookup" if kname == "K10" else "primitive_field")
+    if "host" in only:
+        import time
+
+        for what, fn in (("_build.stream_ptr", lambda: _build.stream_ptr(dev)),
+                         ("torch.empty((160, 63))", lambda: torch.empty((160, 63), device=dev)),
+                         ("_build.load_library", _build.load_library)):
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fn()
+            print(f"host: {what} {(time.perf_counter() - t0) / 2 * 1e3:.2f} us per call",
+                  flush=True)
+    for src in ("link_fields.cu", "primitive_field.cu", "grid_lookup.cu"):
+        print(f"ptxas {src}: {ptxas_report(src)}", flush=True)
+
+
+def sass_counts(src: str) -> dict:
+    """Per kernel of ``csrc/src`` (a build of that source alone with the
+    kernels' flags), its SASS instructions by opcode (``cuobjdump -sass``):
+    static counts, so an unrolled loop counts once per unrolled copy."""
+    import collections
+    import re
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", f"{tmp}/k.so",
+                        str(_build.CSRC / src)], check=True, capture_output=True, text=True)
+        text = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
+                               f"{tmp}/k.so"], check=True, capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = collections.Counter()
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if fn is not None and m:
+            counts[fn][m.group(2)] += 1
+    return counts
+
+
+def sass(only) -> None:
+    for src in only:
+        for fn, c in sass_counts(src).items():
+            top = ", ".join(f"{op} {n}" for op, n in c.most_common(14))
+            print(f"sass {src} {fn}: {sum(c.values())} instructions; {top}", flush=True)
+
+
+def ptxas_report(src: str) -> str:
+    """ptxas's registers, spills and stack frames per kernel of ``csrc/src``,
+    from a build of that source alone with the kernels' flags (the shared
+    build may have been cached)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", f"{tmp}/k.so",
+                               str(_build.CSRC / src)], capture_output=True, text=True)
+    lines = [ln.split(":", 1)[-1].strip() for ln in proc.stderr.splitlines()
+             if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+    return " | ".join(lines) or proc.stderr
+
+
 def shapes(dev, only) -> None:
     if "K5" in only:
         step, planes = panda_dof_step(dev)
@@ -413,11 +591,8 @@ def shapes(dev, only) -> None:
                 lambda: fk_link_fields_cost_rows(chain, q, spheres, **kw), 50, "fk_fields")
             print(f"K4 Panda {what} {tuple(q.shape)}: kernel {kern:.4f} ms device per call",
                   flush=True)
-    if "K7" in only or "K8" in only:
-        from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (
-            fk_link_fields_cost,
-            fused_link_fields_cost,
-        )
+    if "K8" in only:
+        from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import fk_link_fields_cost
 
         chain, q, spheres, kw = fk_rows(dev, 128)
         flat = q.permute(1, 2, 0).reshape(-1, q.shape[0])  # [B * T, 7], a strided view
@@ -425,18 +600,7 @@ def shapes(dev, only) -> None:
                                   "fk_fields_points")
         print(f"K8 Panda config 5 points {tuple(flat.shape)}: kernel {kern:.4f} ms device per "
               "call", flush=True)
-        pos = chain.fk_compact(flat).positions  # [B * T, L, 3]
-        kern, _ = device_per_call(lambda: fused_link_fields_cost(pos, spheres, **kw), 20,
-                                  "link_fields")
-        print(f"K7 Panda config 5 link positions {tuple(pos.shape)}: kernel {kern:.4f} ms "
-              "device per call", flush=True)
-        chain4, q4, spheres4, _ = fk_rows(dev, 64)  # config 4's [B, T, 7] angles, a view
-        pos4 = chain4.fk_compact(q4.permute(1, 2, 0).reshape(-1, 7)).positions
-        pos4 = pos4.reshape(q4.shape[1], q4.shape[2], -1, 3)[:, 1:]  # what route (d) passes
-        kern, _ = device_per_call(lambda: fused_link_fields_cost(pos4, spheres4, **kw), 50,
-                                  "link_fields")
-        print(f"K7 Panda config 4 link positions {tuple(pos4.shape)}: kernel {kern:.4f} ms "
-              "device per call", flush=True)
+    point_kernels(dev, only)
     for what, ppg, s in (("K2 planar parity P=15 S=128", 5, 128),
                          ("K2 planar-parity-64ppg P=192 S=128", 64, 128),
                          ("K2 planar-512ppg P=1536 S=32", 512, 32))[:3 * ("K2" in only)]:
@@ -452,8 +616,9 @@ def shapes(dev, only) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("phases", "shapes"))
-    ap.add_argument("--only", default="K2,K6,K5,K4,K7,K8", help="kernels, comma-separated")
+    ap.add_argument("what", choices=("phases", "shapes", "sass"))
+    ap.add_argument("--only", default="K2,K6,K5,K4,K7,lanes,K8,K10,K11,floor,host",
+                    help="kernels (and floor, host), comma-separated")
     ap.add_argument("--out", type=Path, default=Path("build") / "phase_timing",
                     help="where phases builds the instrumented kernels")
     args = ap.parse_args(argv)
@@ -462,6 +627,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     if args.what == "phases":
         phases(dev, args.out, args.only.split(","))
+    elif args.what == "sass":
+        sass(args.only.split(","))
     else:
         shapes(dev, args.only.split(","))
     print(card())

@@ -26,10 +26,13 @@ K5 and K6 through it on a tilted Panda under K5's gates; the Panda main
 path's descent, start-anchor, launch-count (none through the generic walk)
 and loop (at most 2 device operations per fused iteration) gates. At config 4:
 K6 as K5 (every particle's best sample agreeing); K7 and K8 within 1e-4
-relative of float64 oracles and K8 of K7; the four routes' descent,
-start-anchor, launch-count and stack-equality (1e-4) gates. K9 as K2, with
+relative of float64 oracles and K8 of K7, K7 also at each lane group on
+three layouts, at 9 links and at 5 (the runtime link count, counted as
+generic); the four routes' descent, start-anchor, launch-count and
+stack-equality (1e-4) gates. K9 as K2, with
 one seed pair per particle, and its 500-iteration loop under the planar
-goal (0.3) and start (0.15) gates; K10 and K11 exact; the reference-shaped
+goal (0.3) and start (0.15) gates; K10 and K11 exact (K11 also with no
+rectangles or circles, ragged counts and unaligned views); the reference-shaped
 planar routes on the grid and the primitives under the same gates; GN
 ``GPMP`` at P = 192 with its goal (0.05), start (0.02) and method-agreement
 (1e-4) gates.
@@ -155,6 +158,14 @@ def test_link_fields_kernels_match_oracles(dev):
                r["K8"]["k7_rel"]) <= chip_smoke.K4_RTOL
 
 
+def test_link_fields_kernel_layouts_and_groups(dev):
+    import chip_smoke
+
+    r = chip_smoke.link_fields_layouts_check(dev)  # raises beyond K4_RTOL
+    assert r["max_rel"] <= chip_smoke.K4_RTOL
+    assert r["generic_launches"] == r["generic_cases"] > 0
+
+
 def test_panda4_routes(dev):
     import chip_smoke
 
@@ -185,6 +196,13 @@ def test_grid_and_primitive_kernels_exact(dev):
 
     r = chip_smoke.field2d_check(dev)
     assert r["K10"]["max_abs_err"] == r["K11"]["max_abs_err"] == 0.0
+
+
+def test_primitive_field_kernel_edge_shapes(dev):
+    import chip_smoke
+
+    r = chip_smoke.primitive_field_shapes_check(dev)  # raises unless torch.equal
+    assert r["hits"]["R = C = 0"] == 0 and r["cases"] == 11
 
 
 def test_planar_reference_routes(dev):
