@@ -59,10 +59,9 @@ Phases, one line each; any failure exits non-zero before the result line:
     planner-regime and joint-range rows, spheres on links), K7 also at
     config 4's strided ``[160, 63, 9, 3]`` view, and K8 per point against
     K7 on ``chain.fk_compact`` positions of the same joint angles; then
-    K7-layouts: K7 at each lane group (1, 2, 4, 8 lanes per point) against
-    the float64 oracle on config 4's rows, for ``fk_compact`` positions
-    contiguous and sliced ``[:, 1:]`` and ``fk``'s homogeneous poses sliced
-    ``[..., :3, -1]``, at 9 links (unrolled) and 5 (the runtime link count,
+    K7-layouts: K7 against the float64 oracle on config 4's rows, for
+    ``fk_compact`` positions contiguous and sliced ``[:, 1:]`` and ``fk``'s
+    homogeneous poses sliced ``[..., :3, -1]``, at 9 links (unrolled) and 5 (the runtime link count,
     each a generic launch), with spheres, without and with ``w_self = 0``;
 13. the Panda parity main path, config 4 (1 goal x 5 particles, 32 samples,
     T = 64), ``PANDA4_ITERS`` iterations on each route: (a) the fused K6 loop
@@ -187,12 +186,11 @@ STACK_RTOL = 1e-4
 # The fields K10/K11 are timed at the planner's shape and at BIG_POINTS
 # (20480 x 64) points.
 BIG_POINTS = 20480 * 64
-# K7-layouts: K7 at every lane group against the float64 oracle under
-# K4_RTOL. An obstacle term of a far link underflows float32 (exp(-112) at
-# 1.5 m from a 0.1 m sphere) where float64 keeps it, so a value below
+# K7-layouts: K7 on every layout against the float64 oracle under K4_RTOL.
+# An obstacle term of a far link underflows float32 (exp(-112) at 1.5 m
+# from a 0.1 m sphere) where float64 keeps it, so a value below
 # float32's smallest normal number times the largest weight counts as
 # absolute: K7_FLOOR.
-K7_LANES = (1, 2, 4, 8)
 K7_FLOOR = torch.finfo(torch.float32).tiny
 # Gauss-Newton GPMP on examples/planar_gpmp.py at the GN parity scale of
 # docs/PERFORMANCE.md: 2 goals x 96 particles, T = 64, 100 iterations. Gates:
@@ -1463,14 +1461,13 @@ def link_fields_check(dev) -> dict:
 
 
 def link_fields_layouts_check(dev) -> dict:
-    """K7 against the float64 oracle at every lane group of ``K7_LANES`` on
-    config 4's rows (half planner regime, half across the joint limits, two
-    spheres on links): the layouts ``chain.fk_compact`` positions
-    contiguous and sliced ``[:, 1:]`` (the main path's) and ``chain.fk``'s
-    homogeneous poses sliced ``[..., :3, -1]``; all 9 links (the unrolled
-    instantiation) and the first 5 (the runtime-L one, each launch counted
-    in ``.generic_launches``); with the spheres, with none, and with ``w_self
-    = 0``."""
+    """K7 against the float64 oracle on config 4's rows (half planner
+    regime, half across the joint limits, two spheres on links): the
+    layouts ``chain.fk_compact`` positions contiguous and sliced ``[:, 1:]``
+    (the main path's) and ``chain.fk``'s homogeneous poses sliced ``[...,
+    :3, -1]``; all 9 links (the unrolled instantiation) and the first 5 (the
+    runtime-L one, each launch counted in ``.generic_launches``); with the
+    spheres, with none, and with ``w_self = 0``."""
     from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (
         fused_link_fields_cost,
         fused_link_fields_cost_plain,
@@ -1499,16 +1496,15 @@ def link_fields_layouts_check(dev) -> dict:
                 want = fused_link_fields_cost_plain(
                     view.double(), None if sp is None else sp.double(), **kw)
                 floor = K7_FLOOR * max(ws, wo)
-                for g in K7_LANES:
-                    got = fused_link_fields_cost(view, sp, lanes=g, **kw).double()
-                    rel = float(((got - want).abs() / want.abs().clamp_min(floor)).max())
-                    key = f"{lname}, L = {n_links}, {wname}"
-                    worst[key] = max(worst.get(key, 0.0), rel)
-                    if not (torch.isfinite(got).all() and rel <= K4_RTOL):
-                        fail(f"K7-layouts: {key}, lanes = {g}: {rel:.3g} relative from the "
-                             f"float64 oracle (> {K4_RTOL})")
-                    cases += 1
-                    generic_cases += int(n_links != 9)
+                got = fused_link_fields_cost(view, sp, **kw).double()
+                rel = float(((got - want).abs() / want.abs().clamp_min(floor)).max())
+                key = f"{lname}, L = {n_links}, {wname}"
+                worst[key] = rel
+                if not (torch.isfinite(got).all() and rel <= K4_RTOL):
+                    fail(f"K7-layouts: {key}: {rel:.3g} relative from the float64 oracle "
+                         f"(> {K4_RTOL})")
+                cases += 1
+                generic_cases += int(n_links != 9)
     generic = fused_link_fields_cost.generic_launches - generic0
     if generic != generic_cases:
         fail(f"K7-layouts: {generic} generic launches, expected {generic_cases} (L = 5)")
@@ -2060,8 +2056,8 @@ def main() -> int:
                 f"{k7['big_bound'][0]:.4f} ms ({k7['big_bound'][1]})")
     k7_layouts = link_fields_layouts_check(dev)
     for key, rel in k7_layouts["worst"].items():
-        phase("K7-layouts", f"{key}: lanes {K7_LANES} within {rel:.2e} relative of the float64 "
-                            f"oracle (rtol {K4_RTOL})")
+        phase("K7-layouts", f"{key}: within {rel:.2e} relative of the float64 oracle "
+                            f"(rtol {K4_RTOL})")
     phase("K7-layouts", f"{k7_layouts['cases']} launches on {k7_layouts['points']} points, "
                         f"{k7_layouts['generic_launches']} through the runtime link count "
                         f"(expected {k7_layouts['generic_cases']})")

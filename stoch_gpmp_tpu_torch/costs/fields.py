@@ -24,7 +24,7 @@ mesh-sphere fields are not ported yet.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, replace
 from math import ceil
 from typing import Sequence
 
@@ -300,17 +300,9 @@ class Primitive2DField(_Occupancy2D):
             np.asarray(v, dtype=float).reshape(-1, k), dtype=dtype, device=device)
         return cls(rects=as_t(rects, 4), circles=as_t(circles, 3))
 
-    _checked: tuple | None = field(default=None, init=False, repr=False, compare=False)
-
     def compute_cost(self, x: torch.Tensor, **kw) -> torch.Tensor:
         """``x [..., 2]`` -> ``[...]`` number of primitives containing each
-        point (the primitive-field kernel on a CUDA tensor; the primitives
-        are checked once per device, not on every call)."""
-        from stoch_gpmp_tpu_torch.ops.kernels.fields import check_primitives, primitive_field_cost
+        point (the primitive-field kernel on a CUDA tensor)."""
+        from stoch_gpmp_tpu_torch.ops.kernels.fields import primitive_field_cost
 
-        c = self._checked
-        checked = c is not None and c[0] is self.rects and c[1] is self.circles and c[2] == x.device
-        if not checked and x.device.type == "cuda":
-            check_primitives(self.rects, self.circles, x.device)
-            self._checked, checked = (self.rects, self.circles, x.device), True
-        return primitive_field_cost(self.rects, self.circles, x, checked=checked)
+        return primitive_field_cost(self.rects, self.circles, x)

@@ -12,11 +12,11 @@
 // Bound on the H100: the bytes, 108 B read and 4 B written per point with 9
 // links (43.5 us at 1.30 M points); at config 4's 10,080 points the launch
 // and one thread's chain of 81 exp2 terms. Design:
-// - Coalesced tiles. A CTA of 128 threads takes a tile of 128 / G
-//   consecutive points: one thread per point finds the point's offset (one 32-bit
-//   division), then the CTA copies the tile's 3L words per point into shared
-//   memory with consecutive threads on consecutive words (on the main path's
-//   layout, fk_compact positions sliced [:, 1:], a point's 27 words and a
+// - Coalesced tiles. A CTA of 128 threads takes a tile of 128 consecutive
+//   points: each thread finds its point's offset (one 32-bit division), then
+//   the CTA copies the tile's 3L words per point into shared memory with
+//   consecutive threads on consecutive words (on the main path's layout,
+//   fk_compact positions sliced [:, 1:], a point's 27 words and a
 //   trajectory's 63 points are contiguous), as cp.async copies, so that a
 //   thread's 27 words are in flight at once (the same copy through
 //   registers, a word at a time, moved 1.0 TB/s at 1.30 M points on an
@@ -25,14 +25,13 @@
 //   computing one were 5% slower than single tiles). A point's record in
 //   shared memory is 3L words padded to an odd count (27 for the Panda), so
 //   threads reading one word of consecutive points hit distinct banks.
-// - The Panda's 9 links at compile time (NL = 9): one lane per point holds
+// - The Panda's 9 links at compile time (NL = 9): one thread per point holds
 //   the 27 coordinates in registers and link_fields<9> unrolls both loops.
 //   Any other link count takes the runtime-L instantiation (NL = 0).
-// - Lane groups at small batches (G > 1): a point's L(L-1)/2 self pairs and
-//   L * O obstacle terms are dealt round-robin over G lanes (a per-CTA table
-//   of the pairs), each lane sums its share and __shfl_xor_sync adds the
-//   shares. The host picks G (ops/kernels/panda_fields.py link_fields_lanes)
-//   so that the points fill about one wave of the card.
+// - One thread per point at every batch size: dealing a point's terms over
+//   2, 4 or 8 lanes (a pair table and shuffles) was no faster on an H100 at
+//   config 4's 10,080 points (one lane 0.0034 ms, 8 lanes 0.0033) and slower
+//   at 2 and 4 lanes and at 1.30 M points (PERF.md, section 6).
 // - 32-bit index arithmetic: the launcher refuses a batch or an offset of
 //   2^31 or more.
 // The TPU kernel's move to [L, 3, N] coordinate planes and its 1024-wide
@@ -45,7 +44,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // points per CTA
 
 struct LinkFieldsArgs {
   const float* pos;
@@ -59,40 +58,28 @@ struct LinkFieldsArgs {
 
 __host__ __device__ constexpr int record_words(int n_links) { return (3 * n_links) | 1; }
 
-// Dynamic shared memory: spheres, the tile's records, the points' offsets and
-// (G > 1) the self pairs.
-__host__ __device__ constexpr size_t smem_bytes(int n_links, int n_obst, int g) {
-  return sizeof(float4) * n_obst +
-         sizeof(float) * (size_t)(kThreads / g) * record_words(n_links) +
-         sizeof(int) * (kThreads / g) + (g > 1 ? sizeof(int) * n_links * (n_links - 1) / 2 : 0);
+// Dynamic shared memory: spheres, the tile's records and the points' offsets.
+__host__ __device__ constexpr size_t smem_bytes(int n_links, int n_obst) {
+  return sizeof(float4) * n_obst + sizeof(float) * (size_t)kThreads * record_words(n_links) +
+         sizeof(int) * kThreads;
 }
 
-template <int NL, int G>
+template <int NL>
 __global__ void __launch_bounds__(kThreads)
     link_fields_kernel(const __grid_constant__ LinkFieldsArgs a) {
-  constexpr int TP = kThreads / G;  // points per CTA
   const int L = NL > 0 ? NL : a.n_links;
   const int W = record_words(L);
-  const int n_pairs = L * (L - 1) / 2;
   extern __shared__ float4 smem4[];
   float4* sph = smem4;                                       // [n_obst]
-  float* rec = reinterpret_cast<float*>(sph + a.n_obst);     // [TP][W]
-  int* base = reinterpret_cast<int*>(rec + TP * W);          // [TP]
-  int* pairs = base + TP;                                    // [n_pairs] (G > 1)
+  float* rec = reinterpret_cast<float*>(sph + a.n_obst);     // [kThreads][W]
+  int* base = reinterpret_cast<int*>(rec + kThreads * W);    // [kThreads]
   const int tid = threadIdx.x;
-  const int first = blockIdx.x * TP;
-  const int tile = min(TP, a.n - first);
+  const int first = blockIdx.x * kThreads;
+  const int tile = min(kThreads, a.n - first);
 
   if (tid < tile) {
     const unsigned n = (unsigned)(first + tid), i0 = n / (unsigned)a.n1;
     base[tid] = (int)i0 * a.s0 + (int)(n - i0 * (unsigned)a.n1) * a.s1;
-  }
-  if constexpr (G > 1) {
-    for (int k = tid; k < n_pairs; k += kThreads) {  // k -> (i, j), i < j, row-major
-      int i = 0, r = k;
-      while (r >= L - 1 - i) r -= L - 1 - i++;
-      pairs[k] = i | (i + 1 + r) << 8;
-    }
   }
   __syncthreads();
   // the tile's records, consecutive threads on consecutive words, as
@@ -110,93 +97,44 @@ __global__ void __launch_bounds__(kThreads)
   __pipeline_wait_prior(0);
   __syncthreads();
 
-  const int p = tid / G;
-  const float* r = rec + p * W;
-  if constexpr (G == 1) {
-    if (p >= tile) return;
-    float v;
-    if constexpr (NL > 0) {
-      float x[3 * NL];
+  if (tid >= tile) return;
+  const float* r = rec + tid * W;
+  float v;
+  if constexpr (NL > 0) {
+    float x[3 * NL];
 #pragma unroll
-      for (int c = 0; c < 3 * NL; ++c) x[c] = r[c];
-      v = link_fields<NL>([&](int l, int c) { return x[3 * l + c]; }, NL, sph, a.n_obst,
-                          a.inv_2m2, a.w_self, a.w_obst);
-    } else {
-      v = link_fields<0>([&](int l, int c) { return r[3 * l + c]; }, L, sph, a.n_obst,
-                         a.inv_2m2, a.w_self, a.w_obst);
-    }
-    a.out[first + p] = v;
+    for (int c = 0; c < 3 * NL; ++c) x[c] = r[c];
+    v = link_fields<NL>([&](int l, int c) { return x[3 * l + c]; }, NL, sph, a.n_obst,
+                        a.inv_2m2, a.w_self, a.w_obst);
   } else {
-    // lane g of the point's group takes terms g, g + G, ...; a point past the
-    // tile's end still joins the shuffles
-    const int g = tid % G;
-    const bool live = p < tile;
-    float s = 0.0f, o = 0.0f;
-    if (live && a.w_self != 0.0f) {
-      const float ks = -1.4426950408889634f * a.inv_2m2;  // -log2(e) / (2 margin^2)
-      for (int k = g; k < n_pairs; k += G) {
-        const int ij = pairs[k], i = 3 * (ij & 0xff), j = 3 * (ij >> 8);
-        const float dx = r[i] - r[j], dy = r[i + 1] - r[j + 1], dz = r[i + 2] - r[j + 2];
-        s += exp2f((dx * dx + dy * dy + dz * dz) * ks);
-      }
-    }
-    if (live && a.w_obst != 0.0f) {
-      for (int k = g; k < a.n_obst * L; k += G) {
-        const int ko = k / L, l = 3 * (k - ko * L);
-        const float4 c = sph[ko];
-        const float dx = r[l] - c.x, dy = r[l + 1] - c.y, dz = r[l + 2] - c.z;
-        o += exp2f((dx * dx + dy * dy + dz * dz) * c.w);
-      }
-    }
-#pragma unroll
-    for (int m = G / 2; m > 0; m >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, m);
-      o += __shfl_xor_sync(0xffffffffu, o, m);
-    }
-    if (live && g == 0) {
-      float v = 0.0f;
-      if (a.w_self != 0.0f) v += a.w_self * (2.0f * s + (float)L);
-      if (a.w_obst != 0.0f && a.n_obst > 0) v += a.w_obst * o;
-      a.out[first + p] = v;
-    }
+    v = link_fields<0>([&](int l, int c) { return r[3 * l + c]; }, L, sph, a.n_obst, a.inv_2m2,
+                       a.w_self, a.w_obst);
   }
-}
-
-template <int NL, int G>
-cudaError_t launch(const LinkFieldsArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.n_links, a.n_obst, G);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        link_fields_kernel<NL, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  constexpr int TP = kThreads / G;
-  link_fields_kernel<NL, G><<<(a.n + TP - 1) / TP, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  a.out[first + tid] = v;
 }
 
 template <int NL>
-cudaError_t launch_lanes(const LinkFieldsArgs& a, int lanes, cudaStream_t stream) {
-  switch (lanes) {
-    case 1: return launch<NL, 1>(a, stream);
-    case 2: return launch<NL, 2>(a, stream);
-    case 4: return launch<NL, 4>(a, stream);
-    case 8: return launch<NL, 8>(a, stream);
-    default: return cudaErrorInvalidValue;
+cudaError_t launch(const LinkFieldsArgs& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.n_links, a.n_obst);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        link_fields_kernel<NL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
   }
+  const int blocks = (int)(((long long)a.n + kThreads - 1) / kThreads);
+  link_fields_kernel<NL><<<blocks, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // The batch [n0, n1] of points and every offset (strides in floats) must be
-// below 2^31; lanes is G, 1, 2, 4 or 8 (ops/kernels/panda_fields.py
-// link_fields_lanes). The Panda's 9 links take the unrolled instantiation.
+// below 2^31. The Panda's 9 links take the unrolled instantiation.
 extern "C" int link_fields_launch(const float* pos, int n0, int n1, int s0, int s1, int sl,
                                   int sc, int n_links, const float* spheres, int n_obst,
-                                  float inv_2m2, float w_self, float w_obst, int lanes,
-                                  float* out, void* stream) {
-  if (n_links < 1 || n_links > 255 || n_obst < 0 || n0 < 1 || n1 < 1 || s0 < 0 || s1 < 0 ||
-      sl < 0 || sc < 0)
+                                  float inv_2m2, float w_self, float w_obst, float* out,
+                                  void* stream) {
+  if (n_links < 1 || n_obst < 0 || n0 < 1 || n1 < 1 || s0 < 0 || s1 < 0 || sl < 0 || sc < 0)
     return (int)cudaErrorInvalidValue;
   const long long last = (long long)(n0 - 1) * s0 + (long long)(n1 - 1) * s1 +
                          (long long)(n_links - 1) * sl + 2LL * sc;
@@ -204,24 +142,5 @@ extern "C" int link_fields_launch(const float* pos, int n0, int n1, int s0, int 
   const LinkFieldsArgs a{pos, n1, n0 * n1, s0, s1, sl, sc, n_links, n_obst, spheres,
                          inv_2m2, w_self, w_obst, out};
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(n_links == FkPanda::NL ? launch_lanes<FkPanda::NL>(a, lanes, st)
-                                      : launch_lanes<0>(a, lanes, st));
-}
-
-// The card's SM count and the CTAs of the Panda's one-lane instantiation that
-// one SM holds at once (for the host's lane rule): out[0], out[1].
-extern "C" int link_fields_config(int n_obst, int* out) {
-  const size_t smem = smem_bytes(FkPanda::NL, n_obst, 1);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && smem > 48 * 1024)
-    err = cudaFuncSetAttribute(link_fields_kernel<FkPanda::NL, 1>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, link_fields_kernel<FkPanda::NL, 1>, kThreads, smem);
-  out[0] = sms;
-  out[1] = per_sm;
-  return (int)err;
+  return (int)(n_links == FkPanda::NL ? launch<FkPanda::NL>(a, st) : launch<0>(a, st));
 }

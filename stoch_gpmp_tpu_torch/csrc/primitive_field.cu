@@ -59,21 +59,22 @@ __device__ __forceinline__ unsigned div_by(unsigned n, FastDiv f) {
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-    primitive_field_kernel(const float* __restrict__ pts, int n, int L, FastDiv div_l, int sb,
+    primitive_field_kernel(const float* __restrict__ pts, unsigned n, int L, FastDiv div_l, int sb,
                            int sl, int sc, const float* __restrict__ rects, int n_rects,
                            const float* __restrict__ circles, int n_circles,
                            float* __restrict__ out) {
   // the points first: their loads are in flight while the primitives are
   // staged
-  const int lane = threadIdx.x & 31;
-  const int base = (blockIdx.x * kThreads + (threadIdx.x & ~31)) * kPts + lane;
+  // unsigned: with n < 2^31 the last block's indices stay below 2^31 + 512
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned base = (blockIdx.x * kThreads + (threadIdx.x & ~31u)) * kPts + lane;
   float x[kPts], y[kPts], acc[kPts];
 #pragma unroll
   for (int k = 0; k < kPts; ++k) {
-    const int idx = base + 32 * k;
+    const unsigned idx = base + 32 * k;
     x[k] = y[k] = acc[k] = 0.0f;
     if (idx < n) {
-      const unsigned b = div_by((unsigned)idx, div_l), l = (unsigned)idx - b * (unsigned)L;
+      const unsigned b = div_by(idx, div_l), l = idx - b * (unsigned)L;
       const float* p = pts + ((int)b * sb + (int)l * sl);
       if constexpr (kVec) {
         const float2 v = *reinterpret_cast<const float2*>(p);
@@ -118,7 +119,7 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // points [B, L, 2] at strides (sb, sl, sc) in floats; B * L and every offset
-// below 2^31.
+// must be below 2^31 (the kernel's point indices are unsigned 32-bit).
 extern "C" int primitive_field_launch(const float* pts, int B, int L, int sb, int sl, int sc,
                                       const float* rects, int n_rects, const float* circles,
                                       int n_circles, float* out, void* stream) {
@@ -135,9 +136,9 @@ extern "C" int primitive_field_launch(const float* pts, int B, int L, int sb, in
   const cudaStream_t st = (cudaStream_t)stream;
   if (vec)
     primitive_field_kernel<true><<<blocks, kThreads, smem, st>>>(
-        pts, (int)n, L, div_l, sb, sl, sc, rects, n_rects, circles, n_circles, out);
+        pts, (unsigned)n, L, div_l, sb, sl, sc, rects, n_rects, circles, n_circles, out);
   else
     primitive_field_kernel<false><<<blocks, kThreads, smem, st>>>(
-        pts, (int)n, L, div_l, sb, sl, sc, rects, n_rects, circles, n_circles, out);
+        pts, (unsigned)n, L, div_l, sb, sl, sc, rects, n_rects, circles, n_circles, out);
   return (int)cudaGetLastError();
 }

@@ -91,9 +91,8 @@ SIGNATURES = {
     "link_fields_launch": [
         _P, _I, _I, _I, _I, _I, _I, _I,  # pos, N0, N1, strides (0, 1, link, coord), L
         _P, _I, _F, _F, _F,  # spheres, n_obst, inv_2m2, w_self, w_obst
-        _I, _P, _P,  # lanes per point, out, stream
+        _P, _P,  # out, stream
     ],
-    "link_fields_config": [_I, _P],  # n_obst, int out[2]: SMs, CTAs per SM
     "fused_panda_step_launch": [
         _P, _P, _P, _P, _P,  # means, anchors, W, spheres, eps (or null)
         _P, _P, _I, _I,  # new_means, costs, CTAs per particle, FK variant
@@ -210,21 +209,12 @@ def stream_ptr(device) -> int:
 
 
 INDEX_LIMIT = 2**31
-_IN_RANGE: set = set()  # (shape, strides) that passed check_index_range
 
 
 def check_index_range(name: str, t) -> None:
     """Raise unless ``t``'s element count and its largest element offset
-    are below 2^31: the kernels that take strided points index in 32 bits.
-    A layout that passed is remembered (a planner passes the same one on
-    every iteration)."""
-    key = (t.shape, t.stride())
-    if key in _IN_RANGE:
-        return
-    last = sum((n - 1) * s for n, s in zip(*key))
+    are below 2^31: the kernels that take strided points index in 32 bits."""
+    last = sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
     if t.numel() >= INDEX_LIMIT or last >= INDEX_LIMIT:
         raise ValueError(f"{name} indexes in 32 bits: {t.numel()} elements with offsets up to "
                          f"{last}, both must be below 2^31")
-    if len(_IN_RANGE) >= 1024:
-        _IN_RANGE.clear()
-    _IN_RANGE.add(key)

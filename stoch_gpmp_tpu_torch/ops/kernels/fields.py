@@ -27,6 +27,8 @@ points need no gradient skips the ``autograd.Function``.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from stoch_gpmp_tpu_torch.ops.kernels import _build
@@ -240,6 +242,21 @@ def check_primitives(rects, circles, device) -> None:
                          "[C, 3] circles on the points' device")
 
 
+_CHECKED: dict = {}  # per device: weakrefs to the rects and circles that passed, their state
+
+
+def _check_primitives_once(rects, circles, device) -> None:
+    """:func:`check_primitives`, once per rects and circles tensor and
+    device while neither changes (its in-place version and its storage: a
+    write, a resize, a restride or a ``.data`` swap for other storage checks
+    again): a field passes the same primitives on every call."""
+    seen = _CHECKED.get(device)
+    state = (rects._version, rects.data_ptr(), circles._version, circles.data_ptr())
+    if seen is None or seen[0]() is not rects or seen[1]() is not circles or seen[2] != state:
+        check_primitives(rects, circles, device)
+        _CHECKED[device] = (weakref.ref(rects), weakref.ref(circles), state)
+
+
 def primitive_points_view(points):
     """``points [..., 2]`` as the ``[B, L, 2]`` view K11 reads (``_as_bl2``),
     checked to index in 32 bits."""
@@ -248,22 +265,18 @@ def primitive_points_view(points):
     return pts
 
 
-def primitive_field_cost(rects, circles, points, *, checked: bool = False):
+def primitive_field_cost(rects, circles, points):
     """``Primitive2DField.compute_cost``: the CUDA kernel for a CUDA tensor
     (float32 points, any strides of a ``[B, L, 2]`` view; R or C may be 0),
-    the plain version for a CPU tensor; zero gradient. ``checked``: the
-    caller has passed ``rects`` and ``circles`` through
-    :func:`check_primitives` for the points' device (a field does so once)."""
-    return _piecewise_constant(points, lambda pts: _primitive_field_cost(
-        rects, circles, pts, checked))
+    the plain version for a CPU tensor; zero gradient."""
+    return _piecewise_constant(points, lambda pts: _primitive_field_cost(rects, circles, pts))
 
 
-def _primitive_field_cost(rects, circles, points, checked):
+def _primitive_field_cost(rects, circles, points):
     if points.device.type == "cpu":
         return primitive_field_cost_plain(rects, circles, points)
     _check_points(points, "primitive field")
-    if not checked:
-        check_primitives(rects, circles, points.device)
+    _check_primitives_once(rects, circles, points.device)
     out = torch.empty(points.shape[:-1], dtype=torch.float32, device=points.device)
     if out.numel() == 0:
         return out

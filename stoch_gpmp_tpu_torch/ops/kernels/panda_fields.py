@@ -24,10 +24,10 @@ reference does), term by term in the TPU kernels' order.
 - K7, ``fused_link_fields_cost``: replaces ``fused_link_fields_cost``
   (``_kernel``): the fields at link positions ``[..., L, 3]`` read through
   their strides (``csrc/link_fields.cu``): a CTA copies a tile of points
-  into shared memory in coalesced words, the Panda's 9 links are unrolled
-  in registers, and at small batches ``G`` lanes share a point's terms
-  (:func:`link_fields_lanes`). Bound by its bytes (108 B per point with 9
-  links) at large batches, by the launch at config 4's 10,080 points.
+  into shared memory in coalesced words, and the Panda's 9 links are
+  unrolled in registers, one thread per point. Bound by its bytes (108 B
+  per point with 9 links) at large batches, by the launch at config 4's
+  10,080 points.
 - K8, ``fk_link_fields_cost``: replaces ``fk_link_fields_cost``
   (``_fk_fields_kernel``): FK + fields per row of ``q [N, d]``, read in
   place, one thread per row (the second entry of ``csrc/fk_fields.cu``).
@@ -162,23 +162,25 @@ def _spheres(spheres, dev):
     return spheres.reshape(-1, 4).to(device=dev, dtype=torch.float32).contiguous()
 
 
-_SPHERES: dict = {}  # per device: (weakref to the caller's spheres or None, its version, copy)
+_SPHERES: dict = {}  # per device: (weakref to the caller's spheres or None, its state, copy)
 
 
 def kernel_spheres(spheres, dev):
     """The kernels' contiguous float32 ``[O, 4]`` spheres on ``dev`` from
-    ``[..., 4]`` spheres or None, made once per spheres tensor (and in-place
-    version) and device: a planner passes the same observation on every
+    ``[..., 4]`` spheres or None, made once per spheres tensor (its in-place
+    version and its storage: a write, a resize or a ``.data`` swap for other
+    storage makes a new copy) and device: a planner passes the same observation on every
     iteration."""
-    ref, version, sp = _SPHERES.get(dev, (None, None, None))
+    ref, state, sp = _SPHERES.get(dev, (None, None, None))
     if spheres is None:
         if ref is not None or sp is None:
             sp = _spheres(None, dev)
             _SPHERES[dev] = (None, None, sp)
         return sp
-    if ref is None or ref() is not spheres or version != spheres._version:
+    now = (spheres._version, spheres.data_ptr())
+    if ref is None or ref() is not spheres or state != now:
         sp = _spheres(spheres, dev)
-        _SPHERES[dev] = (weakref.ref(spheres), spheres._version, sp)
+        _SPHERES[dev] = (weakref.ref(spheres), now, sp)
     return sp
 
 
@@ -227,38 +229,7 @@ def fused_link_fields_cost_plain(positions, spheres, *, margin, w_self, w_obst):
     return vals + positions.new_zeros(positions.shape[:-2])
 
 
-LINK_FIELDS_THREADS = 128  # csrc/link_fields.cu kThreads
-LINK_FIELDS_LANES = (1, 2, 4, 8)  # the lane groups link_fields.cu instantiates
 LINK_FIELDS_UNROLLED = 9  # the link count K7 unrolls (the Panda's: csrc/fk_spec.h FkPanda)
-
-
-def link_fields_lanes(points: int, sms: int, ctas_per_sm: int) -> int:
-    """K7's lane group G, the lanes that share one point's terms: the
-    largest of 1, 2, 4, 8 for which ``points * G`` threads fit in one wave
-    of the card (``sms * ctas_per_sm`` CTAs of 128 threads resident at once,
-    as the kernel reports them), else 1. A point's 36 self pairs and 9 x O
-    obstacle terms are a chain of dependent ``exp2`` sums on one lane; when
-    the points alone leave the card mostly idle, G lanes take a share each.
-    On 132 SMs with 10 CTAs each (168,960 threads; the one-lane CTA's 48
-    registers per thread allow 10): config 4's 10,080 points G = 8 (630
-    CTAs instead of 79), config 5's 1.30 M points G = 1."""
-    wave = sms * ctas_per_sm * LINK_FIELDS_THREADS
-    g = LINK_FIELDS_LANES[0]
-    while g < LINK_FIELDS_LANES[-1] and points * 2 * g <= wave:
-        g *= 2
-    return g
-
-
-_WAVES: dict = {}  # (device, O): (SMs, CTAs per SM), asked of the kernel once
-
-
-def _link_fields_card(lib, dev, n_obst: int) -> tuple[int, int]:
-    if (dev, n_obst) not in _WAVES:
-        out = (ctypes.c_int * 2)()
-        with torch.cuda.device(dev):
-            _build.check(lib.link_fields_config(n_obst, out), "link_fields_config")
-        _WAVES[(dev, n_obst)] = (out[0], out[1])
-    return _WAVES[(dev, n_obst)]
 
 
 def link_fields_view(positions):
@@ -275,18 +246,13 @@ def link_fields_view(positions):
     return pos
 
 
-def fused_link_fields_cost(positions, spheres, *, margin, w_self, w_obst, lanes=None):
+def fused_link_fields_cost(positions, spheres, *, margin, w_self, w_obst):
     """``w_self * LinkSelfDistanceField(margin) + w_obst *
     LinkDistanceField('rbf')`` at link positions ``[..., L, 3]`` (any
     strides) -> ``[...]``: kernel K7 for a CUDA tensor (float32), the plain
     version for a CPU tensor. ``spheres``: ``[..., 4]`` obstacle spheres or
-    None. ``lanes``: the kernel's lane group (1, 2, 4 or 8; default
-    :func:`link_fields_lanes` on the card's wave). A link count other than
-    the Panda's 9 runs the kernel's runtime-L instantiation, counted in
-    ``.generic_launches``."""
-    if lanes is not None and lanes not in LINK_FIELDS_LANES:
-        raise ValueError(f"link fields kernel: lanes must be one of {LINK_FIELDS_LANES}, "
-                         f"got {lanes}")
+    None. A link count other than the Panda's 9 runs the kernel's runtime-L
+    instantiation, counted in ``.generic_launches``."""
     if positions.device.type == "cpu":
         sp = None if spheres is None else spheres.reshape(-1, 4).to(positions.dtype)
         return fused_link_fields_cost_plain(positions, sp, margin=margin, w_self=w_self,
@@ -302,14 +268,11 @@ def fused_link_fields_cost(positions, spheres, *, margin, w_self, w_obst, lanes=
         return out
     pos = link_fields_view(positions)
     sp = kernel_spheres(spheres, dev)
-    lib = _build.load_library()
-    if lanes is None:
-        lanes = link_fields_lanes(out.numel(), *_link_fields_card(lib, dev, sp.shape[0]))
     n_links = pos.shape[2]
-    err = lib.link_fields_launch(
+    err = _build.load_library().link_fields_launch(
         pos.data_ptr(), pos.shape[0], pos.shape[1], *pos.stride(), n_links,
         sp.data_ptr(), sp.shape[0], 1.0 / (2.0 * margin * margin), float(w_self),
-        float(w_obst), lanes, out.data_ptr(), _build.stream_ptr(dev),
+        float(w_obst), out.data_ptr(), _build.stream_ptr(dev),
     )
     _build.check(err, "link_fields_launch")
     fused_link_fields_cost.launches += 1

@@ -1,10 +1,9 @@
 """Where the time of the port's kernels goes, on one NVIDIA GPU: the
 phases of the fused kernels K2, K6 and K5 and of the FK + fields kernel K4,
-the kernels' device time per call across shapes, and their instructions.
+and the kernels' device time per call across shapes.
 
     python3 -m stoch_gpmp_tpu_torch.tools.fused_timing phases [--out DIR] [--only K5,K4]
-    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing shapes [--only K5,K4,K7,lanes,floor]
-    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing sass [--only link_fields.cu]
+    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing shapes [--only K5,K4,K7,floor]
 
 ``phases`` builds instrumented copies of ``csrc/fused_planar_step.cu`` (K2),
 ``csrc/fused_panda_step.cu`` (K6), ``csrc/fused_panda_dof_step.cu`` (K5)
@@ -33,18 +32,14 @@ alone and of the whole step (``torch.profiler``), at the wrapper's split
 and, where the wrapper takes ``ctas=``, at 1, 2, 4 and 8 CTAs per particle,
 with the launch's shared memory and resident clusters. It also times the
 point kernels: K7 at config 4's ``[160, 63, 9, 3]`` view and at 1.30 M
-points (at the wrapper's lane rule and, with ``lanes``, at each lane
-group), K10 and K11 at
-the planner's ``[1920, 63, 2]`` view and at 1.31 M points, and the launch
-floor (a one-element ``fill_``), each by ``torch.profiler``, by CUDA events
-around calls queued behind a sleeping kernel (so they run back to back on
-the device) and per call through the wrapper, then ptxas's report of their
-sources (``floor``, ``host``: the host's share of a wrapper call). It uses
-only the steps' and wrappers' public calls, so the same module run from an
-older checkout of the port times that checkout's kernels.
-
-``sass`` counts each kernel's SASS instructions by opcode (``cuobjdump``) in
-the sources ``--only`` names.
+points, K10 and K11 at the planner's ``[1920, 63, 2]`` view and at 1.31 M
+points, and the launch floor (a one-element ``fill_``), each by
+``torch.profiler``, by CUDA events around calls queued behind a sleeping
+kernel (so they run back to back on the device) and per call through the
+wrapper, then ptxas's report of their sources (``floor``, ``host``: the
+host's share of a wrapper call). It uses only the steps' and wrappers'
+public calls, so the same module run from an older checkout of the port
+times that checkout's kernels.
 
 Both print the card's name, power limit and SM clock. Needs one NVIDIA GPU
 and nvcc.
@@ -475,12 +470,10 @@ def planar_points(dev, field: str):
 
 def point_kernels(dev, only) -> None:
     """The launch floor (a one-element ``fill_``), K7 at config 4 and at
-    1.30 M points (at the wrapper's lane rule and, with ``lanes`` in
-    ``only`` and a wrapper that takes ``lanes=``, at each group size), K10
-    and K11 at the planner's view and at
-    1.31 M points, the host's share of a wrapper call, and ptxas's report of
-    the three sources. Only the wrappers' public calls: the module run from
-    an older checkout times that checkout's kernels."""
+    1.30 M points, K10 and K11 at the planner's view and at 1.31 M points,
+    the host's share of a wrapper call, and ptxas's report of the three
+    sources. Only the wrappers' public calls: the module run from an older
+    checkout times that checkout's kernels."""
     from stoch_gpmp_tpu_torch.ops.kernels import fields, panda_fields
 
     _build.load_library()
@@ -489,14 +482,10 @@ def point_kernels(dev, only) -> None:
                    lambda: torch.empty(1, device=dev).fill_(0), "")
     if "K7" in only:
         k7 = panda_fields.fused_link_fields_cost
-        sweep = [1, 2, 4, 8] if "lanes" in only and "lanes" in inspect.signature(k7).parameters \
-            else []
         for what, t in (("config 4", 64), ("config 5, 1.30 M points", 128)):
             _, pos, spheres, kw = link_positions(dev, t)
-            for g in [None] + sweep:
-                extra = {} if g is None else {"lanes": g}
-                time_point(f"K7 {what} {tuple(pos.shape)}{'' if g is None else f', lanes={g}'}",
-                           lambda: k7(pos, spheres, **kw, **extra), "link_fields")
+            time_point(f"K7 {what} {tuple(pos.shape)}", lambda: k7(pos, spheres, **kw),
+                       "link_fields")
     for kname, field in (("K10", "grid"), ("K11", "primitive")):
         if kname in only:
             f, view, big = planar_points(dev, field)
@@ -516,37 +505,6 @@ def point_kernels(dev, only) -> None:
                   flush=True)
     for src in ("link_fields.cu", "primitive_field.cu", "grid_lookup.cu"):
         print(f"ptxas {src}: {ptxas_report(src)}", flush=True)
-
-
-def sass_counts(src: str) -> dict:
-    """Per kernel of ``csrc/src`` (a build of that source alone with the
-    kernels' flags), its SASS instructions by opcode (``cuobjdump -sass``):
-    static counts, so an unrolled loop counts once per unrolled copy."""
-    import collections
-    import re
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as tmp:
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", f"{tmp}/k.so",
-                        str(_build.CSRC / src)], check=True, capture_output=True, text=True)
-        text = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
-                               f"{tmp}/k.so"], check=True, capture_output=True, text=True).stdout
-    counts, fn = {}, None
-    for line in text.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = collections.Counter()
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
-        if fn is not None and m:
-            counts[fn][m.group(2)] += 1
-    return counts
-
-
-def sass(only) -> None:
-    for src in only:
-        for fn, c in sass_counts(src).items():
-            top = ", ".join(f"{op} {n}" for op, n in c.most_common(14))
-            print(f"sass {src} {fn}: {sum(c.values())} instructions; {top}", flush=True)
 
 
 def ptxas_report(src: str) -> str:
@@ -616,8 +574,8 @@ def shapes(dev, only) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("phases", "shapes", "sass"))
-    ap.add_argument("--only", default="K2,K6,K5,K4,K7,lanes,K8,K10,K11,floor,host",
+    ap.add_argument("what", choices=("phases", "shapes"))
+    ap.add_argument("--only", default="K2,K6,K5,K4,K7,K8,K10,K11,floor,host",
                     help="kernels (and floor, host), comma-separated")
     ap.add_argument("--out", type=Path, default=Path("build") / "phase_timing",
                     help="where phases builds the instrumented kernels")
@@ -627,8 +585,6 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     if args.what == "phases":
         phases(dev, args.out, args.only.split(","))
-    elif args.what == "sass":
-        sass(args.only.split(","))
     else:
         shapes(dev, args.only.split(","))
     print(card())

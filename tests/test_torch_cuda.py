@@ -26,7 +26,7 @@ K5 and K6 through it on a tilted Panda under K5's gates; the Panda main
 path's descent, start-anchor, launch-count (none through the generic walk)
 and loop (at most 2 device operations per fused iteration) gates. At config 4:
 K6 as K5 (every particle's best sample agreeing); K7 and K8 within 1e-4
-relative of float64 oracles and K8 of K7, K7 also at each lane group on
+relative of float64 oracles and K8 of K7, K7 also on
 three layouts, at 9 links and at 5 (the runtime link count, counted as
 generic); the four routes' descent, start-anchor, launch-count and
 stack-equality (1e-4) gates. K9 as K2, with

@@ -2,11 +2,10 @@
 positions) and K11 (analytic primitive field), on the CPU.
 
 The kernels run only on the card (``tests/test_torch_cuda.py``); what
-chooses and guards their launches is Python, held here: K7's lane-group
-rule at config 4's and config 5's point counts and at the edges of a wave,
-the 32-bit index guard of both launchers, K7's sphere cache, K11's zero
-gradient and the primitives' check, and both wrappers on the CPU (their
-plain versions) on the layouts the port passes. ``fused_link_fields_cost``
+guards and feeds their launches is Python, held here: the 32-bit index
+guard of both launchers, K7's sphere cache, K11's zero gradient and the
+primitives' check (once per tensor while it does not change), and both
+wrappers on the CPU (their plain versions) on the layouts the port passes. ``fused_link_fields_cost``
 against JAX is in ``test_torch_panda_ref.py``, ``primitive_field_cost`` in
 ``test_torch_fields2d.py``.
 """
@@ -15,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from stoch_gpmp_tpu_torch.ops.kernels import _build
+from stoch_gpmp_tpu_torch.ops.kernels import _build, fields
 from stoch_gpmp_tpu_torch.ops.kernels.fields import (
     check_primitives,
     primitive_field_cost,
@@ -23,40 +22,13 @@ from stoch_gpmp_tpu_torch.ops.kernels.fields import (
     primitive_points_view,
 )
 from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (
-    LINK_FIELDS_THREADS,
     fused_link_fields_cost,
     fused_link_fields_cost_plain,
     kernel_spheres,
-    link_fields_lanes,
     link_fields_view,
 )
 
-H100_SMS, CTAS_PER_SM = 132, 10  # K7's one-lane CTAs (48 registers a thread) per SM
-WAVE = H100_SMS * CTAS_PER_SM * LINK_FIELDS_THREADS  # 168,960 threads
 KW = dict(margin=0.03, w_self=1e4, w_obst=1e4)
-
-
-@pytest.mark.parametrize("points, lanes", [
-    (160 * 63, 8),  # config 4 route (d): 630 CTAs instead of 79
-    (10240 * 127, 1),  # config 5's 1.30 M points: more than a wave
-    (1, 8),
-    (WAVE // 8, 8),
-    (WAVE // 8 + 1, 4),
-    (WAVE // 4, 4),
-    (WAVE // 2, 2),
-    (WAVE // 2 + 1, 1),
-    (WAVE, 1),
-])
-def test_link_fields_lane_rule(points, lanes):
-    assert link_fields_lanes(points, H100_SMS, CTAS_PER_SM) == lanes
-
-
-def test_link_fields_lane_rule_follows_the_card():
-    """Fewer SMs or fewer resident CTAs make a smaller wave."""
-    assert link_fields_lanes(10080, 114, 10) == 8
-    assert link_fields_lanes(40000, 132, 16) == 4
-    assert link_fields_lanes(40000, 132, 8) == 2
-    assert link_fields_lanes(40000, 16, 2) == 1
 
 
 def _meta(shape, strides):
@@ -110,6 +82,19 @@ def test_kernel_spheres_made_once_per_tensor_and_version():
     assert kernel_spheres(None, dev).shape == (0, 4)
 
 
+def test_kernel_spheres_follow_a_data_swap():
+    """``.data = ...`` keeps the tensor and its version but not its storage:
+    the spheres are made again."""
+    sp = torch.tensor(np.random.default_rng(1).uniform(0.1, 1.0, (3, 4)))
+    dev = torch.device("cpu")
+    first = kernel_spheres(sp, dev)
+    version = sp._version
+    sp.data = sp.data + 1.0
+    assert sp._version == version
+    again = kernel_spheres(sp, dev)
+    assert again is not first and torch.equal(again, sp.float())
+
+
 def _panda_positions(n_rows, traj_len, seed):
     from stoch_gpmp_tpu_torch.kinematics import franka_panda
 
@@ -122,7 +107,7 @@ def _panda_positions(n_rows, traj_len, seed):
 
 
 @pytest.mark.parametrize("layout", ["fk_compact [:, 1:]", "fk [..., :3, -1]"])
-@pytest.mark.parametrize("n_links", [9, 5])
+@pytest.mark.parametrize("n_links", [9, 5, 1])
 @pytest.mark.parametrize("with_spheres", [True, False])
 def test_link_fields_wrapper_on_cpu_is_the_plain_version(layout, n_links, with_spheres):
     compact, homogeneous = _panda_positions(4, 8, 1)
@@ -134,15 +119,6 @@ def test_link_fields_wrapper_on_cpu_is_the_plain_version(layout, n_links, with_s
     got = fused_link_fields_cost(pos, sp, **KW)
     want = fused_link_fields_cost_plain(pos, sp, **KW)
     assert got.shape == (4, 7) and torch.equal(got, want)
-    for lanes in (1, 8):  # a lane group changes nothing on the CPU
-        assert torch.equal(fused_link_fields_cost(pos, sp, lanes=lanes, **KW), want)
-
-
-def test_link_fields_wrapper_refuses_other_lane_groups():
-    pos = torch.zeros((2, 3, 9, 3))
-    for lanes in (0, 3, 16):
-        with pytest.raises(ValueError, match="lanes"):
-            fused_link_fields_cost(pos, None, lanes=lanes, **KW)
 
 
 def _planar_points(shape, seed):
@@ -195,4 +171,41 @@ def test_primitive_field_of_a_field_on_cpu():
     pts = _planar_points((32, 63, 2), 2)
     want = primitive_field_cost_plain(rects, circles, pts)
     assert torch.equal(field.compute_cost(pts), want)
-    assert field._checked is None  # the primitives are checked for the card only
+
+
+def _spoil(kind, rects):
+    """Change ``rects`` so that the kernel must not take it, keeping the
+    tensor (and, for the ``.data`` swaps, its version)."""
+    if kind == "resize_":
+        rects.resize_(rects.shape[0], 3)
+    elif kind == "t_":
+        rects.t_()
+    elif kind == "as_strided_":
+        rects.as_strided_(rects.shape, (1, rects.shape[0]))
+    elif kind == "data = float64":
+        rects.data = rects.data.double()
+    elif kind == "data = transposed copy":
+        rects.data = rects.data.t().contiguous().t()
+
+
+@pytest.mark.parametrize("kind", ["resize_", "t_", "as_strided_", "data = float64",
+                                  "data = transposed copy"])
+def test_primitive_check_runs_again_after_a_change(kind, monkeypatch):
+    """The wrapper checks the primitives once per tensor and device while
+    they do not change; any change that could make the kernel misread them
+    checks again, and raises."""
+    calls = []
+    real = fields.check_primitives
+    monkeypatch.setattr(fields, "check_primitives", lambda *a: (calls.append(1), real(*a)))
+    monkeypatch.setattr(fields, "_CHECKED", {})
+    rects, circles = _primitives()
+    cpu = torch.device("cpu")
+    for _ in range(3):
+        fields._check_primitives_once(rects, circles, cpu)
+    assert len(calls) == 1
+    fields._check_primitives_once(rects.clone(), circles, cpu)  # another tensor
+    assert len(calls) == 2
+    _spoil(kind, rects)
+    with pytest.raises(ValueError, match="primitive field kernel"):
+        fields._check_primitives_once(rects, circles, cpu)
+    assert len(calls) == 3
