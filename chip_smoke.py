@@ -11,7 +11,11 @@ Phases, one line each; any failure exits non-zero before the result line:
    spills;
 3. K1, the raster collision field, against its plain PyTorch version at the
    planner's shape (a strided ``[1920, 63, 2]`` slice) plus cell-edge and
-   off-map points: exact equality;
+   off-map points: exact equality; then K1-shapes: K1 equal to its plain
+   version on K10-shapes' point sets (below), with no rectangles, no
+   circles or neither, and on circles whose rims pass through snapped cells
+   (at the rim and one float inside and outside it) and of radius 0, -0,
+   -1, the smallest float, inf and NaN;
 4. K2, the fused planar iteration (each particle a thread-block cluster of
    CTAs that split its samples, ``Sigma^{-1} mu`` computed in the kernel),
    with an eps operand against its plain version at the parity shape, matmul
@@ -83,11 +87,14 @@ Phases, one line each; any failure exits non-zero before the result line:
     against their plain versions with exact equality at the planner's
     strided ``[1920, 63, 2]`` slice plus off-map, cell-edge and
     primitive-boundary points (K10 also on a random 200 x 200 grid), timed
-    at that shape and at 1.31 M points; then K11-shapes: K11 equal to its
-    plain version with no rectangles, no circles or neither, at point
-    counts that are no multiple of a thread's four points, on views whose
-    coordinates are not aligned pairs (odd strides, coordinate stride 2),
-    on the primitives' corners and rims, and at 1.31 M points;
+    at that shape and at 1.31 M points; then K10-shapes: K10 equal to its
+    plain version at point counts that are no multiple of a thread's
+    points, on views whose coordinates are not aligned pairs (odd strides,
+    coordinate stride 2), on cell edges and off-map points, at 1.31 M points
+    with those inside, and on grids of [37, 200], [200, 37] and [1, 1]
+    cells; and K11-shapes: K11 equal to its plain version with no
+    rectangles, no circles or neither, and on the same point sets with the
+    primitives' corners and rims for edge points;
 16. planar-ref-main: ``StochGPMP`` on the reference-shaped planar stack
     (``CostGP + CostGoalPrior + CostCollision(field)``) at parity, 500
     iterations on two routes, (g) the occupancy grid (K10) and (p) the
@@ -103,7 +110,9 @@ Phases, one line each; any failure exits non-zero before the result line:
 Times: ``ms``/``plain_ms`` are per call over back-to-back calls through
 the wrapper (CUDA events), which includes the host's launch cost where it
 exceeds the device's; the device time per call comes from
-``torch.profiler``. ``bound_ms`` is the least time the card could take for
+``torch.profiler`` and, for K1, K10 and K11, also from CUDA events around
+calls queued behind a sleeping kernel (the profiler can lose a kernel's
+records). ``bound_ms`` is the least time the card could take for
 the same work: the larger of the bytes each function must move over 3.35
 TB/s and its FP32 operations over 67 TFLOP/s (the H100 SXM data sheet),
 counted from this run's shapes. The line before the last is the kernels'
@@ -264,6 +273,17 @@ def device_ms(fn, reps: int) -> float | None:
     return busy_us / 1e3 / reps if busy_us > 0 else None
 
 
+def queued_ms(fn) -> float | None:
+    """Device time per call of ``fn()`` by CUDA events around 200 calls
+    queued behind a sleeping kernel (``tools/fused_timing.py queued_ms``):
+    the cross-check of :func:`device_ms`, whose profiler can lose a kernel's
+    records. None when the host did not keep ahead of the device."""
+    from stoch_gpmp_tpu_torch.tools.fused_timing import queued_ms as queued
+
+    ms, held = queued(fn)
+    return ms if held else None
+
+
 def device_breakdown(fn, reps: int, top: int = 8) -> tuple[float | None, list, float]:
     """Like :func:`device_ms`, plus the ``top`` device kernels by time and
     the number of device operations (kernels and copies) per call:
@@ -382,11 +402,7 @@ def raster_check(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     trajs = torch.rand((PPG * 3 * S, T, 4), generator=gen, device=dev) * 22 - 11
     view = trajs[:, 1:, :2]  # what CostCollision passes: no copy
-    k = torch.arange(-110, 111, device=dev, dtype=torch.float32) * 0.1
-    edges = torch.stack(torch.meshgrid(k, k, indexing="ij"), -1).reshape(-1, 2)
-    edges = torch.cat([edges, torch.nextafter(edges, torch.full_like(edges, 1e9)),
-                       torch.nextafter(edges, torch.full_like(edges, -1e9)),
-                       torch.tensor([[50.0, -50.0], [-1e6, 1e6]], device=dev)])
+    edges = _cell_edges(dev)
     kw = dict(cell_size=field.cell_size, nx=field.nx, ny=field.ny)
     args = (field.rect_bounds, field.circles)
     errs = []
@@ -402,7 +418,8 @@ def raster_check(dev) -> dict:
     plain = lambda: raster_primitive_cost_plain(*args, view, **kw)  # noqa: E731
     return dict(points=view.shape[0] * view.shape[1], edge_points=edges.shape[0],
                 max_abs_err=max(errs), ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 50),
-                device_ms=device_ms(kernel, 100), plain_device_ms=device_ms(plain, 20))
+                device_ms=device_ms(kernel, 100), queued_ms=queued_ms(kernel),
+                plain_device_ms=device_ms(plain, 20))
 
 
 def make_step(dev, sigma_goal_prior=1e-3, zero_quad=False, per_particle=False):
@@ -1659,6 +1676,14 @@ def _edge_points(k, dev):
                       torch.tensor([[50.0, -50.0], [-1e6, 1e6]], device=dev)])
 
 
+def _cell_edges(dev):
+    """The 0.1-cell edges over [-11, 11]^2 (the planar map and past it),
+    their float32 neighbours and two off-map points (``_edge_points``)."""
+    k = torch.arange(-110, 111, device=dev, dtype=torch.float32) * 0.1
+    return _edge_points(torch.stack(torch.meshgrid(k, k, indexing="ij"), -1).reshape(-1, 2),
+                        dev)
+
+
 def _primitive_edges(pfield, dev):
     """The rectangles' corners and the circles' rims (at 0, 90, 180 and 270
     degrees) of ``pfield`` and their float32 neighbours (``_edge_points``)."""
@@ -1693,9 +1718,7 @@ def field2d_check(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     view = (torch.rand((PPG * 3 * S, T, 4), generator=gen, device=dev) * 22 - 11)[:, 1:, :2]
     big = (torch.rand((BIG_POINTS // T, T, 4), generator=gen, device=dev) * 22 - 11)[..., :2]
-    k = torch.arange(-110, 111, device=dev, dtype=torch.float32) * 0.1
-    cell_edges = _edge_points(torch.stack(torch.meshgrid(k, k, indexing="ij"), -1)
-                              .reshape(-1, 2), dev)
+    cell_edges = _cell_edges(dev)
     r, c = pfield.rects, pfield.circles
     prim_edges = _primitive_edges(pfield, dev)
     rand_grid = torch.rand((200, 200), generator=gen, device=dev)
@@ -1724,56 +1747,112 @@ def field2d_check(dev) -> dict:
             max_abs_err=0.0, ms=cuda_ms(lambda: kernel(*args), 200),
             plain_ms=cuda_ms(lambda: plain(*args), 50),
             device_ms=device_ms(lambda: kernel(*args), 100),
+            queued_ms=queued_ms(lambda: kernel(*args)),
             plain_device_ms=device_ms(lambda: plain(*args), 20),
             big_points=BIG_POINTS, big_ms=cuda_ms(lambda: kernel(*big_args), 50),
             big_device_ms=device_ms(lambda: kernel(*big_args), 20),
+            big_queued_ms=queued_ms(lambda: kernel(*big_args)),
             bound=bound(12 * n + grid_bytes, ops * n),
             big_bound=bound(12 * BIG_POINTS + grid_bytes, ops * BIG_POINTS),
             hits=int((kernel(*args) > 0).sum()))
     return out
 
 
-def primitive_field_shapes_check(dev) -> dict:
-    """K11 equal to its plain version (``torch.equal``) away from the
-    planner's view: no rectangles, no circles, neither; point counts that
-    are no multiple of the four points a thread takes or of a CTA's 512;
-    views whose coordinates are not 8-byte aligned pairs (odd strides, a
-    coordinate stride of 2: the scalar loads); and ``BIG_POINTS`` with the
-    primitives' corners and rims."""
+def _raster_rim_circles(field, dev):
+    """Circles of K1's ``field`` that put snapped cells exactly on their rim
+    and one float inside and outside it: about each circle's centre, for the
+    cells nearest its rim at 16 angles, three circles of radius ``d`` (the
+    cell's distance, rounded as the plain version rounds it) and ``d``'s two
+    float32 neighbours; then radii 0, -0, -1, the smallest float, inf and
+    NaN about a cell's centre."""
+    c, cs = field.circles, field.cell_size
+    ang = torch.arange(16, device=dev) * (torch.pi / 8)
+    jc = torch.round((c[:, None, 0] + c[:, None, 2] * torch.cos(ang)) / cs)
+    ic = torch.round((c[:, None, 1] + c[:, None, 2] * torch.sin(ang)) / cs)
+    dx, dy = jc * cs - c[:, None, 0], ic * cs - c[:, None, 1]
+    d = torch.sqrt(dx * dx + dy * dy)
+    radii = torch.stack([d, torch.nextafter(d, torch.zeros_like(d)),
+                         torch.nextafter(d, torch.full_like(d, float("inf")))], -1)
+    centres = c[:, None, None, :2].expand(-1, 16, 3, 2)
+    rims = torch.cat([centres, radii[..., None]], -1).reshape(-1, 3)
+    special = torch.tensor([[0.0, 0.0, r] for r in (0.0, -0.0, -1.0, 1e-45, float("inf"),
+                                                   float("nan"))], device=dev)
+    return torch.cat([rims, special]).contiguous()
+
+
+def field_shapes_check(dev, kname: str) -> dict:
+    """K1, K10 or K11 (``kname``) equal to its plain version
+    (``torch.equal``) away from the planner's view: point counts that are no
+    multiple of the points a thread takes or of a CTA's (512, K10 256); views
+    whose coordinates are not 8-byte aligned pairs (odd strides, a coordinate
+    stride of 2: the scalar loads); edge points (``_cell_edges`` for K1 and
+    K10, the primitives' corners and rims for K11); and ``BIG_POINTS`` with
+    those edge points inside. K1 and K11 also with no rectangles, no circles
+    or neither; K1 also on circles with cells on their rims and with special
+    radii (``_raster_rim_circles``); K10 also on grids with an odd side
+    ([37, 200], [200, 37]), a [1, 1] grid and a random one."""
     from stoch_gpmp_tpu_torch.ops.kernels.fields import (
+        grid_lookup,
+        grid_lookup_plain,
         primitive_field_cost,
         primitive_field_cost_plain,
+        raster_primitive_cost,
+        raster_primitive_cost_plain,
     )
     from stoch_gpmp_tpu_torch.problems import build_planar_cost
 
-    _, pfield = build_planar_cost(dtype=torch.float32, device=dev, fast=False,
-                                  field="primitive")
-    r, c = pfield.rects, pfield.circles
+    kind = {"K1": "raster", "K10": "grid", "K11": "primitive"}[kname]
+    _, field = build_planar_cost(dtype=torch.float32, device=dev, fast=False, field=kind)
+    if kname == "K1":
+        kw = dict(cell_size=field.cell_size, nx=field.nx, ny=field.ny)
+        kernel = lambda ops, p: raster_primitive_cost(*ops, p, **kw)  # noqa: E731
+        plain = lambda ops, p: raster_primitive_cost_plain(*ops, p, **kw)  # noqa: E731
+        ops = (field.rect_bounds, field.circles)
+    elif kname == "K10":
+        kernel = lambda ops, p: grid_lookup(*ops, p, field.cell_size)  # noqa: E731
+        plain = lambda ops, p: grid_lookup_plain(*ops, p, field.cell_size)  # noqa: E731
+        ops = (field.grid,)
+    else:
+        kernel = lambda ops, p: primitive_field_cost(*ops, p)  # noqa: E731
+        plain = lambda ops, p: primitive_field_cost_plain(*ops, p)  # noqa: E731
+        ops = (field.rects, field.circles)
     gen = torch.Generator(device=dev).manual_seed(7)
 
     def rand(*shape):
         return torch.rand(shape, generator=gen, device=dev) * 22 - 11
 
-    edges = _primitive_edges(pfield, dev)
+    edges = _primitive_edges(field, dev) if kname == "K11" else _cell_edges(dev)
     view = rand(PPG * 3 * S, T, 4)[:, 1:, :2]
     big = rand(BIG_POINTS // T, T, 4)[..., :2]
-    k = min(T, edges.shape[0])
-    big[0, :k] = edges[:k]  # boundary points inside the big view too
+    rows = edges.shape[0] // T  # edge points inside the big view too
+    n_in = rows * T
+    big[:rows] = edges[:n_in].reshape(rows, T, 2)
     cases = {
-        "R = 0": (r[:0], c, view), "C = 0": (r, c[:0], view), "R = C = 0": (r[:0], c[:0], view),
-        "[7, 13, 2]": (r, c, rand(7, 13, 2)), "[1, 1, 2]": (r, c, rand(1, 1, 2)),
-        "[1001, 2]": (r, c, rand(1001, 2)), "[3, 171, 2]": (r, c, rand(3, 171, 2)),
-        "odd strides [1920, 63, 5][..., 1:3]": (r, c, rand(1920, 63, 5)[..., 1:3]),
-        "coordinate stride 2": (r, c, rand(64, 63, 6)[..., 1:5:2]),
-        "edge points": (r, c, edges),
-        f"BIG_POINTS [{BIG_POINTS // T}, {T}, 2]": (r, c, big),
+        "[7, 13, 2]": (ops, rand(7, 13, 2)), "[1, 1, 2]": (ops, rand(1, 1, 2)),
+        "[1001, 2]": (ops, rand(1001, 2)), "[3, 171, 2]": (ops, rand(3, 171, 2)),
+        "odd strides [1920, 63, 5][..., 1:3]": (ops, rand(1920, 63, 5)[..., 1:3]),
+        "coordinate stride 2": (ops, rand(64, 63, 6)[..., 1:5:2]),
+        "edge points": (ops, edges),
+        f"BIG_POINTS [{BIG_POINTS // T}, {T}, 2] with {n_in} edge points": (ops, big),
     }
+    if kname in ("K1", "K11"):
+        r, c = ops
+        cases.update({"R = 0": ((r[:0], c), view), "C = 0": ((r, c[:0]), view),
+                      "R = C = 0": ((r[:0], c[:0]), view)})
+    if kname == "K1":
+        cases["circle rims, special radii"] = ((r, _raster_rim_circles(field, dev)), edges)
+    if kname == "K10":
+        for shape in ((37, 200), (200, 37), (1, 1)):
+            grid = torch.rand(shape, generator=gen, device=dev)
+            cases[f"[{shape[0]}, {shape[1]}] grid, edge points"] = ((grid,), edges)
+        grid = torch.rand((200, 200), generator=gen, device=dev)
+        cases["random [200, 200] grid, planner's view"] = ((grid,), view)
     hits = {}
-    for name, (rr, cc, pts) in cases.items():
-        got, want = primitive_field_cost(rr, cc, pts), primitive_field_cost_plain(rr, cc, pts)
+    for name, (args, pts) in cases.items():
+        got, want = kernel(args, pts), plain(args, pts)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            fail(f"K11-shapes: {name}: differs from the plain version at "
+            fail(f"{kname}-shapes: {name}: differs from the plain version at "
                  f"{int((got != want).sum())} of {want.numel()} points")
         hits[name] = int((got > 0).sum())
     return dict(cases=len(cases), hits=hits)
@@ -1931,7 +2010,12 @@ def main() -> int:
     k1 = raster_check(dev)
     phase("K1", f"raster field exact on {k1['points']} + {k1['edge_points']} edge points; "
                 f"per call kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms; device "
-                f"time kernel {fmt_ms(k1['device_ms'])}, plain {fmt_ms(k1['plain_device_ms'])}")
+                f"time kernel {fmt_ms(k1['device_ms'])} (queued {fmt_ms(k1['queued_ms'])}), "
+                f"plain {fmt_ms(k1['plain_device_ms'])}")
+    shapes = {"K1": field_shapes_check(dev, "K1")}
+    phase("K1-shapes", f"raster field equal to its plain version in {shapes['K1']['cases']} "
+                       "cases: " + ", ".join(f"{k} ({v} hits)"
+                                            for k, v in shapes["K1"]["hits"].items()))
     k2 = {b: fused_check(dev, b) for b in ("matmul", "stencil")}
     for b, r in k2.items():
         timing = "" if "ms" not in r else (
@@ -2113,15 +2197,16 @@ def main() -> int:
         r = f2[kname]
         phase(kname, f"{what} exact on {r['points']} + {r['edge_points']} edge points "
                      f"({r['hits']} hits); per call kernel {r['ms']:.4f} ms, plain "
-                     f"{r['plain_ms']:.4f} ms; device time kernel {fmt_ms(r['device_ms'])}, "
-                     f"plain {fmt_ms(r['plain_device_ms'])}; bound {r['bound'][0]:.5f} ms "
-                     f"({r['bound'][1]}); {r['big_points']} points: per call "
-                     f"{r['big_ms']:.4f} ms, device {fmt_ms(r['big_device_ms'])}, bound "
-                     f"{r['big_bound'][0]:.5f} ms ({r['big_bound'][1]})")
-    k11_shapes = primitive_field_shapes_check(dev)
-    phase("K11-shapes", f"primitive field equal to its plain version in {k11_shapes['cases']} "
-                        "cases: " + ", ".join(f"{k} ({v} hits)"
-                                             for k, v in k11_shapes["hits"].items()))
+                     f"{r['plain_ms']:.4f} ms; device time kernel {fmt_ms(r['device_ms'])} "
+                     f"(queued {fmt_ms(r['queued_ms'])}), plain {fmt_ms(r['plain_device_ms'])}; "
+                     f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]}); {r['big_points']} "
+                     f"points: per call {r['big_ms']:.4f} ms, device "
+                     f"{fmt_ms(r['big_device_ms'])} (queued {fmt_ms(r['big_queued_ms'])}), "
+                     f"bound {r['big_bound'][0]:.5f} ms ({r['big_bound'][1]})")
+    for kname, what in (("K10", "grid lookup"), ("K11", "primitive field")):
+        shapes[kname] = r = field_shapes_check(dev, kname)
+        phase(f"{kname}-shapes", f"{what} equal to its plain version in {r['cases']} cases: "
+                                 + ", ".join(f"{k} ({v} hits)" for k, v in r["hits"].items()))
     pr = planar_ref_main(dev)
     for k, r in pr.items():
         busy = "not measured" if r["device_busy"] is None else format(r["device_busy"], ".1%")
@@ -2157,7 +2242,7 @@ def main() -> int:
                    K6_split=k6_split, K6_rng_free=k6_free, K6_moments=k6_mom, K7=k7,
                    K7_layouts=k7_layouts, K8=k8,
                    panda4_main=p4, K9=k9, K9_split=k9_split, K9_moments=k9_mom,
-                   K9_loop=k9_run, K10=f2["K10"], K11=f2["K11"], K11_shapes=k11_shapes,
+                   K9_loop=k9_run, K10=f2["K10"], K11=f2["K11"], shapes=shapes,
                    planar_ref_main=pr,
                    gn_main=gn)
     if args.log_dir:

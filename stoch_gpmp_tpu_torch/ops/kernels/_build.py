@@ -57,14 +57,14 @@ def _planar_step_args(rng):
 # C signatures of the entries; each returns an int, the launchers their cudaError_t
 SIGNATURES = {
     "raster_field_launch": [
-        _P, _L, _L, _L, _L, _L,  # points, B, L, stride_b, stride_l, stride_c
+        _P, _I, _I, _I, _I, _I,  # points, B, L, stride_b, stride_l, stride_c (below 2^31)
         _P, _I, _P, _I,  # rect_bounds, R, circles, C
         _F, _F, _I, _I,  # cell_size, inv_cell_size, nx, ny
         _P, _P,  # out, stream
     ],
     "grid_lookup_launch": [
         _P, _I, _I,  # grid, nx, ny
-        _P, _L, _L, _L, _L, _L,  # points, B, L, stride_b, stride_l, stride_c
+        _P, _I, _I, _I, _I, _I,  # points, B, L, stride_b, stride_l, stride_c (below 2^31)
         _F, _P, _P,  # inv_cell_size, out, stream
     ],
     "primitive_field_launch": [

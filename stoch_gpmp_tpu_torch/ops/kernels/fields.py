@@ -10,10 +10,12 @@ Each replaces a TPU kernel of ``stoch_gpmp_tpu/ops/pallas/fields.py``:
   analytic rectangles and circles containing each point.
 
 All three read the points through their strides (the planner passes a
-strided ``[B, L, 2]`` slice of its sample batch, so no copy is made); K1 and
-K10 run one thread per point, K11 four points per thread. They are bound by
-memory and launch latency (12 bytes per point, ~121k points per call at the
-planar parity shape); see the sources for the design.
+strided ``[B, L, 2]`` slice of its sample batch, so no copy is made),
+several points per thread (K1 and K11 four, K10 two) with 32-bit indices
+(``csrc/point_batch.cuh``). They are bound by memory and launch latency (12
+bytes per point, ~121k points per call at the planar parity shape); see the
+sources for the design. Their operands (the grid, the primitives) are
+checked once per tensor while it does not change (``_check_once``).
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version only for a CPU tensor. The fields are piecewise constant, so their
@@ -28,14 +30,17 @@ points need no gradient skips the ``autograd.Function``.
 from __future__ import annotations
 
 import weakref
+from functools import lru_cache
 
 import torch
 
 from stoch_gpmp_tpu_torch.ops.kernels import _build
 
 
+@lru_cache(maxsize=64)
 def inv_cell_size(cell_size: float, dtype) -> float:
-    """``1 / cell_size`` rounded to ``dtype``."""
+    """``1 / cell_size`` rounded to ``dtype`` (memoised: a field passes the
+    same cell size on every call)."""
     one = torch.ones((), dtype=dtype)
     return float(one / torch.full((), cell_size, dtype=dtype))
 
@@ -120,6 +125,30 @@ def _as_bl2(points):
     return points if points.dim() == 3 else points.reshape(-1, 1, 2)
 
 
+def _points_view(points, name: str):
+    """``points [..., 2]`` as a ``[B, L, 2]`` view (``_as_bl2``), checked to
+    index in 32 bits, as the kernel ``name`` reads it."""
+    pts = _as_bl2(points)
+    _build.check_index_range(name, pts)
+    return pts
+
+
+_CHECKED: dict = {}  # per check and device: weakrefs to the tensors that passed, their state
+
+
+def _check_once(check, device, *tensors) -> None:
+    """``check(*tensors, device)``, once per tensors and device while none
+    changes (its in-place version and its storage: a write, a resize, a
+    restride or a ``.data`` swap for other storage checks again): a field
+    passes the same operands on every call."""
+    seen = _CHECKED.get((check, device))
+    state = tuple((t._version, t.data_ptr()) for t in tensors)
+    if (seen is None or seen[1] != state
+            or any(ref() is not t for ref, t in zip(seen[0], tensors))):
+        check(*tensors, device)
+        _CHECKED[(check, device)] = (tuple(weakref.ref(t) for t in tensors), state)
+
+
 def raster_primitive_cost(rect_bounds, circles, points, *, cell_size, nx, ny):
     """``RasterPrimitive2DField.compute_cost``: the CUDA kernel for a CUDA
     tensor (float32, any strides of a ``[B, L, 2]`` view), the plain version
@@ -128,37 +157,47 @@ def raster_primitive_cost(rect_bounds, circles, points, *, cell_size, nx, ny):
         rect_bounds, circles, pts, cell_size=cell_size, nx=nx, ny=ny))
 
 
+def check_raster_primitives(rect_bounds, circles, device) -> None:
+    """Raise unless ``rect_bounds [R, 4]`` (int32) and ``circles [C, 3]``
+    (float32) are contiguous tensors on ``device``, as the raster-field
+    kernel takes them."""
+    if (rect_bounds.device != device or circles.device != device
+            or rect_bounds.dtype != torch.int32 or circles.dtype != torch.float32
+            or not rect_bounds.is_contiguous() or not circles.is_contiguous()
+            or rect_bounds.dim() != 2 or circles.dim() != 2
+            or rect_bounds.shape[-1] != 4 or circles.shape[-1] != 3):
+        raise ValueError(
+            "raster field kernel takes contiguous int32 [R, 4] rect_bounds and "
+            "float32 [C, 3] circles on the points' device"
+        )
+
+
+def raster_points_view(points):
+    """``points [..., 2]`` as the ``[B, L, 2]`` view K1 reads, checked to
+    index in 32 bits."""
+    return _points_view(points, "raster field kernel")
+
+
 def _raster_primitive_cost(rect_bounds, circles, points, *, cell_size, nx, ny):
     if points.device.type == "cpu":
         return raster_primitive_cost_plain(
             rect_bounds, circles, points, cell_size=cell_size, nx=nx, ny=ny
         )
     _check_points(points, "raster field")
-    if (rect_bounds.device != points.device or circles.device != points.device
-            or rect_bounds.dtype != torch.int32 or circles.dtype != torch.float32
-            or not rect_bounds.is_contiguous() or not circles.is_contiguous()
-            or rect_bounds.shape[-1] != 4 or circles.shape[-1] != 3):
-        raise ValueError(
-            "raster field kernel takes contiguous int32 [R, 4] rect_bounds and "
-            "float32 [C, 3] circles on the points' device"
-        )
-    batch_shape = points.shape[:-1]
-    pts = _as_bl2(points)
-    b, l = pts.shape[0], pts.shape[1]
-    out = torch.empty((b, l), dtype=torch.float32, device=points.device)
-    if b * l == 0:
-        return out.reshape(batch_shape)
-    lib = _build.load_library()
-    err = lib.raster_field_launch(
-        pts.data_ptr(), b, l, pts.stride(0), pts.stride(1), pts.stride(2),
-        rect_bounds.data_ptr(), int(rect_bounds.shape[0]),
-        circles.data_ptr(), int(circles.shape[0]),
-        float(cell_size), inv_cell_size(cell_size, torch.float32), int(nx), int(ny),
-        out.data_ptr(), _build.stream_ptr(points.device),
+    _check_once(check_raster_primitives, points.device, rect_bounds, circles)
+    out = torch.empty(points.shape[:-1], dtype=torch.float32, device=points.device)
+    if out.numel() == 0:
+        return out
+    pts = raster_points_view(points)
+    err = _build.load_library().raster_field_launch(
+        pts.data_ptr(), pts.shape[0], pts.shape[1], *pts.stride(), rect_bounds.data_ptr(),
+        rect_bounds.shape[0], circles.data_ptr(), circles.shape[0], float(cell_size),
+        inv_cell_size(cell_size, torch.float32), nx, ny, out.data_ptr(),
+        _build.stream_ptr(points.device),
     )
     _build.check(err, "raster_field_launch")
     raster_primitive_cost.launches += 1
-    return out.reshape(batch_shape)
+    return out
 
 
 raster_primitive_cost.launches = 0
@@ -182,31 +221,40 @@ def grid_lookup(grid, points, cell_size: float):
     return _piecewise_constant(points, lambda pts: _grid_lookup(grid, pts, cell_size))
 
 
+def check_grid(grid, device) -> None:
+    """Raise unless ``grid [ny, nx]`` is a contiguous float32 tensor on
+    ``device`` of fewer than 2^31 cells, as the grid-lookup kernel takes it."""
+    if (grid.device != device or grid.dtype != torch.float32 or grid.dim() != 2
+            or not grid.is_contiguous() or grid.numel() == 0
+            or grid.numel() >= _build.INDEX_LIMIT):
+        raise ValueError("grid lookup kernel takes a contiguous float32 [ny, nx] grid of "
+                         "fewer than 2^31 cells on the points' device")
+
+
+def grid_points_view(points):
+    """``points [..., 2]`` as the ``[B, L, 2]`` view K10 reads, checked to
+    index in 32 bits."""
+    return _points_view(points, "grid lookup kernel")
+
+
 def _grid_lookup(grid, points, cell_size):
     if points.device.type == "cpu":
         return grid_lookup_plain(grid, points, cell_size)
     _check_points(points, "grid lookup")
-    if (grid.device != points.device or grid.dtype != torch.float32 or grid.dim() != 2
-            or not grid.is_contiguous()):
-        raise ValueError("grid lookup kernel takes a contiguous float32 [ny, nx] grid on "
-                         "the points' device")
-    batch_shape = points.shape[:-1]
-    pts = _as_bl2(points)
-    b, l = pts.shape[0], pts.shape[1]
-    out = torch.empty((b, l), dtype=torch.float32, device=points.device)
-    if b * l == 0:
-        return out.reshape(batch_shape)
+    _check_once(check_grid, points.device, grid)
+    out = torch.empty(points.shape[:-1], dtype=torch.float32, device=points.device)
+    if out.numel() == 0:
+        return out
+    pts = grid_points_view(points)
     ny, nx = grid.shape
-    lib = _build.load_library()
-    err = lib.grid_lookup_launch(
-        grid.data_ptr(), int(nx), int(ny),
-        pts.data_ptr(), b, l, pts.stride(0), pts.stride(1), pts.stride(2),
+    err = _build.load_library().grid_lookup_launch(
+        grid.data_ptr(), nx, ny, pts.data_ptr(), pts.shape[0], pts.shape[1], *pts.stride(),
         inv_cell_size(cell_size, torch.float32), out.data_ptr(),
         _build.stream_ptr(points.device),
     )
     _build.check(err, "grid_lookup_launch")
     grid_lookup.launches += 1
-    return out.reshape(batch_shape)
+    return out
 
 
 grid_lookup.launches = 0
@@ -242,27 +290,10 @@ def check_primitives(rects, circles, device) -> None:
                          "[C, 3] circles on the points' device")
 
 
-_CHECKED: dict = {}  # per device: weakrefs to the rects and circles that passed, their state
-
-
-def _check_primitives_once(rects, circles, device) -> None:
-    """:func:`check_primitives`, once per rects and circles tensor and
-    device while neither changes (its in-place version and its storage: a
-    write, a resize, a restride or a ``.data`` swap for other storage checks
-    again): a field passes the same primitives on every call."""
-    seen = _CHECKED.get(device)
-    state = (rects._version, rects.data_ptr(), circles._version, circles.data_ptr())
-    if seen is None or seen[0]() is not rects or seen[1]() is not circles or seen[2] != state:
-        check_primitives(rects, circles, device)
-        _CHECKED[device] = (weakref.ref(rects), weakref.ref(circles), state)
-
-
 def primitive_points_view(points):
-    """``points [..., 2]`` as the ``[B, L, 2]`` view K11 reads (``_as_bl2``),
-    checked to index in 32 bits."""
-    pts = _as_bl2(points)
-    _build.check_index_range("primitive field kernel", pts)
-    return pts
+    """``points [..., 2]`` as the ``[B, L, 2]`` view K11 reads, checked to
+    index in 32 bits."""
+    return _points_view(points, "primitive field kernel")
 
 
 def primitive_field_cost(rects, circles, points):
@@ -276,7 +307,7 @@ def _primitive_field_cost(rects, circles, points):
     if points.device.type == "cpu":
         return primitive_field_cost_plain(rects, circles, points)
     _check_points(points, "primitive field")
-    _check_primitives_once(rects, circles, points.device)
+    _check_once(check_primitives, points.device, rects, circles)
     out = torch.empty(points.shape[:-1], dtype=torch.float32, device=points.device)
     if out.numel() == 0:
         return out

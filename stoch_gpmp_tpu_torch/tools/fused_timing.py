@@ -32,8 +32,8 @@ alone and of the whole step (``torch.profiler``), at the wrapper's split
 and, where the wrapper takes ``ctas=``, at 1, 2, 4 and 8 CTAs per particle,
 with the launch's shared memory and resident clusters. It also times the
 point kernels: K7 at config 4's ``[160, 63, 9, 3]`` view and at 1.30 M
-points, K10 and K11 at the planner's ``[1920, 63, 2]`` view and at 1.31 M
-points, and the launch floor (a one-element ``fill_``), each by
+points, K1, K10 and K11 at the planner's ``[1920, 63, 2]`` view and at 1.31
+M points, and the launch floor (a one-element ``fill_``), each by
 ``torch.profiler``, by CUDA events around calls queued behind a sleeping
 kernel (so they run back to back on the device) and per call through the
 wrapper, then ptxas's report of their sources (``floor``, ``host``: the
@@ -455,8 +455,8 @@ def link_positions(dev, traj_len: int):
 
 
 def planar_points(dev, field: str):
-    """K10's (``field`` "grid") or K11's ("primitive") field of the planar
-    parity map and its points: the planner's strided ``[1920, 63, 2]`` slice
+    """K1's (``field`` "raster"), K10's ("grid") or K11's ("primitive")
+    field of the planar parity map and its points: the planner's strided ``[1920, 63, 2]`` slice
     of a ``[1920, 64, 4]`` batch and a ``[20480, 64, 2]`` slice of ``[20480,
     64, 4]`` (1.31 M points), uniform over the map."""
     from stoch_gpmp_tpu_torch.problems import build_planar_cost
@@ -470,9 +470,9 @@ def planar_points(dev, field: str):
 
 def point_kernels(dev, only) -> None:
     """The launch floor (a one-element ``fill_``), K7 at config 4 and at
-    1.30 M points, K10 and K11 at the planner's view and at 1.31 M points,
-    the host's share of a wrapper call, and ptxas's report of the three
-    sources. Only the wrappers' public calls: the module run from an older
+    1.30 M points, K1, K10 and K11 at the planner's view and at 1.31 M
+    points, the host's share of a wrapper call, and ptxas's report of the
+    four sources. Only the wrappers' public calls: the module run from an older
     checkout times that checkout's kernels."""
     from stoch_gpmp_tpu_torch.ops.kernels import fields, panda_fields
 
@@ -486,12 +486,12 @@ def point_kernels(dev, only) -> None:
             _, pos, spheres, kw = link_positions(dev, t)
             time_point(f"K7 {what} {tuple(pos.shape)}", lambda: k7(pos, spheres, **kw),
                        "link_fields")
-    for kname, field in (("K10", "grid"), ("K11", "primitive")):
+    for kname, field, kernel in (("K1", "raster", "raster_field"), ("K10", "grid", "grid_lookup"),
+                                 ("K11", "primitive", "primitive_field")):
         if kname in only:
             f, view, big = planar_points(dev, field)
             for pts in (view, big):
-                time_point(f"{kname} {tuple(pts.shape)}", lambda: f.compute_cost(pts),
-                           "grid_lookup" if kname == "K10" else "primitive_field")
+                time_point(f"{kname} {tuple(pts.shape)}", lambda: f.compute_cost(pts), kernel)
     if "host" in only:
         import time
 
@@ -503,7 +503,7 @@ def point_kernels(dev, only) -> None:
                 fn()
             print(f"host: {what} {(time.perf_counter() - t0) / 2 * 1e3:.2f} us per call",
                   flush=True)
-    for src in ("link_fields.cu", "primitive_field.cu", "grid_lookup.cu"):
+    for src in ("link_fields.cu", "primitive_field.cu", "grid_lookup.cu", "raster_field.cu"):
         print(f"ptxas {src}: {ptxas_report(src)}", flush=True)
 
 
@@ -575,7 +575,7 @@ def shapes(dev, only) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("phases", "shapes"))
-    ap.add_argument("--only", default="K2,K6,K5,K4,K7,K8,K10,K11,floor,host",
+    ap.add_argument("--only", default="K2,K6,K5,K4,K7,K8,K1,K10,K11,floor,host",
                     help="kernels (and floor, host), comma-separated")
     ap.add_argument("--out", type=Path, default=Path("build") / "phase_timing",
                     help="where phases builds the instrumented kernels")

@@ -31,8 +31,9 @@ three layouts, at 9 links and at 5 (the runtime link count, counted as
 generic); the four routes' descent, start-anchor, launch-count and
 stack-equality (1e-4) gates. K9 as K2, with
 one seed pair per particle, and its 500-iteration loop under the planar
-goal (0.3) and start (0.15) gates; K10 and K11 exact (K11 also with no
-rectangles or circles, ragged counts and unaligned views); the reference-shaped
+goal (0.3) and start (0.15) gates; K1, K10 and K11 exact (also at ragged
+counts, on unaligned views and cell or primitive edges; K1 and K11 with no
+rectangles or circles, K10 on grids with an odd side); the reference-shaped
 planar routes on the grid and the primitives under the same gates; GN
 ``GPMP`` at P = 192 with its goal (0.05), start (0.02) and method-agreement
 (1e-4) gates.
@@ -201,8 +202,24 @@ def test_grid_and_primitive_kernels_exact(dev):
 def test_primitive_field_kernel_edge_shapes(dev):
     import chip_smoke
 
-    r = chip_smoke.primitive_field_shapes_check(dev)  # raises unless torch.equal
+    r = chip_smoke.field_shapes_check(dev, "K11")  # raises unless torch.equal
     assert r["hits"]["R = C = 0"] == 0 and r["cases"] == 11
+
+
+def test_raster_kernel_edge_shapes(dev):
+    import chip_smoke
+
+    r = chip_smoke.field_shapes_check(dev, "K1")  # raises unless torch.equal
+    assert r["hits"]["R = C = 0"] == 0 and r["cases"] == 12
+
+
+def test_grid_kernel_edge_shapes(dev):
+    import chip_smoke
+
+    r = chip_smoke.field_shapes_check(dev, "K10")  # raises unless torch.equal
+    # one cell of a value in (0, 1): every point reads it
+    assert r["cases"] == 12
+    assert r["hits"]["[1, 1] grid, edge points"] == chip_smoke._cell_edges(dev).shape[0]
 
 
 def test_planar_reference_routes(dev):
