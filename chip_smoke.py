@@ -105,7 +105,30 @@ Phases, one line each; any failure exits non-zero before the result line:
     ``inverse`` against ``cholesky``; finite means, goal and start gates,
     the methods' agreement and K10's launches per iteration, with
     particle-updates/s, wall and device ms per iteration, the busy share
-    and the largest kernels.
+    and the largest kernels;
+18. S1, the block-bidiagonal plane solve of the long-horizon sampler,
+    against the float64 serial substitution on the same factor and against
+    its plain version (the log-step scan) on the card, forward and
+    backward, float32 and float64, on planes ``[d, 480, T]`` (d = 4 at T =
+    1, 2, 77, 1024, 4096; d = 2 and 6, the runtime-d instantiation, at T =
+    77), ``[4, 482, 77]`` and ``[14, 15, 150]``, and on ``[15, 32, T, 4]``
+    batches through ``solve_LT`` (stride-d planes, T = 77 and 4096); its
+    times at ``[4, 480, 4096]`` beside the plain version, the bound and
+    ``torch.linalg.solve_triangular`` against the dense ``L^T`` (the
+    library call), and the largest entry of its chunk tables;
+19. long-horizon-main: ``build_long_horizon_problem`` (1 goal x 15
+    particles, 32 samples, the raster field) at T = 4096 and 1024 through
+    ``stoch_gpmp_optimize`` on the ``"planes"`` route, 200 iterations after
+    a warm-up, with launch (S1 and K1 once per iteration), finite, start
+    and goal gates, updates/s, wall and device ms, device operations per
+    iteration, the busy share and the largest kernels; then 5 iterations
+    with the same draws through the kernels and through their plain
+    versions on the card: K1 equal to its plain version on each point set
+    the path gives it, costs, every particle's best sample and the means;
+20. long-horizon-api: at T = 1024, ``StochGPMP`` ``reset``, ``optimize``
+    (with and without ``collect_metrics``) and ``sample_trajectories``,
+    ``GPMP.sample_trajectories``, and the quadratic stack on the
+    long-horizon sampler taking the ``"dof"`` route (K3).
 
 Times: ``ms``/``plain_ms`` are per call over back-to-back calls through
 the wrapper (CUDA events), which includes the host's launch cost where it
@@ -123,6 +146,7 @@ JSON record; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -228,6 +252,44 @@ K5_SHAPES = ((224, 8), (192, 8), (128, 16))
 # The fused loops (main, K9-loop, panda4-main (a)) launch one kernel per
 # iteration; the seeds' draw adds one or two operations per window.
 MAX_LOOP_OPS = 2
+# S1, the plane solve, against the float64 serial substitution
+# (BlockBidiagChol.solve_L / solve_LT) on the same factor (a float32 factor
+# promoted): relative to the largest |y| of the case. float32 roundoff
+# through T steps of the recurrence puts the plain scan and S1's chunked
+# order ~1e-6 from it on the CPU at T = 4096
+# (tests/test_torch_long_horizon.py's emulation of S1); the card's gate is
+# 10x that. S1 and its plain version within the sum of their gates.
+S1_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# (d, rows, T) of the S1 phase: the main path's 480 rows (15 particles x 32
+# samples) and a batch that fills no CTA at d = 4, the Panda's d = 14 (the
+# two block sizes compiled in), d = 2 and 6 through the runtime-d
+# instantiation, and the [15, 32, T, 4] batches solve_LT reads as stride-d
+# planes
+S1_SHAPES = ((4, 480, 1), (4, 480, 2), (4, 480, 77), (4, 480, 1024), (4, 480, 4096),
+             (4, 482, 77), (14, 15, 150), (2, 480, 77), (6, 480, 77))
+S1_STRIDED = (77, 4096)
+# the main path's solve: d, rows (15 x 32), T
+S1_MAIN = (4, 480, 4096)
+# The long-horizon main path (benchmarks/long_horizon.py): 1 goal x 15
+# particles, 32 samples, T = 4096 and 1024, LH_ITERS iterations after
+# LH_WARMUP. Gates: finite means, starts and end points within LH_TOL of the
+# start and the goal (the JAX package's own long-horizon test,
+# tests/test_planner_planar.py test_long_horizon_plane_mode_plans). Then
+# LH_CHECK_ITERS iterations with the same injected draws through the card's
+# kernels and through their plain versions on the card. Every K1 launch of
+# the kernel run is held against the plain version on the same points, the
+# path's two coordinate planes read in place (torch.equal). Costs: a
+# sample's cost within COST_RTOL of the plain run's, or (at most EDGE_SHARE
+# of the samples) apart by a multiple of the collision weight where S1's
+# roundoff moves a position across a cell edge (one sample of 2,400 in an
+# emulation on the CPU at T = 512, the solve in float64 against float32:
+# the rest within 1.1e-7 at the 99th percentile). Every particle's best
+# sample agrees in every iteration (all 15 did in this path's first runs on
+# the card), and the means within MEAN_ATOL.
+LH_HORIZONS, LH_ITERS, LH_WARMUP, LH_CHECK_ITERS, LH_TOL = (4096, 1024), 200, 5, 5, 0.05
+# long-horizon-api: the class API at T = LH_API_T, LH_API_ITERS iterations
+# per optimize() call
+LH_API_T, LH_API_ITERS = 1024, 20
 # Peak rates of one H100 SXM (data sheet) for the bound_ms column.
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
 FP32_FLOP_PER_SM = FP32_FLOP_PER_S / 132
@@ -324,8 +386,9 @@ def kernel_counters() -> dict:
     from stoch_gpmp_tpu_torch.ops.kernels.panda_step import fused_panda_step
     from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import fused_panda_dof_step
     from stoch_gpmp_tpu_torch.ops.kernels.stencil import dof_quad_eval
+    from stoch_gpmp_tpu_torch.ops.kernels.bidiag_scan import bidiag_scan
 
-    return {"raster_field": raster_primitive_cost, "fused_planar_step": fused_planar_step,
+    return {"bidiag_scan": bidiag_scan, "raster_field": raster_primitive_cost, "fused_planar_step": fused_planar_step,
             "dof_quad_eval": dof_quad_eval, "fk_fields": fk_link_fields_cost_rows,
             "fused_panda_dof_step": fused_panda_dof_step, "fused_panda_step": fused_panda_step,
             "link_fields": fused_link_fields_cost, "fk_fields_points": fk_link_fields_cost,
@@ -334,8 +397,9 @@ def kernel_counters() -> dict:
 
 
 def reset_counters() -> None:
-    """Set every kernel's launch count (and the FK kernels' count of generic
-    walks) to 0, just before a main path runs."""
+    """Set every kernel's launch count (and the count of generic or
+    runtime-size launches of the FK kernels, K7 and S1) to 0, just before a
+    main path runs."""
     for fn in kernel_counters().values():
         fn.launches = 0
         if hasattr(fn, "generic_launches"):
@@ -343,7 +407,8 @@ def reset_counters() -> None:
 
 
 def generic_walks(counters: dict) -> dict:
-    """The FK kernels' launches through the generic walk, by JSON name."""
+    """The launches through a generic FK walk or a runtime size (K7's link
+    count, S1's block size), by JSON name."""
     return {k: fn.generic_launches for k, fn in counters.items()
             if hasattr(fn, "generic_launches")}
 
@@ -1975,6 +2040,306 @@ def gn_main(dev) -> dict:
     return out
 
 
+def _s1_prior(d, t, dtype, dev):
+    """The long-horizon sampling prior at block size ``d`` (the solver's
+    factor; the goal state 9 on every position)."""
+    from stoch_gpmp_tpu_torch.gp.prior import make_gp_prior
+
+    n = d // 2
+    return make_gp_prior(n, t, 0.02, [0.0] * d, 1e-3, 3.0, sigma_goal=1e-3,
+                         goal_states=[[9.0] * n + [0.0] * n], dtype=dtype, device=dev,
+                         materialize_dense=False)
+
+
+def s1_check(dev) -> dict:
+    """S1 against the float64 serial substitution on the same factor and
+    against its plain version (both on the card), forward and backward,
+    float32 and float64, on ``S1_SHAPES`` planes ``[d, rows, T]`` and on
+    ``[15, 32, T, 4]`` batches through ``solve_LT`` (stride-d planes); then
+    its times at the main path's shape (``[4, 480, 4096]`` float32,
+    backward) beside the plain version, the bound and
+    ``torch.linalg.solve_triangular`` against the dense ``L^T``."""
+    from stoch_gpmp_tpu_torch.gp.tridiag import BlockBidiagChol
+    from stoch_gpmp_tpu_torch.ops.kernels.bidiag_scan import UNROLLED, bidiag_scan, plain_solve
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases, worst = [], {}
+    for dtype in (torch.float32, torch.float64):
+        for d, rows, t in S1_SHAPES:
+            prior = _s1_prior(d, t, dtype, dev)
+            ps = prior.psolver
+            oracle = BlockBidiagChol(prior.chol.diag.double(), prior.chol.lower.double())
+            x = torch.randn((d, rows, t), generator=gen, device=dev, dtype=dtype)
+            for backward in (False, True):
+                g0 = bidiag_scan.generic_launches
+                got = torch.stack(bidiag_scan(ps, tuple(x), backward=backward))
+                if bidiag_scan.generic_launches - g0 != int(d not in UNROLLED):
+                    fail(f"S1 [{d}, {rows}, {t}]: {bidiag_scan.generic_launches - g0} runtime-d "
+                         f"launches, expected {int(d not in UNROLLED)} (compiled in: {UNROLLED})")
+                plain = torch.stack(plain_solve(ps, tuple(x), backward=backward))
+                solve = oracle.solve_LT if backward else oracle.solve_L
+                want = solve(x.double().permute(1, 2, 0)).permute(2, 0, 1)
+                cases.append(_s1_errors(f"[{d}, {rows}, {t}] {str(dtype)[6:]} "
+                                        f"{'backward' if backward else 'forward'}",
+                                        dtype, got, plain, want))
+            if t in S1_STRIDED and d == 4:
+                b = torch.randn((15, 32, t, 4), generator=gen, device=dev, dtype=dtype)
+                got, want = ps.solve_LT(b), oracle.solve_LT(b.double())
+                plain = torch.stack(plain_solve(ps, tuple(b.unbind(-1)), backward=True), -1)
+                cases.append(_s1_errors(f"solve_LT [15, 32, {t}, 4] {str(dtype)[6:]}", dtype,
+                                        got, plain, want))
+    for c in cases:
+        key = c["dtype"]
+        for k in ("s1_rel", "plain_rel", "s1_vs_plain_rel"):
+            worst[f"{key} {k}"] = max(worst.get(f"{key} {k}", 0.0), c[k])
+    # times at the main path's shape, float32, backward (the sampling solve)
+    d, b, t = S1_MAIN
+    prior = _s1_prior(d, t, torch.float32, dev)
+    ps = prior.psolver
+    x = torch.randn((d, b, t), generator=gen, device=dev)
+    out = torch.empty_like(x)
+    kernel = lambda: bidiag_scan(ps, tuple(x), backward=True, out=tuple(out))  # noqa: E731
+    plain = lambda: plain_solve(ps, tuple(x), backward=True)  # noqa: E731
+    # the dense L^T ([M, M], M = T d: 1.07 GB at T = 4096) and the same
+    # right-hand sides as [M, b] columns, lane t * d + i: built once,
+    # outside the timing
+    lt = prior.chol.to_dense().T.contiguous()
+    rhs = x.permute(2, 0, 1).reshape(t * d, b).contiguous()
+    library = lambda: torch.linalg.solve_triangular(lt, rhs, upper=True)  # noqa: E731
+    kernel()
+    lib_err = float((library().reshape(t, d, b).permute(1, 2, 0) - out).abs().max())
+    big = max(float(out.abs().max()), 1e-30)
+    if not lib_err <= 2 * S1_RTOL[torch.float32] * big:
+        fail(f"S1: solve_triangular against the dense L^T {lib_err:.3g} from S1")
+    # each plane read once and written once, the three tables read once;
+    # per (b, t): d (d + 1) / 2 + 2 d^2 FMAs
+    bd = bound(4 * (2 * d * b * t + 3 * t * d * d), 2 * b * t * (d * (d + 1) // 2 + 2 * d * d))
+    phi_max = {n: float(getattr(ps, n).abs().max()) for n in ("phi_fwd", "phi_bwd")}
+    return dict(cases=cases, worst=worst, phi_max=phi_max,
+                max_abs_err=max(c["s1_vs_plain_abs"] for c in cases if c["dtype"] == "float32"),
+                ms=cuda_ms(kernel, 100), plain_ms=cuda_ms(plain, 5),
+                device_ms=device_ms(kernel, 50), queued_ms=queued_ms(kernel),
+                plain_device_ms=device_ms(plain, 3), library_ms=cuda_ms(library, 5),
+                library_err=lib_err, bound=bd)
+
+
+def _s1_errors(what, dtype, got, plain, want) -> dict:
+    """S1's and the plain version's errors against the float64 oracle,
+    relative to its largest |y|, under S1_RTOL."""
+    scale = max(float(want.abs().max()), 1e-30)
+    r = dict(case=what, dtype=str(dtype)[6:],
+             s1_rel=float((got.double() - want).abs().max()) / scale,
+             plain_rel=float((plain.double() - want).abs().max()) / scale,
+             s1_vs_plain_abs=float((got - plain).abs().max()))
+    r["s1_vs_plain_rel"] = r["s1_vs_plain_abs"] / scale
+    tol = S1_RTOL[dtype]
+    if not (r["s1_rel"] <= tol and r["plain_rel"] <= tol and r["s1_vs_plain_rel"] <= 2 * tol):
+        fail(f"S1 {what}: {r['s1_rel']:.3g} (plain {r['plain_rel']:.3g}) from the float64 "
+             f"oracle, {r['s1_vs_plain_rel']:.3g} from the plain version (rtol {tol})")
+    return r
+
+
+@contextlib.contextmanager
+def held_k1(field, seen: list):
+    """Within the block, every K1 launch the path makes on ``field`` (the
+    ``RasterPrimitive2DField`` of its collision cost) is held against the
+    plain version on the same points (``torch.equal``); ``seen`` gets each
+    call's point shape, strides and hits."""
+    from stoch_gpmp_tpu_torch.ops.kernels.fields import raster_primitive_cost_plain
+
+    kernel = field.compute_cost  # the bound method: K1 on a CUDA tensor
+
+    def held(pts, **kw):
+        got = kernel(pts, **kw)
+        want = raster_primitive_cost_plain(field.rect_bounds, field.circles, pts,
+                                           cell_size=field.cell_size, nx=field.nx, ny=field.ny)
+        if not torch.equal(got, want):
+            fail(f"K1 on the long-horizon path's points {list(pts.shape)} at strides "
+                 f"{list(pts.stride())}: differs from the plain version at "
+                 f"{int((got != want).sum())} of {want.numel()} points")
+        seen.append(dict(shape=list(pts.shape), strides=list(pts.stride()),
+                         hits=int((got > 0).sum())))
+        return got
+
+    field.compute_cost = held  # an instance attribute: compute_cost_planes calls it
+    try:
+        yield
+    finally:
+        del field.compute_cost
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within the block, S1 and K1 run their plain versions on the card's
+    tensors (the wrappers the plane path calls are swapped and restored)."""
+    from stoch_gpmp_tpu_torch.ops.kernels import bidiag_scan as s1, fields
+
+    saved = s1.bidiag_scan, fields.raster_primitive_cost
+    s1.bidiag_scan, fields.raster_primitive_cost = (s1.plain_solve,
+                                                    fields.raster_primitive_cost_plain)
+    try:
+        yield
+    finally:
+        s1.bidiag_scan, fields.raster_primitive_cost = saved
+
+
+def long_horizon_main(dev, t: int) -> dict:
+    """``build_long_horizon_problem(t)`` through ``stoch_gpmp_optimize`` on
+    the ``"planes"`` route: LH_ITERS iterations after LH_WARMUP, with the
+    launch counts, updates/s, a profiled 10-iteration window and the gates;
+    then LH_CHECK_ITERS iterations with injected draws through the kernels
+    and through their plain versions."""
+    from stoch_gpmp_tpu_torch.planners import stoch_gpmp_optimize
+    from stoch_gpmp_tpu_torch.planners.stoch_gpmp import _route
+    from stoch_gpmp_tpu_torch.problems import (
+        LONG_HORIZON,
+        LONG_HORIZON_GOALS,
+        START,
+        build_long_horizon_problem,
+    )
+
+    sampler, cost, state = build_long_horizon_problem(t, device=dev)
+    if _route(sampler, cost, t) != "planes":
+        fail(f"long-horizon T = {t}: route {_route(sampler, cost, t)}, expected planes")
+    s, p = LONG_HORIZON["num_samples"], LONG_HORIZON["particles"]
+    kw = dict(num_samples=s, temperature=LONG_HORIZON["temperature"],
+              step_size=LONG_HORIZON["step_size"])
+    state, _ = stoch_gpmp_optimize(sampler, cost, state, {}, opt_iters=LH_WARMUP, **kw)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, aux = stoch_gpmp_optimize(sampler, cost, state, {}, opt_iters=LH_ITERS, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counters = kernel_counters()
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    generic = {k: n for k, n in generic_walks(counters).items() if n}
+    if launches != {"bidiag_scan": LH_ITERS, "raster_field": LH_ITERS} or generic:
+        fail(f"long-horizon T = {t}: launches {launches} ({generic} runtime-d or generic), "
+             f"expected bidiag_scan and raster_field {LH_ITERS} each, compiled-in block sizes")
+    means = state.particle_means
+    if not (bool(torch.isfinite(means).all()) and bool(torch.isfinite(aux.costs).all())):
+        fail(f"long-horizon T = {t}: non-finite output")
+    start_err = float((means[:, 0, :2].cpu() - torch.tensor(START[:2])).abs().max())
+    goal_err = float((means[:, -1, :2].cpu() - torch.tensor(LONG_HORIZON_GOALS[0][:2]))
+                     .norm(dim=-1).max())
+    if not (start_err < LH_TOL and goal_err < LH_TOL):
+        fail(f"long-horizon T = {t}: starts {start_err:.3g} from the start, end points "
+             f"{goal_err:.3g} from the goal (tol {LH_TOL})")
+    window = lambda: stoch_gpmp_optimize(sampler, cost, state, {}, opt_iters=10, **kw)  # noqa: E731
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t1) / 10 * 1e3
+    dev_ms, top, ops = device_breakdown(window, 1, top=10)
+
+    # kernels against their plain versions over LH_CHECK_ITERS iterations
+    gen = torch.Generator(device=dev).manual_seed(7)
+    eps = torch.randn((LH_CHECK_ITERS, 4, p, s, t), generator=gen, device=dev)
+    runs, k1_seen = {}, []
+    for name in ("kernel", "plain"):
+        st, best, costs = state, [], []
+        with plain_kernels() if name == "plain" else held_k1(cost.costs[-1].field, k1_seen):
+            for i in range(LH_CHECK_ITERS):
+                st, a = stoch_gpmp_optimize(sampler, cost, st, {}, opt_iters=1, eps=eps[i:i + 1],
+                                            **kw)
+                best.append(a.weights.argmax(dim=1))
+                costs.append(a.costs)
+        runs[name] = (st.particle_means, torch.stack(best), torch.stack(costs))
+    if len(k1_seen) != LH_CHECK_ITERS or any(k["shape"][:-1] != [p * s, t] for k in k1_seen):
+        fail(f"long-horizon T = {t}: K1 held on {k1_seen}, expected {LH_CHECK_ITERS} launches "
+             f"on [{p * s}, {t}, 2] points")
+    ck, cp = runs["kernel"][2], runs["plain"][2]
+    cost_rel = (ck - cp).abs() / cp.abs().clamp_min(1e-30)
+    off = cost_rel > COST_RTOL
+    flips = (ck - cp)[off] / K_COLL
+    n_off = int(off.sum())
+    if n_off > EDGE_SHARE * cp.numel() or not bool(
+            (flips.round() != 0).all() and ((flips - flips.round()).abs() <= 1e-3).all()):
+        fail(f"long-horizon T = {t}: kernels vs plain versions: {n_off} of {cp.numel()} costs "
+             f"beyond rtol {COST_RTOL}, in multiples of the collision weight {flips.tolist()}")
+    agree = (runs["kernel"][1] == runs["plain"][1]).all(dim=0)
+    n_agree = int(agree.sum())
+    mean_err = float((runs["kernel"][0] - runs["plain"][0]).abs().max())
+    if n_agree < p or not mean_err <= MEAN_ATOL:
+        fail(f"long-horizon T = {t}: kernels vs plain versions over {LH_CHECK_ITERS} "
+             f"iterations: best sample agrees for {n_agree}/{p}, means {mean_err:.3g} apart "
+             f"(atol {MEAN_ATOL})")
+    return dict(launches=launches, start_err=start_err, goal_err=goal_err,
+                optimize_seconds=seconds, updates_per_s=p * LH_ITERS / seconds,
+                iter_wall_ms=wall, iter_device_ms=None if dev_ms is None else dev_ms / 10,
+                device_ops_per_iter=ops / 10,
+                device_busy=None if dev_ms is None else dev_ms / 10 / wall,
+                top_kernels_ms_per_iter=[(k, ms / 10) for k, ms in top],
+                plain_agree=n_agree, plain_mean_err=mean_err, particles=p, k1_held=k1_seen,
+                cost_rel_max_in_tol=float(cost_rel[~off].max()), cost_edge_flips=n_off)
+
+
+def long_horizon_api(dev) -> dict:
+    """At T = 1024 on the card: ``StochGPMP`` ``reset``, ``optimize`` with
+    and without ``collect_metrics`` and ``sample_trajectories``, and
+    ``GPMP.sample_trajectories``, through the solver sampler (S1); and the
+    quadratic stack on the long-horizon sampler, which takes the ``"dof"``
+    route (K3)."""
+    from stoch_gpmp_tpu_torch.costs import CostComposite, QuadraticCost
+    from stoch_gpmp_tpu_torch.planners import GPMP, StochGPMP, stoch_gpmp_optimize
+    from stoch_gpmp_tpu_torch.planners.stoch_gpmp import _route
+    from stoch_gpmp_tpu_torch.problems import (
+        LONG_HORIZON,
+        LONG_HORIZON_GOALS,
+        START,
+        build_long_horizon_problem,
+    )
+
+    t, iters = LH_API_T, LH_API_ITERS
+    sampler, cost, state = build_long_horizon_problem(t, device=dev)
+    sig = dict(sigma_start_init=1e-3, sigma_gp_init=3.0, sigma_goal_init=1e-3,
+               sigma_start_sample=1e-3, sigma_gp_sample=3.0, sigma_goal_sample=1e-3)
+    common = dict(traj_len=t, opt_iters=iters, dt=0.02, n_dof=2, start_state=START,
+                  multi_goal_states=LONG_HORIZON_GOALS, cost=cost, device=dev, **sig)
+    p, s = LONG_HORIZON["particles"], LONG_HORIZON["num_samples"]
+    reset_counters()
+    planner = StochGPMP(num_particles_per_goal=p, num_samples=s,
+                        step_size=LONG_HORIZON["step_size"],
+                        temperature=LONG_HORIZON["temperature"], **common)
+    out = planner.optimize()
+    planner.optimize(collect_metrics=True)
+    metrics = planner.last_metrics
+    pos, vel = planner.sample_trajectories(4)
+    planner.reset(start_state=START)
+    gn = GPMP(num_particles_per_goal=4, solver_params={
+        "delta": 1e-2, "trust_region": False, "method": "cholesky"}, **common)
+    gpos, _ = gn.sample_trajectories(4)
+    torch.cuda.synchronize()
+    shapes = [tuple(o.shape) for o in out] + [tuple(pos.shape), tuple(gpos.shape)]
+    want = [(p, t, 2), (p, t, 2), (p, s, t, 2), (p, s, t, 2), (p, s), (p, t, 4), (p, 4, t, 2),
+            (4, 4, t, 2)]
+    finite = all(bool(torch.isfinite(o).all()) for o in (*out, pos, vel, gpos,
+                                                         metrics.cost_mean))
+    # init prior draws (two resets), 2 x iters optimize iterations, the
+    # trajectory draws, GPMP's init draw and its trajectory draws
+    api_launches = {k: fn.launches for k, fn in kernel_counters().items() if fn.launches}
+    if (shapes != want or not finite or planner.sampler.psolver is None
+            or api_launches.get("bidiag_scan", 0) != 2 * iters + 5):
+        fail(f"long-horizon-api: shapes {shapes} (expected {want}), finite {finite}, "
+             f"launches {api_launches}")
+    start_err = float((gpos[:, :, 0] - torch.tensor(START[:2], device=dev)).abs().max())
+    gp, goal, coll = cost.costs
+    quad = CostComposite.create(2, t, [QuadraticCost.from_gp_and_goal_prior(gp, goal, t), coll])
+    route = _route(sampler, quad, t)
+    reset_counters()
+    st, aux = stoch_gpmp_optimize(sampler, quad, state, {}, opt_iters=10, num_samples=s,
+                                  temperature=1.0, step_size=0.5)
+    dof_launches = {k: fn.launches for k, fn in kernel_counters().items() if fn.launches}
+    if (route != "dof" or dof_launches != {"dof_quad_eval": 10, "raster_field": 10}
+            or not bool(torch.isfinite(st.particle_means).all())):
+        fail(f"long-horizon-api: the quadratic stack at T = {t} took route {route}, launches "
+             f"{dof_launches}")
+    return dict(api_launches=api_launches, gn_start_err=start_err, shapes=shapes,
+                quad_route=route, quad_launches=dof_launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--log-dir", default=None, help="write the nvcc log and details here")
@@ -2236,6 +2601,47 @@ def main() -> int:
     phase("gn-main", f"means: woodbury vs cholesky {gn['woodbury_vs_cholesky']:.2e} (atol "
                      f"{GN_METHOD_ATOL}), inverse vs cholesky after 3 iterations "
                      f"{gn['inverse_vs_cholesky_3']:.2e} (atol {GN_INVERSE3_ATOL})")
+    sc = s1_check(dev)
+    for c in sc["cases"]:
+        phase("S1", f"{c['case']}: S1 {c['s1_rel']:.2e}, plain {c['plain_rel']:.2e} relative "
+                    f"from the float64 serial oracle, S1 vs plain {c['s1_vs_plain_abs']:.2e} "
+                    f"absolute ({c['s1_vs_plain_rel']:.2e} relative; rtol "
+                    f"{S1_RTOL[getattr(torch, c['dtype'])]:g})")
+    phase("S1", f"{list(S1_MAIN)} float32 backward: per call kernel {sc['ms']:.4f} ms, plain "
+                f"{sc['plain_ms']:.4f} ms; device time kernel {fmt_ms(sc['device_ms'])} "
+                f"(queued {fmt_ms(sc['queued_ms'])}), plain {fmt_ms(sc['plain_device_ms'])}; "
+                f"bound {sc['bound'][0]:.4f} ms ({sc['bound'][1]}); solve_triangular against "
+                f"the dense L^T {sc['library_ms']:.4f} ms ({sc['library_err']:.2e} from S1); "
+                f"largest |phi| entry {sc['phi_max']} on {smi}")
+    lh = {t: long_horizon_main(dev, t) for t in LH_HORIZONS}
+    for t, r in lh.items():
+        busy = "not measured" if r["device_busy"] is None else format(r["device_busy"], ".1%")
+        phase("long-horizon-main", f"T = {t}: {LH_ITERS} iters, launches {r['launches']}, goal "
+                                   f"err {r['goal_err']:.2e}, start err {r['start_err']:.2e}; "
+                                   f"{r['updates_per_s']:.1f} updates/s over optimize(); "
+                                   f"10-iteration window {r['iter_wall_ms']:.4f} ms/iter wall, "
+                                   f"device time {fmt_ms(r['iter_device_ms'])}/iter in "
+                                   f"{r['device_ops_per_iter']:.0f} device operations, device "
+                                   f"busy {busy} on {smi}")
+        phase("long-horizon-main", f"T = {t}: device ms per iteration by kernel: " + "; ".join(
+            f"{n} {ms:.4f}" for n, ms in r["top_kernels_ms_per_iter"]))
+        k1h = r["k1_held"][0]
+        phase("long-horizon-main", f"T = {t}: {LH_CHECK_ITERS} iterations with the same draws, "
+                                   f"kernels vs plain versions on the card: K1 equal to its plain "
+                                   f"version on the path's {LH_CHECK_ITERS} point sets "
+                                   f"{k1h['shape']} at strides {k1h['strides']} "
+                                   f"({[k['hits'] for k in r['k1_held']]} points hit); costs "
+                                   f"within {r['cost_rel_max_in_tol']:.2e} relative (rtol "
+                                   f"{COST_RTOL}) but {r['cost_edge_flips']} cell-edge flips; "
+                                   f"best sample agrees for {r['plain_agree']}/{r['particles']} "
+                                   f"particles, means within {r['plain_mean_err']:.2e} (atol "
+                                   f"{MEAN_ATOL})")
+    api = long_horizon_api(dev)
+    phase("long-horizon-api", f"T = {LH_API_T}: StochGPMP reset / optimize / optimize(collect_metrics)"
+                              f" / sample_trajectories and GPMP.sample_trajectories: shapes "
+                              f"{api['shapes']}, launches {api['api_launches']}, GPMP draws' "
+                              f"start err {api['gn_start_err']:.2e}; the quadratic stack takes "
+                              f"route {api['quad_route']}, launches {api['quad_launches']}")
     details.update(K1=k1, K2=k2, K2_split=k2_split, moments=mom, main=mp, K3=k3, K4=k4,
                    K4_generic=fkg, K5=k5, K5_split=k5_split, K5_shapes=k5_shapes,
                    K5_rng_free=k5_free, K5_moments=k5_mom, panda_main=pm, K6=k6,
@@ -2244,7 +2650,7 @@ def main() -> int:
                    panda4_main=p4, K9=k9, K9_split=k9_split, K9_moments=k9_mom,
                    K9_loop=k9_run, K10=f2["K10"], K11=f2["K11"], shapes=shapes,
                    planar_ref_main=pr,
-                   gn_main=gn)
+                   gn_main=gn, S1=sc, long_horizon_main=lh, long_horizon_api=api)
     if args.log_dir:
         out = Path(args.log_dir)
         out.mkdir(parents=True, exist_ok=True)
@@ -2258,8 +2664,10 @@ def main() -> int:
     k2_bound = bound(4 * (3 * 3 * PPG * m2 + 2 * m2 * m2 + 3 * PPG * S),
                      2 * 2 * 3 * PPG * S * m2 * m2)
     record = [
+        # K1: the planar main path's launch and long-horizon-main's at T = 4096
         ("raster_field", "raster_field.cu", "stoch_gpmp_tpu/ops/pallas/fields.py:147",
-         mp["launches"]["raster_field"], k1, k1_bound),
+         mp["launches"]["raster_field"] + lh[LH_HORIZONS[0]]["launches"]["raster_field"], k1,
+         k1_bound),
         ("fused_planar_step", "fused_planar_step.cu",
          "stoch_gpmp_tpu/ops/pallas/fused_step.py:419", mp["launches"]["fused_planar_step"],
          dict(k2["matmul"], max_abs_err=max(r["max_abs_err"] for r in k2.values())), k2_bound),
@@ -2290,11 +2698,14 @@ def main() -> int:
         ("primitive_field", "primitive_field.cu", "stoch_gpmp_tpu/ops/pallas/fields.py:214",
          pr["p"]["launches"]["primitive_field"], f2["K11"], f2["K11"]["bound"]),
     ]
+    record.append(("bidiag_scan", "bidiag_scan.cu",
+                   "stoch_gpmp_tpu/gp/tridiag.py:259 (XLA associative_scan)",
+                   lh[LH_HORIZONS[0]]["launches"]["bidiag_scan"], sc, sc["bound"]))
     kernels = [
         {"name": n, "route": "cuda", "source": f"stoch_gpmp_tpu_torch/csrc/{src}",
          "replaces": rep, "launches": launches, "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bd[0], "bound_by": bd[1],
-         "library_ms": None}
+         "library_ms": r.get("library_ms")}
         for n, src, rep, launches, r, bd in record
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -37,7 +37,7 @@ from stoch_gpmp_tpu_torch.costs.fields import (
 from stoch_gpmp_tpu_torch.costs.fused_fields import FusedLinkFieldsCost, PlaneFieldsCost
 from stoch_gpmp_tpu_torch.costs.quadratic import QuadraticCost
 from stoch_gpmp_tpu_torch.gp.dof_factored import DofFactoredPrior, DofQuadraticCost
-from stoch_gpmp_tpu_torch.gp.tridiag import BlockTridiag
+from stoch_gpmp_tpu_torch.gp.tridiag import BlockBidiagChol, BlockTridiag, ParallelBidiagSolver
 from stoch_gpmp_tpu_torch.kinematics import JointSpec, KinematicChain, LinkState, RobotModel
 from stoch_gpmp_tpu_torch.planners.gpmp import GPMPState
 from stoch_gpmp_tpu_torch.planners.stoch_gpmp import SamplerModel, StochGPMPState
@@ -53,12 +53,13 @@ def _t(x, dtype, device):
 
 
 def sampler_from_jax(sampler, *, device=None, dtype=torch.float64) -> SamplerModel:
-    """``SamplerModel`` (flat-path sampler: dense factor + per-dof factor)."""
-    if sampler.weight_t is None:
-        raise NotImplementedError("long-horizon samplers are not ported yet")
+    """``SamplerModel``: the dense factor or, for a long-horizon sampler,
+    the parallel-in-time solver (its ``dinv``, ``a_fwd`` and ``a_bwd``
+    carried across, the kernel's chunk tables built from them), the
+    Cholesky and the per-dof factor."""
     device = resolve_device(device)
     t = lambda x: _t(x, dtype, device)  # noqa: E731
-    dof = sampler.dof
+    dof, ps = sampler.dof, sampler.psolver
     return SamplerModel(
         precision=BlockTridiag(t(sampler.precision.diag), t(sampler.precision.lower)),
         weight_t=t(sampler.weight_t),
@@ -67,6 +68,9 @@ def sampler_from_jax(sampler, *, device=None, dtype=torch.float64) -> SamplerMod
             w_dof=t(dof.w_dof), prec_dof=t(dof.prec_dof), traj_len=int(dof.traj_len),
             q_i2=t(dof.q_i2), k_s2=t(dof.k_s2), k_g2=t(dof.k_g2), dt=float(dof.dt),
         ),
+        chol=BlockBidiagChol(t(sampler.chol.diag), t(sampler.chol.lower)),
+        psolver=None if ps is None else ParallelBidiagSolver.from_tables(
+            t(ps.dinv), t(ps.a_fwd), t(ps.a_bwd)),
     )
 
 

@@ -12,15 +12,16 @@ PyTorch counterpart of ``stoch_gpmp_tpu/costs/costs.py`` (reference
   timestep; the goal prior anchors the final state of a goal-major batch.
 
 ``eval_dof_planes`` evaluates on the dof-leading plane batch ``[d, B, 2T]``
-of the dof path. ``gn_contrib`` gives each cost's Gauss-Newton normal-equation
-contribution in block-tridiagonal form (``GNContrib``) and ``gn_rank1`` the
-rank-1 form of a field cost, for ``planners/gpmp.py``. A field's Jacobian is
-``torch.autograd.grad`` of its summed errors with respect to the
-trajectories (the JAX package's ``jax.grad``), through FK when the composite
-has one. The 2D fields are piecewise constant and give a zero Jacobian, as
-in JAX (their kernel wrappers carry a zero backward,
-``ops/kernels/fields.py``); a field with no backward at all raises. The
-per-dim plane evaluators of the long-horizon path are not ported yet.
+of the dof path, ``eval_planes`` on the per-dim time planes (tuple_d of
+``[..., T]``) of the long-horizon plane path, where ``supports_planes``
+says a cost has it. ``gn_contrib`` gives each cost's Gauss-Newton
+normal-equation contribution in block-tridiagonal form (``GNContrib``) and
+``gn_rank1`` the rank-1 form of a field cost, for ``planners/gpmp.py``. A
+field's Jacobian is ``torch.autograd.grad`` of its summed errors with
+respect to the trajectories (the JAX package's ``jax.grad``), through FK
+when the composite has one. The 2D fields are piecewise constant and give a
+zero Jacobian, as in JAX (their kernel wrappers carry a zero backward,
+``ops/kernels/fields.py``); a field with no backward at all raises.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from stoch_gpmp_tpu_torch.costs.factors import gp_error, quadratic_cost, unary_error
 from stoch_gpmp_tpu_torch.gp.lift import phi_matrix, q_inv_block, unary_weight
+from stoch_gpmp_tpu_torch.gp.tridiag import stack_planes
 
 
 @dataclass
@@ -99,6 +101,22 @@ class CostGP(Cost):
         return quadratic_cost(err0, self.k_start) + torch.sum(
             quadratic_cost(err, self.q_inv), dim=-1
         )
+
+    def supports_planes(self) -> bool:
+        return True
+
+    def eval_planes(self, planes, observation=None):
+        """``eval`` on per-dim time planes (tuple_d of ``[..., T]``), read
+        as one ``[d, ..., T]`` tensor (a view where they share a storage):
+        each ``[d, d]`` weight applies as one matrix product over the planes,
+        and the quadratic forms are elementwise products summed over d (the
+        three-operand ``einsum`` of ``quadratic_cost`` runs as a batched
+        GEMV on the card)."""
+        x = stack_planes(planes)
+        err0 = self.start_state.reshape((-1,) + (1,) * (x.dim() - 2)) - x[..., 0]
+        start = torch.sum(err0 * torch.tensordot(self.k_start, err0, dims=1), dim=0)
+        e = x[..., 1:] - torch.tensordot(self.phi, x[..., :-1], dims=1)
+        return start + torch.sum(e * torch.tensordot(self.q_inv, e, dims=1), dim=(0, -1))
 
     def gn_contrib(self, trajs, x_trajs=None, observation=None):
         """Constant blocks (the prior precision's) and the gradient of the
@@ -172,6 +190,16 @@ class CostGoalPrior(Cost):
         err = unary_error(x_final, self.multi_goal_states[:, None])
         return quadratic_cost(err, self.k_goal).reshape(batch)
 
+    def supports_planes(self) -> bool:
+        return True
+
+    def eval_planes(self, planes, observation=None):
+        """Plane-layout ``eval``: goal-major grouping on the leading axis of
+        the ``[..., T]`` planes; only their last step is read."""
+        last = stack_planes(planes)[..., -1:]  # [d, ..., 1]
+        return self.eval(last.movedim(0, -1).reshape(-1, 1, len(planes))).reshape(
+            last.shape[1:-1])
+
     def gn_contrib(self, trajs, x_trajs=None, observation=None):
         """The goal anchor on the final state of the goal-major batch."""
         batch, t, d = trajs.shape[0], trajs.shape[-2], trajs.shape[-1]
@@ -214,6 +242,15 @@ class CostCollision(Cost):
     def eval(self, trajs, x_trajs=None, observation=None):
         err = self._field_errors(trajs, x_trajs, observation)  # [B, T-1]
         return (1.0 / self.sigma_coll**2) * torch.sum(err, dim=-1)
+
+    def supports_planes(self) -> bool:
+        return hasattr(self.field, "compute_cost_planes")
+
+    def eval_planes(self, planes, observation=None):
+        """Plane-layout ``eval`` for 2D coordinate fields: the field reads
+        the first two planes (in place when they are views of one tensor)."""
+        vals = self.field.compute_cost_planes(planes[0], planes[1])
+        return (1.0 / self.sigma_coll**2) * torch.sum(vals[..., slice(*self.traj_range)], dim=-1)
 
     def supports_dof_planes(self) -> bool:
         return self.n_dof == 2 and hasattr(self.field, "compute_cost_planes")
@@ -313,6 +350,22 @@ class CostComposite(Cost):
     @classmethod
     def create(cls, n_dof, traj_len, cost_list: Sequence[Cost], fk=None):
         return cls(costs=tuple(cost_list), n_dof=n_dof, traj_len=traj_len, fk=fk)
+
+    def supports_planes(self) -> bool:
+        """Whether every child evaluates on per-dim time planes (a child
+        without ``supports_planes`` counts when it has ``eval_planes``, as
+        in the JAX package)."""
+        return self.fk is None and all(
+            getattr(c, "supports_planes", lambda c=c: hasattr(c, "eval_planes"))()
+            for c in self.costs)
+
+    def eval_planes(self, planes, observation=None):
+        """Sum of child costs on per-dim time planes ``tuple_d of [..., T]``."""
+        total = None
+        for c in self.costs:
+            v = c.eval_planes(planes, observation=observation)
+            total = v if total is None else total + v
+        return total
 
     def supports_dof_planes(self) -> bool:
         return self.fk is None and all(c.supports_dof_planes() for c in self.costs)

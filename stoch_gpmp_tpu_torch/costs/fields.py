@@ -261,18 +261,20 @@ class RasterPrimitive2DField(_Occupancy2D):
         )
 
     def compute_cost_planes(self, x: torch.Tensor, y: torch.Tensor, **kw) -> torch.Tensor:
-        """``compute_cost`` on separate coordinate planes ``x``, ``y [B, L]``
-        (views of one tensor, as the dof path passes them): the kernel reads
-        them in place as one strided ``[B, L, 2]`` point set."""
-        if x.shape != y.shape or x.dim() != 2:
-            raise ValueError("compute_cost_planes takes two [B, L] planes")
+        """``compute_cost`` on separate coordinate planes ``x``, ``y [..., L]``
+        (views of one tensor, as the dof and plane paths pass them): the
+        kernel reads them in place as one strided ``[B, L, 2]`` point set."""
+        if x.shape != y.shape or x.dim() < 1:
+            raise ValueError("compute_cost_planes takes two [..., L] planes of one shape")
+        shape = x.shape
+        x, y = x.reshape(-1, shape[-1]), y.reshape(-1, shape[-1])
         offset = y.storage_offset() - x.storage_offset()
         if (x.untyped_storage().data_ptr() == y.untyped_storage().data_ptr()
                 and x.stride() == y.stride() and offset > 0):
             pts = x.as_strided(x.shape + (2,), x.stride() + (offset,))
         else:
             pts = torch.stack([x, y], dim=-1)
-        return self.compute_cost(pts)
+        return self.compute_cost(pts).reshape(shape)
 
 
 @dataclass

@@ -1,14 +1,12 @@
 """Multi-modal constant-velocity GP trajectory prior in structured form.
 
 PyTorch counterpart of ``stoch_gpmp_tpu/gp/prior.py``: the precision
-``Sigma^{-1}`` is built directly in block-tridiagonal form, factored once by
-the structured block Cholesky, and sampling is ``x = mu + eps @ L^{-1}``
-with ``L^{-1}`` materialized once (one matmul per draw batch). All modes
-share the precision; means differ per mode.
-
-Long horizons (``M > 2048``), where the JAX package builds the
-parallel-in-time solver instead of the dense factor, are not ported yet
-(long-horizon slice).
+``Sigma^{-1}`` is built directly in block-tridiagonal form and factored once
+by the structured block Cholesky. Up to ``M = 2048`` sampling is ``x = mu +
+eps @ L^{-1}`` with ``L^{-1}`` materialized once (one matmul per draw
+batch); beyond, the prior holds the parallel-in-time solver
+(``ParallelBidiagSolver``, kernel S1 on the card) and sampling is ``x = mu +
+L^{-T} eps``. All modes share the precision; means differ per mode.
 """
 
 from __future__ import annotations
@@ -19,7 +17,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from stoch_gpmp_tpu_torch.gp.lift import phi_matrix, q_inv_block, unary_weight
-from stoch_gpmp_tpu_torch.gp.tridiag import BlockBidiagChol, BlockTridiag
+from stoch_gpmp_tpu_torch.gp.tridiag import BlockBidiagChol, BlockTridiag, ParallelBidiagSolver
 
 
 def build_precision(
@@ -78,12 +76,15 @@ class GPPrior:
 
     ``means [num_modes, T, d]``; ``precision`` shared by all modes; ``chol``
     its block Cholesky; ``weight_t`` the dense ``L^{-1}`` (``[M, M]``) of the
-    one-matmul sampler; ``dof`` the per-dof factored form."""
+    one-matmul sampler, or None in long-horizon mode, where ``psolver`` (the
+    parallel-in-time solver) takes its place; ``dof`` the per-dof factored
+    form, built while its ``[2T, 2T]`` factor is small enough."""
 
     means: torch.Tensor
     precision: BlockTridiag
     chol: BlockBidiagChol
     weight_t: torch.Tensor | None
+    psolver: ParallelBidiagSolver | None = None
     dof: object | None = None
 
     @property
@@ -98,26 +99,55 @@ class GPPrior:
     def state_dim(self) -> int:
         return self.means.shape[-1]
 
-    def set_sigma_inv(self, precision: BlockTridiag) -> "GPPrior":
-        """Swap the sampling precision and rebuild the Cholesky and the dense
-        ``L^{-1}``. The per-dof factored form cannot be rebuilt from an
-        arbitrary precision, so it is dropped."""
-        chol = precision.cholesky()
-        return replace(
-            self, precision=precision, chol=chol,
-            weight_t=chol.dense_inv_transpose().T, dof=None,
-        )
+    def set_means(self, means: torch.Tensor) -> "GPPrior":
+        """The same prior around ``means`` (reshaped to this prior's)."""
+        return replace(self, means=means.reshape(self.means.shape))
 
-    def sample(self, generator: torch.Generator, num_samples: int) -> torch.Tensor:
-        """Draw ``[num_modes, num_samples, T, d]`` samples with one matmul
-        against the dense ``L^{-1}``."""
+    def set_sigma_inv(self, precision: BlockTridiag) -> "GPPrior":
+        """Swap the sampling precision and rebuild the Cholesky and the form
+        this prior samples with: the dense ``L^{-1}`` or the
+        parallel-in-time solver. The per-dof factored form cannot be rebuilt
+        from an arbitrary precision, so it is dropped."""
+        chol = precision.cholesky()
+        if self.weight_t is not None:
+            return replace(self, precision=precision, chol=chol,
+                           weight_t=chol.dense_inv_transpose().T, psolver=None, dof=None)
+        return replace(self, precision=precision, chol=chol, weight_t=None,
+                       psolver=ParallelBidiagSolver.from_chol(chol), dof=None)
+
+    def sample(self, generator: torch.Generator | None, num_samples: int,
+               method: str = "auto", eps: torch.Tensor | None = None) -> torch.Tensor:
+        """Draw ``[num_modes, num_samples, T, d]`` samples.
+
+        ``method``: ``"dense"`` (one matmul against the dense ``L^{-1}``),
+        ``"scan"`` (the sequential structured backward substitution),
+        ``"pscan"`` (the parallel-in-time solver, S1 on the card) or
+        ``"auto"`` (dense when the prior has it, else pscan). ``eps
+        [num_modes, num_samples, T, d]`` replaces the draw from
+        ``generator``."""
         t, d = self.traj_len, self.state_dim
-        eps = torch.randn(
-            (self.num_modes, num_samples, t * d), generator=generator,
-            dtype=self.means.dtype, device=self.means.device,
-        )
-        corr = (eps @ self.weight_t).reshape(self.num_modes, num_samples, t, d)
+        if eps is None:
+            eps = torch.randn((self.num_modes, num_samples, t, d), generator=generator,
+                              dtype=self.means.dtype, device=self.means.device)
+        if method == "auto":
+            method = "dense" if self.weight_t is not None else "pscan"
+        if method == "dense":
+            if self.weight_t is None:
+                raise ValueError("dense sampling requires materialize_dense=True")
+            flat = eps.reshape(self.num_modes, num_samples, t * d)
+            corr = (flat @ self.weight_t).reshape(self.num_modes, num_samples, t, d)
+        elif method == "scan":
+            corr = self.chol.solve_LT(eps)
+        elif method == "pscan":
+            solver = self.psolver or ParallelBidiagSolver.from_chol(self.chol)
+            corr = solver.solve_LT(eps)
+        else:
+            raise ValueError(f"unknown sampling method: {method}")
         return self.means[:, None] + corr
+
+    def precision_matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """Apply ``Sigma^{-1}`` to ``x [..., T, d]`` in O(T d^2)."""
+        return self.precision.matvec(x)
 
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         """Gaussian log-density of ``x [..., num_modes, T, d]`` under each mode."""
@@ -139,19 +169,21 @@ def make_gp_prior(
     means=None,
     dtype=torch.float32,
     device=None,
+    materialize_dense: bool | None = None,
 ) -> GPPrior:
     """Build a ready-to-sample GP prior from sigma hyper-parameters: unary
     start/goal weights ``I/sigma^2`` and the closed-form CV-GP ``Q^{-1}``
-    assembled into the structured precision, the dense ``L^{-1}``, the
-    per-dof factor, and straight-line constant-velocity means when none are
-    given."""
+    assembled into the structured precision, its block Cholesky, the
+    sampler, the per-dof factor (when ``2T <= 2048``), and straight-line
+    constant-velocity means when none are given.
+
+    ``materialize_dense``: the dense ``[M, M]`` ``L^{-1}`` (one-matmul
+    sampling) or the parallel-in-time solver; None means dense exactly when
+    ``M <= 2048``."""
     d = 2 * dof
     m = d * traj_len
-    if m > 2048:
-        raise NotImplementedError(
-            f"M = {m} > 2048 needs the parallel-in-time sampler, which is not "
-            "ported yet (long-horizon slice)"
-        )
+    if materialize_dense is None:
+        materialize_dense = m <= 2048
     k_s_inv = unary_weight(d, sigma_start, dtype=dtype, device=device)
     q_inv = q_inv_block(dof, dt, sigma=sigma_gp, dtype=dtype, device=device)
     k_g_inv = None
@@ -164,15 +196,21 @@ def make_gp_prior(
         dof, traj_len, dt, k_s_inv, q_inv, k_g_inv=k_g_inv, dtype=dtype, device=device
     )
     chol = precision.cholesky()
-    weight_t = chol.dense_inv_transpose().T  # [M, M] = L^{-1}
+    weight_t = psolver = None
+    if materialize_dense:
+        weight_t = chol.dense_inv_transpose().T  # [M, M] = L^{-1}
+    else:
+        psolver = ParallelBidiagSolver.from_chol(chol)
 
-    from stoch_gpmp_tpu_torch.gp.dof_factored import make_dof_factored_prior
+    dof_factor = None
+    if 2 * traj_len <= 2048:
+        from stoch_gpmp_tpu_torch.gp.dof_factored import make_dof_factored_prior
 
-    dof_factor = make_dof_factored_prior(
-        traj_len, dt, sigma_start, sigma_gp,
-        sigma_goal=sigma_goal if goal_states is not None else None,
-        dtype=dtype, device=device,
-    )
+        dof_factor = make_dof_factored_prior(
+            traj_len, dt, sigma_start, sigma_gp,
+            sigma_goal=sigma_goal if goal_states is not None else None,
+            dtype=dtype, device=device,
+        )
 
     if means is None:
         means = const_vel_means(
@@ -184,5 +222,6 @@ def make_gp_prior(
     else:
         means = torch.as_tensor(means, dtype=dtype, device=device).reshape(-1, traj_len, d)
     return GPPrior(
-        means=means, precision=precision, chol=chol, weight_t=weight_t, dof=dof_factor,
+        means=means, precision=precision, chol=chol, weight_t=weight_t, psolver=psolver,
+        dof=dof_factor,
     )

@@ -10,6 +10,11 @@ PyTorch counterpart of ``stoch_gpmp_tpu/gp/tridiag.py``:
 - ``BlockBidiagChol``: its lower block-bidiagonal factor with the
   structured triangular solves, ``solve`` and ``dense_inv_transpose``
   (``W = L^{-T}``, built once so that sampling is one matmul per iteration).
+- ``ParallelBidiagSolver``: the same substitutions as affine recurrences
+  over time whose transitions depend only on the factor, the long-horizon
+  sampler. On a CUDA tensor each solve is one launch of kernel S1
+  (``ops/kernels/bidiag_scan.py``); on a CPU tensor it is the log-step
+  associative scan ``_affine_assoc_scan`` on per-dim time planes.
 
 Leading batch dimensions on the blocks stand for the JAX package's ``vmap``
 (one system per particle in the Gauss-Newton planner): the factor's solves
@@ -163,6 +168,11 @@ class BlockTridiag:
             out[..., :-1, :] += up
         return out
 
+    def matvec_planes(self, planes):
+        """``matvec`` on per-dim time planes (tuple_d of ``[..., T]``),
+        read as one ``[..., T, d]`` batch (``stack_planes``)."""
+        return tuple(self.matvec(stack_planes(planes).movedim(0, -1)).unbind(-1))
+
     def add_block_diag(self, blocks: torch.Tensor) -> "BlockTridiag":
         """Add per-step ``[..., T, d, d]`` (or broadcastable) blocks to the
         diagonal."""
@@ -198,3 +208,173 @@ def cholesky_nan(a: torch.Tensor) -> torch.Tensor:
     chol, info = torch.linalg.cholesky_ex(a)
     bad = (info != 0)[..., None, None]
     return torch.where(bad, torch.full_like(chol, float("nan")), chol)
+
+
+# --------------------------------------------------------------------------- #
+# Per-dim time planes and the parallel-in-time triangular solves
+# --------------------------------------------------------------------------- #
+
+
+def plane_stride(planes) -> int | None:
+    """The storage distance between consecutive planes when the d planes
+    ``[..., T]`` are views of one storage with one shape, strides and dtype
+    at a uniform positive stride (the plane path's ``[d, ...]`` samples,
+    the stride-d planes of a ``[..., T, d]`` tensor); else None."""
+    p0 = planes[0]
+    if len(planes) == 1:
+        return 0
+    sp = planes[1].storage_offset() - p0.storage_offset()
+    base = p0.untyped_storage().data_ptr()
+    if sp <= 0 or any(
+            p.shape != p0.shape or p.stride() != p0.stride() or p.dtype != p0.dtype
+            or p.device != p0.device or p.untyped_storage().data_ptr() != base
+            or p.storage_offset() - p0.storage_offset() != i * sp
+            for i, p in enumerate(planes)):
+        return None
+    return sp
+
+
+def stack_planes(planes) -> torch.Tensor:
+    """The d planes ``[..., T]`` as one ``[d, ..., T]`` tensor: a view where
+    they share a storage at a uniform stride (``plane_stride``), else a
+    stacked copy."""
+    sp = plane_stride(planes)
+    if sp is None:
+        return torch.stack(planes)
+    p0 = planes[0]
+    return p0.as_strided((len(planes),) + tuple(p0.shape), (sp,) + tuple(p0.stride()))
+
+
+def _apply_tri(mats, planes, *, trans: bool):
+    """Planes of ``D_t^{-1} b_t`` (``trans``: ``D_t^{-T} b_t``) for
+    lower-triangular ``mats [T, d, d]``, skipping the structural zeros."""
+    d = len(planes)
+    out = []
+    for i in range(d):
+        acc = None
+        for j in range(d):
+            lo, hi = (j, i) if trans else (i, j)
+            if lo < hi:
+                continue
+            term = mats[:, lo, hi] * planes[j]
+            acc = term if acc is None else acc + term
+        out.append(acc)
+    return tuple(out)
+
+
+def _affine_assoc_scan(a_planes, c_planes, d: int):
+    """Prefix-compose ``y_t = A_t y_{t-1} + c_t`` over the last axis of the
+    planes in ceil(log2 T) levels (Hillis-Steele; the JAX package runs
+    ``jax.lax.associative_scan``, another tree of the same combine):
+    ``(A2, c2) . (A1, c1) = (A2 A1, A2 c1 + c2)``, unrolled into
+    elementwise plane products. ``a_planes``: d*d planes ``[T]`` (entry
+    (i, j) at ``i*d + j``, batch-independent); ``c_planes``: d planes
+    ``[B, T]``. With ``A_0 = 0`` the t-th prefix's offset is ``y_t``. The
+    plain version of kernel S1."""
+    a, c = list(a_planes), list(c_planes)
+    t = c[0].shape[-1]
+    step = 1
+    while step < t:
+        a_hi = [x[..., step:] for x in a]
+        c_new = [
+            torch.cat([c[i][..., :step], sum(a_hi[i * d + k] * c[k][..., :-step]
+                                             for k in range(d)) + c[i][..., step:]], dim=-1)
+            for i in range(d)
+        ]
+        a = [
+            torch.cat([a[i * d + j][..., :step], sum(a_hi[i * d + k] * a[k * d + j][..., :-step]
+                                                     for k in range(d))], dim=-1)
+            for i in range(d) for j in range(d)
+        ]
+        c = c_new
+        step *= 2
+    return tuple(c)
+
+
+@dataclass
+class ParallelBidiagSolver:
+    """Parallel-in-time solves for a ``BlockBidiagChol``: ``solve_L`` and
+    ``solve_LT`` are the affine recurrences ``y_t = A_t y_{t-1} + D_t^{-1}
+    b_t`` (forward) and ``y_t = A_t y_{t+1} + D_t^{-T} b_t`` (backward),
+    whose transitions depend only on the factor and are built here once.
+
+    ``phi_fwd`` and ``phi_bwd`` are the tables kernel S1 reads: the product
+    of the transitions from the start of t's chunk of
+    ``ops.kernels.bidiag_scan.CHUNK`` steps up to t (forward), or from t to
+    the end of its chunk (backward). They do not depend on the batch."""
+
+    dinv: torch.Tensor  # [T, d, d] = D_t^{-1} (lower triangular)
+    a_fwd: torch.Tensor  # [T, d, d]: A_0 = 0, A_t = -D_t^{-1} L_t
+    a_bwd: torch.Tensor  # [T, d, d]: A_{T-1} = 0, A_t = -D_t^{-T} L_{t+1}^T
+    phi_fwd: torch.Tensor  # [T, d, d]
+    phi_bwd: torch.Tensor  # [T, d, d]
+
+    @property
+    def num_blocks(self) -> int:
+        return self.dinv.shape[0]
+
+    @property
+    def block_dim(self) -> int:
+        return self.dinv.shape[-1]
+
+    @classmethod
+    def from_chol(cls, chol: BlockBidiagChol) -> "ParallelBidiagSolver":
+        d = chol.block_dim
+        eye = torch.eye(d, dtype=chol.diag.dtype, device=chol.diag.device)
+        dinv = torch.linalg.solve_triangular(chol.diag, eye.expand_as(chol.diag), upper=False)
+        zero = chol.diag.new_zeros((1, d, d))
+        if chol.num_blocks == 1:
+            return cls.from_tables(dinv, zero, zero)
+        a_fwd = torch.cat([zero, -dinv[1:] @ chol.lower], dim=0)
+        a_bwd = torch.cat([-dinv[:-1].mT @ chol.lower.mT, zero], dim=0)
+        return cls.from_tables(dinv, a_fwd, a_bwd)
+
+    @classmethod
+    def from_tables(cls, dinv, a_fwd, a_bwd) -> "ParallelBidiagSolver":
+        """The solver of ``dinv``, ``a_fwd`` and ``a_bwd``, with S1's chunk
+        tables built from them."""
+        from stoch_gpmp_tpu_torch.ops.kernels.bidiag_scan import chunk_prefix
+
+        dinv, a_fwd, a_bwd = dinv.contiguous(), a_fwd.contiguous(), a_bwd.contiguous()
+        return cls(dinv=dinv, a_fwd=a_fwd, a_bwd=a_bwd,
+                   phi_fwd=chunk_prefix(a_fwd, backward=False),
+                   phi_bwd=chunk_prefix(a_bwd, backward=True))
+
+    # --- plane-native API: tuple_d of ``[..., T]`` in and out ----------- #
+    def solve_L_planes(self, planes, out=None):
+        """Forward substitution on per-dim time planes (one S1 launch on a
+        CUDA tensor). The output planes are views of one ``[d, ..., T]``
+        tensor, or ``out``'s planes when given."""
+        from stoch_gpmp_tpu_torch.ops.kernels.bidiag_scan import bidiag_scan
+
+        return bidiag_scan(self, planes, backward=False, out=out)
+
+    def solve_LT_planes(self, planes, out=None):
+        """Backward substitution on per-dim time planes (the sampling hot
+        path; one S1 launch on a CUDA tensor)."""
+        from stoch_gpmp_tpu_torch.ops.kernels.bidiag_scan import bidiag_scan
+
+        return bidiag_scan(self, planes, backward=True, out=out)
+
+    def _solve(self, b: torch.Tensor, *, backward: bool) -> torch.Tensor:
+        """``b [..., T, d]`` through the plane solve: its planes are the
+        stride-d views ``b[..., i]``, and the result is written into the
+        planes of a ``[..., T, d]`` tensor (no copy on either side)."""
+        from stoch_gpmp_tpu_torch.ops.kernels.bidiag_scan import bidiag_scan
+
+        out = torch.empty(b.shape, dtype=b.dtype, device=b.device)
+        d = self.block_dim
+        bidiag_scan(self, tuple(b.unbind(-1)), backward=backward, out=tuple(out.unbind(-1)))
+        return out
+
+    def solve_L(self, b: torch.Tensor) -> torch.Tensor:
+        """Forward substitution ``L y = b``, parallel in time."""
+        return self._solve(b, backward=False)
+
+    def solve_LT(self, b: torch.Tensor) -> torch.Tensor:
+        """Backward substitution ``L^T y = b``, parallel in time (the
+        sampling correction ``L^{-T} eps``)."""
+        return self._solve(b, backward=True)
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        return self.solve_LT(self.solve_L(b))

@@ -110,6 +110,19 @@ SIGNATURES = {
     "fk_chain_variant": [_P],  # FkChain* -> the FK walk (csrc/fk_spec.cpp; not an error code)
     "fused_planar_step_launch": _planar_step_args(ctypes.c_ulonglong),  # seed
     "fused_planar_step_per_particle_launch": _planar_step_args(_P),  # seeds [P, 2] or null
+    "bidiag_scan_launch": [
+        _P, _L, _L, _L,  # x, its strides (plane, batch, time) in elements
+        _P, _L, _L, _L,  # y, its strides
+        _P, _P, _P,  # dinv, A, phi [T, d, d]
+        _I, _I, _I, _I, _I,  # B, T, d, is_double, backward
+        _I, _P,  # the phi tables' steps per chunk, stream
+    ],
+    "bidiag_scan_launch_shaped": [
+        _P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P,  # as bidiag_scan_launch
+        _I, _I, _I, _I, _I, _I,  # B, T, d, is_double, backward, steps per chunk
+        _I, _I, _P,  # rows per CTA, chunks per segment, stream
+    ],
+    "bidiag_scan_config": [_I, _I, _I, _I, _P],  # B, T, d, is_double, int shape[3]
     "fused_planar_step_max_clusters": [
         _I, _I, _I, _I, _I,  # P, S, M, n_dof, CTAs per particle
         _I, _I, _I, _P,  # R, C, K9's instantiation, int shape[4]

@@ -20,8 +20,9 @@ Reference semantics kept: damping ``J^T J + delta I``; the trust-region
 branch's second-assignment-wins damping by the particle-averaged diagonal;
 the update ``means += step_size * d_theta``. ``gpmp_optimize`` is a Python
 loop for the JAX ``lax.scan``; the ``GPMP`` class keeps the reference's API
-with an explicit ``torch.Generator`` for the JAX key. ``mesh=`` and the
-long-horizon ``sample_trajectories`` are not ported yet.
+with an explicit ``torch.Generator`` for the JAX key; its
+``sample_trajectories`` draws through the dense ``L^{-1}`` or, beyond M =
+2048, the parallel-in-time solver. ``mesh=`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -302,10 +303,8 @@ class GPMP:
                           self.sigma_goal_init).sample(self.generator, self.num_particles_per_goal)
         particle_means = means.reshape(self.num_particles, self.traj_len, self.d_state_opt)
         self.state = GPMPState(particle_means=particle_means, generator=self.generator)
-        # the sampling prior of sample_trajectories; long horizons (M > 2048)
-        # need the parallel-in-time sampler, not ported yet
-        long_horizon = self.d_state_opt * self.traj_len > 2048
-        self._sample_prior = None if long_horizon else prior(
+        # the sampling prior of sample_trajectories
+        self._sample_prior = prior(
             self.sigma_start_sample, self.sigma_gp_sample, self.sigma_goal_sample)
         self._wb = None
         if self.solver_params["method"] == "woodbury":
@@ -341,15 +340,12 @@ class GPMP:
         return means[..., :n], means[..., n:]
 
     def sample_trajectories(self, num_samples_per_particle: int):
-        """Fresh draws around the current means: (positions, velocities)."""
-        if self._sample_prior is None:
-            raise NotImplementedError(
-                "sample_trajectories at M > 2048 needs the parallel-in-time sampler, "
-                "not ported yet (long-horizon slice)")
-        means = self.state.particle_means
-        p, t, d = means.shape
-        eps = torch.randn((p, num_samples_per_particle, t * d), generator=self.generator,
-                          dtype=means.dtype, device=means.device)
-        samples = means[:, None] + (eps @ self._sample_prior.weight_t).reshape(p, -1, t, d)
+        """Fresh draws around the current means: (positions, velocities);
+        through the dense ``L^{-1}``, or beyond M = 2048 the
+        parallel-in-time solver (S1 on the card)."""
+        from stoch_gpmp_tpu_torch.planners.stoch_gpmp import sample_around
+
+        samples = sample_around(self._sample_prior, self.state.particle_means,
+                                num_samples_per_particle, self.generator)
         n = self.n_dof
         return samples[..., :n], samples[..., n:]

@@ -6,16 +6,18 @@ for every particle, evaluates the cost stack, adds the importance term
 ``tau * x . Sigma^{-1} mu``, takes a softmax over each particle's samples and
 moves the mean by the weighted average of ``x - mu``.
 
-``stoch_gpmp_optimize`` routes a problem as the JAX package does: the
-dof-factored path (``_stoch_gpmp_optimize_dof``: means and samples as
-dof-leading planes ``[d, P(, S), 2T]``, sampling against the shared
-``[2T, 2T]`` factor, the quadratic and importance term in kernel K3, the
-rest of the stack on the planes) for every dof-capable stack with a
-128-aligned horizon, otherwise the flat path (``stoch_gpmp_step`` in a
-Python loop, the JAX ``lax.scan``). Either returns the final state and the
-last iteration's aux. The plane (long-horizon) path is not ported yet; a
-problem that the JAX package would route there raises
-``NotImplementedError`` rather than silently taking another path.
+``stoch_gpmp_optimize`` routes a problem as the JAX package does
+(``_route``): the dof-factored path (``_stoch_gpmp_optimize_dof``: means and
+samples as dof-leading planes ``[d, P(, S), 2T]``, sampling against the
+shared ``[2T, 2T]`` factor, the quadratic and importance term in kernel K3,
+the rest of the stack on the planes) for every dof-capable stack with a
+128-aligned horizon; the plane path (``_stoch_gpmp_optimize_planes``: per-dim
+time planes ``[d, P(, S), T]``, sampling by the parallel-in-time solver,
+kernel S1, and the stack's ``eval_planes``) for a long-horizon sampler (no
+dense factor) with d <= 8 and a plane-capable stack; otherwise the flat path
+(``stoch_gpmp_step`` in a Python loop, the JAX ``lax.scan``), which samples
+with the dense ``L^{-1}`` or a structured solve. Each returns the final
+state and the last iteration's aux.
 
 State layout matches the reference: ``particle_means [P, T, d]`` with
 ``P = num_goals * num_particles_per_goal`` goal-major.
@@ -29,26 +31,37 @@ from typing import Any
 import torch
 
 from stoch_gpmp_tpu_torch.gp.prior import GPPrior, make_gp_prior
-from stoch_gpmp_tpu_torch.gp.tridiag import BlockTridiag
+from stoch_gpmp_tpu_torch.gp.tridiag import (
+    BlockBidiagChol,
+    BlockTridiag,
+    ParallelBidiagSolver,
+    stack_planes,
+)
 from stoch_gpmp_tpu_torch.utils.device import resolve_device
 
 
 @dataclass
 class SamplerModel:
     """The shared-precision Gaussian sampler around particle means:
-    structured precision, the dense ``L^{-1}`` and precision, and the
-    per-dof factor (exact stencil ``Sigma^{-1}`` matvec)."""
+    structured precision and its Cholesky, the dense ``L^{-1}`` and
+    precision (when the prior materialized the dense factor) or the
+    parallel-in-time solver (long horizons), and the per-dof factor (exact
+    stencil ``Sigma^{-1}`` matvec)."""
 
     precision: BlockTridiag
     weight_t: torch.Tensor | None  # [M, M] = L^{-1}; samples = eps @ weight_t
-    precision_dense: torch.Tensor | None  # [M, M]
+    precision_dense: torch.Tensor | None  # [M, M], with weight_t only
     dof: object | None = None
+    chol: BlockBidiagChol | None = None
+    psolver: ParallelBidiagSolver | None = None
 
     @classmethod
     def from_prior(cls, prior: GPPrior) -> "SamplerModel":
+        dense = prior.weight_t is not None
         return cls(
             precision=prior.precision, weight_t=prior.weight_t,
-            precision_dense=prior.precision.to_dense(), dof=prior.dof,
+            precision_dense=prior.precision.to_dense() if dense else None, dof=prior.dof,
+            chol=prior.chol, psolver=prior.psolver,
         )
 
 
@@ -97,6 +110,14 @@ class IterMetrics:
                      ("cost_mean", "cost_min", "weight_entropy", "update_norm")))
 
 
+def _eps_at(eps, i):
+    """The ``i``-th injected draw: ``eps[i]`` of a list or a stacked tensor,
+    ``eps(i)`` of a callable, None when nothing is injected."""
+    if eps is None:
+        return None
+    return eps(i) if callable(eps) else eps[i]
+
+
 def stoch_gpmp_step(
     sampler: SamplerModel,
     cost: Any,
@@ -106,22 +127,40 @@ def stoch_gpmp_step(
     num_samples: int,
     temperature: float,
     step_size: float,
+    sample_method: str = "dense",
+    plane_stream: bool = False,
     eps: torch.Tensor | None = None,
 ) -> tuple[StochGPMPState, StochGPMPAux]:
-    """One importance-weighted update of all particle means. ``eps
-    [P, S, M]`` replaces the draw from ``state.generator`` (tests inject the
-    JAX package's draw)."""
+    """One importance-weighted update of all particle means. ``eps``
+    replaces the draw from ``state.generator`` (tests inject the JAX
+    package's draw): ``[P, S, M]``, or ``[d, P, S, T]`` with
+    ``plane_stream``.
+
+    Sampling: one matmul against the dense ``L^{-1}`` (``sample_method
+    "dense"`` with the dense factor), else the structured solve ``L^{-T}
+    eps`` of the parallel-in-time solver (S1 on the card) or, without one,
+    of the Cholesky. ``plane_stream`` draws and solves in the plane order of
+    the plane path, so this step reproduces that path's iteration."""
     means = state.particle_means  # [P, T, d]
     p, t, d = means.shape
     m = t * d
     means_flat = means.reshape(p, m)
-    if eps is None:
-        eps = torch.randn(
-            (p, num_samples, m), generator=state.generator,
-            dtype=means.dtype, device=means.device,
-        )
-    # --- sample: x = mu + eps @ L^{-1} ---
-    flat = means_flat[:, None] + eps @ sampler.weight_t  # [P, S, M]
+    if plane_stream and sampler.psolver is not None:
+        if eps is None:
+            eps = torch.randn((d, p, num_samples, t), generator=state.generator,
+                              dtype=means.dtype, device=means.device)
+        corr_planes = sampler.psolver.solve_LT_planes(tuple(eps[i] for i in range(d)))
+        corr = torch.stack(corr_planes, dim=-1).reshape(p, num_samples, m)
+    else:
+        if eps is None:
+            eps = torch.randn((p, num_samples, m), generator=state.generator,
+                              dtype=means.dtype, device=means.device)
+        if sample_method == "dense" and sampler.weight_t is not None:
+            corr = eps @ sampler.weight_t  # x = mu + eps @ L^{-1}
+        else:
+            solver = sampler.psolver if sampler.psolver is not None else sampler.chol
+            corr = solver.solve_LT(eps.reshape(p, num_samples, t, d)).reshape(p, num_samples, m)
+    flat = means_flat[:, None] + corr  # [P, S, M]
     samples = flat.reshape(p, num_samples, t, d)
 
     costs = cost.eval(
@@ -132,8 +171,10 @@ def stoch_gpmp_step(
     # the exact O(T) factor-graph stencil when the prior is dof-factored ---
     if sampler.dof is not None and sampler.dof.q_i2 is not None:
         prec_u = sampler.dof.matvec_flat(means).reshape(p, m)
-    else:
+    elif sampler.precision_dense is not None:
         prec_u = means_flat @ sampler.precision_dense
+    else:
+        prec_u = sampler.precision.matvec(means).reshape(p, m)
     costs = costs + temperature * torch.sum(flat * prec_u[:, None], dim=-1)
 
     # --- softmax re-weighting and mean update ---
@@ -148,19 +189,75 @@ def stoch_gpmp_step(
 
 
 def _route(sampler, cost, traj_len: int, sample_method: str = "dense") -> str:
-    """``"dof"`` or ``"flat"``, the JAX package's gate
-    (``stoch_gpmp_optimize``): the dof path for a sampler with the per-dof
-    factor and a dof-capable stack, opted in by ``sample_method="dof"`` or by
-    a horizon that is a multiple of 128. Raises ``NotImplementedError`` where
-    the JAX package would take the plane (long-horizon) path."""
+    """``"dof"``, ``"planes"`` or ``"flat"``, by the JAX package's gates
+    (``stoch_gpmp_optimize``'s ``dof_eligible`` and ``plane_eligible``):
+    the dof path for a sampler with the per-dof factor and a dof-capable
+    stack, opted in by ``sample_method="dof"`` or by a horizon that is a
+    multiple of 128; the plane path for a long-horizon sampler (no dense
+    factor, a parallel-in-time solver) with d <= 8 and a plane-capable
+    stack under ``sample_method="dense"``; the flat path otherwise."""
     if (sampler.dof is not None and cost.supports_dof_planes()
             and (sample_method == "dof" or (sample_method == "dense" and traj_len % 128 == 0))):
         return "dof"
-    if sample_method != "dense" or sampler.weight_t is None:
-        raise NotImplementedError(
-            f"sample_method={sample_method!r} / a sampler without the dense factor "
-            "takes the plane (long-horizon) path, not ported yet")
+    if (sampler.precision.block_dim <= 8 and sampler.weight_t is None
+            and sampler.psolver is not None and sample_method == "dense"
+            and getattr(cost, "supports_planes", lambda: False)()):
+        return "planes"
     return "flat"
+
+
+def _plane_metrics(costs, weights, grads, step_size) -> IterMetrics:
+    """``IterMetrics`` of plane-layout quantities (``grads [d, P, T]``)."""
+    return IterMetrics(
+        cost_mean=costs.mean(), cost_min=costs.min(),
+        weight_entropy=-torch.sum(weights * torch.log(weights + 1e-30), dim=1).mean(),
+        update_norm=(step_size * torch.sqrt(torch.sum(grads * grads, dim=(0, -1)))).mean(),
+    )
+
+
+def _stoch_gpmp_optimize_planes(
+    sampler, cost, state, observation, *, opt_iters, num_samples, temperature,
+    step_size, collect_metrics=False, eps=None,
+):
+    """The long-horizon plane path: means ``[d, P, T]`` and samples ``[d,
+    P, S, T]`` as per-dim time planes, one tensor each. Per iteration: eps
+    ``[d, P, S, T]`` (drawn plane-major, as the JAX package draws it), the
+    correction ``L^{-T} eps`` by the parallel-in-time solver (one S1 launch
+    on the card), the stack's ``eval_planes`` on the planes of ``x = mu +
+    corr`` (a 2D field reads the two position planes in place), the
+    importance term against ``Sigma^{-1} mu`` by the structured
+    ``matvec_planes``, softmax and update. ``eps``: optional per-iteration
+    draws (``[iters, d, P, S, T]``, a list, or a callable of the
+    iteration)."""
+    p, t, d = state.particle_means.shape
+    psolver = sampler.psolver
+
+    def step(mu, eps_i):
+        if eps_i is None:
+            eps_i = torch.randn((d, p, num_samples, t), generator=state.generator,
+                                dtype=mu.dtype, device=mu.device)
+        corr = torch.empty_like(eps_i)
+        psolver.solve_LT_planes(tuple(eps_i), out=tuple(corr))
+        x = mu[:, :, None] + corr  # [d, P, S, T]
+        costs = cost.eval_planes(tuple(x), observation=observation)  # [P, S]
+        pu = stack_planes(sampler.precision.matvec_planes(tuple(mu)))  # [d, P, T]
+        costs = costs + temperature * torch.sum(x * pu[:, :, None], dim=(0, -1))
+        weights = torch.softmax(-costs / temperature, dim=1)
+        grads = torch.einsum("ps,dpst->dpt", weights, corr)
+        return mu + step_size * grads, costs, weights, grads, x
+
+    mu = state.particle_means.permute(2, 0, 1).contiguous()
+    metrics = []
+    for i in range(opt_iters):
+        mu, costs, weights, grads, x = step(mu, _eps_at(eps, i))
+        if collect_metrics:
+            metrics.append(_plane_metrics(costs, weights, grads, step_size))
+    out_state = replace(state, particle_means=mu.permute(1, 2, 0).contiguous())
+    aux = StochGPMPAux(samples=x.permute(1, 2, 3, 0).contiguous(), costs=costs,
+                       weights=weights, grad=grads.permute(1, 2, 0).contiguous())
+    if collect_metrics:
+        return out_state, aux, IterMetrics.stack(metrics)
+    return out_state, aux
 
 
 def _dof_quad_split(cost):
@@ -189,7 +286,8 @@ def _stoch_gpmp_optimize_dof(
     quadratic and ``tau * x . Sigma^{-1} mu`` in one pass (kernel K3; the
     JAX package runs its kernel only on the TPU, the port on every CUDA
     tensor), the rest of the stack on the planes, softmax, mean update.
-    ``eps``: optional per-iteration list of ``[d, P, S, 2T]`` draws."""
+    ``eps``: optional per-iteration ``[d, P, S, 2T]`` draws (a list, a
+    stacked tensor or a callable of the iteration)."""
     from stoch_gpmp_tpu_torch.gp.dof_factored import from_dof_planes, to_dof_planes
     from stoch_gpmp_tpu_torch.ops.kernels.stencil import dof_quad_eval
 
@@ -217,7 +315,7 @@ def _stoch_gpmp_optimize_dof(
     mu = to_dof_planes(state.particle_means)
     metrics = []
     for i in range(opt_iters):
-        mu, costs, weights, grad, x = step(mu, None if eps is None else eps[i])
+        mu, costs, weights, grad, x = step(mu, _eps_at(eps, i))
         if collect_metrics:
             metrics.append(IterMetrics(
                 cost_mean=costs.mean(), cost_min=costs.min(),
@@ -244,18 +342,22 @@ def stoch_gpmp_optimize(
     step_size: float,
     sample_method: str = "dense",
     collect_metrics: bool = False,
-    eps: list | None = None,
+    eps=None,
 ):
-    """Run ``opt_iters`` updates; returns the final state and the last
-    iteration's aux (plus stacked ``IterMetrics`` with ``collect_metrics``).
-    ``eps``: optional per-iteration list of draws, ``[P, S, M]`` on the flat
-    path and ``[d, P, S, 2T]`` on the dof path."""
+    """Run ``opt_iters`` updates on the route ``_route`` picks; returns the
+    final state and the last iteration's aux (plus stacked ``IterMetrics``
+    with ``collect_metrics``). ``eps``: optional per-iteration draws (a
+    list, a stacked tensor or a callable of the iteration): ``[P, S, M]`` on
+    the flat path, ``[d, P, S, 2T]`` on the dof path and ``[d, P, S, T]`` on
+    the plane path."""
     if opt_iters < 1:
         raise ValueError(f"opt_iters must be >= 1, got {opt_iters}")
-    if eps is not None and len(eps) != opt_iters:
+    if eps is not None and not callable(eps) and len(eps) != opt_iters:
         raise ValueError(f"eps holds {len(eps)} draws for {opt_iters} iterations")
-    if _route(sampler, cost, state.particle_means.shape[1], sample_method) == "dof":
-        return _stoch_gpmp_optimize_dof(
+    route = _route(sampler, cost, state.particle_means.shape[1], sample_method)
+    if route != "flat":
+        run = _stoch_gpmp_optimize_dof if route == "dof" else _stoch_gpmp_optimize_planes
+        return run(
             sampler, cost, state, observation, opt_iters=opt_iters, num_samples=num_samples,
             temperature=temperature, step_size=step_size, collect_metrics=collect_metrics,
             eps=eps,
@@ -265,8 +367,8 @@ def stoch_gpmp_optimize(
     for i in range(opt_iters):
         state, aux = stoch_gpmp_step(
             sampler, cost, state, observation, num_samples=num_samples,
-            temperature=temperature, step_size=step_size,
-            eps=None if eps is None else eps[i],
+            temperature=temperature, step_size=step_size, sample_method=sample_method,
+            eps=_eps_at(eps, i),
         )
         if collect_metrics:
             metrics.append(IterMetrics.from_aux(aux, step_size))
@@ -405,7 +507,6 @@ class StochGPMP:
         observation = dict(observation or {})
         observation.update(obs_kwargs)
         iters = self.opt_iters if opt_iters is None else opt_iters
-        _route(self.sampler, self.cost, self.traj_len, self.sample_method)
         if self.fused_kernel and not collect_metrics and iters > 1:
             self.state = self._fused_runner(observation)(self.state, iters - 1)
             iters = 1  # final iteration on the flat path -> full aux
@@ -465,13 +566,25 @@ class StochGPMP:
         raise ValueError(f"unknown mode: {mode}")
 
     def sample_trajectories(self, num_samples_per_particle: int):
-        """Fresh draws around the current means: (positions, velocities)."""
-        means = self.state.particle_means
-        p, t, d = means.shape
-        eps = torch.randn(
-            (p, num_samples_per_particle, t * d), generator=self.generator,
-            dtype=means.dtype, device=means.device,
-        )
-        samples = means[:, None] + (eps @ self.sampler.weight_t).reshape(p, -1, t, d)
+        """Fresh draws around the current means: (positions, velocities);
+        through the dense ``L^{-1}``, or the structured solve in long-horizon
+        mode."""
+        samples = sample_around(self.sampler, self.state.particle_means,
+                                num_samples_per_particle, self.generator)
         n = self.n_dof
         return samples[..., :n], samples[..., n:]
+
+
+def sample_around(sampler, means, num_samples: int, generator) -> torch.Tensor:
+    """``[P, S, T, d]`` draws around ``means [P, T, d]`` from ``sampler``
+    (a ``SamplerModel`` or a ``GPPrior``): ``eps @ L^{-1}`` with the dense
+    factor, else ``L^{-T} eps`` by the parallel-in-time solver or, without
+    one, the Cholesky."""
+    p, t, d = means.shape
+    eps = torch.randn((p, num_samples, t, d), generator=generator,
+                      dtype=means.dtype, device=means.device)
+    if sampler.weight_t is not None:
+        corr = (eps.reshape(p, num_samples, t * d) @ sampler.weight_t).reshape(eps.shape)
+    else:
+        corr = (sampler.psolver if sampler.psolver is not None else sampler.chol).solve_LT(eps)
+    return means[:, None] + corr

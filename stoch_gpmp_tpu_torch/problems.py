@@ -13,6 +13,11 @@
   (``"grid"``, ``ObstacleMap.as_field()``, kernel K10, the example's field),
   the analytic primitives (``"primitive"``, ``Primitive2DField``, K11) or the
   raster field (``"raster"``, K1).
+- ``build_long_horizon_problem``: counterpart of ``benchmarks/long_horizon.py
+  _problem``, the long-horizon planar workload: 1 goal x 15 particles, 32
+  samples, T = 1024 or 4096, ``CostComposite([CostGP, CostGoalPrior,
+  CostCollision(RasterPrimitive2DField)])`` over the parity map, and a
+  sampling prior without the dense factor (the parallel-in-time solver).
 - ``build_planar_gpmp_problem``: ``examples/planar_gpmp.py``, Gauss-Newton
   ``GPMP`` on 2 goals x ``ppg`` particles, T = 64, dt = 0.05, 10 random
   obstacles from ``generate_obstacle_map(rng=seed)``, with
@@ -125,6 +130,54 @@ def build_planar_problem(traj_len=64, ppg=5, dtype=torch.float32, device=None,
         generator=torch.Generator(device=device).manual_seed(seed),
     )
     return SamplerModel.from_prior(prior), cost, state
+
+
+# benchmarks/long_horizon.py: one goal, 15 particles x 32 samples,
+# temperature 1.0, step 0.5
+LONG_HORIZON_GOALS = [[9.0, 6.0, 0.0, 0.0]]
+LONG_HORIZON = dict(particles=15, num_samples=32, temperature=1.0, step_size=0.5)
+
+
+def build_long_horizon_problem(traj_len, with_obstacles=True, dtype=torch.float32,
+                               device=None, seed=0):
+    """``(sampler, cost, state)`` of ``benchmarks/long_horizon.py _problem``:
+    start ``START``, goal ``LONG_HORIZON_GOALS``, ``CostGP(sigma_start 1e-3,
+    sigma_gp 0.1)``, ``CostGoalPrior(1e-3)`` and, ``with_obstacles``,
+    ``CostCollision(RasterPrimitive2DField, sigma_coll=1e-5)`` over the 15
+    obstacles of ``generate_obstacle_map(rng=0)``; the sampling prior
+    ``make_gp_prior(2, T, 0.02, START, 1e-3, 3.0, sigma_goal=1e-3,
+    materialize_dense=False)`` (the parallel-in-time solver at every
+    horizon); the means its straight line, once per particle
+    (``LONG_HORIZON["particles"]``); the generator seeded with ``seed``."""
+    from stoch_gpmp_tpu_torch.costs import CostCollision, CostComposite, CostGP, CostGoalPrior
+    from stoch_gpmp_tpu_torch.envs import generate_obstacle_map
+    from stoch_gpmp_tpu_torch.gp.prior import make_gp_prior
+    from stoch_gpmp_tpu_torch.planners import SamplerModel, StochGPMPState
+
+    device = resolve_device(device)
+    t = traj_len
+    costs = [
+        CostGP.create(2, t, START, DT, {"sigma_start": 1e-3, "sigma_gp": 0.1},
+                      dtype=dtype, device=device),
+        CostGoalPrior.create(2, t, LONG_HORIZON_GOALS, sigma_goal_prior=1e-3, dtype=dtype,
+                             device=device),
+    ]
+    if with_obstacles:
+        obst_map, obst_list = generate_obstacle_map(
+            map_dim=(20, 20), cell_size=0.1, random_gen=True, num_obst=15,
+            rand_limits=[[-7.5, 7.5]] * 2, rand_rect_shape=[2, 2], rng=0,
+            dtype=dtype, device=device,
+        )
+        field = _planar_field("raster", obst_map, obst_list, dtype, device)
+        costs.append(CostCollision.create(2, t, field, sigma_coll=1e-5))
+    prior = make_gp_prior(2, t, DT, START, 1e-3, 3.0, sigma_goal=1e-3,
+                          goal_states=LONG_HORIZON_GOALS, dtype=dtype, device=device,
+                          materialize_dense=False)
+    state = StochGPMPState(
+        particle_means=prior.means.repeat(LONG_HORIZON["particles"], 1, 1),
+        generator=torch.Generator(device=device).manual_seed(seed),
+    )
+    return SamplerModel.from_prior(prior), CostComposite.create(2, t, costs), state
 
 
 GPMP_GOALS = [[9.0, 6.0, 0.0, 0.0], [9.0, -3.0, 0.0, 0.0]]

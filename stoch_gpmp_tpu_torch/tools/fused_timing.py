@@ -2,8 +2,8 @@
 phases of the fused kernels K2, K6 and K5 and of the FK + fields kernel K4,
 and the kernels' device time per call across shapes.
 
-    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing phases [--out DIR] [--only K5,K4]
-    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing shapes [--only K5,K4,K7,floor]
+    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing phases [--out DIR] [--only K5,K4,S1]
+    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing shapes [--only K5,K4,K7,S1,floor]
 
 ``phases`` builds instrumented copies of ``csrc/fused_planar_step.cu`` (K2),
 ``csrc/fused_panda_step.cu`` (K6), ``csrc/fused_panda_dof_step.cu`` (K5)
@@ -39,7 +39,11 @@ kernel (so they run back to back on the device) and per call through the
 wrapper, then ptxas's report of their sources (``floor``, ``host``: the
 host's share of a wrapper call). It uses only the steps' and wrappers'
 public calls, so the same module run from an older checkout of the port
-times that checkout's kernels.
+times that checkout's kernels. ``S1`` times the long-horizon solve (the
+backward plane solve of ``build_long_horizon_problem``'s sampler on ``[4,
+480, T]`` planes, T = 4096 and 1024) through the wrapper, then its launch
+at every rows-per-CTA and chunks-per-segment the kernel takes (device ms by
+``torch.profiler``), beside the wrapper's choice.
 
 Both print the card's name, power limit and SM clock. Needs one NVIDIA GPU
 and nvcc.
@@ -144,6 +148,19 @@ K4 = dict(src="fk_fields.cu", phases=["walk", "self field", "obstacle field", "r
         ("fk_chain.cuh", "  if (w_obst != 0.0f && n_obst > 0) {", 2, False),
         (None, "                       w_self, w_obst);\n  }", 3, True),
         (None, "  if (threadIdx.x == 0) out[blockIdx.x] = acc;", 4, True)])})
+S1 = dict(src="bidiag_scan.cu", phases=[  # the stamps of each CTA's last time segment
+    "stage in", "phase 1: chunk recurrences", "phase 2: carries", "phase 3: y = local + phi c",
+    "write back"], designs={"segments of chunks": (0, [
+        (None, "    __syncthreads();  // the previous segment is written back, its carry set",
+         0, True),
+        (None, "      stage<F, D, 1, true>(x, nullptr, gx, sm, d, rs, plane, b0, B, rows, t0, len);\n"
+               "    __syncthreads();", 1, True),
+        (None, "    // phase 2: the carries across the segment's chunks, one thread per row",
+         2, False),
+        (None, "    // phase 3: y_t = local_t + phi_t carry_in", 3, False),
+        (None, "    if (vy)\n", 4, False),
+        (None, "      stage<F, D, 1, false>(nullptr, y, gy, sm, d, rs, plane, b0, B, rows, t0, "
+               "len);", 5, True)])})
 # the planar parity step's temperature and step size (chip_smoke.py), and
 # config 4's (benchmarks/run.py)
 PLANAR_TAU, PLANAR_STEP, PANDA_TAU, PANDA_STEP = 1.0, 0.5, 1.0, 0.1
@@ -325,6 +342,20 @@ def phases(dev, out_dir: Path, only) -> None:
         torch.cuda.synchronize()
         report(f"K5 ({design} design), Panda config 5 (seed mode)", k5,
                min(16384, step5.num_particles), K5["phases"])
+    if "S1" in only:
+        from stoch_gpmp_tpu_torch.problems import build_long_horizon_problem
+
+        s1, design = instrumented(S1, out_dir)
+        use(lib, s1)
+        for t in (4096, 1024):
+            ps = build_long_horizon_problem(t, device=dev)[0].psolver
+            x = torch.randn((4, 480, t), device=dev)
+            for _ in range(3):
+                ps.solve_LT_planes(tuple(x))
+            torch.cuda.synchronize()
+            rows, chunks, _ = s1_shape(lib, 480, t)
+            report(f"S1 ({design} design), backward [4, 480, {t}] float32, {rows} rows x "
+                   f"{chunks} chunks per CTA", s1, -(-480 // rows), S1["phases"])
     if "K4" in only:
         k4, design = instrumented(K4, out_dir)
         use(lib, k4)
@@ -507,6 +538,47 @@ def point_kernels(dev, only) -> None:
         print(f"ptxas {src}: {ptxas_report(src)}", flush=True)
 
 
+def s1_shape(lib, b: int, t: int, rows: int = 0, chunks: int = 0):
+    """``(rows per CTA, chunks per segment, shared memory bytes)`` of S1's
+    launch on ``[4, b, t]`` float32 planes: the launcher's choice (``rows =
+    chunks = 0``), or the given shape; None where the kernel does not take
+    it."""
+    shape = (ctypes.c_int * 3)(rows, chunks, 0)
+    return tuple(shape) if lib.bidiag_scan_config(b, t, 4, 0, shape) == 0 else None
+
+
+def s1_launches(dev) -> None:
+    """S1 at the long-horizon main path's shapes: the wrapper's call, then
+    every launch shape, float32, backward."""
+    from stoch_gpmp_tpu_torch.ops.kernels import bidiag_scan as s1
+    from stoch_gpmp_tpu_torch.problems import LONG_HORIZON, build_long_horizon_problem
+
+    lib = _build.load_library()
+    b = LONG_HORIZON["particles"] * LONG_HORIZON["num_samples"]
+    for t in (4096, 1024):
+        ps = build_long_horizon_problem(t, device=dev)[0].psolver
+        x = torch.randn((4, b, t), generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+        out = torch.empty_like(x)
+        time_point(f"S1 backward [4, {b}, {t}]",
+                   lambda: ps.solve_LT_planes(tuple(x), out=tuple(out)), "bidiag_scan")
+        ptrs = (ps.dinv.data_ptr(), ps.a_bwd.data_ptr(), ps.phi_bwd.data_ptr())
+        for rows in (1, 2, 4, 8):
+            for chunks in (4, 8, 16, 32, 64, 128, 256):
+                shape = s1_shape(lib, b, t, rows, chunks)
+                if shape is None or chunks > -(-t // s1.CHUNK):
+                    continue
+                fn = lambda: _build.check(lib.bidiag_scan_launch_shaped(  # noqa: E731
+                    x.data_ptr(), b * t, t, 1, out.data_ptr(), b * t, t, 1, *ptrs, b, t, 4, 0,
+                    1, s1.CHUNK, rows, chunks, _build.stream_ptr(dev)),
+                    "bidiag_scan_launch_shaped")
+                kern, _ = device_per_call(fn, 20, "bidiag_scan")
+                print(f"S1 [4, {b}, {t}] rows {rows}, chunks {chunks} ({shape[2]} B shared "
+                      f"memory): kernel {kern:.4f} ms device per call", flush=True)
+        print(f"S1 [4, {b}, {t}]: the launcher picks (rows, chunks, shared memory) "
+              f"{s1_shape(lib, b, t)}", flush=True)
+
+
 def ptxas_report(src: str) -> str:
     """ptxas's registers, spills and stack frames per kernel of ``csrc/src``,
     from a build of that source alone with the kernels' flags (the shared
@@ -522,6 +594,8 @@ def ptxas_report(src: str) -> str:
 
 
 def shapes(dev, only) -> None:
+    if "S1" in only:
+        s1_launches(dev)
     if "K5" in only:
         step, planes = panda_dof_step(dev)
         kern, every = device_per_call(lambda: step(planes, seed=3), 20, "fused_panda_dof_step")
@@ -575,7 +649,7 @@ def shapes(dev, only) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("phases", "shapes"))
-    ap.add_argument("--only", default="K2,K6,K5,K4,K7,K8,K1,K10,K11,floor,host",
+    ap.add_argument("--only", default="K2,K6,K5,K4,K7,K8,K1,K10,K11,S1,floor,host",
                     help="kernels (and floor, host), comma-separated")
     ap.add_argument("--out", type=Path, default=Path("build") / "phase_timing",
                     help="where phases builds the instrumented kernels")

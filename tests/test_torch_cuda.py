@@ -36,7 +36,12 @@ counts, on unaligned views and cell or primitive edges; K1 and K11 with no
 rectangles or circles, K10 on grids with an odd side); the reference-shaped
 planar routes on the grid and the primitives under the same gates; GN
 ``GPMP`` at P = 192 with its goal (0.05), start (0.02) and method-agreement
-(1e-4) gates.
+(1e-4) gates. S1 within 1e-5 (float32) and 1e-12 (float64) of the float64
+serial substitution relative to the largest entry, and its plain version
+likewise; the long-horizon path at T = 4096 and 1024 with one S1 and one K1
+launch per iteration, starts and end points within 0.05, and the kernels'
+means within 1e-3 of their plain versions' where the best sample agrees;
+the class API at T = 1024 and the quadratic stack's dof route there.
 """
 
 import sys
@@ -236,3 +241,27 @@ def test_gauss_newton_main_path(dev):
     r = chip_smoke.gn_main(dev)
     assert r["woodbury_vs_cholesky"] <= chip_smoke.GN_METHOD_ATOL
     assert r["cholesky"]["launches"]["grid_lookup"] == chip_smoke.GN_ITERS + 1
+
+
+def test_bidiag_scan_kernel_matches_oracle(dev):
+    import chip_smoke
+
+    r = chip_smoke.s1_check(dev)
+    assert r["worst"]["float32 s1_rel"] <= chip_smoke.S1_RTOL[torch.float32]
+    assert r["worst"]["float64 s1_rel"] <= chip_smoke.S1_RTOL[torch.float64]
+
+
+@pytest.mark.parametrize("t", [4096, 1024])
+def test_long_horizon_main_path(dev, t):
+    import chip_smoke
+
+    r = chip_smoke.long_horizon_main(dev, t)
+    assert r["launches"] == {"bidiag_scan": chip_smoke.LH_ITERS,
+                             "raster_field": chip_smoke.LH_ITERS}
+    assert r["goal_err"] < chip_smoke.LH_TOL
+
+
+def test_long_horizon_api(dev):
+    import chip_smoke
+
+    assert chip_smoke.long_horizon_api(dev)["quad_route"] == "dof"
