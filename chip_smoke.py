@@ -111,15 +111,20 @@ Phases, one line each; any failure exits non-zero before the result line:
     its plain version (the log-step scan) on the card, forward and
     backward, float32 and float64, on planes ``[d, 480, T]`` (d = 4 at T =
     1, 2, 77, 1024, 4096; d = 2 and 6, the runtime-d instantiation, at T =
-    77), ``[4, 482, 77]`` and ``[14, 15, 150]``, and on ``[15, 32, T, 4]``
-    batches through ``solve_LT`` (stride-d planes, T = 77 and 4096); its
-    times at ``[4, 480, 4096]`` beside the plain version, the bound and
-    ``torch.linalg.solve_triangular`` against the dense ``L^T`` (the
-    library call), and the largest entry of its chunk tables;
+    77), ``[4, 482, 77]``, ``[4, 482, 1056]`` and ``[14, 15, 150]``, and on
+    ``[15, 32, T, 4]`` batches through ``solve_LT`` (stride-d planes, T = 77
+    and 4096); each launch's load path (the planes by TMA where the time
+    stride is 1 and a row is whole 128-byte lines: T = 1024, 1056 and 4096,
+    the main path's solve; staged by the kernel's threads, counted in
+    ``bidiag_scan.staged_launches``, at T = 1, 2, 77 and for the stride-d
+    batches); its times at ``[4, 480, 4096]`` beside the plain version, the
+    bound and ``torch.linalg.solve_triangular`` against the dense ``L^T``
+    (the library call), and the largest entry of its chunk tables;
 19. long-horizon-main: ``build_long_horizon_problem`` (1 goal x 15
     particles, 32 samples, the raster field) at T = 4096 and 1024 through
     ``stoch_gpmp_optimize`` on the ``"planes"`` route, 200 iterations after
-    a warm-up, with launch (S1 and K1 once per iteration), finite, start
+    a warm-up, with launch (S1 and K1 once per iteration, every S1 launch
+    by TMA), finite, start
     and goal gates, updates/s, wall and device ms, device operations per
     iteration, the busy share and the largest kernels; then 5 iterations
     with the same draws through the kernels and through their plain
@@ -261,12 +266,13 @@ MAX_LOOP_OPS = 2
 # 10x that. S1 and its plain version within the sum of their gates.
 S1_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # (d, rows, T) of the S1 phase: the main path's 480 rows (15 particles x 32
-# samples) and a batch that fills no CTA at d = 4, the Panda's d = 14 (the
+# samples) and a batch that fills no CTA at d = 4 (staged at T = 77; by TMA
+# at T = 1056, whose last time segment is partial), the Panda's d = 14 (the
 # two block sizes compiled in), d = 2 and 6 through the runtime-d
 # instantiation, and the [15, 32, T, 4] batches solve_LT reads as stride-d
 # planes
 S1_SHAPES = ((4, 480, 1), (4, 480, 2), (4, 480, 77), (4, 480, 1024), (4, 480, 4096),
-             (4, 482, 77), (14, 15, 150), (2, 480, 77), (6, 480, 77))
+             (4, 482, 77), (4, 482, 1056), (14, 15, 150), (2, 480, 77), (6, 480, 77))
 S1_STRIDED = (77, 4096)
 # the main path's solve: d, rows (15 x 32), T
 S1_MAIN = (4, 480, 4096)
@@ -398,12 +404,14 @@ def kernel_counters() -> dict:
 
 def reset_counters() -> None:
     """Set every kernel's launch count (and the count of generic or
-    runtime-size launches of the FK kernels, K7 and S1) to 0, just before a
-    main path runs."""
+    runtime-size launches of the FK kernels, K7 and S1, and S1's launches
+    whose planes did not go by TMA) to 0, just before a main path runs."""
     for fn in kernel_counters().values():
         fn.launches = 0
         if hasattr(fn, "generic_launches"):
             fn.generic_launches = 0
+        if hasattr(fn, "staged_launches"):
+            fn.staged_launches = 0
 
 
 def generic_walks(counters: dict) -> dict:
@@ -2071,11 +2079,13 @@ def s1_check(dev) -> dict:
             oracle = BlockBidiagChol(prior.chol.diag.double(), prior.chol.lower.double())
             x = torch.randn((d, rows, t), generator=gen, device=dev, dtype=dtype)
             for backward in (False, True):
-                g0 = bidiag_scan.generic_launches
+                g0, s0 = bidiag_scan.generic_launches, bidiag_scan.staged_launches
                 got = torch.stack(bidiag_scan(ps, tuple(x), backward=backward))
                 if bidiag_scan.generic_launches - g0 != int(d not in UNROLLED):
                     fail(f"S1 [{d}, {rows}, {t}]: {bidiag_scan.generic_launches - g0} runtime-d "
                          f"launches, expected {int(d not in UNROLLED)} (compiled in: {UNROLLED})")
+                _s1_load_path(f"[{d}, {rows}, {t}] {str(dtype)[6:]}",
+                              bidiag_scan.staged_launches - s0, s1_by_tma(t, dtype))
                 plain = torch.stack(plain_solve(ps, tuple(x), backward=backward))
                 solve = oracle.solve_LT if backward else oracle.solve_L
                 want = solve(x.double().permute(1, 2, 0)).permute(2, 0, 1)
@@ -2084,7 +2094,10 @@ def s1_check(dev) -> dict:
                                         dtype, got, plain, want))
             if t in S1_STRIDED and d == 4:
                 b = torch.randn((15, 32, t, 4), generator=gen, device=dev, dtype=dtype)
+                s0 = bidiag_scan.staged_launches
                 got, want = ps.solve_LT(b), oracle.solve_LT(b.double())
+                _s1_load_path(f"solve_LT [15, 32, {t}, 4] {str(dtype)[6:]}",
+                              bidiag_scan.staged_launches - s0, False)
                 plain = torch.stack(plain_solve(ps, tuple(b.unbind(-1)), backward=True), -1)
                 cases.append(_s1_errors(f"solve_LT [15, 32, {t}, 4] {str(dtype)[6:]}", dtype,
                                         got, plain, want))
@@ -2106,7 +2119,10 @@ def s1_check(dev) -> dict:
     lt = prior.chol.to_dense().T.contiguous()
     rhs = x.permute(2, 0, 1).reshape(t * d, b).contiguous()
     library = lambda: torch.linalg.solve_triangular(lt, rhs, upper=True)  # noqa: E731
+    s0 = bidiag_scan.staged_launches
     kernel()
+    _s1_load_path(f"{list(S1_MAIN)} (the main path's solve)", bidiag_scan.staged_launches - s0,
+                  True)
     lib_err = float((library().reshape(t, d, b).permute(1, 2, 0) - out).abs().max())
     big = max(float(out.abs().max()), 1e-30)
     if not lib_err <= 2 * S1_RTOL[torch.float32] * big:
@@ -2121,6 +2137,22 @@ def s1_check(dev) -> dict:
                 device_ms=device_ms(kernel, 50), queued_ms=queued_ms(kernel),
                 plain_device_ms=device_ms(plain, 3), library_ms=cuda_ms(library, 5),
                 library_err=lib_err, bound=bd)
+
+
+def s1_by_tma(t: int, dtype) -> bool:
+    """Whether S1 moves contiguous ``[d, rows, t]`` planes by TMA: the time
+    stride is 1 and a row a whole number of 128-byte lines
+    (``csrc/bidiag_scan.cu tma_layout``); else its threads stage them."""
+    return t % (128 // (torch.finfo(dtype).bits // 8)) == 0
+
+
+def _s1_load_path(what: str, staged: int, by_tma: bool) -> None:
+    """Fails unless the one launch just made moved its planes by TMA
+    (``by_tma``) or by the kernel's threads (counted in
+    ``bidiag_scan.staged_launches``)."""
+    if staged != int(not by_tma):
+        fail(f"S1 {what}: {staged} staged launches, expected {int(not by_tma)} (planes by "
+             f"{'TMA' if by_tma else 'the threads'})")
 
 
 def _s1_errors(what, dtype, got, plain, want) -> dict:
@@ -2214,9 +2246,11 @@ def long_horizon_main(dev, t: int) -> dict:
     counters = kernel_counters()
     launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
     generic = {k: n for k, n in generic_walks(counters).items() if n}
-    if launches != {"bidiag_scan": LH_ITERS, "raster_field": LH_ITERS} or generic:
-        fail(f"long-horizon T = {t}: launches {launches} ({generic} runtime-d or generic), "
-             f"expected bidiag_scan and raster_field {LH_ITERS} each, compiled-in block sizes")
+    staged = counters["bidiag_scan"].staged_launches
+    if launches != {"bidiag_scan": LH_ITERS, "raster_field": LH_ITERS} or generic or staged:
+        fail(f"long-horizon T = {t}: launches {launches} ({generic} runtime-d or generic, "
+             f"{staged} S1 launches without TMA), expected bidiag_scan and raster_field "
+             f"{LH_ITERS} each, compiled-in block sizes, every S1 launch by TMA")
     means = state.particle_means
     if not (bool(torch.isfinite(means).all()) and bool(torch.isfinite(aux.costs).all())):
         fail(f"long-horizon T = {t}: non-finite output")

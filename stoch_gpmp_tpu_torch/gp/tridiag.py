@@ -298,16 +298,27 @@ class ParallelBidiagSolver:
     b_t`` (forward) and ``y_t = A_t y_{t+1} + D_t^{-T} b_t`` (backward),
     whose transitions depend only on the factor and are built here once.
 
-    ``phi_fwd`` and ``phi_bwd`` are the tables kernel S1 reads: the product
-    of the transitions from the start of t's chunk of
+    The other fields are the tables kernel S1 reads, per direction
+    (``ops/kernels/bidiag_scan.py``; none depends on the batch): ``phi``,
+    the product of the transitions from the start of t's chunk of
     ``ops.kernels.bidiag_scan.CHUNK`` steps up to t (forward), or from t to
-    the end of its chunk (backward). They do not depend on the batch."""
+    the end of its chunk (backward); ``rec``, each step's triangle of
+    ``D_t^{-1}`` (``D_t^{-T}`` backward) and ``A_t``, packed, and ``phr``,
+    ``phi`` by rows, both padded to whole chunks of steps; ``psi``, the
+    products of 1, 2, ..., 32 consecutive chunk transitions that the
+    kernel's scan over chunks multiplies by."""
 
     dinv: torch.Tensor  # [T, d, d] = D_t^{-1} (lower triangular)
     a_fwd: torch.Tensor  # [T, d, d]: A_0 = 0, A_t = -D_t^{-1} L_t
     a_bwd: torch.Tensor  # [T, d, d]: A_{T-1} = 0, A_t = -D_t^{-T} L_{t+1}^T
     phi_fwd: torch.Tensor  # [T, d, d]
     phi_bwd: torch.Tensor  # [T, d, d]
+    rec_fwd: torch.Tensor  # [CHUNK ceil(T / CHUNK), rec_width]
+    rec_bwd: torch.Tensor  # [CHUNK ceil(T / CHUNK), rec_width]
+    phr_fwd: torch.Tensor  # [CHUNK ceil(T / CHUNK), phi_width]
+    phr_bwd: torch.Tensor  # [CHUNK ceil(T / CHUNK), phi_width]
+    psi_fwd: torch.Tensor  # [SCAN_LEVELS, d * d, ceil(T / CHUNK)]
+    psi_bwd: torch.Tensor  # [SCAN_LEVELS, d * d, ceil(T / CHUNK)]
 
     @property
     def num_blocks(self) -> int:
@@ -333,12 +344,21 @@ class ParallelBidiagSolver:
     def from_tables(cls, dinv, a_fwd, a_bwd) -> "ParallelBidiagSolver":
         """The solver of ``dinv``, ``a_fwd`` and ``a_bwd``, with S1's chunk
         tables built from them."""
-        from stoch_gpmp_tpu_torch.ops.kernels.bidiag_scan import chunk_prefix
+        from stoch_gpmp_tpu_torch.ops.kernels.bidiag_scan import (
+            chunk_prefix,
+            phi_records,
+            scan_products,
+            step_records,
+        )
 
         dinv, a_fwd, a_bwd = dinv.contiguous(), a_fwd.contiguous(), a_bwd.contiguous()
-        return cls(dinv=dinv, a_fwd=a_fwd, a_bwd=a_bwd,
-                   phi_fwd=chunk_prefix(a_fwd, backward=False),
-                   phi_bwd=chunk_prefix(a_bwd, backward=True))
+        phi_fwd, phi_bwd = chunk_prefix(a_fwd, backward=False), chunk_prefix(a_bwd, backward=True)
+        return cls(dinv=dinv, a_fwd=a_fwd, a_bwd=a_bwd, phi_fwd=phi_fwd, phi_bwd=phi_bwd,
+                   rec_fwd=step_records(dinv, a_fwd, backward=False),
+                   rec_bwd=step_records(dinv, a_bwd, backward=True),
+                   phr_fwd=phi_records(phi_fwd), phr_bwd=phi_records(phi_bwd),
+                   psi_fwd=scan_products(a_fwd, backward=False),
+                   psi_bwd=scan_products(a_bwd, backward=True))
 
     # --- plane-native API: tuple_d of ``[..., T]`` in and out ----------- #
     def solve_L_planes(self, planes, out=None):

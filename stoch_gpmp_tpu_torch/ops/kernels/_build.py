@@ -113,16 +113,16 @@ SIGNATURES = {
     "bidiag_scan_launch": [
         _P, _L, _L, _L,  # x, its strides (plane, batch, time) in elements
         _P, _L, _L, _L,  # y, its strides
-        _P, _P, _P,  # dinv, A, phi [T, d, d]
+        _P, _P, _P,  # rec, phr, psi tables of the direction
         _I, _I, _I, _I, _I,  # B, T, d, is_double, backward
-        _I, _P,  # the phi tables' steps per chunk, stream
-    ],
+        _I, _I, _P,  # the tables' steps per chunk and scan levels, stream
+    ],  # 0: planes by TMA, -1: staged by the kernel's threads, else cudaError_t
     "bidiag_scan_launch_shaped": [
         _P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P,  # as bidiag_scan_launch
-        _I, _I, _I, _I, _I, _I,  # B, T, d, is_double, backward, steps per chunk
-        _I, _I, _P,  # rows per CTA, chunks per segment, stream
+        _I, _I, _I, _I, _I, _I, _I,  # B, T, d, is_double, backward, steps per chunk, levels
+        _P, _P,  # int shape[5] (rows, chunks, steps, buffers, stages), stream
     ],
-    "bidiag_scan_config": [_I, _I, _I, _I, _P],  # B, T, d, is_double, int shape[3]
+    "bidiag_scan_config": [_I, _I, _I, _I, _P],  # B, T, d, is_double, int shape[7]
     "fused_planar_step_max_clusters": [
         _I, _I, _I, _I, _I,  # P, S, M, n_dof, CTAs per particle
         _I, _I, _I, _P,  # R, C, K9's instantiation, int shape[4]

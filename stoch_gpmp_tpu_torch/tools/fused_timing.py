@@ -3,7 +3,7 @@ phases of the fused kernels K2, K6 and K5 and of the FK + fields kernel K4,
 and the kernels' device time per call across shapes.
 
     python3 -m stoch_gpmp_tpu_torch.tools.fused_timing phases [--out DIR] [--only K5,K4,S1]
-    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing shapes [--only K5,K4,K7,S1,floor]
+    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing shapes [--only K5,K4,K7,S1,S1-sweep,floor]
 
 ``phases`` builds instrumented copies of ``csrc/fused_planar_step.cu`` (K2),
 ``csrc/fused_panda_step.cu`` (K6), ``csrc/fused_panda_dof_step.cu`` (K5)
@@ -41,9 +41,14 @@ host's share of a wrapper call). It uses only the steps' and wrappers'
 public calls, so the same module run from an older checkout of the port
 times that checkout's kernels. ``S1`` times the long-horizon solve (the
 backward plane solve of ``build_long_horizon_problem``'s sampler on ``[4,
-480, T]`` planes, T = 4096 and 1024) through the wrapper, then its launch
-at every rows-per-CTA and chunks-per-segment the kernel takes (device ms by
-``torch.profiler``), beside the wrapper's choice.
+480, T]`` planes, T = 4096 and 1024) through the wrapper, beside the
+launcher's shape, and ptxas's report of its source; ``S1-sweep`` adds its
+launch at a sweep of shapes (rows per CTA, chunks per segment, steps per
+table stage, plane buffers, table stages; device ms by ``torch.profiler``);
+``S1-host`` the host's time per call of its wrapper's pieces. ``phases --only S1`` stamps the
+last time segment of each CTA of S1 (consumer thread 0): the wait for the
+segment's planes (TMA, issued one or more segments earlier), phases 1, 2
+and 3.
 
 Both print the card's name, power limit and SM clock. Needs one NVIDIA GPU
 and nvcc.
@@ -148,9 +153,17 @@ K4 = dict(src="fk_fields.cu", phases=["walk", "self field", "obstacle field", "r
         ("fk_chain.cuh", "  if (w_obst != 0.0f && n_obst > 0) {", 2, False),
         (None, "                       w_self, w_obst);\n  }", 3, True),
         (None, "  if (threadIdx.x == 0) out[blockIdx.x] = acc;", 4, True)])})
-S1 = dict(src="bidiag_scan.cu", phases=[  # the stamps of each CTA's last time segment
-    "stage in", "phase 1: chunk recurrences", "phase 2: carries", "phase 3: y = local + phi c",
-    "write back"], designs={"segments of chunks": (0, [
+S1 = dict(src="bidiag_scan.cu", phases=[  # consumer thread 0, each CTA's last time segment
+    "wait for the planes", "phase 1: chunk recurrences", "phase 2: carries",
+    "phase 3: y = local + phi c"], designs={
+    "TMA segments, producer warp": (0, [
+        (None, "    F* buf = bufs + (a.tma ? (size_t)(q % NB) * buf_elems : 0);", 0, True),
+        (None, "    // phase 1: the chunk's recurrence from a zero carry, local results in place",
+         1, False),
+        (None, "    // phase 2: the carries.", 2, False),
+        (None, "    // phase 3: y_t = local_t + phi_t carry_in, in place", 3, False),
+        (None, "    if (a.tma) {\n      fence_proxy_async();", 4, False)]),
+    "segments of chunks": (0, [  # the earlier design: stage in, phases 1-3, write back
         (None, "    __syncthreads();  // the previous segment is written back, its carry set",
          0, True),
         (None, "      stage<F, D, 1, true>(x, nullptr, gx, sm, d, rs, plane, b0, B, rows, t0, len);\n"
@@ -158,9 +171,7 @@ S1 = dict(src="bidiag_scan.cu", phases=[  # the stamps of each CTA's last time s
         (None, "    // phase 2: the carries across the segment's chunks, one thread per row",
          2, False),
         (None, "    // phase 3: y_t = local_t + phi_t carry_in", 3, False),
-        (None, "    if (vy)\n", 4, False),
-        (None, "      stage<F, D, 1, false>(nullptr, y, gy, sm, d, rs, plane, b0, B, rows, t0, "
-               "len);", 5, True)])})
+        (None, "    if (vy)\n", 4, False)])})
 # the planar parity step's temperature and step size (chip_smoke.py), and
 # config 4's (benchmarks/run.py)
 PLANAR_TAU, PLANAR_STEP, PANDA_TAU, PANDA_STEP = 1.0, 0.5, 1.0, 0.1
@@ -353,9 +364,9 @@ def phases(dev, out_dir: Path, only) -> None:
             for _ in range(3):
                 ps.solve_LT_planes(tuple(x))
             torch.cuda.synchronize()
-            rows, chunks, _ = s1_shape(lib, 480, t)
-            report(f"S1 ({design} design), backward [4, 480, {t}] float32, {rows} rows x "
-                   f"{chunks} chunks per CTA", s1, -(-480 // rows), S1["phases"])
+            shape = s1_shape(lib, 480, t)
+            report(f"S1 ({design} design), backward [4, 480, {t}] float32, launch shape "
+                   f"{shape}", s1, -(-480 // shape[0]), S1["phases"])
     if "K4" in only:
         k4, design = instrumented(K4, out_dir)
         use(lib, k4)
@@ -366,8 +377,8 @@ def phases(dev, out_dir: Path, only) -> None:
         report(f"K4 ({design} design), Panda config 5 dof planes {tuple(q.shape)}, the first "
                "16384 blocks", k4, 16384, K4["phases"])
     for src, info in _build.build_info.items():
-        if src in {spec["src"] for k, spec in (("K2", K2), ("K6", K6), ("K5", K5), ("K4", K4))
-                   if k in only}:
+        if src in {spec["src"] for k, spec in (("K2", K2), ("K6", K6), ("K5", K5), ("K4", K4),
+                                                ("S1", S1)) if k in only}:
             used = [ln.split(":", 1)[-1].strip() for ln in info["log"].splitlines()
                     if "Used" in ln or "spill" in ln or "stack" in ln]
             print(f"ptxas {src}: {' | '.join(used)}")
@@ -538,18 +549,28 @@ def point_kernels(dev, only) -> None:
         print(f"ptxas {src}: {ptxas_report(src)}", flush=True)
 
 
-def s1_shape(lib, b: int, t: int, rows: int = 0, chunks: int = 0):
-    """``(rows per CTA, chunks per segment, shared memory bytes)`` of S1's
-    launch on ``[4, b, t]`` float32 planes: the launcher's choice (``rows =
-    chunks = 0``), or the given shape; None where the kernel does not take
-    it."""
-    shape = (ctypes.c_int * 3)(rows, chunks, 0)
-    return tuple(shape) if lib.bidiag_scan_config(b, t, 4, 0, shape) == 0 else None
+# this checkout's S1 launcher (tables rec, phr, psi and a 5-int launch
+# shape), or the earlier one's (dinv, A, phi; rows and chunks)
+S1_SHAPED = len(_build.SIGNATURES["bidiag_scan_launch"]) > 18
 
 
-def s1_launches(dev) -> None:
+def s1_shape(lib, b: int, t: int, shape=(0, 0, 0, 0, 0)) -> tuple | None:
+    """S1's launch shape on ``[4, b, t]`` float32 planes, as
+    ``bidiag_scan_config`` reports it: this checkout's ``(rows per CTA,
+    chunks per segment, steps per table stage, plane buffers, table
+    stages, shared memory bytes, threads)`` or the earlier launcher's ``(rows, chunks,
+    shared memory bytes)``; the launcher's choice for a zero shape, else
+    the given one, None where the kernel does not take it."""
+    out = (ctypes.c_int * 7)(*shape, *[0] * (7 - len(shape)))
+    if lib.bidiag_scan_config(b, t, 4, 0, out) != 0:
+        return None
+    return tuple(out) if S1_SHAPED else tuple(out)[:3]
+
+
+def s1_launches(dev, sweep: bool) -> None:
     """S1 at the long-horizon main path's shapes: the wrapper's call, then
-    every launch shape, float32, backward."""
+    (``sweep``, this checkout's launcher) a sweep of launch shapes,
+    float32, backward."""
     from stoch_gpmp_tpu_torch.ops.kernels import bidiag_scan as s1
     from stoch_gpmp_tpu_torch.problems import LONG_HORIZON, build_long_horizon_problem
 
@@ -560,23 +581,64 @@ def s1_launches(dev) -> None:
         x = torch.randn((4, b, t), generator=torch.Generator(device=dev).manual_seed(0),
                         device=dev)
         out = torch.empty_like(x)
-        time_point(f"S1 backward [4, {b}, {t}]",
+        time_point(f"S1 backward [4, {b}, {t}] (launch shape {s1_shape(lib, b, t)})",
                    lambda: ps.solve_LT_planes(tuple(x), out=tuple(out)), "bidiag_scan")
-        ptrs = (ps.dinv.data_ptr(), ps.a_bwd.data_ptr(), ps.phi_bwd.data_ptr())
-        for rows in (1, 2, 4, 8):
-            for chunks in (4, 8, 16, 32, 64, 128, 256):
-                shape = s1_shape(lib, b, t, rows, chunks)
-                if shape is None or chunks > -(-t // s1.CHUNK):
-                    continue
-                fn = lambda: _build.check(lib.bidiag_scan_launch_shaped(  # noqa: E731
-                    x.data_ptr(), b * t, t, 1, out.data_ptr(), b * t, t, 1, *ptrs, b, t, 4, 0,
-                    1, s1.CHUNK, rows, chunks, _build.stream_ptr(dev)),
-                    "bidiag_scan_launch_shaped")
-                kern, _ = device_per_call(fn, 20, "bidiag_scan")
-                print(f"S1 [4, {b}, {t}] rows {rows}, chunks {chunks} ({shape[2]} B shared "
-                      f"memory): kernel {kern:.4f} ms device per call", flush=True)
-        print(f"S1 [4, {b}, {t}]: the launcher picks (rows, chunks, shared memory) "
-              f"{s1_shape(lib, b, t)}", flush=True)
+        if not (sweep and S1_SHAPED):
+            continue
+        ptrs = [m.data_ptr() for m in s1.tables(ps, backward=True)]
+        for shape in [(rows, 8 * 32 // rows, 4, 2, 2) for rows in (2, 8)] + [
+                (4, chunks, steps, buffers, stages) for chunks in (32, 64)
+                for steps in (4, 8) for buffers in (1, 2) for stages in (2, 3, 4)]:
+            got = s1_shape(lib, b, t, shape)
+            if got is None or shape[1] > -(-t // s1.CHUNK):
+                continue
+            arg = (ctypes.c_int * 5)(*shape)
+            fn = lambda: _build.check(max(0, lib.bidiag_scan_launch_shaped(  # noqa: E731
+                x.data_ptr(), b * t, t, 1, out.data_ptr(), b * t, t, 1, *ptrs, b, t, 4, 0, 1,
+                s1.CHUNK, s1.SCAN_LEVELS, arg, _build.stream_ptr(dev))),
+                "bidiag_scan_launch_shaped")
+            kern, _ = device_per_call(fn, 20, "bidiag_scan")
+            print(f"S1 [4, {b}, {t}] shape {got}: kernel {kern:.4f} ms device per call",
+                  flush=True)
+
+
+def s1_host(dev, reps: int = 3000) -> None:
+    """The host's microseconds per S1 call at ``[4, 480, 1024]`` float32
+    backward (``time.perf_counter`` over ``reps`` calls, not synchronised,
+    the device keeping up): ``solve_LT_planes`` with and without ``out=``,
+    the planes' layout check (``_layout``) and the launcher's ctypes call
+    alone. The same calls in this checkout and in the earlier design's
+    (``dinv, A, phi`` tables)."""
+    import time
+
+    from stoch_gpmp_tpu_torch.ops.kernels import bidiag_scan as s1
+    from stoch_gpmp_tpu_torch.problems import build_long_horizon_problem
+
+    t, b = 1024, 480
+    ps = build_long_horizon_problem(t, device=dev)[0].psolver
+    x = torch.randn((4, b, t), device=dev)
+    out = torch.empty_like(x)
+    xp, op = tuple(x), tuple(out)
+    lib = _build.load_library()
+    if S1_SHAPED:
+        tabs, extra = s1.tables(ps, backward=True), (s1.CHUNK, s1.SCAN_LEVELS)
+    else:
+        tabs, extra = (ps.dinv, ps.a_bwd, ps.phi_bwd), (s1.CHUNK,)
+    args = (x.data_ptr(), b * t, t, 1, out.data_ptr(), b * t, t, 1,
+            *(m.data_ptr() for m in tabs), b, t, 4, 0, 1, *extra, _build.stream_ptr(dev))
+    for what, fn in (("solve_LT_planes(planes, out=)", lambda: ps.solve_LT_planes(xp, out=op)),
+                     ("solve_LT_planes(planes)", lambda: ps.solve_LT_planes(xp)),
+                     ("_layout(planes)", lambda: s1._layout(xp)),
+                     ("bidiag_scan_launch (ctypes)", lambda: lib.bidiag_scan_launch(*args))):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        print(f"S1 host: {what} {us:.2f} us per call", flush=True)
 
 
 def ptxas_report(src: str) -> str:
@@ -594,8 +656,11 @@ def ptxas_report(src: str) -> str:
 
 
 def shapes(dev, only) -> None:
-    if "S1" in only:
-        s1_launches(dev)
+    if "S1" in only or "S1-sweep" in only:
+        s1_launches(dev, "S1-sweep" in only)
+        print(f"ptxas bidiag_scan.cu: {ptxas_report('bidiag_scan.cu')}", flush=True)
+    if "S1-host" in only:
+        s1_host(dev)
     if "K5" in only:
         step, planes = panda_dof_step(dev)
         kern, every = device_per_call(lambda: step(planes, seed=3), 20, "fused_panda_dof_step")

@@ -15,6 +15,7 @@ entry; costs, weights and means rtol 1e-9; the field counts exact.
 
 import subprocess
 import sys
+from dataclasses import fields
 from pathlib import Path
 
 import jax
@@ -136,7 +137,8 @@ def test_from_chol_tables_match_jax(t):
         _close(getattr(ts, name), getattr(js, name), rtol=SOLVE_RTOL)
     conv = ParallelBidiagSolver.from_tables(
         *(torch.from_numpy(np.array(getattr(js, n))) for n in ("dinv", "a_fwd", "a_bwd")))
-    for name in ("phi_fwd", "phi_bwd"):
+    for name in ("phi_fwd", "phi_bwd", "rec_fwd", "rec_bwd", "phr_fwd", "phr_bwd", "psi_fwd",
+                 "psi_bwd"):
         _close(getattr(conv, name), getattr(ts, name), rtol=SOLVE_RTOL)
 
 
@@ -167,50 +169,159 @@ def test_solves_match_jax_and_serial(t, dof):
             _close(got[i], ref[..., i], rtol=SOLVE_RTOL)
 
 
-def _emulate_s1(solver, x, *, backward, chunks):
+def _psi(solver, backward, lv, k):
+    """The ``[d, d]`` product of ``scan_products`` at level ``lv``, chunk
+    ``k``."""
+    psi = solver.psi_bwd if backward else solver.psi_fwd
+    d = solver.block_dim
+    return psi[lv, :, k].reshape(d, d)
+
+
+def _emulate_s1(solver, x, *, backward, chunks, rows=4):
     """Kernel S1's order of work on ``x [B, T, d]``: segments of ``chunks``
-    chunks of ``CHUNK`` steps (backward: last segment first); per chunk the
-    recurrence from a zero carry; the carries across the chunks by the
-    chunk transitions (``phi`` at a chunk's last step, or first backward);
-    ``y = local + phi carry_in``."""
+    chunks of ``CHUNK`` steps (backward: last segment first), the chunks
+    dealt to warps of ``KW = min(32 // rows, chunks)``; per chunk the
+    recurrence from a zero carry (``rec``: the packed triangle and ``A_t``);
+    per warp the log-step scan of the chunk maps (``psi`` level l, partner
+    2^l chunks away) from a zero carry; the warps' aggregates composed in
+    order with the segment's carry (``psi`` at level log2 KW); a second scan
+    spreads each warp's carry over its chunks; ``y = local + phi
+    carry_in``."""
     b, t, d = x.shape
-    c = (torch.einsum("tji,btj->bti", solver.dinv, x) if backward
-         else torch.einsum("tij,btj->bti", solver.dinv, x))
-    a = solver.a_bwd if backward else solver.a_fwd
+    rec = solver.rec_bwd if backward else solver.rec_fwd
     phi = solver.phi_bwd if backward else solver.phi_fwd
-    seg_len = chunks * s1.CHUNK
+    tri = torch.zeros((t, d, d), dtype=x.dtype)
+    o = 0
+    for i in range(d):  # unpack rec's triangle as the kernel reads it
+        js = range(i, d) if backward else range(i + 1)
+        for j in js:
+            tri[:, i, j] = rec[:t, o]
+            o += 1
+    a = rec[:t, o:o + d * d].reshape(t, d, d)
+    c = torch.einsum("tij,btj->bti", tri, x)
+    nch, seg_len = -(-t // s1.CHUNK), chunks * s1.CHUNK
+    kw = min(32 // rows, chunks)
+    nw, levels = chunks // kw, kw.bit_length() - 1
     y = torch.empty_like(x)
-    carry = x.new_zeros((b, d))
+    cseg = x.new_zeros((b, d))
     segs = range(-(-t // seg_len))
+
+    def scan(v, seg):  # per warp, in place: v[k] += Psi-span(k) v[partner]
+        step, lv = 1, 0
+        while step < kw:
+            new = v.clone()
+            for k in range(chunks):
+                kg, kl = seg * chunks + k, k % kw
+                ok = kl + step < kw and kg + step < nch if backward else kl >= step
+                if kg < nch and ok:
+                    new[k] = v[k] + v[k + step if backward else k - step] @ _psi(
+                        solver, backward, lv, kg).T
+            v, step, lv = new, step * 2, lv + 1
+        return v
+
     for seg in (reversed(segs) if backward else segs):
-        t0 = seg * seg_len
-        starts = range(t0, min(t, t0 + seg_len), s1.CHUNK)
-        local = {}
-        for k0 in starts:
+        local, e = {}, x.new_zeros((chunks, b, d))
+        for k in range(chunks):
+            k0 = (seg * chunks + k) * s1.CHUNK
+            if k0 >= t:
+                continue
             k1 = min(t, k0 + s1.CHUNK)
             loc = x.new_zeros((b, d))
             for s in (range(k1 - 1, k0 - 1, -1) if backward else range(k0, k1)):
                 loc = loc @ a[s].T + c[:, s]
                 local[s] = loc
-        for k0 in (reversed(starts) if backward else starts):
-            k1 = min(t, k0 + s1.CHUNK)
-            for s in range(k0, k1):
-                y[:, s] = local[s] + carry @ phi[s].T
-            carry = y[:, k0] if backward else y[:, k1 - 1]
+            e[k] = loc
+        e = scan(e, seg)
+        cin_w, cv = {}, cseg
+        for ww in (reversed(range(nw)) if backward else range(nw)):
+            cin_w[ww] = cv
+            kf = seg * chunks + ww * kw
+            kx = kf if backward else kf + kw - 1
+            if kf >= nch:
+                continue
+            agg = e[ww * kw if backward else ww * kw + kw - 1]
+            cv = agg + cv @ _psi(solver, backward, levels, kx).T if kx < nch else agg
+        cseg = cv
+        f = x.new_zeros((chunks, b, d))
+        for ww in range(nw):
+            k = ww * kw + (kw - 1 if backward else 0)
+            if seg * chunks + k < nch:
+                f[k] = cin_w[ww] @ _psi(solver, backward, 0, seg * chunks + k).T
+        y_end = e + scan(f, seg)
+        for k in range(chunks):
+            k0 = (seg * chunks + k) * s1.CHUNK
+            if k0 >= t:
+                continue
+            edge = k % kw == (kw - 1 if backward else 0)
+            cin = cin_w[k // kw] if edge else y_end[k + 1 if backward else k - 1]
+            for s in range(k0, min(t, k0 + s1.CHUNK)):
+                y[:, s] = local[s] + cin @ phi[s].T
     return y
 
 
 @pytest.mark.parametrize("chunks", [1, 2, 8])
 @pytest.mark.parametrize("t", [1, 2, 77, 128])
 def test_chunk_tables_compose_to_serial_solve(t, chunks):
-    """The ``phi`` tables S1 reads, composed as S1 composes them (chunks,
-    carries, time segments of 1, 2 or 8 chunks), reproduce the serial
-    solves."""
+    """The tables S1 reads (``rec``, ``phi``, ``psi``), composed as S1
+    composes them (chunks, the scans over chunks, time segments of 1, 2 or
+    8 chunks), reproduce the serial solves."""
     _, _, _, tch = _chols(2, t)
     ts = ParallelBidiagSolver.from_chol(tch)
     x = torch.from_numpy(np.random.default_rng(t).normal(size=(6, t, 4)))
     _close(_emulate_s1(ts, x, backward=False, chunks=chunks), tch.solve_L(x), rtol=SOLVE_RTOL)
     _close(_emulate_s1(ts, x, backward=True, chunks=chunks), tch.solve_LT(x), rtol=SOLVE_RTOL)
+
+
+@pytest.mark.parametrize("rows", [1, 4, 8])
+@pytest.mark.parametrize("t", [1024, 1100, 2600])
+def test_chunk_tables_compose_at_kernel_segments(t, rows):
+    """The same at the launcher's segments of eight warps' chunks (64 chunks,
+    1,024 steps, at 4 rows per CTA; 256 at 1 row, 32 at 8): one whole
+    segment, and horizons that end part-way through a segment, a warp and
+    a chunk (T = 1100, 2600)."""
+    _, _, _, tch = _chols(2, t)
+    ts = ParallelBidiagSolver.from_chol(tch)
+    x = torch.from_numpy(np.random.default_rng(t + rows).normal(size=(3, t, 4)))
+    chunks = 8 * (32 // rows)
+    for backward, serial in ((False, tch.solve_L), (True, tch.solve_LT)):
+        _close(_emulate_s1(ts, x, backward=backward, chunks=chunks, rows=rows), serial(x),
+               rtol=SOLVE_RTOL)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_scan_tables_match_serial_products(backward):
+    """``rec`` holds the triangle of ``D_t^{-1}`` (``D_t^{-T}`` backward) and
+    ``A_t`` (zero-padded to an odd number of 16-byte units), ``phr`` the
+    chunk prefixes ``phi_t``, both zero-padded to whole chunks; ``psi`` level l at chunk k
+    is the product of the ``A_t`` over the 2^l chunks ending (backward:
+    starting) at k, cut at the horizon's ends, against the serial product
+    in float64."""
+    t, d = 200, 4
+    _, _, _, tch = _chols(2, t)
+    ts = ParallelBidiagSolver.from_chol(tch)
+    a = ts.a_bwd if backward else ts.a_fwd
+    rec = ts.rec_bwd if backward else ts.rec_fwd
+    phr = ts.phr_bwd if backward else ts.phr_fwd
+    phi = ts.phi_bwd if backward else ts.phi_fwd
+    nch, n_tri = -(-t // s1.CHUNK), d * (d + 1) // 2
+    assert rec.shape == (nch * s1.CHUNK, s1.rec_width(d, 8)) and rec.is_contiguous()
+    assert phr.shape == (nch * s1.CHUNK, s1.phi_width(d, 8)) and phr.is_contiguous()
+    tri = torch.cat([ts.dinv[:, i:, i] if backward else ts.dinv[:, i, :i + 1]
+                     for i in range(d)], dim=1)
+    assert torch.equal(rec[:t, :n_tri], tri)
+    assert torch.equal(rec[:t, n_tri:n_tri + d * d], a.reshape(t, d * d))
+    assert not rec[:t, n_tri + d * d:].any() and not rec[t:].any()
+    assert torch.equal(phr[:t, :d * d], phi.reshape(t, d * d))
+    assert not phr[:t, d * d:].any() and not phr[t:].any()
+    psi = ts.psi_bwd if backward else ts.psi_fwd
+    assert psi.shape == (s1.SCAN_LEVELS, d * d, nch) and psi.is_contiguous()
+    for lv in range(s1.SCAN_LEVELS):
+        for k in range(nch):
+            lo, hi = (k, min(nch - 1, k + 2**lv - 1)) if backward else (max(0, k + 1 - 2**lv), k)
+            want = torch.eye(d, dtype=torch.float64)
+            for s in range(lo * s1.CHUNK, min(t, (hi + 1) * s1.CHUNK)):
+                want = want @ a[s] if backward else a[s] @ want
+            _close(_psi(ts, backward, lv, k), want, rtol=SOLVE_RTOL)
 
 
 def test_make_gp_prior_auto_mode():
@@ -381,15 +492,16 @@ def test_route_matches_jax_gates(case, monkeypatch):
 
 def test_sampler_from_jax_psolver(problem96):
     """The converted solver sampler: no dense factor or precision, the JAX
-    solver's tables, chunk tables equal to the native build's, and the
-    native problem equal to the converted one."""
+    solver's tables, S1's tables (chunk prefixes, step records, scan
+    products) equal to the native build's, and the native problem equal to
+    the converted one."""
     (js, jc, _), (ts, tc, tst) = problem96
     assert ts.weight_t is None and ts.precision_dense is None and ts.psolver is not None
     for name in ("dinv", "a_fwd", "a_bwd"):
         _close(getattr(ts.psolver, name), getattr(js.psolver, name), rtol=SOLVE_RTOL)
     ns, nc, nst = build_long_horizon_problem(96, dtype=torch.float64, device="cpu")
-    for name in ("dinv", "a_fwd", "a_bwd", "phi_fwd", "phi_bwd"):
-        _close(getattr(ns.psolver, name), getattr(ts.psolver, name), rtol=SOLVE_RTOL)
+    for f in fields(ParallelBidiagSolver):
+        _close(getattr(ns.psolver, f.name), getattr(ts.psolver, f.name), rtol=SOLVE_RTOL)
     np.testing.assert_allclose(nst.particle_means.numpy()[:P], tst.particle_means.numpy(),
                                rtol=1e-12)
     x = torch.from_numpy(np.random.default_rng(2).normal(size=(6, 96, 4)) * 6.0)
@@ -398,17 +510,35 @@ def test_sampler_from_jax_psolver(problem96):
 
 def test_kernel_wrapper_contract():
     """S1's wrapper: the plain version for a CPU tensor, counted nowhere; a
-    tensor on another device raises; the planes' layout (one tensor at a
-    plane stride, or the stride-d planes of ``[..., T, d]``) is read in
-    place."""
+    tensor on another device raises, and so do tables of another shape
+    (``rec`` rows of ``rec_width``, ``psi`` of ``SCAN_LEVELS`` levels over
+    the chunks), checked before the device; the planes' layout (one tensor
+    at a plane stride, or the stride-d planes of ``[..., T, d]``) is read
+    in place."""
+    from dataclasses import replace
+
     _, _, _, tch = _chols(2, 40)
     ts = ParallelBidiagSolver.from_chol(tch)
-    for name in ("dinv", "a_fwd", "a_bwd", "phi_fwd", "phi_bwd"):  # as the kernel reads them
-        assert getattr(ts, name).is_contiguous()
-    before = s1.bidiag_scan.launches
+    for f in fields(ParallelBidiagSolver):  # as the kernel reads them
+        assert getattr(ts, f.name).is_contiguous()
+    assert [s1.rec_width(d, size) for d, size in ((4, 4), (4, 8), (14, 4), (2, 8))] == [
+        28, 26, 308, 10]
+    assert [s1.phi_width(d, size) for d, size in ((4, 4), (4, 8), (14, 4), (2, 8))] == [
+        16, 16, 196, 4]
+    before = (s1.bidiag_scan.launches, s1.bidiag_scan.staged_launches)
     x = torch.zeros((4, 3, 5, 40), dtype=torch.float64)
     ts.solve_LT_planes(tuple(x))
-    assert s1.bidiag_scan.launches == before
+    assert (s1.bidiag_scan.launches, s1.bidiag_scan.staged_launches) == before
+    meta = replace(ts, **{f.name: getattr(ts, f.name).to("meta")
+                          for f in fields(ParallelBidiagSolver)})
+    with pytest.raises(ValueError, match="S1 takes float32 or float64 CUDA planes"):
+        s1.bidiag_scan(meta, tuple(x.to("meta")), backward=True)
+    for bad in (dict(psi_bwd=meta.psi_bwd[:-1]), dict(rec_bwd=meta.rec_bwd[:, :-2]),
+                dict(psi_fwd=meta.psi_fwd[..., :1]), dict(phr_bwd=meta.phr_bwd[:40]),
+                dict(phr_fwd=meta.phr_fwd[:, :12])):
+        with pytest.raises(ValueError, match="contiguous tables"):
+            s1.bidiag_scan(replace(meta, **bad), tuple(x.to("meta")),
+                           backward=not any(k.endswith("_fwd") for k in bad))
     with pytest.raises(ValueError, match="S1 takes"):
         s1.bidiag_scan(ts, tuple(x.to("meta")), backward=True)
     assert s1._layout(tuple(x))[1:] == (600, 40, 1, 15, 40)
