@@ -133,7 +133,33 @@ Phases, one line each; any failure exits non-zero before the result line:
 20. long-horizon-api: at T = 1024, ``StochGPMP`` ``reset``, ``optimize``
     (with and without ``collect_metrics``) and ``sample_trajectories``,
     ``GPMP.sample_trajectories``, and the quadratic stack on the
-    long-horizon sampler taking the ``"dof"`` route (K3).
+    long-horizon sampler taking the ``"dof"`` route (K3);
+21. panda-example: ``examples/panda_environment.py`` at its own sizes. The
+    IK goal (``solve_ik_multistart``, 16 starts plus ``q_init``, 150
+    iterations; timed, its SE(3) distance to the target gated and its
+    choice held to the near-best rule in float64 on the same 17
+    solutions), 5 spheres from ``random_init_static_sphere``, then
+    ``StochGPMP`` (1 goal x 5 particles, 32 samples, T = 64) for 400
+    iterations in chunks of 50 on (a) the reference-shaped stack and (b)
+    the fast stack (K4 once per iteration): descent, starts, the final EE
+    within 0.05 of the target, updates/s, device ms and operations per
+    iteration and the busy share;
+22. panda-mesh: ``benchmarks/success_rate_panda.py``'s stack (the
+    mesh-sphere obstacle and floor fields, obstacles spawned clear of the
+    arm's mesh surface and inflated by 0.05), 1 goal x 4 particles, T = 32,
+    300 iterations: descent, starts, both fields on the path's own link
+    poses against float64 on the CPU, the share of "clean" particles;
+23. panda-gn: Gauss-Newton ``GPMP`` through FK on the Panda (``CostGP +
+    CostCollision(LinkDistanceField) + CostGoal(EESE3DistanceField)``, T =
+    64, 5 particles), 50 iterations each of ``cholesky`` and ``woodbury`` in
+    float64: EE distance falling, starts, one woodbury step against one
+    cholesky step (rtol 1e-7, atol 1e-9); the same iterations in float32 as
+    a probe (the first non-finite iteration, not gated);
+24. gn-long: Gauss-Newton past M = 2048 (``benchmarks/long_horizon.py
+    gn_bench``'s problem at T = 1024, 15 particles, delta 10), 3
+    iterations each of ``cholesky`` and ``woodbury`` with S1 (the init
+    draw) and K1 (each linearisation) counted, their times and device
+    operations per iteration, and the float64 pair of one step each.
 
 Times: ``ms``/``plain_ms`` are per call over back-to-back calls through
 the wrapper (CUDA events), which includes the host's launch cost where it
@@ -296,6 +322,49 @@ LH_HORIZONS, LH_ITERS, LH_WARMUP, LH_CHECK_ITERS, LH_TOL = (4096, 1024), 200, 5,
 # long-horizon-api: the class API at T = LH_API_T, LH_API_ITERS iterations
 # per optimize() call
 LH_API_T, LH_API_ITERS = 1024, 20
+# panda-example: examples/panda_environment.py end to end at its own sizes
+# (IK goal from 16 starts + q_init, 150 iterations; 5 spheres; 1 goal x 5
+# particles, 32 samples, T = 64; PX_ITERS iterations in chunks of
+# PX_CHUNK), on (a) the reference-shaped stack and (b) the fast stack (K4).
+# Gates: the IK goal's SE(3) distance to the target under IK_TOL (the JAX
+# package's IK test holds a single solve to 1e-3 in position and 1e-2 in
+# rotation, tests/test_kinematics.py), the chosen solution within the
+# near-best rule recomputed in float64 (its distance within 0.05 of the
+# best, plus RULE_SLACK for the float32 solve, and no other such solution
+# closer to q_init by more than RULE_SLACK), the mean cost falling, starts
+# within PANDA_START_TOL, and every particle's final EE within PX_EE_TOL of
+# the target (the figure the JAX example prints).
+PX_ITERS, PX_CHUNK, IK_TOL, RULE_SLACK, PX_EE_TOL = 400, 50, 1e-2, 1e-4, 0.05
+# panda-mesh: benchmarks/success_rate_panda.py's stack (mesh-sphere obstacle
+# and floor fields) at its defaults, 1 goal x 4 particles, 32 samples, T =
+# 32, PM_ITERS iterations. The card's float32 mesh and floor field values
+# on the path's own link poses against the same fields in float64 on the
+# CPU: within PM_RTOL of the float64 value, or PM_ATOL absolute (terms that
+# float32 rounds near zero).
+PM_ITERS, PM_RTOL, PM_ATOL = 300, 1e-4, 1e-9
+# panda-gn: GPMP through FK (tests/test_gpmp.py's Panda stack) at the
+# example's T = 64, 5 particles, PG_ITERS iterations of cholesky and of
+# woodbury, in float64 as the JAX package's own tests run this stack: in
+# float32 the card's batched Cholesky has met a block that was not positive
+# definite, so float32 runs as a probe only, beside gn_float32_witness's
+# reading of how far the float32 system's last Schur complement is from
+# indefinite, in float32 units of its block (no goal anchor: the last
+# blocks hold ~1e7 GP weights against delta 1e-2 and the EE goal's term).
+# Gates: the final EE's SE(3) distance falls, starts within PG_START_TOL
+# (the JAX test's bound), and one woodbury step equals one cholesky step
+# within GN64_RTOL / GN64_ATOL (the JAX package's own bounds,
+# tests/test_gpmp.py:181-184).
+PG_ITERS, PG_START_TOL, GN64_RTOL, GN64_ATOL = 50, 0.05, 1e-7, 1e-9
+# gn-long: benchmarks/long_horizon.py gn_bench's problem at T = GNL_T, 15
+# particles, delta 10: GNL_ITERS iterations of cholesky and of woodbury,
+# finite, starts within PG_START_TOL, the init draw's S1 launch (stride-4
+# planes) held against its plain version and the float64 recurrence under
+# S1_RTOL and every K1 launch equal to its plain version; an un-held
+# window of one iteration for the times; in float64, one woodbury
+# step against one cholesky step under GN64_RTOL / GN64_ATOL. K1 takes
+# float32 only, so the float64 pair runs the stack without the raster field
+# (whose GN Jacobian is zero: the step is the same function).
+GNL_T, GNL_ITERS = 1024, 3
 # Peak rates of one H100 SXM (data sheet) for the bound_ms column.
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
 FP32_FLOP_PER_SM = FP32_FLOP_PER_S / 132
@@ -423,6 +492,10 @@ def generic_walks(counters: dict) -> dict:
 
 def fmt_ms(v: float | None) -> str:
     return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def fmt_list(xs) -> str:
+    return "[" + ", ".join(f"{x:.3g}" for x in xs) + "]"
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -968,7 +1041,7 @@ def tilted_panda():
     from stoch_gpmp_tpu_torch.kinematics.chain import KinematicChain
     from stoch_gpmp_tpu_torch.kinematics.panda_model import PANDA_FK_LINKS, franka_panda
 
-    panda = franka_panda(PANDA_FK_LINKS)
+    panda = franka_panda(link_names=PANDA_FK_LINKS)
     joints = list(panda.model.joints)
     k = next(i for i, j in enumerate(joints) if j.joint_type == "revolute" and
              abs(abs(j.origin_rpy[0]) - 1.5707963267948966) < 1e-9)
@@ -2172,6 +2245,24 @@ def _s1_errors(what, dtype, got, plain, want) -> dict:
 
 
 @contextlib.contextmanager
+def recorded(module, name: str, seen: list):
+    """Within the block, ``module.name`` appends each result it returns to
+    ``seen``."""
+    fn = getattr(module, name)
+
+    def rec(*args, **kw):
+        res = fn(*args, **kw)
+        seen.append(res)
+        return res
+
+    setattr(module, name, rec)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
 def held_k1(field, seen: list):
     """Within the block, every K1 launch the path makes on ``field`` (the
     ``RasterPrimitive2DField`` of its collision cost) is held against the
@@ -2198,6 +2289,54 @@ def held_k1(field, seen: list):
         yield
     finally:
         del field.compute_cost
+
+
+def _serial_s1(solver, x: torch.Tensor, backward: bool) -> torch.Tensor:
+    """The float64 serial recurrence of ``solver``'s substitution on planes
+    ``x [d, ..., T]``: ``y_t = A_t y_{t-1} + D_t^{-1} b_t`` (forward) or
+    ``y_t = A_t y_{t+1} + D_t^{-T} b_t`` (backward), on its transitions
+    promoted, one step at a time."""
+    dinv = solver.dinv.double()
+    a = (solver.a_bwd if backward else solver.a_fwd).double()
+    b = x.double().movedim(0, -1)  # [..., T, d]
+    t_len = b.shape[-2]
+    ys = [None] * t_len
+    prev = None
+    for t in (range(t_len - 1, -1, -1) if backward else range(t_len)):
+        c = b[..., t, :] @ (dinv[t] if backward else dinv[t].T)
+        ys[t] = c if prev is None else c + prev @ a[t].T
+        prev = ys[t]
+    return torch.stack(ys, dim=-2).movedim(-1, 0)
+
+
+@contextlib.contextmanager
+def held_s1(seen: list):
+    """Within the block, every solve the path makes through
+    ``ParallelBidiagSolver.solve_L`` / ``solve_LT`` (one S1 launch on the
+    stride-d planes of a ``[..., T, d]`` tensor) is held against the plain
+    version and the float64 serial recurrence on the same planes
+    (``_s1_errors`` under S1_RTOL); ``seen`` gets each solve's plane shape,
+    strides, direction and errors."""
+    from stoch_gpmp_tpu_torch.gp.tridiag import ParallelBidiagSolver
+    from stoch_gpmp_tpu_torch.ops.kernels.bidiag_scan import plain_solve
+
+    solve = ParallelBidiagSolver._solve
+
+    def held(self, b, *, backward):
+        got = solve(self, b, backward=backward)
+        x = b.movedim(-1, 0)  # the d planes, as the solve reads them
+        plain = torch.stack(plain_solve(self, tuple(x), backward=backward))
+        shape, strides = list(x.shape[1:]), list(x[0].stride())
+        err = _s1_errors(f"on the path's planes {shape} at strides {strides}", b.dtype,
+                         got.movedim(-1, 0), plain, _serial_s1(self, x, backward))
+        seen.append(dict(err, shape=shape, strides=strides, backward=backward))
+        return got
+
+    ParallelBidiagSolver._solve = held
+    try:
+        yield
+    finally:
+        ParallelBidiagSolver._solve = solve
 
 
 @contextlib.contextmanager
@@ -2372,6 +2511,380 @@ def long_horizon_api(dev) -> dict:
              f"{dof_launches}")
     return dict(api_launches=api_launches, gn_start_err=start_err, shapes=shapes,
                 quad_route=route, quad_launches=dof_launches)
+
+
+def _windowed(run, iters: int):
+    """Wall ms per iteration of ``run()`` (``iters`` iterations), then the
+    same window under the profiler: ``(wall, device ms or None, top kernels,
+    operations)``, all per iteration."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / iters * 1e3
+    dev_ms, top, ops = device_breakdown(run, 1)
+    return (wall, None if dev_ms is None else dev_ms / iters,
+            [(k, ms / iters) for k, ms in top], ops / iters)
+
+
+def _path_row(wall, dev_ms, top, ops, **extra) -> dict:
+    return dict(extra, iter_wall_ms=wall, iter_device_ms=dev_ms, top_kernels_ms_per_iter=top,
+                device_ops_per_iter=ops,
+                device_busy=None if dev_ms is None else dev_ms / wall)
+
+
+def panda_example(dev, iters: int = PX_ITERS) -> dict:
+    """``examples/panda_environment.py`` on the card: the IK goal (timed;
+    its SE(3) distance and the near-best rule in float64 gated), then
+    ``StochGPMP`` for ``iters`` iterations in chunks of ``PX_CHUNK`` on (a)
+    the reference-shaped stack and (b) the fast stack (K4 once per
+    iteration)."""
+    from stoch_gpmp_tpu_torch.kinematics import ik
+    from stoch_gpmp_tpu_torch.kinematics.se3 import se3_distance
+    from stoch_gpmp_tpu_torch.planners import stoch_gpmp_optimize
+    from stoch_gpmp_tpu_torch.problems import (
+        PANDA_TARGET_POS,
+        build_panda_example,
+        panda_ik_goal,
+    )
+
+    probe = build_panda_example(0, q_goal=torch.zeros(7, device=dev), device=dev)
+    chain, target_h, start_q = probe.chain, probe.target_h, probe.start_q
+    solved = []  # the 17 solutions the goal was chosen from, as solve_ik returned them
+    with recorded(ik, "solve_ik", solved):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q_goal = panda_ik_goal(chain, target_h, start_q, 0)
+        torch.cuda.synchronize()
+        ik_s = time.perf_counter() - t0
+    if len(solved) != 1 or list(solved[0].shape) != [17, 7]:
+        fail(f"panda-example: IK solved {[list(q.shape) for q in solved]}, expected one "
+             f"batch of 17 starts")
+    qs = solved[0].double().cpu()
+    errs = se3_distance(chain.ee_pose(qs), target_h.double().cpu())
+    q64 = q_goal.double().cpu()
+    ik_err = float(se3_distance(chain.ee_pose(q64), target_h.double().cpu()))
+    jdist = torch.linalg.norm(qs - start_q.double().cpu(), dim=-1)
+    ok = errs <= errs.min() + 0.05 - RULE_SLACK
+    chosen_jdist = float(torch.linalg.norm(q64 - start_q.double().cpu()))
+    if (not any(torch.equal(q_goal, q) for q in solved[0]) or not ik_err < IK_TOL
+            or ik_err > float(errs.min()) + 0.05 + RULE_SLACK
+            or (ok.any() and chosen_jdist > float(jdist[ok].min()) + RULE_SLACK)):
+        fail(f"panda-example: IK goal {ik_err:.3g} from the target (tol {IK_TOL}), joint "
+             f"distance {chosen_jdist:.4g} against the solutions' {errs.tolist()} / "
+             f"{jdist.tolist()}, or not one of them")
+    target_pos = torch.tensor(PANDA_TARGET_POS, device=dev)
+    out = dict(ik_seconds=ik_s, ik_err=ik_err, q_goal=q_goal.tolist(),
+               near_best=int(ok.sum()))
+    planners = {}
+    for route, fast in (("a", False), ("b", True)):
+        ex = build_panda_example(0, fast=fast, q_goal=q_goal, device=dev)
+        planner, obs = ex.planner, ex.observation
+        planners[route] = planner
+        p = planner.num_particles
+        c0 = float(planner.cost.eval(planner.particle_means, observation=obs).mean())
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, iters, PX_CHUNK):
+            res = planner.optimize(opt_iters=min(PX_CHUNK, iters - i), observation=obs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernel_counters().items() if fn.launches}
+        generic = generic_walks(kernel_counters())
+        want = {"fk_fields": iters} if fast else {}
+        if launches != want or any(generic.values()):
+            fail(f"panda-example ({route}): launches {launches}, generic {generic}, "
+                 f"expected {want}")
+        means = planner.particle_means
+        if not all(bool(torch.isfinite(o).all()) for o in (*res, means)):
+            fail(f"panda-example ({route}): non-finite output")
+        c1 = float(planner.cost.eval(means, observation=obs).mean())
+        start_err = float((means[:, 0, :7] - start_q).abs().max())
+        ee = chain.ee_pose(means[:, -1, :7])[:, :3, 3]
+        ee_dist = (ee - target_pos).norm(dim=-1)
+        if not c1 < c0 or start_err > PANDA_START_TOL or float(ee_dist.max()) >= PX_EE_TOL:
+            fail(f"panda-example ({route}): mean cost {c0:.6g} -> {c1:.6g}, start moved "
+                 f"{start_err:.3g}, EE to target {ee_dist.tolist()}")
+        state = planner.state
+        wall, dev_ms, top, ops = _windowed(lambda: stoch_gpmp_optimize(  # noqa: B023
+            planner.sampler, planner.cost, state, obs, opt_iters=10,
+            num_samples=planner.num_samples, temperature=1.0, step_size=0.1), 10)
+        out[route] = _path_row(wall, dev_ms, top, ops, launches=launches, cost0=c0, cost=c1,
+                               start_err=start_err, ee_dist=ee_dist.tolist(),
+                               optimize_seconds=seconds, updates_per_s=p * iters / seconds)
+    # the two stacks are one function: (a)'s cost on (b)'s final means
+    means_b = planners["b"].particle_means
+    want = planners["b"].cost.eval(means_b, observation=obs).double()
+    got = planners["a"].cost.eval(means_b, observation=obs).double()
+    out["stack_rel"] = float(((got - want).abs() / want.abs()).max())
+    out["means_apart"] = float((planners["a"].particle_means - means_b).abs().max())
+    if not out["stack_rel"] <= STACK_RTOL:
+        fail(f"panda-example: stack (a) differs from (b) on (b)'s final means by "
+             f"{out['stack_rel']:.3g} (> {STACK_RTOL})")
+    return out
+
+
+def panda_mesh(dev, iters: int = PM_ITERS) -> dict:
+    """``benchmarks/success_rate_panda.py``'s planning problem on the card:
+    ``iters`` iterations of ``StochGPMP`` on the mesh-sphere stack; then the
+    card's mesh and floor fields on the path's own link poses against
+    float64 on the CPU, and the share of particles its "clean" rule
+    accepts (a figure, not a gate)."""
+    from stoch_gpmp_tpu_torch.costs import MeshSphereDistanceField, MeshSphereFloorField
+    from stoch_gpmp_tpu_torch.planners import stoch_gpmp_optimize
+    from stoch_gpmp_tpu_torch.problems import build_panda_mesh, panda_mesh_clean
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pb = build_panda_mesh(0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    planner, obs, chain = pb.planner, pb.observation, pb.chain
+    p, t = planner.num_particles, planner.traj_len
+    c0 = float(planner.cost.eval(planner.particle_means, observation=obs).mean())
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = planner.optimize(opt_iters=iters, observation=obs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernel_counters().items() if fn.launches}
+    means = planner.particle_means
+    if launches or not all(bool(torch.isfinite(o).all()) for o in (*res, means)):
+        fail(f"panda-mesh: launches {launches} (none expected) or non-finite output")
+    c1 = float(planner.cost.eval(means, observation=obs).mean())
+    start_err = float((means[:, 0, :7] - pb.start_q).abs().max())
+    if not c1 < c0 or start_err > PANDA_START_TOL:
+        fail(f"panda-mesh: mean cost {c0:.6g} -> {c1:.6g}, start moved {start_err:.3g}")
+    mesh, floor = planner.cost.costs[3].field, planner.cost.costs[4].field
+    poses = chain.fk(means[..., :7].reshape(-1, 7)).reshape(p, t, -1, 4, 4)
+    sp = obs["obstacle_spheres"]
+    mesh64 = MeshSphereDistanceField.for_panda(chain, dtype=torch.float64)
+    p64 = poses.double().cpu()
+    rel = {}
+    for name, got, want in (
+            ("mesh", mesh.compute_cost(poses, sp), mesh64.compute_cost(p64, sp.double().cpu())),
+            ("floor", floor.compute_cost(poses), MeshSphereFloorField(mesh=mesh64).compute_cost(p64))):
+        err = (got.double().cpu() - want).abs()
+        if not bool((err <= PM_ATOL + PM_RTOL * want.abs()).all()):
+            fail(f"panda-mesh: the {name} field on the card {float(err.max()):.3g} from "
+                 f"float64 (rtol {PM_RTOL}, atol {PM_ATOL})")
+        rel[name] = float((err / want.abs().clamp_min(PM_ATOL)).max())
+    clean = panda_mesh_clean(chain, means, pb.spheres)
+    state = planner.state
+    wall, dev_ms, top, ops = _windowed(lambda: stoch_gpmp_optimize(
+        planner.sampler, planner.cost, state, obs, opt_iters=10,
+        num_samples=planner.num_samples, temperature=1.0, step_size=0.1), 10)
+    return _path_row(wall, dev_ms, top, ops, build_seconds=build_s, cost0=c0, cost=c1,
+                     start_err=start_err, field_rel=rel, clean_share=float(clean.double().mean()),
+                     optimize_seconds=seconds, updates_per_s=p * iters / seconds)
+
+
+def schur_margins(diag: torch.Tensor, lower: torch.Tensor) -> dict:
+    """How close a float32 block-tridiagonal system ``(diag [..., T, d, d],
+    lower [..., T-1, d, d])`` is to a factor that float32 cannot take: the
+    block Cholesky in float64 on the blocks promoted and, step for step as
+    ``BlockTridiag.cholesky`` takes it, in float32. Per system (leading
+    dimensions flattened), lists of: ``margin``, the smallest over t of
+    lambda_min(S_t) / (eps ||B_t||_2), where S_t = B_t - L_t L_t^T is the
+    float64 Schur complement, B_t the block before the subtraction and eps
+    float32's; ``block``, the t where it is smallest; ``first_bad``, the
+    first t whose float32 Schur complement is not positive definite (None
+    when none is); ``err``, ||S_t^32 - S_t||_2 / (eps ||B_t||_2) at
+    ``first_bad``, else at ``block``. An ``err`` above the ``margin`` means
+    float32 rounding alone can carry the smallest eigenvalue across zero."""
+    eps = torch.finfo(torch.float32).eps
+    diag, lower = diag.reshape(-1, *diag.shape[-3:]), lower.reshape(-1, *lower.shape[-3:])
+    margins, errs, bad = [], [], []
+    d32 = d64 = None
+    for t in range(diag.shape[1]):
+        b32 = diag[:, t]
+        s32, s64 = b32, b32.double()
+        if t:
+            c = lower[:, t - 1]
+            l32 = torch.linalg.solve_triangular(d32, c.mT, upper=False).mT
+            l64 = torch.linalg.solve_triangular(d64, c.double().mT, upper=False).mT
+            s32, s64 = b32 - l32 @ l32.mT, s64 - l64 @ l64.mT
+        scale = eps * torch.linalg.matrix_norm(b32.double(), ord=2)
+        margins.append(torch.linalg.eigvalsh(s64)[:, 0] / scale)
+        errs.append(torch.linalg.matrix_norm(s32.double() - s64, ord=2) / scale)
+        d32, info = torch.linalg.cholesky_ex(s32)
+        bad.append(info != 0)
+        d64 = torch.linalg.cholesky_ex(s64)[0]
+    margin, err, bad = (torch.stack(v, -1).cpu() for v in (margins, errs, bad))
+    out = dict(margin=[], block=[], first_bad=[], err=[])
+    for m, e, b in zip(margin, err, bad):
+        first = int(b.nonzero()[0]) if bool(b.any()) else None
+        at = int(m.argmin())
+        out["margin"].append(float(m[at]))
+        out["block"].append(at)
+        out["first_bad"].append(first)
+        out["err"].append(float(e[at if first is None else first]))
+    return out
+
+
+def _gn_pair_64(build) -> float:
+    """One ``woodbury`` and one ``cholesky`` step in float64 on the card from
+    the same initial means (``build(method)`` -> a ``GPMP``, its init draw
+    seeded alike): fails beyond GN64_RTOL / GN64_ATOL; returns the largest
+    ``|woodbury - cholesky|``."""
+    got = {}
+    for method in ("cholesky", "woodbury"):
+        planner, obs = build(method)
+        got[method] = (planner.particle_means.clone(), planner)
+        planner.optimize(opt_iters=1, observation=obs)
+    init_c, pc = got["cholesky"]
+    init_w, pw = got["woodbury"]
+    if not torch.equal(init_c, init_w):
+        fail("float64 GN pair: the two planners drew different initial means")
+    a, b = pw.particle_means, pc.particle_means
+    if not bool(((a - b).abs() <= GN64_ATOL + GN64_RTOL * b.abs()).all()):
+        fail(f"float64 GN pair: woodbury {float((a - b).abs().max()):.3g} from cholesky "
+             f"(rtol {GN64_RTOL}, atol {GN64_ATOL})")
+    return float((a - b).abs().max())
+
+
+def gn_float32_witness(dev) -> dict:
+    """``schur_margins`` of ``build_panda_gpmp``'s float32 problem, built on
+    the card and on the CPU: its first Gauss-Newton system (at the initial
+    means, delta added) and the precision of the planner's own init prior
+    (no goal), with whether that prior's float32 factor and the planner's
+    own init draw (``GPMP.reset()`` without means) are finite."""
+    from stoch_gpmp_tpu_torch.gp.prior import make_gp_prior
+    from stoch_gpmp_tpu_torch.problems import build_panda_gpmp
+
+    out = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        pb = build_panda_gpmp(0, device=device)
+        pl = pb.planner
+        c = pl.cost.gn_contrib(pl.particle_means, observation=pb.observation)
+        eye = torch.eye(c.diag.shape[-1], dtype=c.diag.dtype, device=device)
+        prior = make_gp_prior(pl.n_dof, pl.traj_len, pl.dt, pl.start_state,
+                              pl.sigma_start_init, pl.sigma_gp_init, dtype=pl.dtype,
+                              device=device)
+        pl.reset()
+        out[where] = dict(
+            gn=schur_margins(c.diag + float(pl.solver_params["delta"]) * eye, c.lower),
+            init=schur_margins(prior.precision.diag, prior.precision.lower),
+            init_factor_finite=bool(torch.isfinite(prior.chol.diag).all()),
+            init_draw_finite=bool(torch.isfinite(pl.particle_means).all()))
+    return out
+
+
+def panda_gn(dev, iters: int = PG_ITERS) -> dict:
+    """Gauss-Newton ``GPMP`` on the Panda through FK (``build_panda_gpmp``):
+    ``iters`` iterations of ``cholesky`` and of ``woodbury`` in float64
+    (gated and timed), the same in float32 one iteration at a time as a
+    probe (the first iteration whose means are not finite, or None, and the
+    time; not gated), then the float64 pair of one step each."""
+    from stoch_gpmp_tpu_torch.kinematics.se3 import se3_distance
+    from stoch_gpmp_tpu_torch.planners import gpmp_optimize
+    from stoch_gpmp_tpu_torch.problems import build_panda_gpmp
+
+    out = {}
+    for method in ("cholesky", "woodbury"):
+        pb = build_panda_gpmp(0, method=method, dtype=torch.float64, device=dev)
+        planner, obs = pb.planner, pb.observation
+
+        def ee_dist(m):
+            return float(se3_distance(pb.chain.ee_pose(m[:, -1, :7]), pb.target_h).mean())
+
+        d0 = ee_dist(planner.particle_means)
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vel, pos, costs = planner.optimize(opt_iters=iters, observation=obs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernel_counters().items() if fn.launches}
+        means = planner.particle_means
+        d1 = ee_dist(means)
+        start_err = float((means[:, 0, :7] - pb.start_q).abs().max())
+        if (launches or not all(bool(torch.isfinite(o).all()) for o in (vel, pos, costs))
+                or not d1 < d0 or start_err > PG_START_TOL):
+            fail(f"panda-gn ({method}): launches {launches}, EE distance {d0:.4g} -> {d1:.4g}, "
+                 f"start moved {start_err:.3g}")
+        state = planner.state
+        wall, dev_ms, top, ops = _windowed(lambda: gpmp_optimize(  # noqa: B023
+            planner.cost, state, obs, opt_iters=5, delta=1e-2, trust_region=False,
+            method=method, step_size=0.2, woodbury=planner._wb), 5)
+        probe = build_panda_gpmp(0, method=method, device=dev)
+        first_nan = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            probe.planner.optimize(opt_iters=1, observation=probe.observation)
+            if first_nan is None and not bool(torch.isfinite(probe.planner.particle_means).all()):
+                first_nan = i + 1
+        f32_seconds = time.perf_counter() - t0
+        out[method] = _path_row(wall, dev_ms, top, ops, ee_dist0=d0, ee_dist=d1,
+                                start_err=start_err, mean_cost=float(costs.mean()),
+                                optimize_seconds=seconds,
+                                updates_per_s=planner.num_particles * iters / seconds,
+                                float32_first_nonfinite=first_nan,
+                                float32_updates_per_s=planner.num_particles * iters / f32_seconds)
+
+    def build64(method):
+        pb = build_panda_gpmp(0, method=method, dtype=torch.float64, device=dev)
+        return pb.planner, pb.observation
+
+    out["woodbury_vs_cholesky_64"] = _gn_pair_64(build64)
+    out["float32_witness"] = gn_float32_witness(dev)
+    return out
+
+
+def gn_long(dev, iters: int = GNL_ITERS) -> dict:
+    """Gauss-Newton past M = 2048: ``build_long_horizon_gpmp(GNL_T)``,
+    ``iters`` iterations of ``cholesky`` and of ``woodbury`` with S1 (the
+    init draw) and K1 (each linearisation and the returned costs) counted,
+    every launch of both held against its plain version on the path's own
+    inputs (``held_s1``, ``held_k1``); an un-held window of one iteration
+    for the times; then the float64 pair of one step each."""
+    from stoch_gpmp_tpu_torch.planners import gpmp_optimize
+    from stoch_gpmp_tpu_torch.problems import START, build_long_horizon_gpmp
+
+    out = {}
+    for method in ("cholesky", "woodbury"):
+        reset_counters()
+        s1_seen, k1_seen = [], []
+        with held_s1(s1_seen):
+            planner = build_long_horizon_gpmp(GNL_T, method=method, device=dev)
+        p = planner.num_particles
+        with held_k1(planner.cost.costs[-1].field, k1_seen):
+            vel, pos, costs = planner.optimize(opt_iters=iters)
+        launches = {k: fn.launches for k, fn in kernel_counters().items() if fn.launches}
+        staged = kernel_counters()["bidiag_scan"].staged_launches
+        want = {"bidiag_scan": 1, "raster_field": iters + 1}
+        if launches != want:
+            fail(f"gn-long ({method}): launches {launches}, expected {want}")
+        # the init draw: L^{-T} eps on [1, P, T, 4] through its stride-4 planes
+        if len(s1_seen) != 1 or not s1_seen[0]["backward"] or s1_seen[0]["shape"] != [1, p, GNL_T]:
+            fail(f"gn-long ({method}): S1 held on {s1_seen}, expected the init draw's one "
+                 f"backward solve on [1, {p}, {GNL_T}] planes")
+        # the collision cost reads steps 1..T-1
+        if len(k1_seen) != iters + 1 or any(k["shape"][:-1] != [p, GNL_T - 1] for k in k1_seen):
+            fail(f"gn-long ({method}): K1 held on {k1_seen}, expected {iters + 1} launches on "
+                 f"[{p}, {GNL_T - 1}, 2] points")
+        start_err = float((pos[:, 0] - torch.tensor(START[:2], device=dev)).abs().max())
+        if (not all(bool(torch.isfinite(o).all()) for o in (vel, pos, costs))
+                or start_err > PG_START_TOL):
+            fail(f"gn-long ({method}): non-finite output or start moved {start_err:.3g}")
+        state = planner.state
+        wall, dev_ms, top, ops = _windowed(lambda: gpmp_optimize(  # noqa: B023
+            planner.cost, state, {}, opt_iters=1, delta=float(planner.solver_params["delta"]),
+            trust_region=False, method=method, step_size=0.5, woodbury=planner._wb), 1)
+        out[method] = _path_row(wall, dev_ms, top, ops, launches=launches, staged=staged,
+                                start_err=start_err, mean_cost=float(costs.mean()),
+                                s1_held=s1_seen, k1_held=len(k1_seen),
+                                updates_per_s=p / wall * 1e3)
+
+    def build64(method):
+        return build_long_horizon_gpmp(GNL_T, method=method, with_obstacles=False,
+                                       dtype=torch.float64, device=dev), {}
+
+    out["woodbury_vs_cholesky_64"] = _gn_pair_64(build64)
+    return out
 
 
 def main() -> int:
@@ -2676,6 +3189,84 @@ def main() -> int:
                               f"{api['shapes']}, launches {api['api_launches']}, GPMP draws' "
                               f"start err {api['gn_start_err']:.2e}; the quadratic stack takes "
                               f"route {api['quad_route']}, launches {api['quad_launches']}")
+    px = panda_example(dev)
+    phase("panda-example", f"IK goal from 16 starts + q_init, 150 iterations: "
+                           f"{px['ik_seconds']:.3f} s, SE(3) distance {px['ik_err']:.2e} (tol "
+                           f"{IK_TOL}), near-best rule held in float64 ({px['near_best']} "
+                           f"solutions within 0.05 of the best)")
+    for k in ("a", "b"):
+        r = px[k]
+        busy = "not measured" if r["device_busy"] is None else format(r["device_busy"], ".1%")
+        phase("panda-example", f"({k}): {PX_ITERS} iters in chunks of {PX_CHUNK}, launches "
+                               f"{r['launches']}, mean cost {r['cost0']:.6g} -> {r['cost']:.6g}, "
+                               f"start err {r['start_err']:.2e}, final EE to target "
+                               f"{max(r['ee_dist']):.4f} (tol {PX_EE_TOL}); "
+                               f"{r['updates_per_s']:.0f} updates/s over optimize(); "
+                               f"10-iteration window {r['iter_wall_ms']:.4f} ms/iter wall, device "
+                               f"time {fmt_ms(r['iter_device_ms'])}/iter in "
+                               f"{r['device_ops_per_iter']:.0f} device operations, device busy "
+                               f"{busy} on {smi}")
+        phase("panda-example", f"({k}): device ms per iteration by kernel: " + "; ".join(
+            f"{n} {ms:.4f}" for n, ms in r["top_kernels_ms_per_iter"]))
+    phase("panda-example", f"stack (a) on (b)'s final means within {px['stack_rel']:.2e} "
+                           f"relative of (b) (rtol {STACK_RTOL}); the two runs' final means "
+                           f"{px['means_apart']:.3g} apart (a figure, not a gate)")
+    pmesh = panda_mesh(dev)
+    busy = ("not measured" if pmesh["device_busy"] is None
+            else format(pmesh["device_busy"], ".1%"))
+    phase("panda-mesh", f"{PM_ITERS} iters, mean cost {pmesh['cost0']:.6g} -> {pmesh['cost']:.6g}, "
+                        f"start err {pmesh['start_err']:.2e}; mesh / floor fields on the path's "
+                        f"link poses within {pmesh['field_rel']['mesh']:.2e} / "
+                        f"{pmesh['field_rel']['floor']:.2e} relative of float64 (rtol {PM_RTOL}); "
+                        f"clean particles {pmesh['clean_share']:.2f}; build with IK "
+                        f"{pmesh['build_seconds']:.3f} s; {pmesh['updates_per_s']:.0f} updates/s "
+                        f"over optimize(); 10-iteration window {pmesh['iter_wall_ms']:.4f} "
+                        f"ms/iter wall, device time {fmt_ms(pmesh['iter_device_ms'])}/iter in "
+                        f"{pmesh['device_ops_per_iter']:.0f} device operations, device busy "
+                        f"{busy} on {smi}")
+    phase("panda-mesh", "device ms per iteration by kernel: " + "; ".join(
+        f"{n} {ms:.4f}" for n, ms in pmesh["top_kernels_ms_per_iter"]))
+    pg = panda_gn(dev)
+    gl = gn_long(dev)
+    for path, res, iters in (("panda-gn", pg, PG_ITERS), ("gn-long", gl, GNL_ITERS)):
+        for k in ("cholesky", "woodbury"):
+            r = res[k]
+            busy = "not measured" if r["device_busy"] is None else format(r["device_busy"], ".1%")
+            if path == "panda-gn":
+                extra = f"float64, EE distance {r['ee_dist0']:.4g} -> {r['ee_dist']:.4g}"
+                rate = "over optimize()"
+            else:
+                h = r["s1_held"][0]
+                extra = (f"launches {r['launches']} (staged S1 {r['staged']}), each held: S1 "
+                         f"(the init draw, planes {h['shape']} at strides {h['strides']}) "
+                         f"{h['s1_rel']:.2e} from the float64 recurrence (plain "
+                         f"{h['plain_rel']:.2e}, rtol {S1_RTOL[torch.float32]}), "
+                         f"{r['k1_held']} K1 launches equal to plain")
+                rate = "over the un-held window"
+            phase(path, f"{k}: {iters} iters, {extra}, start err {r['start_err']:.2e}, mean cost "
+                        f"{r['mean_cost']:.6g}; {r['updates_per_s']:.1f} particle-updates/s {rate}; "
+                        f"window {r['iter_wall_ms']:.3f} ms/iter wall, device time "
+                        f"{fmt_ms(r['iter_device_ms'])}/iter in {r['device_ops_per_iter']:.0f} "
+                        f"device operations, device busy {busy} on {smi}")
+            phase(path, f"{k}: device ms per iteration by kernel: " + "; ".join(
+                f"{n} {ms:.4f}" for n, ms in r["top_kernels_ms_per_iter"]))
+        if path == "panda-gn":
+            phase(path, "float32 probe, one iteration per call: " + "; ".join(
+                f"{k} first non-finite means at iteration {res[k]['float32_first_nonfinite']}, "
+                f"{res[k]['float32_updates_per_s']:.1f} particle-updates/s"
+                for k in ("cholesky", "woodbury")))
+            for where, w in res["float32_witness"].items():
+                phase(path, f"float32 witness built on the {where} (seed 0): " + "; ".join(
+                    f"{name}: smallest Schur eigenvalue {fmt_list(w[name]['margin'])} x eps "
+                    f"||B_t|| at blocks {w[name]['block']}, float32 Schur error "
+                    f"{fmt_list(w[name]['err'])} x eps ||B_t||, first float32 block not "
+                    f"positive definite {w[name]['first_bad']}"
+                    for name in ("gn", "init")) + f"; init factor finite "
+                    f"{w['init_factor_finite']}, GPMP's own init draw finite "
+                    f"{w['init_draw_finite']}")
+        phase(path, f"float64 on the card, one step: woodbury within "
+                    f"{res['woodbury_vs_cholesky_64']:.2e} of cholesky (rtol {GN64_RTOL}, atol "
+                    f"{GN64_ATOL})")
     details.update(K1=k1, K2=k2, K2_split=k2_split, moments=mom, main=mp, K3=k3, K4=k4,
                    K4_generic=fkg, K5=k5, K5_split=k5_split, K5_shapes=k5_shapes,
                    K5_rng_free=k5_free, K5_moments=k5_mom, panda_main=pm, K6=k6,
@@ -2684,7 +3275,8 @@ def main() -> int:
                    panda4_main=p4, K9=k9, K9_split=k9_split, K9_moments=k9_mom,
                    K9_loop=k9_run, K10=f2["K10"], K11=f2["K11"], shapes=shapes,
                    planar_ref_main=pr,
-                   gn_main=gn, S1=sc, long_horizon_main=lh, long_horizon_api=api)
+                   gn_main=gn, S1=sc, long_horizon_main=lh, long_horizon_api=api,
+                   panda_example=px, panda_mesh=pmesh, panda_gn=pg, gn_long=gl)
     if args.log_dir:
         out = Path(args.log_dir)
         out.mkdir(parents=True, exist_ok=True)
@@ -2698,17 +3290,19 @@ def main() -> int:
     k2_bound = bound(4 * (3 * 3 * PPG * m2 + 2 * m2 * m2 + 3 * PPG * S),
                      2 * 2 * 3 * PPG * S * m2 * m2)
     record = [
-        # K1: the planar main path's launch and long-horizon-main's at T = 4096
+        # K1: the planar main path's launch, long-horizon-main's at T = 4096 and
+        # gn-long's (cholesky)
         ("raster_field", "raster_field.cu", "stoch_gpmp_tpu/ops/pallas/fields.py:147",
-         mp["launches"]["raster_field"] + lh[LH_HORIZONS[0]]["launches"]["raster_field"], k1,
-         k1_bound),
+         mp["launches"]["raster_field"] + lh[LH_HORIZONS[0]]["launches"]["raster_field"]
+         + gl["cholesky"]["launches"]["raster_field"], k1, k1_bound),
         ("fused_planar_step", "fused_planar_step.cu",
          "stoch_gpmp_tpu/ops/pallas/fused_step.py:419", mp["launches"]["fused_planar_step"],
          dict(k2["matmul"], max_abs_err=max(r["max_abs_err"] for r in k2.values())), k2_bound),
         ("dof_quad_eval", "dof_quad_eval.cu", "stoch_gpmp_tpu/ops/pallas/stencil.py:242",
          pm["dof"]["launches"]["dof_quad_eval"], k3, k3["bound"]),
+        # K4: config 5's dof path and panda-example (b)
         ("fk_fields", "fk_fields.cu", "stoch_gpmp_tpu/ops/pallas/panda_fields.py:325",
-         pm["dof"]["launches"]["fk_fields"], k4, k4["bound"]),
+         pm["dof"]["launches"]["fk_fields"] + px["b"]["launches"]["fk_fields"], k4, k4["bound"]),
         ("fused_panda_dof_step", "fused_panda_dof_step.cu",
          "stoch_gpmp_tpu/ops/pallas/panda_step_dof.py:225",
          pm["fused"]["launches"]["fused_panda_dof_step"], k5, k5["bound"]),
@@ -2734,7 +3328,8 @@ def main() -> int:
     ]
     record.append(("bidiag_scan", "bidiag_scan.cu",
                    "stoch_gpmp_tpu/gp/tridiag.py:259 (XLA associative_scan)",
-                   lh[LH_HORIZONS[0]]["launches"]["bidiag_scan"], sc, sc["bound"]))
+                   lh[LH_HORIZONS[0]]["launches"]["bidiag_scan"]
+                   + gl["cholesky"]["launches"]["bidiag_scan"], sc, sc["bound"]))
     kernels = [
         {"name": n, "route": "cuda", "source": f"stoch_gpmp_tpu_torch/csrc/{src}",
          "replaces": rep, "launches": launches, "max_abs_err": r["max_abs_err"],

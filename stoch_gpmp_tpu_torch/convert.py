@@ -30,6 +30,8 @@ from stoch_gpmp_tpu_torch.costs.fields import (
     EESE3DistanceField,
     LinkDistanceField,
     LinkSelfDistanceField,
+    MeshSphereDistanceField,
+    MeshSphereFloorField,
     OccupancyGridField,
     Primitive2DField,
     RasterPrimitive2DField,
@@ -98,6 +100,14 @@ def _field_from_jax(field, dtype, device):
         return LinkSelfDistanceField(
             margin=float(field.margin), num_interpolate=int(field.num_interpolate),
             link_interpolate_range=tuple(field.link_interpolate_range))
+    if kind == "MeshSphereDistanceField":
+        return MeshSphereDistanceField(
+            link_indices=tuple(int(i) for i in field.link_indices),
+            centers=tuple(_t(c, dtype, device) for c in field.centers),
+            radii=tuple(_t(r, dtype, device) for r in field.radii))
+    if kind == "MeshSphereFloorField":
+        return MeshSphereFloorField(mesh=_field_from_jax(field.mesh, dtype, device),
+                                    floor_z=float(field.floor_z), width=float(field.width))
     if kind == "EESE3DistanceField":
         return EESE3DistanceField(target_h=_t(field.target_h, dtype, device),
                                   w_pos=float(field.w_pos), w_rot=float(field.w_rot),
@@ -128,8 +138,8 @@ def _dof_quad_from_jax(dq, dtype, device):
 
 def cost_from_jax(cost, *, device=None, dtype=torch.float64):
     """``CostComposite`` (with its ``fk``) of ``QuadraticCost`` / ``CostGP``
-    / ``CostGPTrajectory`` / ``CostGoalPrior`` / ``CostCollision`` (a 2D or a
-    link field) /
+    / ``CostGPTrajectory`` / ``CostGoalPrior`` / ``CostCollision`` (a 2D, a
+    link or a mesh-sphere field) /
     ``CostGoal(EESE3DistanceField)`` / ``FusedLinkFieldsCost`` /
     ``PlaneFieldsCost``, or one of those alone."""
     device = resolve_device(device)
@@ -180,8 +190,9 @@ def cost_from_jax(cost, *, device=None, dtype=torch.float64):
 
 
 def chain_from_jax(chain) -> KinematicChain:
-    """``KinematicChain`` rebuilt from the JAX chain's model joints and its
-    selected links (the chain holds no tensors: FK runs in ``q``'s dtype)."""
+    """``KinematicChain`` rebuilt from the JAX chain's model joints (the
+    gripper's prismatic fingers included), its selected links and its dtype
+    (that of the joint-limit tensors; FK runs in ``q``'s dtype)."""
     model = chain.model
     joints = tuple(
         JointSpec(name=j.name, joint_type=j.joint_type, parent_link=j.parent_link,
@@ -192,7 +203,8 @@ def chain_from_jax(chain) -> KinematicChain:
         for j in model.joints
     )
     return KinematicChain(RobotModel(name=model.name, joints=joints, links=tuple(model.links)),
-                          link_names=list(chain.link_names))
+                          link_names=list(chain.link_names),
+                          dtype=getattr(torch, np.dtype(chain.dtype).name))
 
 
 def link_state_from_jax(links, *, device=None, dtype=torch.float64) -> LinkState:

@@ -12,6 +12,8 @@ from stoch_gpmp_tpu_torch.costs.fields import (
     EESE3DistanceField,
     LinkDistanceField,
     LinkSelfDistanceField,
+    MeshSphereDistanceField,
+    MeshSphereFloorField,
     OccupancyGridField,
     Primitive2DField,
     RasterPrimitive2DField,
@@ -32,6 +34,8 @@ __all__ = [
     "FusedLinkFieldsCost",
     "LinkDistanceField",
     "LinkSelfDistanceField",
+    "MeshSphereDistanceField",
+    "MeshSphereFloorField",
     "OccupancyGridField",
     "PlaneFieldsCost",
     "Primitive2DField",

@@ -68,6 +68,9 @@ class Cost:
     def eval(self, trajs, x_trajs=None, observation=None):  # pragma: no cover
         raise NotImplementedError
 
+    def gn_contrib(self, trajs, x_trajs=None, observation=None):
+        raise NotImplementedError
+
     def supports_dof_planes(self) -> bool:
         return False
 

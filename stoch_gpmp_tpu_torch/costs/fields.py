@@ -18,8 +18,12 @@ PyTorch counterpart of ``stoch_gpmp_tpu/costs/fields.py``:
 The three 2D fields' kernels are in ``ops/kernels/fields.py``; their
 gradient with respect to the points is zero, as in the JAX package.
 
-The fused forms of the link fields live in ``costs/fused_fields.py``. The
-mesh-sphere fields are not ported yet.
+- ``MeshSphereDistanceField`` and ``MeshSphereFloorField``: the obstacle
+  and floor RBF fields measured from a sphere decomposition of the robot's
+  collision meshes (``kinematics/panda_collision.py``), on homogeneous link
+  poses.
+
+The fused forms of the link fields live in ``costs/fused_fields.py``.
 """
 
 from __future__ import annotations
@@ -152,6 +156,87 @@ class LinkSelfDistanceField:
                                  self.link_interpolate_range)
         sq = torch.sum(torch.square(pos[..., None, :] - pos[..., None, :, :]), dim=-1)
         return torch.exp(sq / (-(self.margin**2) * 2.0)).sum((-1, -2))
+
+
+@dataclass
+class MeshSphereDistanceField:
+    """Obstacle field at a sphere decomposition of the robot's collision
+    meshes instead of the link origins: each sphere (centre ``c`` in its
+    link's frame, radius ``r_s``) adds ``exp(-0.5 * max(|R c + p - o| -
+    r_s, 0)^2 / r_o^2)`` per obstacle ``(o, r_o)``. Spheres of a link the
+    chain does not output (the static base) are left out: they do not move
+    with ``q``. Needs each link's rotation, so it takes homogeneous link
+    poses ``[..., L, 4, 4]`` (``chain.fk``); a ``LinkState`` holds only the
+    end-effector's and is refused, except by the obstacle-free branch."""
+
+    link_indices: tuple  # the chain's output slot of each link group
+    centers: tuple  # per link group: [K_i, 3]
+    radii: tuple  # per link group: [K_i]
+
+    @classmethod
+    def for_panda(cls, chain, dtype=torch.float32, device=None) -> "MeshSphereDistanceField":
+        from stoch_gpmp_tpu_torch.kinematics.panda_collision import PANDA_COLLISION_SPHERES
+
+        names = list(chain.link_names)
+        idxs, cs, rs = [], [], []
+        for frame, sph in PANDA_COLLISION_SPHERES.items():
+            if frame in names:
+                idxs.append(names.index(frame))
+                cs.append(torch.as_tensor(sph[:, :3], dtype=dtype, device=device))
+                rs.append(torch.as_tensor(sph[:, 3], dtype=dtype, device=device))
+        return cls(link_indices=tuple(idxs), centers=tuple(cs), radii=tuple(rs))
+
+    def world_spheres(self, link_tensor):
+        """World centres ``[..., N, 3]`` and radii ``[N]`` of all the mesh
+        spheres at link poses ``[..., L, 4, 4]``."""
+        if hasattr(link_tensor, "positions"):
+            raise TypeError("the mesh spheres need every link's rotation: pass homogeneous "
+                            "link poses [..., L, 4, 4] (chain.fk), not a LinkState")
+        cws = []
+        for idx, c in zip(self.link_indices, self.centers):
+            h = link_tensor[..., idx, :, :]
+            c = c.to(h.dtype)
+            # cw[k, i] = sum_j rot[i, j] c[k, j] + p[i]
+            cws.append(torch.sum(h[..., None, :3, :3] * c[:, None, :], dim=-1)
+                       + h[..., None, :3, 3])
+        return torch.cat(cws, dim=-2), torch.cat(self.radii)
+
+    def compute_cost(self, link_tensor, obstacle_spheres=None, **kw) -> torch.Tensor:
+        if obstacle_spheres is None:
+            lp = _link_pos(link_tensor)
+            return lp.new_zeros(lp.shape[:-2])
+        cw, rw = self.world_spheres(link_tensor)  # [..., N, 3], [N]
+        d = torch.linalg.norm(cw[..., :, None, :] - obstacle_spheres[..., None, :, :3], dim=-1)
+        d_surf = torch.clamp(d - rw.to(d.dtype)[:, None], min=0.0)
+        o_r = obstacle_spheres[..., None, :, 3]
+        return torch.exp(-0.5 * torch.square(d_surf) / torch.square(o_r)).sum((-1, -2))
+
+    def compute_collision(self, link_tensor, obstacle_spheres=None, buffer=0.0,
+                          **kw) -> torch.Tensor:
+        """Any mesh sphere's surface within ``buffer`` of an obstacle's."""
+        if obstacle_spheres is None:
+            lp = _link_pos(link_tensor)
+            return torch.zeros(lp.shape[:-2], dtype=torch.bool, device=lp.device)
+        cw, rw = self.world_spheres(link_tensor)
+        d = torch.linalg.norm(cw[..., :, None, :] - obstacle_spheres[..., None, :, :3], dim=-1)
+        gap = d - rw.to(d.dtype)[:, None] - obstacle_spheres[..., None, :, 3]
+        return (gap < buffer).flatten(-2).any(dim=-1)
+
+
+@dataclass
+class MeshSphereFloorField:
+    """Floor field on the mesh-sphere decomposition: the RBF of each
+    sphere's clearance ``max(z - r_s - floor_z, 0)`` at width ``width``,
+    summed over the spheres."""
+
+    mesh: MeshSphereDistanceField
+    floor_z: float = 0.0
+    width: float = 0.05
+
+    def compute_cost(self, link_tensor, **kw) -> torch.Tensor:
+        cw, rw = self.mesh.world_spheres(link_tensor)
+        clear = torch.clamp(cw[..., 2] - rw.to(cw.dtype) - self.floor_z, min=0.0)
+        return torch.exp(-0.5 * torch.square(clear) / self.width**2).sum(-1)
 
 
 @dataclass

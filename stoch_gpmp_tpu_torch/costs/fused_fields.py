@@ -78,6 +78,10 @@ class FusedLinkFieldsCost(Cost):
         )
         return torch.sum(vals, dim=-1)
 
+    def gn_contrib(self, trajs, x_trajs=None, observation=None, fk_trajs=None):
+        raise NotImplementedError(
+            "use the separate CostCollision fields for the Gauss-Newton path")
+
 
 @dataclass
 class PlaneFieldsCost(Cost):
@@ -98,9 +102,15 @@ class PlaneFieldsCost(Cost):
     @classmethod
     def create(cls, n_dof, traj_len, chain, target_h, *, margin=0.03, sigma_self=0.01,
                sigma_coll=0.01, sigma_goal=0.00007, w_pos=1.0, w_rot=1.0):
+        """The obstacle term takes every sphere of the observation, as the
+        JAX package's kernel paths do (its ``num_obstacles`` is read only by
+        its ``use_pallas=False`` path)."""
         return cls(chain=chain, target_h=target_h, n_dof=n_dof, traj_len=traj_len,
                    margin=margin, sigma_self=sigma_self, sigma_coll=sigma_coll,
                    sigma_goal=sigma_goal, w_pos=w_pos, w_rot=w_rot)
+
+    def supports_planes(self) -> bool:
+        return True
 
     def supports_dof_planes(self) -> bool:
         return True
@@ -135,3 +145,7 @@ class PlaneFieldsCost(Cost):
         t = planes[0].shape[-1]
         q = torch.stack([p.reshape(-1, t) for p in planes[: self.n_dof]])
         return self._eval_q(q, observation).reshape(batch_shape)
+
+    def gn_contrib(self, trajs, x_trajs=None, observation=None, fk_trajs=None):
+        raise NotImplementedError(
+            "use the separate CostCollision/CostGoal fields for Gauss-Newton")

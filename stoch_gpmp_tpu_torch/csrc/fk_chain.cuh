@@ -23,7 +23,7 @@
 //   The specs, the joint table and the rule that matches them are in
 //   fk_spec.h; the host asks that rule (fk_chain_variant, through
 //   ops/kernels/panda_fields.py fk_variant) and the launchers check the
-//   variant they are given with it. The Panda (franka_panda(PANDA_FK_LINKS))
+//   variant they are given with it. The Panda (franka_panda(link_names=PANDA_FK_LINKS))
 //   is FkPanda.
 // - fk_walk, the generic walk of any serial chain (prismatic joints, any
 //   axis): a runtime loop over the table that writes each selected link's

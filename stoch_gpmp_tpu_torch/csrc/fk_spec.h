@@ -42,7 +42,7 @@ struct FkSpec {
   static constexpr int NL = fk_popc(SEL_);
 };
 
-// franka_panda(PANDA_FK_LINKS): a fixed base joint, 7 revolute joints about
+// franka_panda(link_names=PANDA_FK_LINKS): a fixed base joint, 7 revolute joints about
 // +z with origin rotations I, I, Rx(-90), Rx(+90), Rx(+90), Rx(-90),
 // Rx(+90), Rx(+90), and two fixed joints (hand, end-effector) with general
 // rotations; 9 links, joints 1..9.

@@ -5,6 +5,7 @@ from stoch_gpmp_tpu_torch.envs.obst_map import (
     ObstacleMap,
     ObstacleRectangle,
 )
+from stoch_gpmp_tpu_torch.envs.panda_env import random_init_static_sphere
 
 __all__ = [
     "generate_obstacle_map",
@@ -12,4 +13,5 @@ __all__ = [
     "ObstacleCircle",
     "ObstacleMap",
     "ObstacleRectangle",
+    "random_init_static_sphere",
 ]

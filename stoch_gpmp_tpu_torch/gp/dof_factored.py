@@ -322,14 +322,35 @@ class DofQuadraticCost:
         w = torch.stack([self.q_i2, self.k_s2, self.k_g2]).detach().double().cpu()
         return tuple(float(w[k][i, j]) for k in range(3) for i, j in ((0, 0), (0, 1), (1, 1)))
 
+    def eval(self, trajs, x_trajs=None, observation=None) -> torch.Tensor:
+        """Flat-batch ``eval`` (``[B, T, 2d]`` or ``[B, M]``) through the
+        plane layout: the quadratic without a dense ``[M, M]`` matrix."""
+        trajs = trajs.reshape(-1, self.traj_len, 2 * self.n_dof)
+        return self.eval_dof_planes(to_dof_planes(trajs), observation=observation)
+
     def eval_dof_planes(self, x_planes: torch.Tensor, observation=None) -> torch.Tensor:
         """``x_planes [d, B, 2T]`` (goal-major batch) -> ``[B]`` costs in
         factor-graph residual form: the quadratic ``x A x - 2 b x + c``
         rewritten as sums of local quadratics, with no cancellation. Kernel
-        K3 on a CUDA tensor, its plain version on a CPU tensor."""
+        K3 on a CUDA tensor, its plain version on a CPU tensor; a cost
+        without the stencil constants takes :meth:`eval_dof_planes_dense`."""
+        if self.q_i2 is None:
+            return self.eval_dof_planes_dense(x_planes)
         from stoch_gpmp_tpu_torch.ops.kernels.stencil import dof_quad_eval
 
         return dof_quad_eval(self, x_planes)
+
+    def eval_dof_planes_dense(self, x_planes: torch.Tensor) -> torch.Tensor:
+        """The matmul form ``x A x - 2 b x + c`` of the same quadratic,
+        algebraically equal to the stencil form; it cancels two large
+        terms, so at the Panda sigmas it loses the digits the stencil keeps."""
+        d, b, t2 = x_planes.shape
+        xa = (x_planes.reshape(-1, t2) @ self.a_dof).reshape(d, b, t2)
+        quad = torch.sum(xa * x_planes, dim=(0, -1))
+        xg = x_planes.reshape(d, self.num_goals, -1, t2)
+        lin = torch.einsum("dgbk,gdk->gb", xg, self.b_planes).reshape(b)
+        cg = torch.repeat_interleave(self.c, b // self.num_goals)
+        return quad - 2.0 * lin + cg
 
     def grad_dof_planes(self, x_planes: torch.Tensor) -> torch.Tensor:
         """``b - A x`` per dof on ``[d, B, 2T]`` planes (goal-major batch),

@@ -119,31 +119,13 @@ class GPPrior:
                method: str = "auto", eps: torch.Tensor | None = None) -> torch.Tensor:
         """Draw ``[num_modes, num_samples, T, d]`` samples.
 
-        ``method``: ``"dense"`` (one matmul against the dense ``L^{-1}``),
-        ``"scan"`` (the sequential structured backward substitution),
-        ``"pscan"`` (the parallel-in-time solver, S1 on the card) or
-        ``"auto"`` (dense when the prior has it, else pscan). ``eps
-        [num_modes, num_samples, T, d]`` replaces the draw from
-        ``generator``."""
+        ``method``: see :func:`sample_correction`. ``eps [num_modes,
+        num_samples, T, d]`` replaces the draw from ``generator``."""
         t, d = self.traj_len, self.state_dim
         if eps is None:
             eps = torch.randn((self.num_modes, num_samples, t, d), generator=generator,
                               dtype=self.means.dtype, device=self.means.device)
-        if method == "auto":
-            method = "dense" if self.weight_t is not None else "pscan"
-        if method == "dense":
-            if self.weight_t is None:
-                raise ValueError("dense sampling requires materialize_dense=True")
-            flat = eps.reshape(self.num_modes, num_samples, t * d)
-            corr = (flat @ self.weight_t).reshape(self.num_modes, num_samples, t, d)
-        elif method == "scan":
-            corr = self.chol.solve_LT(eps)
-        elif method == "pscan":
-            solver = self.psolver or ParallelBidiagSolver.from_chol(self.chol)
-            corr = solver.solve_LT(eps)
-        else:
-            raise ValueError(f"unknown sampling method: {method}")
-        return self.means[:, None] + corr
+        return self.means[:, None] + sample_correction(self, eps, method)
 
     def precision_matvec(self, x: torch.Tensor) -> torch.Tensor:
         """Apply ``Sigma^{-1}`` to ``x [..., T, d]`` in O(T d^2)."""
@@ -157,6 +139,34 @@ class GPPrior:
         return 0.5 * (self.chol.logdet() - m * math.log(2.0 * math.pi) - quad)
 
 
+def sample_correction(model, eps: torch.Tensor, method: str = "auto") -> torch.Tensor:
+    """The correction ``L^{-T} eps`` that turns standard normal draws ``eps
+    [B, S, T, d]`` into draws around zero under the precision ``L L^T`` of
+    ``model`` (a ``GPPrior`` or a planner's ``SamplerModel``: anything with
+    ``weight_t``, ``psolver`` and ``chol``). ``method``: ``"dense"`` (one
+    matmul against the dense ``L^{-1}``), ``"scan"`` (the sequential
+    structured backward substitution of ``chol``), ``"pscan"`` (the
+    parallel-in-time solver, S1 on the card, built from ``chol`` when the
+    model has none) or ``"auto"``: dense when the model has the dense
+    factor, else pscan when it has the solver, else scan."""
+    b, s, t, d = eps.shape
+    if method == "auto":
+        if model.weight_t is not None:
+            method = "dense"
+        else:
+            method = "pscan" if model.psolver is not None else "scan"
+    if method == "dense":
+        if model.weight_t is None:
+            raise ValueError("dense sampling requires materialize_dense=True")
+        return (eps.reshape(b, s, t * d) @ model.weight_t).reshape(b, s, t, d)
+    if method == "scan":
+        return model.chol.solve_LT(eps)
+    if method == "pscan":
+        solver = model.psolver or ParallelBidiagSolver.from_chol(model.chol)
+        return solver.solve_LT(eps)
+    raise ValueError(f"unknown sampling method: {method}")
+
+
 def make_gp_prior(
     dof: int,
     traj_len: int,
@@ -168,8 +178,8 @@ def make_gp_prior(
     goal_states=None,
     means=None,
     dtype=torch.float32,
-    device=None,
     materialize_dense: bool | None = None,
+    device=None,
 ) -> GPPrior:
     """Build a ready-to-sample GP prior from sigma hyper-parameters: unary
     start/goal weights ``I/sigma^2`` and the closed-form CV-GP ``Q^{-1}``

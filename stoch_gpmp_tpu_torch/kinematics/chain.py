@@ -136,9 +136,14 @@ def _compose(r, m):
 class KinematicChain:
     """Batched FK over a URDF-derived kinematic tree: ``q [..., n_dofs]`` ->
     the selected links (all child links in topological order by default; the
-    last is the end-effector for a serial chain)."""
+    last is the end-effector for a serial chain).
 
-    def __init__(self, model: RobotModel, link_names: list[str] | None = None):
+    ``limits_lower``, ``limits_upper`` and ``limits_velocity`` are the
+    actuated joints' limits as ``[n_dofs]`` CPU tensors of ``dtype`` (+-inf
+    where the model gives none). FK itself runs in ``q``'s dtype."""
+
+    def __init__(self, model: RobotModel, link_names: list[str] | None = None,
+                 dtype=torch.float32):
         self.model = model
         self._joints = _topo_sort(model)
         self.n_dofs = model.n_dofs
@@ -157,6 +162,15 @@ class KinematicChain:
             raise ValueError(f"unknown links: {missing}")
         self.link_names = list(link_names)
         self._out_idx = [self.all_link_names.index(n) for n in self.link_names]
+        self.dtype = dtype
+        act = [j for j in self._joints if j.actuated]
+        limit = lambda v, inf: inf if v is None else v  # noqa: E731
+        self.limits_lower = torch.tensor([limit(j.limit_lower, -np.inf) for j in act],
+                                         dtype=dtype)
+        self.limits_upper = torch.tensor([limit(j.limit_upper, np.inf) for j in act],
+                                         dtype=dtype)
+        self.limits_velocity = torch.tensor([limit(j.limit_velocity, np.inf) for j in act],
+                                            dtype=dtype)
 
     def fk_planes_from_scalars(self, qs):
         """The FK plane composition over a list of per-dof scalars (Python
@@ -238,8 +252,15 @@ class KinematicChain:
         return LinkState(positions=positions, ee_rot=ee_rot)
 
     def ee_pose(self, q: torch.Tensor) -> torch.Tensor:
-        """End-effector (last selected link) pose: ``[..., 4, 4]``."""
-        return self.fk(q)[..., -1, :, :]
+        """End-effector (last selected link) pose: ``[..., 4, 4]``, the last
+        entry of ``fk(q)`` assembled alone."""
+        planes, as_array = self.fk_scalar_planes(q)
+        r, p = planes[-1]
+        rows = [torch.stack([as_array(r[j][0]), as_array(r[j][1]), as_array(r[j][2]),
+                             as_array(p[j])], dim=-1) for j in range(3)]
+        zero, one = as_array(0.0), as_array(1.0)
+        rows.append(torch.stack([zero, zero, zero, one], dim=-1))
+        return torch.stack(rows, dim=-2)
 
     def __call__(self, q: torch.Tensor) -> torch.Tensor:
         return self.fk(q)

@@ -247,8 +247,8 @@ class GPMP:
         solver_params=None,
         seed: int = 0,
         dtype=torch.float32,
-        device=None,
         mesh=None,
+        device=None,
         **kwargs,
     ):
         if mesh is not None:

@@ -30,7 +30,7 @@ from typing import Any
 
 import torch
 
-from stoch_gpmp_tpu_torch.gp.prior import GPPrior, make_gp_prior
+from stoch_gpmp_tpu_torch.gp.prior import GPPrior, make_gp_prior, sample_correction
 from stoch_gpmp_tpu_torch.gp.tridiag import (
     BlockBidiagChol,
     BlockTridiag,
@@ -49,11 +49,11 @@ class SamplerModel:
     stencil ``Sigma^{-1}`` matvec)."""
 
     precision: BlockTridiag
+    chol: BlockBidiagChol | None
     weight_t: torch.Tensor | None  # [M, M] = L^{-1}; samples = eps @ weight_t
     precision_dense: torch.Tensor | None  # [M, M], with weight_t only
-    dof: object | None = None
-    chol: BlockBidiagChol | None = None
     psolver: ParallelBidiagSolver | None = None
+    dof: object | None = None
 
     @classmethod
     def from_prior(cls, prior: GPPrior) -> "SamplerModel":
@@ -128,6 +128,7 @@ def stoch_gpmp_step(
     temperature: float,
     step_size: float,
     sample_method: str = "dense",
+    sample_dtype=None,
     plane_stream: bool = False,
     eps: torch.Tensor | None = None,
 ) -> tuple[StochGPMPState, StochGPMPAux]:
@@ -139,27 +140,36 @@ def stoch_gpmp_step(
     Sampling: one matmul against the dense ``L^{-1}`` (``sample_method
     "dense"`` with the dense factor), else the structured solve ``L^{-T}
     eps`` of the parallel-in-time solver (S1 on the card) or, without one,
-    of the Cholesky. ``plane_stream`` draws and solves in the plane order of
-    the plane path, so this step reproduces that path's iteration."""
+    of the Cholesky. ``sample_dtype`` (e.g. ``torch.bfloat16``) draws eps
+    and runs the sampling matmul in that precision, a different stream from
+    the full-precision one; the correction returns to the means' dtype, so
+    the costs, weights and means stay in full precision. ``plane_stream``
+    draws and solves in the plane order of the plane path, so this step
+    reproduces that path's iteration."""
     means = state.particle_means  # [P, T, d]
     p, t, d = means.shape
     m = t * d
     means_flat = means.reshape(p, m)
+    eps_dtype = sample_dtype if sample_dtype is not None else means.dtype
     if plane_stream and sampler.psolver is not None:
         if eps is None:
             eps = torch.randn((d, p, num_samples, t), generator=state.generator,
-                              dtype=means.dtype, device=means.device)
-        corr_planes = sampler.psolver.solve_LT_planes(tuple(eps[i] for i in range(d)))
+                              dtype=eps_dtype, device=means.device)
+        corr_planes = sampler.psolver.solve_LT_planes(
+            tuple(eps[i].to(means.dtype) for i in range(d)))
         corr = torch.stack(corr_planes, dim=-1).reshape(p, num_samples, m)
     else:
         if eps is None:
             eps = torch.randn((p, num_samples, m), generator=state.generator,
-                              dtype=means.dtype, device=means.device)
+                              dtype=eps_dtype, device=means.device)
+        eps = eps.to(eps_dtype)
         if sample_method == "dense" and sampler.weight_t is not None:
-            corr = eps @ sampler.weight_t  # x = mu + eps @ L^{-1}
+            # x = mu + eps @ L^{-1}
+            corr = (eps @ sampler.weight_t.to(eps_dtype)).to(means.dtype)
         else:
             solver = sampler.psolver if sampler.psolver is not None else sampler.chol
-            corr = solver.solve_LT(eps.reshape(p, num_samples, t, d)).reshape(p, num_samples, m)
+            corr = solver.solve_LT(eps.to(means.dtype).reshape(p, num_samples, t, d)).reshape(
+                p, num_samples, m)
     flat = means_flat[:, None] + corr  # [P, S, M]
     samples = flat.reshape(p, num_samples, t, d)
 
@@ -188,14 +198,18 @@ def stoch_gpmp_step(
     )
 
 
-def _route(sampler, cost, traj_len: int, sample_method: str = "dense") -> str:
+def _route(sampler, cost, traj_len: int, sample_method: str = "dense",
+           sample_dtype=None) -> str:
     """``"dof"``, ``"planes"`` or ``"flat"``, by the JAX package's gates
     (``stoch_gpmp_optimize``'s ``dof_eligible`` and ``plane_eligible``):
     the dof path for a sampler with the per-dof factor and a dof-capable
     stack, opted in by ``sample_method="dof"`` or by a horizon that is a
     multiple of 128; the plane path for a long-horizon sampler (no dense
     factor, a parallel-in-time solver) with d <= 8 and a plane-capable
-    stack under ``sample_method="dense"``; the flat path otherwise."""
+    stack under ``sample_method="dense"``; the flat path otherwise, and
+    always with a ``sample_dtype``."""
+    if sample_dtype is not None:
+        return "flat"
     if (sampler.dof is not None and cost.supports_dof_planes()
             and (sample_method == "dof" or (sample_method == "dense" and traj_len % 128 == 0))):
         return "dof"
@@ -341,20 +355,23 @@ def stoch_gpmp_optimize(
     temperature: float,
     step_size: float,
     sample_method: str = "dense",
+    sample_dtype=None,
     collect_metrics: bool = False,
     eps=None,
 ):
     """Run ``opt_iters`` updates on the route ``_route`` picks; returns the
     final state and the last iteration's aux (plus stacked ``IterMetrics``
-    with ``collect_metrics``). ``eps``: optional per-iteration draws (a
-    list, a stacked tensor or a callable of the iteration): ``[P, S, M]`` on
-    the flat path, ``[d, P, S, 2T]`` on the dof path and ``[d, P, S, T]`` on
-    the plane path."""
+    with ``collect_metrics``). ``sample_dtype``: the reduced-precision draw
+    of ``stoch_gpmp_step``, on the flat path only (as in the JAX package,
+    the dof and plane routes refuse it). ``eps``: optional per-iteration
+    draws (a list, a stacked tensor or a callable of the iteration): ``[P,
+    S, M]`` on the flat path, ``[d, P, S, 2T]`` on the dof path and ``[d, P,
+    S, T]`` on the plane path."""
     if opt_iters < 1:
         raise ValueError(f"opt_iters must be >= 1, got {opt_iters}")
     if eps is not None and not callable(eps) and len(eps) != opt_iters:
         raise ValueError(f"eps holds {len(eps)} draws for {opt_iters} iterations")
-    route = _route(sampler, cost, state.particle_means.shape[1], sample_method)
+    route = _route(sampler, cost, state.particle_means.shape[1], sample_method, sample_dtype)
     if route != "flat":
         run = _stoch_gpmp_optimize_dof if route == "dof" else _stoch_gpmp_optimize_planes
         return run(
@@ -368,7 +385,7 @@ def stoch_gpmp_optimize(
         state, aux = stoch_gpmp_step(
             sampler, cost, state, observation, num_samples=num_samples,
             temperature=temperature, step_size=step_size, sample_method=sample_method,
-            eps=_eps_at(eps, i),
+            sample_dtype=sample_dtype, eps=_eps_at(eps, i),
         )
         if collect_metrics:
             metrics.append(IterMetrics.from_aux(aux, step_size))
@@ -413,12 +430,16 @@ class StochGPMP:
         sigma_gp_sample=None,
         seed: int = 0,
         dtype=torch.float32,
-        device=None,
         sample_method: str = "dense",
+        prng_impl: str | None = None,
         mesh=None,
         fused_kernel: bool = False,
+        device=None,
         **kwargs,
     ):
+        if prng_impl is not None:
+            raise ValueError("prng_impl= names a JAX PRNG implementation; the port draws "
+                             "from a torch.Generator seeded with seed=")
         if mesh is not None:
             raise NotImplementedError("mesh= is not ported yet (multi-device slice)")
         self.device = resolve_device(device)
@@ -498,12 +519,19 @@ class StochGPMP:
     def particle_means(self) -> torch.Tensor:
         return self.state.particle_means
 
-    def optimize(self, opt_iters=None, observation=None, collect_metrics=False,
+    @property
+    def Sigma_inv(self) -> BlockTridiag:
+        """The sampling distribution's structured precision (``.to_dense()``
+        gives the reference's dense ``Sigma_inv``)."""
+        return self.sampler.precision
+
+    def optimize(self, opt_iters=None, debug=False, observation=None, collect_metrics=False,
                  **obs_kwargs):
         """Returns the reference's 6-tuple ``(state_particles,
         control_particles, state_trajectories, control_samples, costs, grad)``;
         with ``collect_metrics`` the per-iteration ``IterMetrics`` land in
-        ``self.last_metrics``."""
+        ``self.last_metrics``. ``debug`` is accepted in the JAX package's
+        position and, as there, changes nothing."""
         observation = dict(observation or {})
         observation.update(obs_kwargs)
         iters = self.opt_iters if opt_iters is None else opt_iters
@@ -577,14 +605,9 @@ class StochGPMP:
 
 def sample_around(sampler, means, num_samples: int, generator) -> torch.Tensor:
     """``[P, S, T, d]`` draws around ``means [P, T, d]`` from ``sampler``
-    (a ``SamplerModel`` or a ``GPPrior``): ``eps @ L^{-1}`` with the dense
-    factor, else ``L^{-T} eps`` by the parallel-in-time solver or, without
-    one, the Cholesky."""
+    (a ``SamplerModel`` or a ``GPPrior``), corrected by
+    ``gp.prior.sample_correction``'s automatic choice."""
     p, t, d = means.shape
     eps = torch.randn((p, num_samples, t, d), generator=generator,
                       dtype=means.dtype, device=means.device)
-    if sampler.weight_t is not None:
-        corr = (eps.reshape(p, num_samples, t * d) @ sampler.weight_t).reshape(eps.shape)
-    else:
-        corr = (sampler.psolver if sampler.psolver is not None else sampler.chol).solve_LT(eps)
-    return means[:, None] + corr
+    return means[:, None] + sample_correction(sampler, eps)

@@ -41,7 +41,15 @@ serial substitution relative to the largest entry, and its plain version
 likewise; the long-horizon path at T = 4096 and 1024 with one S1 and one K1
 launch per iteration, starts and end points within 0.05, and the kernels'
 means within 1e-3 of their plain versions' where the best sample agrees;
-the class API at T = 1024 and the quadratic stack's dof route there.
+the class API at T = 1024 and the quadratic stack's dof route there. The
+Panda planning paths at reduced iteration counts: the example (IK goal
+within 1e-2 and the near-best rule in float64, descent, starts within 2e-2,
+final EE within 0.05 of the target, K4 once per iteration on the fast
+stack), the mesh-sphere stack (descent, starts, its fields within 1e-4 of
+float64), GN through FK (EE distance falling, starts within 0.05, one
+float64 woodbury step within rtol 1e-7 / atol 1e-9 of cholesky) and GN at
+T = 1024 (one S1 launch for the init draw, one K1 launch per
+linearisation, the float64 pair under the same bounds).
 """
 
 import sys
@@ -265,3 +273,28 @@ def test_long_horizon_api(dev):
     import chip_smoke
 
     assert chip_smoke.long_horizon_api(dev)["quad_route"] == "dof"
+
+
+def test_panda_example_path(dev):
+    import chip_smoke
+
+    r = chip_smoke.panda_example(dev, iters=100)
+    assert r["a"]["launches"] == {} and r["b"]["launches"] == {"fk_fields": 100}
+    assert r["stack_rel"] <= chip_smoke.STACK_RTOL
+
+
+def test_panda_mesh_path(dev):
+    import chip_smoke
+
+    assert chip_smoke.panda_mesh(dev, iters=100)["cost"] > 0
+
+
+@pytest.mark.parametrize("path", ["panda_gn", "gn_long"])
+def test_gauss_newton_panda_and_long_horizon(dev, path):
+    import chip_smoke
+
+    r = getattr(chip_smoke, path)(dev, iters=20 if path == "panda_gn" else 1)
+    assert r["woodbury_vs_cholesky_64"] <= 1e-6
+    if path == "gn_long":
+        assert all(r[m]["k1_held"] == 2 and len(r[m]["s1_held"]) == 1
+                   for m in ("cholesky", "woodbury"))

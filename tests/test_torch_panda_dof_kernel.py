@@ -145,7 +145,7 @@ def _host_fk_rule(tmp_path):
 def test_fk_dispatch_specialised_and_generic(tmp_path):
     """The FK walk the kernels take, by their own rule (``csrc/fk_spec.h``,
     built here for the host): the specialised one (variant 1) for
-    ``franka_panda(PANDA_FK_LINKS)``; the generic one (0) for a chain that
+    ``franka_panda(link_names=PANDA_FK_LINKS)``; the generic one (0) for a chain that
     has a joint about x and a prismatic joint (``chip_smoke.generic_chain``,
     the chain the card holds the generic walk against its oracle on), and
     for the Panda with one link fewer selected or an origin rotation tilted
@@ -155,7 +155,7 @@ def test_fk_dispatch_specialised_and_generic(tmp_path):
     from stoch_gpmp_tpu_torch.kinematics.chain import KinematicChain
 
     rule = _host_fk_rule(tmp_path)
-    panda = franka_panda(PANDA_FK_LINKS)
+    panda = franka_panda(link_names=PANDA_FK_LINKS)
     assert fk_variant(panda, rule) == 1
     chain = chip_smoke.generic_chain()
     tab = chain.joint_table()
