@@ -159,7 +159,25 @@ Phases, one line each; any failure exits non-zero before the result line:
     gn_bench``'s problem at T = 1024, 15 particles, delta 10), 3
     iterations each of ``cholesky`` and ``woodbury`` with S1 (the init
     draw) and K1 (each linearisation) counted, their times and device
-    operations per iteration, and the float64 pair of one step each.
+    operations per iteration, and the float64 pair of one step each;
+25. sharded-planar, sharded-dof, sharded-long, sharded-gn: multi-device
+    planning (``stoch_gpmp_tpu_torch/parallel``) in one ``parallel.launch``
+    of 4 ranks sharing the card over gloo (a card per rank takes NCCL).
+    sharded-planar: the reference-shaped planar stack with the raster field
+    (K1), T = 64, S = 128, on mesh (1, 4) at P = 15 and (2, 2) at P = 18,
+    against the single-rank run from the same seed, then 500 iterations to
+    the goals (main's gates), then ``StochGPMP(mesh=(2, 2))`` against
+    ``StochGPMP()``; sharded-dof: config 5 on the dof layout (K3, K4) on
+    (4, 1) and (2, 2); sharded-long: long-horizon-main's problem at T =
+    4096 through the flat step with ``plane_stream`` (S1, K1) on (1, 2);
+    sharded-gn: gn-main's problem (K10) on (4, 1) with ``cholesky`` and the
+    trust region and with ``woodbury``, in float32 and (without the grid
+    field) float64, then ``GPMP(mesh=)``. Every K1, K3, K4, K10 and S1
+    launch of the gated runs is held against its plain version on the
+    rank's own inputs; each rank prints its wall and device ms per
+    iteration;
+26. nccl-1: sharded-planar's (1, 1) case in a world of one NCCL rank: its
+    means and costs equal the unsharded run's.
 
 Times: ``ms``/``plain_ms`` are per call over back-to-back calls through
 the wrapper (CUDA events), which includes the host's launch cost where it
@@ -365,6 +383,27 @@ PG_ITERS, PG_START_TOL, GN64_RTOL, GN64_ATOL = 50, 0.05, 1e-7, 1e-9
 # float32 only, so the float64 pair runs the stack without the raster field
 # (whose GN Jacobian is zero: the step is the same function).
 GNL_T, GNL_ITERS = 1024, 3
+# Multi-device planning (parallel/): one parallel.launch of SH_RANKS ranks on
+# the card (gloo, CUDA tensors: NCCL refuses two ranks on one device; with a
+# card per rank the same call takes NCCL), sub-meshes for the 2-rank case.
+# Each sharded path runs SH_CHECK_ITERS iterations against the single-rank
+# run on the same card from the same generator seed (the same global draw,
+# each rank keeping its block), under the JAX package's bounds
+# (tests/test_sharding.py): planar means rtol 1e-5 / atol 1e-6 and costs 1e-4
+# / 1e-5 (:67-73), the dof layout 1e-5 / 1e-5 and 1e-4 / 1e-4 (:207-216), the
+# long horizon 1e-5 / 1e-6 (:155-160), Gauss-Newton in float64 1e-9 / 1e-10
+# (:117-120, 413-416). Every launch of K1, K3, K4, K10 and S1 in those runs
+# is held against its plain version on the rank's own inputs, under the
+# tolerances of the K1, K3, K4, K10 and S1 phases. GN in float32 (K10 takes
+# float32 points only) is held to the single-rank float32 run within
+# GN_METHOD_ATOL, the bound that holds woodbury to cholesky; the float64 pair
+# runs the stack without the grid field, whose GN Jacobian is zero (the step
+# is the same function). sharded-planar then runs SH_PLANAR_ITERS iterations
+# to the goals (main's gates); each phase times SH_WINDOW iterations per
+# rank. nccl-1 runs sharded-planar's (1, 1) case in a world of one NCCL rank:
+# every collective is the identity, so its means equal the unsharded run's.
+SH_RANKS, SH_TIMEOUT = 4, 900
+SH_CHECK_ITERS, SH_PLANAR_ITERS, SH_GN_ITERS, SH_WINDOW = 3, 100, 20, 10
 # Peak rates of one H100 SXM (data sheet) for the bound_ms column.
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
 FP32_FLOP_PER_SM = FP32_FLOP_PER_S / 132
@@ -944,7 +983,7 @@ def fk_fields_check(dev) -> dict:
     kw = dict(margin=fields.margin, w_self=1.0 / fields.sigma_self**2,
               w_obst=1.0 / fields.sigma_coll**2)
     got = fk_link_fields_cost_rows(chain, q, spheres, **kw)
-    want = fk_link_fields_cost_rows_plain(chain, q.double(), spheres.double(), **kw)
+    want = fk_link_fields_cost_rows_plain(chain, q.double(), spheres.reshape(-1, 4).double(), **kw)
     torch.cuda.synchronize()
     rel = float(((got.double() - want).abs() / want.abs()).max())
     if not (torch.isfinite(got).all() and rel <= K4_RTOL):
@@ -2887,6 +2926,464 @@ def gn_long(dev, iters: int = GNL_ITERS) -> dict:
     return out
 
 
+# --- multi-device planning: the sharded paths in SH_RANKS ranks ---
+
+
+@contextlib.contextmanager
+def held_kernel(module, name: str, check, seen: list):
+    """Within the block, ``module.name`` (a kernel wrapper) holds each launch
+    against its plain version: ``check(got, *args, **kw)`` compares (and
+    fails) and returns what ``seen`` records. The wrapper's counters stay
+    its own: a launch counts once, the comparison not at all."""
+    orig = getattr(module, name)
+    attrs = [a for a in ("launches", "generic_launches", "staged_launches") if hasattr(orig, a)]
+
+    def held(*args, **kw):
+        got = orig(*args, **kw)
+        seen.append(check(got, *args, **kw))
+        return got
+
+    base = {a: getattr(orig, a) for a in attrs}
+    for a in attrs:
+        setattr(held, a, base[a])  # the wrapper's own count lands here when it names itself
+    setattr(module, name, held)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+        for a in attrs:
+            setattr(orig, a, getattr(orig, a) + getattr(held, a) - base[a])
+
+
+def _check_k3(got, dq, x, *, pu=None, temperature=None, num_samples=None):
+    from stoch_gpmp_tpu_torch.ops.kernels.stencil import dof_quad_eval_plain
+
+    dq64 = _cast(dq, torch.float64, x.device)
+    want = dof_quad_eval_plain(dq64, x.double(), pu=None if pu is None else pu.double(),
+                               temperature=temperature, num_samples=num_samples)
+    rel = float(((got.double() - want).abs() / want.abs()).max())
+    if not (bool(torch.isfinite(got).all()) and rel <= K3_RTOL):
+        fail(f"K3 on a rank's rows {list(x.shape)}: {rel:.3g} from the float64 plain version "
+             f"(rtol {K3_RTOL})")
+    return dict(rows=x.shape[1], rel=rel, goals=dq.num_goals)
+
+
+def _check_k4(got, chain, q, spheres, **kw):
+    from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import fk_link_fields_cost_rows_plain
+
+    want = fk_link_fields_cost_rows_plain(chain, q.double(), spheres.reshape(-1, 4).double(), **kw)
+    rel = float(((got.double() - want).abs() / want.abs().clamp_min(1e-30)).max())
+    if not (bool(torch.isfinite(got).all()) and rel <= K4_RTOL):
+        fail(f"K4 on a rank's rows {list(q.shape)}: {rel:.3g} from the float64 plain version "
+             f"(rtol {K4_RTOL})")
+    return dict(rows=q.shape[1], rel=rel)
+
+
+def _check_k10(got, grid, points, cell_size):
+    from stoch_gpmp_tpu_torch.ops.kernels.fields import grid_lookup_plain
+
+    want = grid_lookup_plain(grid, points, cell_size)
+    if not torch.equal(got, want):
+        fail(f"K10 on a rank's points {list(points.shape)}: differs from the plain version at "
+             f"{int((got != want).sum())} of {want.numel()} points")
+    return dict(shape=list(points.shape), hits=int((got > 0).sum()))
+
+
+def _check_s1(got, solver, planes, *, backward, out=None):
+    from stoch_gpmp_tpu_torch.ops.kernels.bidiag_scan import plain_solve
+
+    x = torch.stack(tuple(planes))
+    plain = torch.stack(plain_solve(solver, tuple(planes), backward=backward))
+    err = _s1_errors(f"on a rank's planes {list(x.shape)}", x.dtype, torch.stack(tuple(got)),
+                     plain, _serial_s1(solver, x, backward))
+    return dict(err, shape=list(x.shape), backward=backward)
+
+
+def _fresh(state, seed: int = 0):
+    """``state`` with a new generator seeded ``seed`` on its device."""
+    return replace(state, generator=torch.Generator(
+        device=state.particle_means.device).manual_seed(seed))
+
+
+def _near(what: str, got, want, rtol: float, atol: float) -> float:
+    """Fail unless ``|got - want| <= atol + rtol |want|``; returns the
+    largest excess ratio ``|got - want| / (atol + rtol |want|)``."""
+    ratio = float(((got - want).abs() / (atol + rtol * want.abs())).max())
+    if not (bool(torch.isfinite(got).all()) and ratio <= 1.0):
+        fail(f"{what}: {ratio:.3g} x the bound (rtol {rtol}, atol {atol}); largest difference "
+             f"{float((got - want).abs().max()):.3g}")
+    return ratio
+
+
+def _counted() -> dict:
+    return {k: fn.launches for k, fn in kernel_counters().items() if fn.launches}
+
+
+def _rank_window(run, iters: int) -> dict:
+    """``_windowed`` of ``run`` as a row: wall and device ms, operations
+    per iteration, the busy share, the largest kernels."""
+    wall, dev_ms, top, ops = _windowed(run, iters)
+    return _path_row(wall, dev_ms, top[:4], ops)
+
+
+def sharded_planar(meshes) -> dict:
+    """sharded-planar in one rank: the reference-shaped planar stack with
+    ``CostCollision(RasterPrimitive2DField)`` (K1) at T = 64, S = 128, on
+    mesh (1, 4) at P = 15 and on (2, 2) at P = 18 (the example's rule);
+    then ``StochGPMP(mesh=(2, 2))`` against ``StochGPMP()``."""
+    from stoch_gpmp_tpu_torch.parallel import make_sharded_optimize, shard_planner_state
+    from stoch_gpmp_tpu_torch.planners import StochGPMP, stoch_gpmp_optimize
+    from stoch_gpmp_tpu_torch.problems import (
+        DT,
+        GOALS,
+        SAMPLE_SIGMAS,
+        START,
+        build_sharded_planar_problem,
+    )
+
+    out = {}
+    kw = dict(num_samples=S, temperature=TAU, step_size=STEP)
+    for shape in ((1, 4), (2, 2)):
+        mesh = meshes[shape]
+        dev = mesh.device
+        sampler, cost, state = build_sharded_planar_problem(shape[0], device=dev, fast=False,
+                                                            field="raster")
+        p = state.particle_means.shape[0]
+        ppg = p // 3
+        ref, raux = stoch_gpmp_optimize(sampler, cost, _fresh(state), {},
+                                        opt_iters=SH_CHECK_ITERS, **kw)
+        run = make_sharded_optimize(mesh, opt_iters=SH_CHECK_ITERS, **kw)
+        k1 = []
+        with held_k1(cost.costs[-1].field, k1):
+            st, aux = run(sampler, cost, shard_planner_state(mesh, _fresh(state)), {})
+        sh = run.shard
+        what = f"sharded-planar {shape}"
+        mean_ratio = _near(f"{what}: means", sh.gather_particles(st.particle_means),
+                           ref.particle_means, 1e-5, 1e-6)
+        cost_ratio = _near(f"{what}: costs", sh.gather_samples(aux.costs), raux.costs, 1e-4, 1e-5)
+        # the run to the goals, every K1 launch held
+        run_n = make_sharded_optimize(mesh, opt_iters=SH_PLANAR_ITERS, **kw)
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with held_k1(cost.costs[-1].field, k1):
+            st_n, _ = run_n(sampler, cost, shard_planner_state(mesh, _fresh(state, 1)), {})
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _counted()
+        if launches != {"raster_field": SH_PLANAR_ITERS}:
+            fail(f"{what}: launches {launches}, expected raster_field {SH_PLANAR_ITERS}")
+        means = sh.gather_particles(st_n.particle_means)
+        ends = means.reshape(3, ppg, T, 4)[:, :, -1, :2]
+        goal_err = float((ends - torch.tensor(GOALS, device=dev)[:, None, :2]).norm(dim=-1).max())
+        start_err = float((means[:, 0, :2] - torch.tensor(START[:2], device=dev)).abs().max())
+        if not (goal_err < GOAL_TOL and start_err < START_TOL):
+            fail(f"{what}: end points {goal_err:.3g} from the goals, start {start_err:.3g}")
+        run_w = make_sharded_optimize(mesh, opt_iters=SH_WINDOW, **kw)
+        row = _rank_window(lambda: run_w(sampler, cost, st_n, {}), SH_WINDOW)  # noqa: B023
+        out[str(shape)] = dict(row, particles=p, block=st.particle_means.shape[0],
+                               samples=S // shape[1], mean_ratio=mean_ratio,
+                               cost_ratio=cost_ratio, goal_err=goal_err, start_err=start_err,
+                               launches=launches, k1_held=len(k1),
+                               updates_per_s=p * SH_PLANAR_ITERS / seconds)
+        if shape == (2, 2):  # the class, P = 18, against the class without a mesh
+            s_start, s_gp, s_goal = SAMPLE_SIGMAS
+            args = dict(num_particles_per_goal=ppg, num_samples=S, traj_len=T,
+                        opt_iters=SH_CHECK_ITERS, dt=DT, n_dof=2, step_size=STEP,
+                        temperature=TAU, start_state=START, multi_goal_states=GOALS,
+                        initial_particle_means="const_vel", cost=cost,
+                        sigma_start_sample=s_start, sigma_gp_sample=s_gp,
+                        sigma_goal_sample=s_goal, seed=0, device=dev)
+            want = StochGPMP(**args).optimize()
+            with held_k1(cost.costs[-1].field, k1):
+                got = StochGPMP(mesh=mesh, **args).optimize()
+            for i, (g, w) in enumerate(zip(got, want)):
+                _near(f"StochGPMP(mesh={shape}) output {i}", g, w,
+                      *((1e-4, 1e-5) if i == 4 else (1e-5, 1e-6)))
+            out["class"] = dict(shapes=[list(g.shape) for g in got])
+    return out
+
+
+def sharded_dof(meshes, shapes=((4, 1), (2, 2))) -> dict:
+    """sharded-dof in one rank: config 5 (10 goals x 128 particles, S = 8,
+    T = 128, ``QuadraticCost + PlaneFieldsCost``) on the dof layout, mesh
+    (4, 1) (320 particles a rank: blocks start inside goals) and (2, 2);
+    every K3 and K4 launch held; the global draw's cost beside the block's."""
+    from stoch_gpmp_tpu_torch.costs import fused_fields
+    from stoch_gpmp_tpu_torch.ops.kernels import stencil
+    from stoch_gpmp_tpu_torch.parallel import make_sharded_optimize, shard_planner_state
+    from stoch_gpmp_tpu_torch.planners import stoch_gpmp_optimize
+
+    out = {}
+    for shape in shapes:
+        mesh = meshes[shape]
+        dev = mesh.device
+        sampler, cost, state, obs, s = panda_problem(dev)
+        kw = dict(num_samples=s, temperature=PANDA_TAU, step_size=PANDA_STEP)
+        ref, raux = stoch_gpmp_optimize(sampler, cost, _fresh(state), obs,
+                                        opt_iters=SH_CHECK_ITERS, **kw)
+        run = make_sharded_optimize(mesh, layout="dof", opt_iters=SH_CHECK_ITERS, **kw)
+        k3, k4 = [], []
+        reset_counters()
+        with held_kernel(stencil, "dof_quad_eval", _check_k3, k3), \
+                held_kernel(fused_fields, "fk_link_fields_cost_rows", _check_k4, k4):
+            st, aux = run(sampler, cost, shard_planner_state(mesh, _fresh(state)), obs)
+        launches = _counted()
+        want = {"dof_quad_eval": SH_CHECK_ITERS, "fk_fields": SH_CHECK_ITERS}
+        if launches != want or len(k3) != SH_CHECK_ITERS or len(k4) != SH_CHECK_ITERS:
+            fail(f"sharded-dof {shape}: launches {launches} ({len(k3)} K3, {len(k4)} K4 held), "
+                 f"expected {want}")
+        sh = run.shard
+        mean_ratio = _near(f"sharded-dof {shape}: means", sh.gather_particles(st.particle_means),
+                           ref.particle_means, 1e-5, 1e-5)
+        cost_ratio = _near(f"sharded-dof {shape}: costs", sh.gather_samples(aux.costs),
+                           raux.costs, 1e-4, 1e-4)
+        run_w = make_sharded_optimize(mesh, layout="dof", opt_iters=SH_WINDOW, **kw)
+        row = _rank_window(lambda: run_w(sampler, cost, st, obs), SH_WINDOW)  # noqa: B023
+        p, t2 = state.particle_means.shape[0], 2 * state.particle_means.shape[1]
+        d = state.particle_means.shape[2] // 2
+        gen = torch.Generator(device=dev).manual_seed(3)
+        draw = {k: cuda_ms(lambda n=n: torch.randn((d, n, s, t2), generator=gen, device=dev), 10)
+                for k, n in (("global", p), ("block", p // shape[0]))}
+        out[str(shape)] = dict(row, launches=launches, mean_ratio=mean_ratio,
+                               cost_ratio=cost_ratio, block=st.particle_means.shape[0],
+                               samples=s // shape[1], k3_held=k3, k4_held=k4,
+                               draw_ms=draw, k3_goals=k3[0]["goals"])
+    return out
+
+
+def sharded_long(mesh) -> dict | None:
+    """sharded-long in one rank of mesh (1, 2): long-horizon-main's problem
+    at T = 4096 through the flat step with ``plane_stream`` (S1 draws in
+    each rank), against the single-rank flat step with ``plane_stream``;
+    every S1 and K1 launch held."""
+    from stoch_gpmp_tpu_torch.ops.kernels import bidiag_scan as s1
+    from stoch_gpmp_tpu_torch.parallel import make_sharded_optimize, shard_planner_state
+    from stoch_gpmp_tpu_torch.planners import stoch_gpmp_step
+    from stoch_gpmp_tpu_torch.problems import LONG_HORIZON, build_long_horizon_problem
+
+    if not mesh.is_member:
+        return None
+    dev = mesh.device
+    t = LH_HORIZONS[0]
+    sampler, cost, state = build_long_horizon_problem(t, device=dev)
+    kw = dict(num_samples=LONG_HORIZON["num_samples"], temperature=LONG_HORIZON["temperature"],
+              step_size=LONG_HORIZON["step_size"])
+    ref = _fresh(state)
+    for _ in range(SH_CHECK_ITERS):
+        ref, _ = stoch_gpmp_step(sampler, cost, ref, {}, plane_stream=True, **kw)
+    run = make_sharded_optimize(mesh, opt_iters=SH_CHECK_ITERS, **kw)
+    s1_seen, k1 = [], []
+    reset_counters()
+    with held_kernel(s1, "bidiag_scan", _check_s1, s1_seen), held_k1(cost.costs[-1].field, k1):
+        st, aux = run(sampler, cost, shard_planner_state(mesh, _fresh(state)), {})
+    launches = _counted()
+    want = {"bidiag_scan": SH_CHECK_ITERS, "raster_field": SH_CHECK_ITERS}
+    if launches != want or len(s1_seen) != SH_CHECK_ITERS or len(k1) != SH_CHECK_ITERS:
+        fail(f"sharded-long: launches {launches} ({len(s1_seen)} S1, {len(k1)} K1 held), "
+             f"expected {want}")
+    mean_ratio = _near("sharded-long: means", run.shard.gather_particles(st.particle_means),
+                       ref.particle_means, 1e-5, 1e-6)
+    run_w = make_sharded_optimize(mesh, opt_iters=SH_WINDOW, **kw)
+    row = _rank_window(lambda: run_w(sampler, cost, st, {}), SH_WINDOW)
+    return dict(row, launches=launches, mean_ratio=mean_ratio, s1_held=s1_seen, k1_held=len(k1),
+                samples=aux.costs.shape[1])
+
+
+def sharded_gn(mesh) -> dict:
+    """sharded-gn in one rank of mesh (4, 1): gn-main's problem (P = 192,
+    the occupancy grid: K10) with ``cholesky`` and the trust region and
+    with ``woodbury``, float32 (every K10 launch held) and float64 (the
+    stack without the grid field), against the single-rank runs; then
+    ``GPMP(mesh=)`` against ``GPMP()``."""
+    from stoch_gpmp_tpu_torch.ops.kernels import fields
+    from stoch_gpmp_tpu_torch.parallel import make_sharded_gpmp_optimize, shard_gpmp_state
+    from stoch_gpmp_tpu_torch.planners import GPMP, GPMPState, build_woodbury, gpmp_optimize
+    from stoch_gpmp_tpu_torch.problems import build_planar_gpmp_problem
+
+    dev = mesh.device
+    out = {}
+    for method, trust in (("cholesky", True), ("woodbury", False)):
+        planner = build_planar_gpmp_problem(GN_PPG, method=method, device=dev)
+        init = planner.particle_means
+        kw = dict(opt_iters=SH_GN_ITERS, delta=1e-2, trust_region=trust, method=method,
+                  step_size=0.3)
+        ref = gpmp_optimize(planner.cost, planner.state, {}, woodbury=planner._wb, **kw)
+        run = make_sharded_gpmp_optimize(mesh, woodbury=planner._wb, **kw)
+        k10 = []
+        reset_counters()
+        with held_kernel(fields, "grid_lookup", _check_k10, k10):
+            st = run(planner.cost, shard_gpmp_state(mesh, planner.state), {})
+        launches = _counted()
+        if launches != {"grid_lookup": SH_GN_ITERS} or len(k10) != SH_GN_ITERS:
+            fail(f"sharded-gn ({method}): launches {launches}, {len(k10)} K10 held, expected "
+                 f"grid_lookup {SH_GN_ITERS}")
+        err32 = float((run.shard.gather_particles(st.particle_means)
+                       - ref.particle_means).abs().max())
+        if not err32 <= GN_METHOD_ATOL:
+            fail(f"sharded-gn ({method}) float32: means {err32:.3g} from the single-rank run "
+                 f"(atol {GN_METHOD_ATOL})")
+        # float64, the stack without the grid field
+        cost64 = _cast_cost64(planner.cost, dev)
+        wb64 = build_woodbury(cost64, 1e-2) if method == "woodbury" else None
+        st64 = GPMPState(particle_means=init.double(), generator=planner.generator)
+        ref64 = gpmp_optimize(cost64, st64, {}, woodbury=wb64, **kw)
+        run64 = make_sharded_gpmp_optimize(mesh, woodbury=wb64, **kw)
+        got64 = run64.shard.gather_particles(
+            run64(cost64, shard_gpmp_state(mesh, st64), {}).particle_means)
+        ratio64 = _near(f"sharded-gn ({method}) float64: means", got64, ref64.particle_means,
+                        1e-9, 1e-10)
+        run_w = make_sharded_gpmp_optimize(mesh, woodbury=planner._wb,
+                                           **dict(kw, opt_iters=SH_WINDOW))
+        row = _rank_window(lambda: run_w(planner.cost, st, {}), SH_WINDOW)  # noqa: B023
+        out[method] = dict(row, launches=launches, err32=err32, ratio64=ratio64,
+                           k10_held=len(k10), block=st.particle_means.shape[0])
+        # the class with mesh=, float32, from the same initial means
+        args = dict(num_particles_per_goal=GN_PPG, traj_len=T, opt_iters=SH_CHECK_ITERS,
+                    dt=planner.dt, n_dof=2, step_size=0.3, start_state=planner.start_state,
+                    multi_goal_states=planner.multi_goal_states, initial_particle_means=init,
+                    cost=planner.cost, sigma_start_sample=0.01, sigma_goal_sample=0.01,
+                    sigma_gp_sample=0.5, device=dev,
+                    solver_params=dict(delta=1e-2, trust_region=trust, method=method))
+        want = GPMP(**args).optimize()
+        with held_kernel(fields, "grid_lookup", _check_k10, k10):
+            got = GPMP(mesh=mesh, **args).optimize()
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not float((g - w).abs().max()) <= GN_METHOD_ATOL * max(1.0, float(w.abs().max())):
+                fail(f"GPMP(mesh=(4, 1)) ({method}) output {i}: {float((g - w).abs().max()):.3g} "
+                     f"from GPMP() (atol {GN_METHOD_ATOL} relative to its largest entry)")
+    return out
+
+
+def _cast_cost64(cost, dev):
+    """A float64 copy of the GN stack without its field costs (the grid's GN
+    Jacobian is zero, so the step is the same function)."""
+    from stoch_gpmp_tpu_torch.costs import CostCollision, CostComposite
+
+    kept = [_cast(c, torch.float64, dev) for c in cost.costs if not isinstance(c, CostCollision)]
+    return CostComposite.create(cost.n_dof, cost.traj_len, kept)
+
+
+def sharded_rank(phases=("planar", "dof", "long", "gn"), dof_shapes=((4, 1), (2, 2))) -> dict:
+    """One rank of the sharded phases (``parallel.launch``): the meshes,
+    made on every rank in the same order, then each of ``phases``; returns
+    this rank's rows."""
+    import torch.distributed as dist
+
+    from stoch_gpmp_tpu_torch.parallel import make_mesh
+
+    meshes = {shape: make_mesh(4, axis_shape=shape) for shape in ((1, 4), (2, 2), (4, 1))}
+    meshes[(1, 2)] = make_mesh(2, axis_shape=(1, 2))
+    out = dict(rank=dist.get_rank(), world=dist.get_world_size(), backend=dist.get_backend(),
+               device=str(meshes[(1, 4)].device))
+    t0 = time.perf_counter()
+    run = dict(planar=lambda: sharded_planar(meshes), dof=lambda: sharded_dof(meshes, dof_shapes),
+               long=lambda: sharded_long(meshes[(1, 2)]), gn=lambda: sharded_gn(meshes[(4, 1)]))
+    for name in phases:
+        out[name] = run[name]()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def nccl_rank(iters: int = SH_CHECK_ITERS) -> dict:
+    """nccl-1: sharded-planar's case on a mesh of one NCCL rank, against the
+    unsharded run: equal means (``torch.equal``), every collective the
+    identity."""
+    import torch.distributed as dist
+
+    from stoch_gpmp_tpu_torch.parallel import make_mesh, make_sharded_optimize, shard_planner_state
+    from stoch_gpmp_tpu_torch.planners import stoch_gpmp_optimize
+    from stoch_gpmp_tpu_torch.problems import build_sharded_planar_problem
+
+    mesh = make_mesh(1)
+    if mesh.backend != "nccl":
+        fail(f"nccl-1: the launcher chose {mesh.backend} for one rank on the card, expected nccl")
+    dev = mesh.device
+    sampler, cost, state = build_sharded_planar_problem(1, device=dev, fast=False, field="raster")
+    kw = dict(num_samples=S, temperature=TAU, step_size=STEP)
+    ref, raux = stoch_gpmp_optimize(sampler, cost, _fresh(state), {}, opt_iters=iters, **kw)
+    run = make_sharded_optimize(mesh, opt_iters=iters, **kw)
+    reset_counters()
+    k1 = []
+    with held_k1(cost.costs[-1].field, k1):
+        st, aux = run(sampler, cost, shard_planner_state(mesh, _fresh(state)), {})
+    launches = _counted()
+    means = run.shard.gather_particles(st.particle_means)
+    if not (torch.equal(means, ref.particle_means) and torch.equal(aux.costs, raux.costs)):
+        fail(f"nccl-1: means {float((means - ref.particle_means).abs().max()):.3g} from the "
+             "unsharded run, expected equal")
+    if launches != {"raster_field": iters}:
+        fail(f"nccl-1: launches {launches}, expected raster_field {iters}")
+    run_w = make_sharded_optimize(mesh, opt_iters=SH_WINDOW, **kw)
+    row = _rank_window(lambda: run_w(sampler, cost, st, {}), SH_WINDOW)
+    return dict(row, rank=dist.get_rank(), world=dist.get_world_size(),
+                backend=dist.get_backend(), launches=launches, k1_held=len(k1))
+
+
+def sharded_phases() -> tuple[list, list]:
+    """The sharded phases: SH_RANKS ranks, then nccl-1; each rank's rows."""
+    from stoch_gpmp_tpu_torch.parallel.launch import launch
+
+    ranks = launch(sharded_rank, SH_RANKS, device="cuda", timeout=SH_TIMEOUT)
+    nccl = launch(nccl_rank, 1, device="cuda", timeout=SH_TIMEOUT)
+    return ranks, nccl
+
+
+def _sharded_lines(ranks: list, nccl: list, smi: str) -> None:
+    """The sharded phases' lines, one per rank and case."""
+    def times(r):
+        busy = "not measured" if r["device_busy"] is None else format(r["device_busy"], ".1%")
+        return (f"{r['iter_wall_ms']:.3f} ms/iter wall, device {fmt_ms(r['iter_device_ms'])}/iter "
+                f"in {r['device_ops_per_iter']:.0f} device operations, busy {busy}")
+
+    for r in ranks:
+        head = f"rank {r['rank']} of {r['world']} ({r['backend']}, {r['device']})"
+        for shape, row in r["planar"].items():
+            if shape == "class":
+                phase("sharded-planar", f"{head}: StochGPMP(mesh=(2, 2)) 6-tuple {row['shapes']} "
+                                        f"within bounds of StochGPMP()")
+                continue
+            phase("sharded-planar", f"{head}, mesh {shape}: block {row['block']} of "
+                                    f"{row['particles']} particles x {row['samples']} samples; "
+                                    f"{SH_CHECK_ITERS} iterations vs single-rank: means "
+                                    f"{row['mean_ratio']:.3g}, costs {row['cost_ratio']:.3g} of "
+                                    f"the bound; {SH_PLANAR_ITERS} iterations: launches "
+                                    f"{row['launches']}, {row['k1_held']} K1 launches held "
+                                    f"equal, goal err {row['goal_err']:.3f}, start err "
+                                    f"{row['start_err']:.2e}, {row['updates_per_s']:.0f} "
+                                    f"updates/s; {times(row)} on {smi}")
+        for shape, row in r["dof"].items():
+            k3 = max(k["rel"] for k in row["k3_held"])
+            k4 = max(k["rel"] for k in row["k4_held"])
+            phase("sharded-dof", f"{head}, mesh {shape}: block {row['block']} x {row['samples']} "
+                                 f"samples (K3 reads {row['k3_goals']} goal rows, one a "
+                                 f"particle); means "
+                                 f"{row['mean_ratio']:.3g}, costs {row['cost_ratio']:.3g} of the "
+                                 f"bound; launches {row['launches']}, K3 within {k3:.2e} and K4 "
+                                 f"{k4:.2e} of float64 plain; global draw "
+                                 f"{row['draw_ms']['global']:.4f} ms vs block "
+                                 f"{row['draw_ms']['block']:.4f} ms; {times(row)} on {smi}")
+        if r["long"] is not None:
+            row = r["long"]
+            s1 = max(k["s1_rel"] for k in row["s1_held"])
+            phase("sharded-long", f"{head}, mesh (1, 2), T = {LH_HORIZONS[0]}, "
+                                  f"{row['samples']} samples a rank: means "
+                                  f"{row['mean_ratio']:.3g} of the bound; launches "
+                                  f"{row['launches']}, S1 within {s1:.2e} of float64, "
+                                  f"{row['k1_held']} K1 equal; {times(row)} on {smi}")
+        for method, row in r["gn"].items():
+            phase("sharded-gn", f"{head}, mesh (4, 1), {method}: block {row['block']}; float32 "
+                                f"means {row['err32']:.2e} from single-rank (atol "
+                                f"{GN_METHOD_ATOL}), float64 {row['ratio64']:.3g} of the bound; "
+                                f"launches {row['launches']}, {row['k10_held']} K10 held equal; "
+                                f"{times(row)} on {smi}")
+        phase("sharded", f"{head}: all sharded phases in {r['seconds']:.1f} s")
+    for r in nccl:
+        phase("nccl-1", f"rank {r['rank']} of {r['world']} ({r['backend']}): means and costs "
+                        f"equal to the unsharded run; launches {r['launches']}, {r['k1_held']} "
+                        f"K1 held; {times(r)} on {smi}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--log-dir", default=None, help="write the nvcc log and details here")
@@ -3267,6 +3764,11 @@ def main() -> int:
         phase(path, f"float64 on the card, one step: woodbury within "
                     f"{res['woodbury_vs_cholesky_64']:.2e} of cholesky (rtol {GN64_RTOL}, atol "
                     f"{GN64_ATOL})")
+    t0 = time.perf_counter()
+    ranks, nccl = sharded_phases()
+    phase("sharded", f"{SH_RANKS} ranks and nccl-1 in {time.perf_counter() - t0:.1f} s, the "
+                     "ranks sharing one card (no scaling figure)")
+    _sharded_lines(ranks, nccl, smi)
     details.update(K1=k1, K2=k2, K2_split=k2_split, moments=mom, main=mp, K3=k3, K4=k4,
                    K4_generic=fkg, K5=k5, K5_split=k5_split, K5_shapes=k5_shapes,
                    K5_rng_free=k5_free, K5_moments=k5_mom, panda_main=pm, K6=k6,
@@ -3276,7 +3778,8 @@ def main() -> int:
                    K9_loop=k9_run, K10=f2["K10"], K11=f2["K11"], shapes=shapes,
                    planar_ref_main=pr,
                    gn_main=gn, S1=sc, long_horizon_main=lh, long_horizon_api=api,
-                   panda_example=px, panda_mesh=pmesh, panda_gn=pg, gn_long=gl)
+                   panda_example=px, panda_mesh=pmesh, panda_gn=pg, gn_long=gl,
+                   sharded=ranks, nccl_1=nccl)
     if args.log_dir:
         out = Path(args.log_dir)
         out.mkdir(parents=True, exist_ok=True)
@@ -3289,20 +3792,34 @@ def main() -> int:
     k1_bound = bound(12 * k1["points"], 0.0)
     k2_bound = bound(4 * (3 * 3 * PPG * m2 + 2 * m2 * m2 + 3 * PPG * S),
                      2 * 2 * 3 * PPG * S * m2 * m2)
+    # the sharded paths' launches, summed over the ranks
+    def sharded(kname, *rows):
+        return sum(row(r)["launches"].get(kname, 0) for r in ranks for row in rows
+                   if row(r) is not None)
+
+    sh_planar = [lambda r, k=k: r["planar"][k] for k in ("(1, 4)", "(2, 2)")]
+    sh_dof = [lambda r, k=k: r["dof"][k] for k in ("(4, 1)", "(2, 2)")]
+    sh_gn = [lambda r, k=k: r["gn"][k] for k in ("cholesky", "woodbury")]
+    sh_long = [lambda r: r["long"]]
     record = [
-        # K1: the planar main path's launch, long-horizon-main's at T = 4096 and
-        # gn-long's (cholesky)
+        # K1: the planar main path's launch, long-horizon-main's at T = 4096,
+        # gn-long's (cholesky), sharded-planar's, sharded-long's and nccl-1's
         ("raster_field", "raster_field.cu", "stoch_gpmp_tpu/ops/pallas/fields.py:147",
          mp["launches"]["raster_field"] + lh[LH_HORIZONS[0]]["launches"]["raster_field"]
-         + gl["cholesky"]["launches"]["raster_field"], k1, k1_bound),
+         + gl["cholesky"]["launches"]["raster_field"]
+         + sharded("raster_field", *sh_planar, *sh_long)
+         + sum(r["launches"]["raster_field"] for r in nccl), k1, k1_bound),
         ("fused_planar_step", "fused_planar_step.cu",
          "stoch_gpmp_tpu/ops/pallas/fused_step.py:419", mp["launches"]["fused_planar_step"],
          dict(k2["matmul"], max_abs_err=max(r["max_abs_err"] for r in k2.values())), k2_bound),
+        # K3: config 5's dof path and sharded-dof's
         ("dof_quad_eval", "dof_quad_eval.cu", "stoch_gpmp_tpu/ops/pallas/stencil.py:242",
-         pm["dof"]["launches"]["dof_quad_eval"], k3, k3["bound"]),
-        # K4: config 5's dof path and panda-example (b)
+         pm["dof"]["launches"]["dof_quad_eval"] + sharded("dof_quad_eval", *sh_dof), k3,
+         k3["bound"]),
+        # K4: config 5's dof path, panda-example (b) and sharded-dof
         ("fk_fields", "fk_fields.cu", "stoch_gpmp_tpu/ops/pallas/panda_fields.py:325",
-         pm["dof"]["launches"]["fk_fields"] + px["b"]["launches"]["fk_fields"], k4, k4["bound"]),
+         pm["dof"]["launches"]["fk_fields"] + px["b"]["launches"]["fk_fields"]
+         + sharded("fk_fields", *sh_dof), k4, k4["bound"]),
         ("fused_panda_dof_step", "fused_panda_dof_step.cu",
          "stoch_gpmp_tpu/ops/pallas/panda_step_dof.py:225",
          pm["fused"]["launches"]["fused_panda_dof_step"], k5, k5["bound"]),
@@ -3321,15 +3838,18 @@ def main() -> int:
          dict(k9["matmul"], max_abs_err=max(r["max_abs_err"] for r in k9.values())),
          bound(4 * (3 * 3 * PPG * m2 + 2 * m2 * m2 + 3 * PPG * S + 2 * 3 * PPG),
                2 * 2 * 3 * PPG * S * m2 * m2)),
+        # K10: planar-ref (g) and sharded-gn
         ("grid_lookup", "grid_lookup.cu", "stoch_gpmp_tpu/ops/pallas/fields.py:69",
-         pr["g"]["launches"]["grid_lookup"], f2["K10"], f2["K10"]["bound"]),
+         pr["g"]["launches"]["grid_lookup"] + sharded("grid_lookup", *sh_gn), f2["K10"],
+         f2["K10"]["bound"]),
         ("primitive_field", "primitive_field.cu", "stoch_gpmp_tpu/ops/pallas/fields.py:214",
          pr["p"]["launches"]["primitive_field"], f2["K11"], f2["K11"]["bound"]),
     ]
     record.append(("bidiag_scan", "bidiag_scan.cu",
                    "stoch_gpmp_tpu/gp/tridiag.py:259 (XLA associative_scan)",
                    lh[LH_HORIZONS[0]]["launches"]["bidiag_scan"]
-                   + gl["cholesky"]["launches"]["bidiag_scan"], sc, sc["bound"]))
+                   + gl["cholesky"]["launches"]["bidiag_scan"]
+                   + sharded("bidiag_scan", *sh_long), sc, sc["bound"]))
     kernels = [
         {"name": n, "route": "cuda", "source": f"stoch_gpmp_tpu_torch/csrc/{src}",
          "replaces": rep, "launches": launches, "max_abs_err": r["max_abs_err"],

@@ -11,8 +11,10 @@ planner path, the fused planar iterations), the reference-shaped planar
 stacks on the occupancy grid and the analytic primitives, Gauss-Newton
 ``GPMP`` (structured Cholesky, dense and Woodbury solves), the Panda 7-DOF
 dof-factored path (kinematics, ``PlaneFieldsCost``, the dof planner path,
-the fused dof iteration) and the Panda parity workload (the
-reference-shaped link-field stack, the fused flat iteration). Entry points run on the CUDA card unless given
+the fused dof iteration), the Panda parity workload (the
+reference-shaped link-field stack, the fused flat iteration), Panda
+planning (IK goals, the mesh spheres, GN through FK), long horizons, and
+multi-device planning on ``torch.distributed`` (``parallel/``). Entry points run on the CUDA card unless given
 ``device="cpu"``. Importing the package is light; submodules load on first
 use.
 """

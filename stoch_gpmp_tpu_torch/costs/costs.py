@@ -26,7 +26,7 @@ zero Jacobian, as in JAX (their kernel wrappers carry a zero backward,
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Sequence
 
 import torch
@@ -57,6 +57,15 @@ def _field_jacobian(err_fn, trajs, fk_trajs):
         err = err_fn(tr, fk_trajs(tr) if fk_trajs is not None else None)
         (grad,) = torch.autograd.grad(err.sum(), tr)
     return err.detach(), -grad
+
+
+def particle_goals(start: int, count: int, total: int, num_goals: int, device) -> torch.Tensor:
+    """The goal of each particle ``start .. start + count`` of a goal-major
+    batch of ``total`` particles over ``num_goals`` goals."""
+    if total % num_goals or not 0 <= start <= start + count <= total:
+        raise ValueError(f"particles {start}..{start + count} of {total} in {num_goals} "
+                         "goal groups")
+    return torch.arange(start, start + count, device=device) // (total // num_goals)
 
 
 class Cost:
@@ -186,6 +195,14 @@ class CostGoalPrior(Cost):
             k_goal=unary_weight(2 * n_dof, sigma_goal_prior, dtype=dtype, device=device),
             num_goals=goals.shape[0],
         )
+
+    def particle_block(self, start: int, count: int, total: int) -> "CostGoalPrior":
+        """The same cost on particles ``start .. start + count`` of a
+        goal-major batch of ``total`` particles: one goal per particle (its
+        global goal ``i // (total // num_goals)``), so a rank's block that
+        starts inside a goal scores each particle against its own goal."""
+        idx = particle_goals(start, count, total, self.num_goals, self.multi_goal_states.device)
+        return replace(self, multi_goal_states=self.multi_goal_states[idx], num_goals=count)
 
     def eval(self, trajs, x_trajs=None, observation=None):
         batch, d = trajs.shape[0], trajs.shape[-1]

@@ -11,11 +11,17 @@ Gauss-Newton contribution (``gn_contrib``).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
-from stoch_gpmp_tpu_torch.costs.costs import Cost, CostGP, CostGoalPrior, GNContrib
+from stoch_gpmp_tpu_torch.costs.costs import (
+    Cost,
+    CostGP,
+    CostGoalPrior,
+    GNContrib,
+    particle_goals,
+)
 from stoch_gpmp_tpu_torch.gp.tridiag import BlockTridiag
 
 
@@ -78,6 +84,15 @@ class QuadraticCost(Cost):
 
     def supports_dof_planes(self) -> bool:
         return self.dof_form is not None
+
+    def particle_block(self, start: int, count: int, total: int) -> "QuadraticCost":
+        """The same cost on particles ``start .. start + count`` of a
+        goal-major batch of ``total``: ``b`` and ``c`` (and the dof form's
+        goal tables) gathered to one entry per particle
+        (``CostGoalPrior.particle_block``)."""
+        idx = particle_goals(start, count, total, self.num_goals, self.b.device)
+        dof = None if self.dof_form is None else self.dof_form.particle_block(start, count, total)
+        return replace(self, b=self.b[idx], c=self.c[idx], num_goals=count, dof_form=dof)
 
     def eval_dof_planes(self, x_planes, observation=None):
         """``x_planes [d, B, 2T]`` -> ``[B]`` through the dof form (kernel K3

@@ -31,6 +31,16 @@ class Obstacle(ABC):
         test = self.add_to_map(deepcopy(obst_map))
         return not np.any(test.map > 1)
 
+    def point_collision_check(self, obst_map: "ObstacleMap", pts) -> bool:
+        """True iff none of the given cell points fall inside this obstacle."""
+        if pts is None:
+            return True
+        test = self.add_to_map(deepcopy(obst_map))
+        for pt in pts:
+            if test.map[ceil(pt[0]), ceil(pt[1])] >= 1:
+                return False
+        return True
+
     @abstractmethod
     def add_to_map(self, obst_map: "ObstacleMap") -> "ObstacleMap":
         ...
@@ -65,6 +75,9 @@ class ObstacleCircle(Obstacle):
     def __init__(self, center_x=0.0, center_y=0.0, radius=1.0):
         super().__init__(center_x, center_y)
         self.radius = radius
+
+    def is_inside(self, p: np.ndarray) -> bool:
+        return bool(np.linalg.norm(p - self.origin) <= self.radius)
 
     def add_to_map(self, obst_map):
         cs = obst_map.cell_size
@@ -120,3 +133,35 @@ class ObstacleMap:
         if self._grid_device is None:
             self.convert_map()
         return OccupancyGridField(grid=self._grid_device, cell_size=self.cell_size)
+
+    # --- the field's API on the map (the grid lookup, K10 on a CUDA tensor) ---
+    def get_collisions(self, x, **kw):
+        """``x [..., 2]`` world positions -> ``[...]`` occupancy, through
+        ``as_field()``."""
+        field = self.as_field()
+        return field.compute_cost(torch.as_tensor(x, dtype=self.dtype, device=field.grid.device))
+
+    def compute_cost(self, x, **kw):
+        return self.get_collisions(x, **kw)
+
+    def __call__(self, x, **kw):
+        return self.compute_cost(x, **kw)
+
+    def get_xy_grid(self) -> torch.Tensor:
+        """``[x_dim, y_dim, 2]`` world coordinates spanning the map."""
+        xv = np.linspace(self.xlim[0], self.xlim[1], self.x_dim)
+        yv = np.linspace(self.ylim[0], self.ylim[1], self.y_dim)
+        gx, gy = np.meshgrid(xv, yv, indexing="ij")
+        return torch.as_tensor(np.stack([gx, gy], axis=2), dtype=self.dtype, device=self.device)
+
+    def plot(self, save_dir=None, filename="obst_map.png"):
+        import matplotlib.pyplot as plt
+
+        fig = plt.figure()
+        plt.imshow(self.map)
+        plt.gca().invert_yaxis()
+        if save_dir is not None:
+            import os.path as osp
+
+            plt.savefig(osp.join(save_dir, filename))
+        return fig

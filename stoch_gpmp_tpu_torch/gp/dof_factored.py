@@ -18,7 +18,7 @@ stencil ``matvec_planes`` and the residual-form quadratic
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from functools import cached_property
 
 import numpy as np
@@ -313,6 +313,17 @@ class DofQuadraticCost:
 
     def supports_dof_planes(self) -> bool:
         return True
+
+    def particle_block(self, start: int, count: int, total: int) -> "DofQuadraticCost":
+        """The same cost on particles ``start .. start + count`` of a
+        goal-major batch of ``total``: ``b_planes``, ``c`` and ``g_pd``
+        gathered to one entry per particle, so K3 reads each row's own goal
+        (``rows_per_goal`` = the samples per particle)."""
+        from stoch_gpmp_tpu_torch.costs.costs import particle_goals
+
+        idx = particle_goals(start, count, total, self.num_goals, self.c.device)
+        return replace(self, b_planes=self.b_planes[idx], c=self.c[idx], num_goals=count,
+                       g_pd=None if self.g_pd is None else self.g_pd[idx])
 
     @cached_property
     def stencil_weights(self) -> tuple[float, ...]:

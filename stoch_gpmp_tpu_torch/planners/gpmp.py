@@ -22,7 +22,8 @@ the update ``means += step_size * d_theta``. ``gpmp_optimize`` is a Python
 loop for the JAX ``lax.scan``; the ``GPMP`` class keeps the reference's API
 with an explicit ``torch.Generator`` for the JAX key; its
 ``sample_trajectories`` draws through the dense ``L^{-1}`` or, beyond M =
-2048, the parallel-in-time solver. ``mesh=`` is not ported yet.
+2048, the parallel-in-time solver. ``shard_particles`` / ``mesh=`` run the
+particles sharded over ranks (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -70,6 +71,13 @@ class WoodburyGN:
     n_dof: int
     traj_len: int
     n_fields: int
+
+    def particle_block(self, start: int, count: int, total: int) -> "WoodburyGN":
+        """The same model on particles ``start .. start + count`` of a
+        goal-major batch of ``total``: its quadratic's goal tables gathered
+        to one entry per particle (``DofQuadraticCost.particle_block``)."""
+        dq = self.dq.particle_block(start, count, total)
+        return replace(self, dq=dq, b_planes=dq.b_planes, num_goals=count)
 
 
 def build_woodbury(cost: Any, delta: float) -> WoodburyGN | None:
@@ -122,14 +130,17 @@ def build_woodbury(cost: Any, delta: float) -> WoodburyGN | None:
 
 
 def gpmp_step_woodbury(wb: WoodburyGN, cost: Any, state: GPMPState, observation: dict, *,
-                       step_size: float = 1.0) -> GPMPState:
+                       step_size: float = 1.0, shard_particles=None) -> GPMPState:
     """One GN update through the Woodbury split, with no sequential-over-T
     factorization; equal to ``gpmp_step(method='cholesky')`` up to
-    rounding."""
+    rounding. ``shard_particles``: as in :func:`gpmp_step`; every particle's
+    solve is its own, so no collective runs."""
     from stoch_gpmp_tpu_torch.gp.dof_factored import from_dof_planes, to_dof_planes
 
     means = state.particle_means
     p, t, _ = means.shape
+    if shard_particles is not None:
+        cost, wb = shard_particles.rows(cost, p), shard_particles.rows(wb, p)
     nd, t2 = wb.n_dof, 2 * t
     fk_trajs = cost._fk_trajs if cost.fk is not None else None
     field_costs = [c for c in cost.costs if hasattr(c, "gn_rank1")]
@@ -176,17 +187,27 @@ def gpmp_step_woodbury(wb: WoodburyGN, cost: Any, state: GPMPState, observation:
 
 def gpmp_step(cost: Any, state: GPMPState, observation: dict, *, delta: float,
               trust_region: bool, method: str = "cholesky",
-              step_size: float = 1.0) -> GPMPState:
-    """One Gauss-Newton update of all particle means."""
+              step_size: float = 1.0, shard_particles=None) -> GPMPState:
+    """One Gauss-Newton update of all particle means.
+
+    ``shard_particles``: this rank's place in a mesh
+    (``parallel.sharding.Shard``; in the JAX package a sharding constraint
+    on the particle axis): ``state`` holds the rank's particle block, the
+    goal-dependent costs are viewed on it, and the trust-region damping's
+    mean over all particles is all-reduced over the ranks of the ``p``
+    axis."""
     means = state.particle_means
     p, t, d = means.shape
+    if shard_particles is not None:
+        cost = shard_particles.rows(cost, p)
     contrib = cost.gn_contrib(means, observation=observation)
     diag, lower, g = contrib.diag, contrib.lower, contrib.g  # [P,T,d,d], [P,T-1,d,d], [P,T,d]
     eye = torch.eye(d, dtype=means.dtype, device=means.device)
     if not trust_region:
         diag = diag + delta * eye
     else:  # reference planner.py:612-615: the second assignment wins
-        mean_diag = torch.diagonal(diag.mean(dim=0), dim1=-2, dim2=-1)  # [T, d]
+        mean = diag.mean(dim=0) if shard_particles is None else shard_particles.mean_particles(diag)
+        mean_diag = torch.diagonal(mean, dim1=-2, dim2=-1)  # [T, d]
         diag = diag + delta * mean_diag[..., None] * eye
     system = BlockTridiag(diag=diag, lower=lower)
     if method == "cholesky":
@@ -200,9 +221,11 @@ def gpmp_step(cost: Any, state: GPMPState, observation: dict, *, delta: float,
 
 def gpmp_optimize(cost: Any, state: GPMPState, observation: dict, *, opt_iters: int,
                   delta: float, trust_region: bool, method: str = "cholesky",
-                  step_size: float = 1.0, woodbury: WoodburyGN | None = None) -> GPMPState:
+                  step_size: float = 1.0, shard_particles=None,
+                  woodbury: WoodburyGN | None = None) -> GPMPState:
     """``opt_iters`` Gauss-Newton updates. ``method='woodbury'`` needs
-    ``woodbury=build_woodbury(cost, delta)`` and ``trust_region=False``."""
+    ``woodbury=build_woodbury(cost, delta)`` and ``trust_region=False``.
+    ``shard_particles``: the rank's place in a mesh (:func:`gpmp_step`)."""
     if method == "woodbury":
         if woodbury is None:
             raise ValueError("method='woodbury' needs woodbury=build_woodbury(cost, delta)")
@@ -210,11 +233,12 @@ def gpmp_optimize(cost: Any, state: GPMPState, observation: dict, *, opt_iters: 
             raise ValueError("woodbury path supports trust_region=False only (the "
                              "trust-region damping re-dampens H0 per iteration)")
         for _ in range(opt_iters):
-            state = gpmp_step_woodbury(woodbury, cost, state, observation, step_size=step_size)
+            state = gpmp_step_woodbury(woodbury, cost, state, observation, step_size=step_size,
+                                       shard_particles=shard_particles)
         return state
     for _ in range(opt_iters):
         state = gpmp_step(cost, state, observation, delta=delta, trust_region=trust_region,
-                          method=method, step_size=step_size)
+                          method=method, step_size=step_size, shard_particles=shard_particles)
     return state
 
 
@@ -222,8 +246,14 @@ class GPMP:
     """Stateful wrapper with the reference's API surface (``reset``,
     ``optimize``, ``get_recent_samples``, ``sample_trajectories``).
 
-    ``device=None`` means the CUDA card (raises without one); pass
-    ``device="cpu"`` for the plain PyTorch versions on the CPU."""
+    ``mesh`` (``parallel.make_mesh``, one process per rank): ``optimize``
+    runs sharded (``parallel.make_sharded_gpmp_optimize``), each rank
+    solving its particle block, and returns the global results on every
+    rank; ``particle_means`` and ``get_recent_samples`` are global too.
+
+    ``device=None`` means the CUDA card (the mesh's device with ``mesh``;
+    raises without one); pass ``device="cpu"`` for the plain PyTorch
+    versions on the CPU."""
 
     def __init__(
         self,
@@ -251,9 +281,10 @@ class GPMP:
         device=None,
         **kwargs,
     ):
-        if mesh is not None:
-            raise NotImplementedError("mesh= is not ported yet (multi-device slice)")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._sharded = None  # (key, run): one slot, rebuilt when the key changes
+        self.device = resolve_device(device if device is not None or mesh is None
+                                     else mesh.device)
         self.n_dof = n_dof
         self.d_state_opt = 2 * n_dof
         self.dt = dt
@@ -303,6 +334,12 @@ class GPMP:
                           self.sigma_goal_init).sample(self.generator, self.num_particles_per_goal)
         particle_means = means.reshape(self.num_particles, self.traj_len, self.d_state_opt)
         self.state = GPMPState(particle_means=particle_means, generator=self.generator)
+        self._means = particle_means
+        if self.mesh is not None:
+            from stoch_gpmp_tpu_torch.parallel import shard_gpmp_state
+
+            self.state = shard_gpmp_state(self.mesh, self.state)
+            self._sharded = None
         # the sampling prior of sample_trajectories
         self._sample_prior = prior(
             self.sigma_start_sample, self.sigma_gp_sample, self.sigma_goal_sample)
@@ -315,7 +352,9 @@ class GPMP:
 
     @property
     def particle_means(self) -> torch.Tensor:
-        return self.state.particle_means
+        """The means ``[P, T, d]`` (all particles on every rank under a
+        mesh)."""
+        return self.state.particle_means if self.mesh is None else self._means
 
     def optimize(self, opt_iters=None, debug=False, observation=None, **obs_kwargs):
         """Returns ``(velocity_means, position_means, costs)`` as the
@@ -323,20 +362,38 @@ class GPMP:
         observation = dict(observation or {})
         observation.update(obs_kwargs)
         iters = self.opt_iters if opt_iters is None else opt_iters
-        self.state = gpmp_optimize(
-            self.cost, self.state, observation, opt_iters=iters,
-            delta=float(self.solver_params["delta"]),
-            trust_region=bool(self.solver_params["trust_region"]),
-            method=self.solver_params["method"], step_size=self.step_size, woodbury=self._wb,
-        )
-        means = self.state.particle_means
-        costs = self.cost.eval(means.reshape(self.num_particles, -1), observation=observation)
+        kw = dict(opt_iters=iters, delta=float(self.solver_params["delta"]),
+                  trust_region=bool(self.solver_params["trust_region"]),
+                  method=self.solver_params["method"], step_size=self.step_size,
+                  woodbury=self._wb)
+        if self.mesh is None:
+            self.state = gpmp_optimize(self.cost, self.state, observation, **kw)
+            means = self.state.particle_means
+            costs = self.cost.eval(means.reshape(self.num_particles, -1), observation=observation)
+        else:
+            run = self._sharded_runner(kw)
+            self.state = run(self.cost, self.state, observation)
+            block = self.state.particle_means  # each rank scores its block, then the gather
+            costs = run.shard.rows(self.cost, block.shape[0]).eval(
+                block.reshape(block.shape[0], -1), observation=observation)
+            self._means = means = run.shard.gather_particles(block)
+            costs = run.shard.gather_particles(costs)
         n = self.n_dof
         return means[..., n:], means[..., :n], costs
 
+    def _sharded_runner(self, kw: dict):
+        """The sharded optimize (``mesh=``), kept in one slot keyed on every
+        static the unsharded path reads per call."""
+        key = tuple(v if k != "woodbury" else id(v) for k, v in sorted(kw.items()))
+        if self._sharded is None or self._sharded[0] != key:
+            from stoch_gpmp_tpu_torch.parallel import make_sharded_gpmp_optimize
+
+            self._sharded = (key, make_sharded_gpmp_optimize(self.mesh, **kw))
+        return self._sharded[1]
+
     def get_recent_samples(self):
         n = self.n_dof
-        means = self.state.particle_means
+        means = self.particle_means
         return means[..., :n], means[..., n:]
 
     def sample_trajectories(self, num_samples_per_particle: int):
@@ -345,7 +402,7 @@ class GPMP:
         parallel-in-time solver (S1 on the card)."""
         from stoch_gpmp_tpu_torch.planners.stoch_gpmp import sample_around
 
-        samples = sample_around(self._sample_prior, self.state.particle_means,
+        samples = sample_around(self._sample_prior, self.particle_means,
                                 num_samples_per_particle, self.generator)
         n = self.n_dof
         return samples[..., :n], samples[..., n:]

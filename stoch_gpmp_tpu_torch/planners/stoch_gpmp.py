@@ -128,6 +128,7 @@ def stoch_gpmp_step(
     temperature: float,
     step_size: float,
     sample_method: str = "dense",
+    shard_samples=None,
     sample_dtype=None,
     plane_stream: bool = False,
     eps: torch.Tensor | None = None,
@@ -145,21 +146,39 @@ def stoch_gpmp_step(
     the full-precision one; the correction returns to the means' dtype, so
     the costs, weights and means stay in full precision. ``plane_stream``
     draws and solves in the plane order of the plane path, so this step
-    reproduces that path's iteration."""
+    reproduces that path's iteration.
+
+    ``shard_samples``: this rank's place in a mesh
+    (``parallel.sharding.Shard``; in the JAX package a sharding constraint
+    on the sample batch). ``state`` then holds the rank's particle block,
+    ``num_samples`` stays the global count, each rank keeps its block of the
+    global draw (or of the injected global ``eps``), the goal-dependent
+    costs are viewed on its particles, and the softmax and the update are
+    reduced over the ranks of its samples. The aux is the rank's block."""
     means = state.particle_means  # [P, T, d]
     p, t, d = means.shape
     m = t * d
     means_flat = means.reshape(p, m)
     eps_dtype = sample_dtype if sample_dtype is not None else means.dtype
+    shard = shard_samples
+    if shard is not None:
+        num_samples = shard.local_samples(num_samples)
+        cost = shard.rows(cost, p)
     if plane_stream and sampler.psolver is not None:
-        if eps is None:
+        if shard is not None:
+            eps = shard.draw(state.generator, (d, p, num_samples, t), 1, 2, dtype=eps_dtype,
+                             device=means.device, eps=eps)
+        elif eps is None:
             eps = torch.randn((d, p, num_samples, t), generator=state.generator,
                               dtype=eps_dtype, device=means.device)
         corr_planes = sampler.psolver.solve_LT_planes(
             tuple(eps[i].to(means.dtype) for i in range(d)))
         corr = torch.stack(corr_planes, dim=-1).reshape(p, num_samples, m)
     else:
-        if eps is None:
+        if shard is not None:
+            eps = shard.draw(state.generator, (p, num_samples, m), 0, 1, dtype=eps_dtype,
+                             device=means.device, eps=eps)
+        elif eps is None:
             eps = torch.randn((p, num_samples, m), generator=state.generator,
                               dtype=eps_dtype, device=means.device)
         eps = eps.to(eps_dtype)
@@ -188,8 +207,13 @@ def stoch_gpmp_step(
     costs = costs + temperature * torch.sum(flat * prec_u[:, None], dim=-1)
 
     # --- softmax re-weighting and mean update ---
-    weights = torch.softmax(-costs / temperature, dim=1)
-    grad_flat = torch.einsum("ps,psm->pm", weights, flat - means_flat[:, None])
+    if shard is None:
+        weights = torch.softmax(-costs / temperature, dim=1)
+        grad_flat = torch.einsum("ps,psm->pm", weights, flat - means_flat[:, None])
+    else:
+        weights = shard.softmax(-costs / temperature)
+        grad_flat = shard.sum_samples(
+            torch.einsum("ps,psm->pm", weights, flat - means_flat[:, None]))
     new_means = (means_flat + step_size * grad_flat).reshape(p, t, d)
     return (
         replace(state, particle_means=new_means),
@@ -213,11 +237,18 @@ def _route(sampler, cost, traj_len: int, sample_method: str = "dense",
     if (sampler.dof is not None and cost.supports_dof_planes()
             and (sample_method == "dof" or (sample_method == "dense" and traj_len % 128 == 0))):
         return "dof"
-    if (sampler.precision.block_dim <= 8 and sampler.weight_t is None
-            and sampler.psolver is not None and sample_method == "dense"
-            and getattr(cost, "supports_planes", lambda: False)()):
+    if _plane_eligible(sampler, cost, sample_method):
         return "planes"
     return "flat"
+
+
+def _plane_eligible(sampler, cost, sample_method: str) -> bool:
+    """The JAX package's ``plane_eligible``: a long-horizon sampler (no
+    dense factor, a parallel-in-time solver), d <= 8, a plane-capable
+    stack, ``sample_method="dense"``."""
+    return (sampler.precision.block_dim <= 8 and sampler.weight_t is None
+            and sampler.psolver is not None and sample_method == "dense"
+            and getattr(cost, "supports_planes", lambda: False)())
 
 
 def _plane_metrics(costs, weights, grads, step_size) -> IterMetrics:
@@ -293,7 +324,7 @@ def _dof_quad_split(cost):
 
 def _stoch_gpmp_optimize_dof(
     sampler, cost, state, observation, *, opt_iters, num_samples, temperature,
-    step_size, collect_metrics=False, eps=None,
+    step_size, collect_metrics=False, shard_dof=None, shard_dof_quad=None, eps=None,
 ):
     """The dof-factored path: means and samples as dof-leading planes
     ``[d, P(, S), 2T]``; per iteration ``x = mu + eps @ w_dof`` per dof, the
@@ -301,36 +332,61 @@ def _stoch_gpmp_optimize_dof(
     JAX package runs its kernel only on the TPU, the port on every CUDA
     tensor), the rest of the stack on the planes, softmax, mean update.
     ``eps``: optional per-iteration ``[d, P, S, 2T]`` draws (a list, a
-    stacked tensor or a callable of the iteration)."""
+    stacked tensor or a callable of the iteration).
+
+    ``shard_dof``: this rank's place in a mesh (``parallel.sharding.Shard``;
+    in the JAX package a sharding constraint on the planes): the state holds
+    the rank's particle block, each rank keeps its block of the global draw,
+    the softmax and the update are reduced over the ranks of its samples,
+    and the cost is viewed on the rank's particles (``Shard.rows``), so K3
+    runs on the rank's rows as it runs unsharded. ``shard_dof_quad``: the
+    K3 call to use in place of ``stencil.dof_quad_eval`` (same signature;
+    ``parallel.sharding._make_shard_dof_quad`` checks the view)."""
     from stoch_gpmp_tpu_torch.gp.dof_factored import from_dof_planes, to_dof_planes
     from stoch_gpmp_tpu_torch.ops.kernels.stencil import dof_quad_eval
 
     p, t, _ = state.particle_means.shape
     dof = sampler.dof
+    shard = shard_dof
+    if shard is not None:
+        num_samples = shard.local_samples(num_samples)
+        cost = shard.rows(cost, p)
     dq, rest = _dof_quad_split(cost)
+    quad_eval = shard_dof_quad or dof_quad_eval
 
     def step(mu, eps_i):
+        if shard is not None:
+            eps_i = shard.draw(state.generator, (mu.shape[0], p, num_samples, 2 * t), 1, 2,
+                               dtype=mu.dtype, device=mu.device, eps=eps_i)
         x, corr = dof.sample_planes(state.generator, mu, num_samples, eps=eps_i)
         x_flat = x.reshape(x.shape[0], p * num_samples, 2 * t)
         pu = dof.matvec_planes(mu)  # exact stencil Sigma^{-1} mu, [d, P, 2T]
         if dq is not None:
-            costs = dof_quad_eval(dq, x_flat, pu=pu, temperature=temperature,
-                                  num_samples=num_samples)
+            costs = quad_eval(dq, x_flat, pu=pu, temperature=temperature,
+                              num_samples=num_samples)
             for c in rest:
                 costs = costs + c.eval_dof_planes(x_flat, observation=observation)
             costs = costs.reshape(p, num_samples)
         else:
             costs = cost.eval_dof_planes(x_flat, observation=observation).reshape(
                 p, num_samples) + temperature * torch.sum(x * pu[:, :, None], dim=(0, -1))
-        weights = torch.softmax(-costs / temperature, dim=1)
-        grad = torch.einsum("ps,dpsk->dpk", weights, corr)
+        if shard is None:
+            weights = torch.softmax(-costs / temperature, dim=1)
+            grad = torch.einsum("ps,dpsk->dpk", weights, corr)
+        else:
+            weights = shard.softmax(-costs / temperature)
+            grad = shard.sum_samples(torch.einsum("ps,dpsk->dpk", weights, corr))
         return mu + step_size * grad, costs, weights, grad, x
 
     mu = to_dof_planes(state.particle_means)
     metrics = []
     for i in range(opt_iters):
         mu, costs, weights, grad, x = step(mu, _eps_at(eps, i))
-        if collect_metrics:
+        if collect_metrics and shard is not None:
+            metrics.append(shard.metrics(costs, weights,
+                                         torch.sqrt(torch.sum(grad * grad, dim=(0, -1))),
+                                         step_size))
+        elif collect_metrics:
             metrics.append(IterMetrics(
                 cost_mean=costs.mean(), cost_min=costs.min(),
                 weight_entropy=-torch.sum(weights * torch.log(weights + 1e-30), dim=1).mean(),
@@ -355,8 +411,11 @@ def stoch_gpmp_optimize(
     temperature: float,
     step_size: float,
     sample_method: str = "dense",
+    shard_samples=None,
     sample_dtype=None,
     collect_metrics: bool = False,
+    shard_dof=None,
+    shard_dof_quad=None,
     eps=None,
 ):
     """Run ``opt_iters`` updates on the route ``_route`` picks; returns the
@@ -366,28 +425,57 @@ def stoch_gpmp_optimize(
     the dof and plane routes refuse it). ``eps``: optional per-iteration
     draws (a list, a stacked tensor or a callable of the iteration): ``[P,
     S, M]`` on the flat path, ``[d, P, S, 2T]`` on the dof path and ``[d, P,
-    S, T]`` on the plane path."""
+    S, T]`` on the plane path (global draws under a shard hook).
+
+    Sharded (``parallel.sharding``; JAX's sharding constraints become this
+    rank's place in a mesh): ``shard_samples`` runs the flat step on the
+    rank's block, drawing plane-major (``plane_stream``) where the problem
+    is plane-eligible, as the JAX package does, so the trajectories do not
+    change with the mesh; ``shard_dof`` (with ``sample_method="dof"``) the
+    dof path, K3 on the rank's rows (``shard_dof_quad``: the K3 call, as
+    ``parallel.sharding._make_shard_dof_quad`` makes it). A problem the dof
+    path cannot take raises under ``shard_dof``, as in the JAX package."""
     if opt_iters < 1:
         raise ValueError(f"opt_iters must be >= 1, got {opt_iters}")
     if eps is not None and not callable(eps) and len(eps) != opt_iters:
         raise ValueError(f"eps holds {len(eps)} draws for {opt_iters} iterations")
-    route = _route(sampler, cost, state.particle_means.shape[1], sample_method, sample_dtype)
+    t = state.particle_means.shape[1]
+    if shard_samples is not None or shard_dof is not None:
+        route = "flat"
+        if shard_dof is not None:
+            if not (sampler.dof is not None and sample_dtype is None and shard_samples is None
+                    and sample_method == "dof" and cost.supports_dof_planes()):
+                raise ValueError(
+                    "shard_dof requires the dof-factored path: sample_method='dof', a "
+                    "sampler with .dof, a dof-capable cost stack, and no "
+                    "shard_samples/sample_dtype")
+            route = "dof"
+    else:
+        route = _route(sampler, cost, t, sample_method, sample_dtype)
     if route != "flat":
         run = _stoch_gpmp_optimize_dof if route == "dof" else _stoch_gpmp_optimize_planes
+        extra = dict(shard_dof=shard_dof, shard_dof_quad=shard_dof_quad) if route == "dof" else {}
         return run(
             sampler, cost, state, observation, opt_iters=opt_iters, num_samples=num_samples,
             temperature=temperature, step_size=step_size, collect_metrics=collect_metrics,
-            eps=eps,
+            eps=eps, **extra,
         )
+    plane_stream = (shard_samples is not None and sample_dtype is None
+                    and _plane_eligible(sampler, cost, sample_method))
     metrics = []
     aux = None
     for i in range(opt_iters):
         state, aux = stoch_gpmp_step(
             sampler, cost, state, observation, num_samples=num_samples,
             temperature=temperature, step_size=step_size, sample_method=sample_method,
-            sample_dtype=sample_dtype, eps=_eps_at(eps, i),
+            shard_samples=shard_samples, sample_dtype=sample_dtype, plane_stream=plane_stream,
+            eps=_eps_at(eps, i),
         )
-        if collect_metrics:
+        if collect_metrics and shard_samples is not None:
+            g = aux.grad.reshape(aux.grad.shape[0], -1)
+            metrics.append(shard_samples.metrics(aux.costs, aux.weights,
+                                                 torch.linalg.norm(g, dim=-1), step_size))
+        elif collect_metrics:
             metrics.append(IterMetrics.from_aux(aux, step_size))
     if collect_metrics:
         return state, aux, IterMetrics.stack(metrics)
@@ -405,8 +493,16 @@ class StochGPMP:
     version on the CPU) and the final iteration on the normal path, so the
     reference-shaped 6-tuple comes from a real iteration.
 
-    ``device=None`` means the CUDA card (raises without one); pass
-    ``device="cpu"`` for the plain PyTorch versions on the CPU."""
+    ``mesh`` (``parallel.make_mesh``, one process per rank): ``optimize``
+    runs sharded (``parallel.make_sharded_optimize``; ``sample_method="dof"``
+    the dof layout), each rank holding its particle block and samples, and
+    returns the global results on every rank, the same as without a mesh up
+    to the order of the sums; ``particle_means``, ``get_recent_samples``,
+    ``get_traj`` and ``sample_trajectories`` are global too.
+
+    ``device=None`` means the CUDA card (the mesh's device with ``mesh``;
+    raises without one); pass ``device="cpu"`` for the plain PyTorch
+    versions on the CPU."""
 
     def __init__(
         self,
@@ -440,9 +536,12 @@ class StochGPMP:
         if prng_impl is not None:
             raise ValueError("prng_impl= names a JAX PRNG implementation; the port draws "
                              "from a torch.Generator seeded with seed=")
-        if mesh is not None:
-            raise NotImplementedError("mesh= is not ported yet (multi-device slice)")
-        self.device = resolve_device(device)
+        if fused_kernel and mesh is not None:
+            raise ValueError("fused_kernel=True is single-chip only (no mesh=)")
+        self.mesh = mesh
+        self._sharded = None  # (key, run): one slot, rebuilt when the key changes
+        self.device = resolve_device(device if device is not None or mesh is None
+                                     else mesh.device)
         self.fused_kernel = fused_kernel
         self._fused = None  # (key, run): one slot, rebuilt when the key changes
         self.n_dof = n_dof
@@ -513,11 +612,19 @@ class StochGPMP:
         self.sampler = SamplerModel.from_prior(sample_prior)
         self.state = StochGPMPState(particle_means=particle_means, generator=self.generator)
         self._fused = None  # the executor closes over the sampler
+        self._means = particle_means
+        if self.mesh is not None:
+            from stoch_gpmp_tpu_torch.parallel import shard_planner_state
+
+            self.state = shard_planner_state(self.mesh, self.state)
+            self._sharded = None
         self.last_metrics: IterMetrics | None = None
 
     @property
     def particle_means(self) -> torch.Tensor:
-        return self.state.particle_means
+        """The means ``[P, T, d]`` (all particles on every rank under a
+        mesh)."""
+        return self.state.particle_means if self.mesh is None else self._means
 
     @property
     def Sigma_inv(self) -> BlockTridiag:
@@ -538,19 +645,30 @@ class StochGPMP:
         if self.fused_kernel and not collect_metrics and iters > 1:
             self.state = self._fused_runner(observation)(self.state, iters - 1)
             iters = 1  # final iteration on the flat path -> full aux
-        out = stoch_gpmp_optimize(
-            self.sampler, self.cost, self.state, observation, opt_iters=iters,
-            num_samples=self.num_samples, temperature=self.temperature,
-            step_size=self.step_size, sample_method=self.sample_method,
-            collect_metrics=collect_metrics,
-        )
+        if self.mesh is not None:
+            out = self._sharded_runner(iters, collect_metrics)(
+                self.sampler, self.cost, self.state, observation)
+        else:
+            out = stoch_gpmp_optimize(
+                self.sampler, self.cost, self.state, observation, opt_iters=iters,
+                num_samples=self.num_samples, temperature=self.temperature,
+                step_size=self.step_size, sample_method=self.sample_method,
+                collect_metrics=collect_metrics,
+            )
         if collect_metrics:
             self.state, aux, self.last_metrics = out
         else:
             self.state, aux = out
+        if self.mesh is not None:  # the global results, on every rank
+            shard = self._sharded[1].shard
+            self._means = shard.gather_particles(self.state.particle_means)
+            aux = StochGPMPAux(samples=shard.gather_samples(aux.samples),
+                               costs=shard.gather_samples(aux.costs),
+                               weights=shard.gather_samples(aux.weights),
+                               grad=shard.gather_particles(aux.grad))
         self._recent_aux = aux
         n = self.n_dof
-        means = self.state.particle_means
+        means = self.particle_means
         return (
             means[..., :n], means[..., n:],
             aux.samples[..., :n], aux.samples[..., n:],
@@ -577,6 +695,23 @@ class StochGPMP:
             self._fused = (key, run)
         return self._fused[1]
 
+    def _sharded_runner(self, iters: int, collect_metrics: bool):
+        """The sharded optimize (``mesh=``), kept in one slot keyed, as the
+        JAX package keys its cache, on every static the unsharded path reads
+        per call."""
+        key = (iters, collect_metrics, self.num_samples, self.temperature, self.step_size,
+               self.sample_method)
+        if self._sharded is None or self._sharded[0] != key:
+            from stoch_gpmp_tpu_torch.parallel import make_sharded_optimize
+
+            layout = "dof" if self.sample_method == "dof" else "flat"
+            kw = {} if layout == "dof" else {"sample_method": self.sample_method}
+            self._sharded = (key, make_sharded_optimize(
+                self.mesh, layout=layout, opt_iters=iters, num_samples=self.num_samples,
+                temperature=self.temperature, step_size=self.step_size,
+                collect_metrics=collect_metrics, **kw))
+        return self._sharded[1]
+
     def get_recent_samples(self):
         """(sample positions, sample velocities) of the last optimize call,
         ``[P, S, T, n_dof]`` each."""
@@ -590,14 +725,14 @@ class StochGPMP:
             p, s = divmod(int(torch.argmax(aux.weights.reshape(-1))), self.num_samples)
             return aux.samples[p, s]
         if mode == "mean":
-            return self.state.particle_means
+            return self.particle_means
         raise ValueError(f"unknown mode: {mode}")
 
     def sample_trajectories(self, num_samples_per_particle: int):
         """Fresh draws around the current means: (positions, velocities);
         through the dense ``L^{-1}``, or the structured solve in long-horizon
         mode."""
-        samples = sample_around(self.sampler, self.state.particle_means,
+        samples = sample_around(self.sampler, self.particle_means,
                                 num_samples_per_particle, self.generator)
         n = self.n_dof
         return samples[..., :n], samples[..., n:]

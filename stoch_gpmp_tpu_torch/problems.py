@@ -142,6 +142,25 @@ def build_planar_problem(traj_len=64, ppg=5, dtype=torch.float32, device=None,
     return SamplerModel.from_prior(prior), cost, state
 
 
+def sharded_ppg(ppg: int, num_goals: int, n_p: int) -> int:
+    """Particles per goal on a mesh with ``n_p`` ranks on the particle axis,
+    by ``examples/planar_sharded.py``'s rule: at least two particles per
+    rank, then rounded up until the ``ppg * num_goals`` particles split
+    evenly over the ranks; at least ``ppg``."""
+    ppg = max(ppg, 1, -(-2 * n_p // num_goals))
+    while (ppg * num_goals) % n_p:
+        ppg += 1
+    return ppg
+
+
+def build_sharded_planar_problem(n_p: int, ppg=5, **kw):
+    """``build_planar_problem`` for a mesh with ``n_p`` ranks on the
+    particle axis: ``sharded_ppg(ppg, 3, n_p)`` particles per goal (5 -> 6,
+    P = 18, at ``n_p = 2``). Returns the global ``(sampler, cost, state)``;
+    ``parallel.shard_planner_state`` gives a rank its block."""
+    return build_planar_problem(ppg=sharded_ppg(ppg, len(GOALS), n_p), **kw)
+
+
 # benchmarks/long_horizon.py: one goal, 15 particles x 32 samples,
 # temperature 1.0, step 0.5
 LONG_HORIZON_GOALS = [[9.0, 6.0, 0.0, 0.0]]

@@ -49,7 +49,11 @@ stack), the mesh-sphere stack (descent, starts, its fields within 1e-4 of
 float64), GN through FK (EE distance falling, starts within 0.05, one
 float64 woodbury step within rtol 1e-7 / atol 1e-9 of cholesky) and GN at
 T = 1024 (one S1 launch for the init draw, one K1 launch per
-linearisation, the float64 pair under the same bounds).
+linearisation, the float64 pair under the same bounds). Multi-device: the
+dof layout at config 5 on a (4, 1) mesh of 4 gloo ranks sharing the card
+(``parallel.launch``; means within 1e-5 / 1e-5 and costs 1e-4 / 1e-4 of the
+single-rank run, every K3 and K4 launch within 1e-3 / 1e-4 of float64), and
+a world of one NCCL rank whose means equal the unsharded run's.
 """
 
 import sys
@@ -298,3 +302,28 @@ def test_gauss_newton_panda_and_long_horizon(dev, path):
     if path == "gn_long":
         assert all(r[m]["k1_held"] == 2 and len(r[m]["s1_held"]) == 1
                    for m in ("cholesky", "woodbury"))
+
+
+def test_sharded_dof_layout_four_ranks(dev):
+    """sharded-dof's (4, 1) case: 320 particles a rank (blocks that start
+    inside goals), K3 and K4 launched and held in every rank."""
+    import chip_smoke
+    from stoch_gpmp_tpu_torch.parallel.launch import launch
+
+    ranks = launch(chip_smoke.sharded_rank, 4, (("dof",), ((4, 1),)), device="cuda",
+                   timeout=600)
+    for r in ranks:
+        row = r["dof"]["(4, 1)"]
+        assert row["launches"] == {"dof_quad_eval": chip_smoke.SH_CHECK_ITERS,
+                                   "fk_fields": chip_smoke.SH_CHECK_ITERS}
+        assert row["mean_ratio"] <= 1.0 and row["cost_ratio"] <= 1.0 and row["block"] == 320
+
+
+def test_nccl_world_of_one(dev):
+    """nccl-1 at 2 iterations: a world of one NCCL rank gives the unsharded
+    means exactly."""
+    import chip_smoke
+    from stoch_gpmp_tpu_torch.parallel.launch import launch
+
+    (r,) = launch(chip_smoke.nccl_rank, 1, (2,), device="cuda", timeout=300)
+    assert r["backend"] == "nccl" and r["launches"] == {"raster_field": 2}

@@ -270,7 +270,9 @@ def test_gpmp_class_matches_jax():
     """``GPMP.optimize``'s ``(vel, pos, costs)`` from numpy-made initial
     means against JAX ``gpmp_optimize`` and ``cost.eval``;
     ``get_recent_samples`` and ``sample_trajectories`` shapes; ``mesh=``
-    raises; ``method='woodbury'`` gives the same means; without initial
+    (a mesh of this one process) gives the same results bit for bit (the
+    4-rank mesh runs in ``tests/test_torch_parallel.py``);
+    ``method='woodbury'`` gives the same means; without initial
     means the init prior's draw starts at the start state."""
     from stoch_gpmp_tpu.planners.gpmp import gpmp_optimize as jopt
 
@@ -295,8 +297,14 @@ def test_gpmp_class_matches_jax():
     wb = GPMP(cost=tc, initial_particle_means=init, dtype=torch.float64, device="cpu",
               **dict(kw, solver_params={"delta": 1e-2, "method": "woodbury"}))
     _close(wb.optimize()[1], jm[..., :2], rtol=1e-7)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        GPMP(cost=tc, device="cpu", mesh=object(), **kw)
+    from stoch_gpmp_tpu_torch.parallel.sharding import Mesh
+
+    one = Mesh(devices=np.zeros((1, 1), dtype=int), axis_names=("p", "s"), rank=0,
+               coords=(0, 0), device=torch.device("cpu"), backend="gloo")
+    plain = GPMP(cost=tc, initial_particle_means=init, dtype=torch.float64, device="cpu", **kw)
+    meshed = GPMP(cost=tc, initial_particle_means=init, dtype=torch.float64, mesh=one, **kw)
+    for got, want in zip(meshed.optimize(), plain.optimize()):
+        assert torch.equal(got, want)
     sampled = GPMP(cost=tc, device="cpu", dtype=torch.float64, **kw)  # init prior draw
     assert sampled.particle_means.shape == (3, 24, 4)
     np.testing.assert_allclose(sampled.particle_means[:, 0, :2].numpy(),

@@ -364,7 +364,9 @@ def test_class_api(fused):
 
 
 def test_collect_metrics_and_routing():
-    """Metrics over the flat path; ``mesh=`` raises; the planar stack at
+    """Metrics over the flat path; ``mesh=`` with ``fused_kernel=True``
+    raises JAX's ``ValueError`` (the mesh itself runs in
+    ``tests/test_torch_parallel.py``); the planar stack at
     T = 128 takes the dof-factored path, as in the JAX package, and with the
     JAX draws injected its two iterations (metrics included) match JAX's dof
     path to rtol 1e-9 (float64)."""
@@ -374,8 +376,8 @@ def test_collect_metrics_and_routing():
     planner, _ = _planner(False, opt_iters=3)
     planner.optimize(collect_metrics=True)
     assert planner.last_metrics.cost_mean.shape == (3,)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        _planner(False, mesh=object())
+    with pytest.raises(ValueError, match="single-chip only"):
+        _planner(True, mesh=object())
     from __graft_entry__ import _build_problem
 
     js, jc, jst = _build_problem(traj_len=128, fast=True, dtype=jnp.float64)
@@ -461,6 +463,9 @@ def test_package_never_imports_jax():
         "stoch_gpmp_tpu_torch.ops.kernels.panda_fields",
         "stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof",
         "stoch_gpmp_tpu_torch.planners.gpmp", "stoch_gpmp_tpu_torch.tools.fused_timing",
+        "stoch_gpmp_tpu_torch.parallel", "stoch_gpmp_tpu_torch.parallel.launch",
+        "stoch_gpmp_tpu_torch.parallel.drive", "stoch_gpmp_tpu_torch.utils.checkpoint",
+        "stoch_gpmp_tpu_torch.utils.profiling", "stoch_gpmp_tpu_torch.utils.paths",
     ]
     code = (
         "import importlib, sys\n"
