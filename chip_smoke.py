@@ -177,7 +177,20 @@ Phases, one line each; any failure exits non-zero before the result line:
     rank's own inputs; each rank prints its wall and device ms per
     iteration;
 26. nccl-1: sharded-planar's (1, 1) case in a world of one NCCL rank: its
-    means and costs equal the unsharded run's.
+    means and costs equal the unsharded run's;
+27. panda-sim: the simulator closed loop. 100 iterations of
+    ``build_panda_example(fast=True)`` from panda-example's IK goal, every
+    K4 launch held against its plain version; the best final mean's 64
+    waypoints, then the last for 50 steps, as position targets of
+    ``PandaEnv`` (the planner's 5 spheres, 24 substeps of 1/240 s a step,
+    the mesh-sphere contact model) on the card, kinematic (final ``q`` on
+    the last target within 1e-9, inside the joint limits) and dynamics mode
+    (the computed-torque PD motor, each substep a replayed CUDA graph: final
+    ``q`` within 1e-3 rad); the same episodes on the CPU in float64 (joint
+    states within 1e-12 / 1e-9, equal contact flags); the graph-replayed
+    substep against the eager one within 1e-12 on 20 states, PD and torque
+    mode, 7 and 9 DOF; ms per env step and per substep (graph and eager)
+    and device operations per substep and per env step.
 
 Times: ``ms``/``plain_ms`` are per call over back-to-back calls through
 the wrapper (CUDA events), which includes the host's launch cost where it
@@ -203,6 +216,7 @@ import time
 from dataclasses import replace
 from pathlib import Path
 
+import numpy as np
 import torch
 
 T, PPG, S, TAU, STEP = 64, 5, 128, 1.0, 0.5
@@ -404,6 +418,26 @@ GNL_T, GNL_ITERS = 1024, 3
 # every collective is the identity, so its means equal the unsharded run's.
 SH_RANKS, SH_TIMEOUT = 4, 900
 SH_CHECK_ITERS, SH_PLANAR_ITERS, SH_GN_ITERS, SH_WINDOW = 3, 100, 20, 10
+# panda-sim: the simulator closed loop. The IK goal of panda-example, then
+# SIM_PLAN_ITERS iterations of build_panda_example(fast=True) with every K4
+# launch held against its plain version (K4_RTOL); the best final mean's T =
+# 64 waypoints become PandaEnv's position targets (num_obst = 5 set to the
+# planner's spheres, SIM_FREQ substeps of 1/240 s per env step, the
+# mesh-sphere contact model), then the last target for SIM_HOLD steps. Gates:
+# kinematic mode ends on the last target within SIM_KIN_TOL (the tracker
+# lands on it to roundoff) inside the joint limits; dynamics mode (the
+# computed-torque PD motor, critically damped at kp = 400: a time constant
+# of 0.05 s against SIM_HOLD x 0.1 s of hold) within SIM_DYN_TOL rad; the
+# same episodes on the CPU in float64 give the card's joint states within
+# SIM_CPU_TOL (kinematic: numpy tracking, the card's FK only in contact
+# and goal checks; dynamics: cuSOLVER's Cholesky against LAPACK's over
+# 2,736 substeps) and the same contact flags; the graph-replayed substep
+# equals the eager substep within SIM_GRAPH_TOL on SIM_GRAPH_STATES seeded
+# states, PD and torque mode, 7 and 9 DOF (the same kernels replayed).
+SIM_PLAN_ITERS, SIM_FREQ, SIM_HOLD = 100, 24, 50
+SIM_KIN_TOL, SIM_DYN_TOL = 1e-9, 1e-3
+SIM_CPU_TOL = {"kinematic": 1e-12, "dynamics": 1e-9}
+SIM_GRAPH_TOL, SIM_GRAPH_STATES, SIM_EAGER_STEPS = 1e-12, 20, 5
 # Peak rates of one H100 SXM (data sheet) for the bound_ms column.
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
 FP32_FLOP_PER_SM = FP32_FLOP_PER_S / 132
@@ -3320,6 +3354,188 @@ def nccl_rank(iters: int = SH_CHECK_ITERS) -> dict:
                 backend=dist.get_backend(), launches=launches, k1_held=len(k1))
 
 
+def sim_episode(physics: str, device, waypoints, spheres, goal) -> dict:
+    """One ``PandaEnv`` episode on ``device``: the arm at the plan's start,
+    the planner's spheres, ``waypoints [T, 7]`` as position targets, then
+    the last one for ``SIM_HOLD`` steps. Returns the joint states after
+    each step, the contact flags and verdicts, and the wall time."""
+    from stoch_gpmp_tpu_torch.envs import PandaEnv
+
+    env = PandaEnv(num_obst=len(spheres), frequency=SIM_FREQ, contact_model="spheres",
+                   physics=physics, seed=0, device=device)
+    env.reset()
+    env.panda.reset(waypoints[0])
+    for sphere, row in zip(env.spheres, spheres):
+        sphere.base_position, sphere.scale = row[:3].copy(), float(row[3])
+    env.set_goals([goal, None])
+    targets = [*waypoints, *[waypoints[-1]] * SIM_HOLD]
+    states, flags = [], []
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for a in targets:
+        s_t, _, done, info = env.step(a)
+        states.append(s_t[0].reshape(-1))
+        flags.append((bool(info[2]), env.contact_verdicts["spheres"],
+                      env.contact_verdicts["points"]))
+    sync()
+    wall = time.perf_counter() - t0
+    return dict(env=env, states=np.stack(states), flags=flags, wall=wall, steps=len(targets),
+                done=bool(done), reached=list(env.goal_reached))
+
+
+def _graph_vs_eager(dev) -> dict:
+    """The graph-replayed substep against the eager one on the card, PD
+    and torque mode, 7 and 9 DOF, on SIM_GRAPH_STATES seeded states."""
+    from stoch_gpmp_tpu_torch.envs.objects import Panda
+
+    out = {}
+    for gripper in (False, True):
+        panda = Panda(gripper=gripper, use_dynamics=True, device=dev)
+        st = panda._integrators()
+        lo, hi = panda.jl_lower, panda.jl_upper
+        rng = np.random.default_rng(7)
+        for mode, graph, eager in (("pd", st.pd_step, st.pd_eager),
+                                   ("tau", st.tau_step, st.tau_eager)):
+            worst = 0.0
+            for _ in range(SIM_GRAPH_STATES):
+                q = lo + (hi - lo) * rng.uniform(0.05, 0.95, panda.dof)
+                dq = 0.5 * panda.velocity_limit * rng.uniform(-1.0, 1.0, panda.dof)
+                u = (q + rng.uniform(-0.2, 0.2, panda.dof) if mode == "pd"
+                     else panda.effort_limit * rng.uniform(-1.0, 1.0, panda.dof))
+                dt = 1.0 / 240.0
+                got = np.concatenate(graph(q, dq, u, dt))
+                t = st.dyn._t
+                want = torch.cat(eager(t(q), t(dq), t(u), t(dt))).cpu().numpy()
+                if not np.isfinite(got).all():
+                    fail(f"panda-sim: non-finite graph substep ({mode}, {panda.dof} DOF)")
+                worst = max(worst, float(np.abs(got - want).max()))
+            if worst > SIM_GRAPH_TOL:
+                fail(f"panda-sim: graph substep {worst:.3g} from eager ({mode}, {panda.dof} "
+                     f"DOF; tol {SIM_GRAPH_TOL})")
+            out[f"{mode}{panda.dof}"] = worst
+    return out
+
+
+def panda_sim(dev, q_goal, iters: int = SIM_PLAN_ITERS) -> dict:
+    """panda-sim: plan with the fast Panda stack (K4 held), then drive
+    ``PandaEnv`` on the card in kinematic and dynamics mode with the best
+    final mean, the same episodes on the CPU in float64, the CUDA-graph
+    substep against the eager one, and the simulator's times."""
+    from stoch_gpmp_tpu_torch.costs import fused_fields
+    from stoch_gpmp_tpu_torch.problems import PANDA_TARGET_POS, build_panda_example
+
+    t_phase = time.perf_counter()
+    ex = build_panda_example(0, fast=True, q_goal=q_goal, device=dev)
+    planner, obs = ex.planner, ex.observation
+    k4 = []
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with held_kernel(fused_fields, "fk_link_fields_cost_rows", _check_k4, k4):
+        planner.optimize(opt_iters=iters, observation=obs)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    launches = _counted()
+    if launches != {"fk_fields": iters} or len(k4) != iters:
+        fail(f"panda-sim: plan launches {launches} ({len(k4)} K4 held), expected "
+             f"{{'fk_fields': {iters}}}")
+    means = planner.particle_means
+    best = int(torch.argmin(planner.cost.eval(means, observation=obs)))
+    waypoints = means[best, :, :7].double().cpu().numpy()
+    goal = np.asarray(PANDA_TARGET_POS, dtype=float)
+    spheres = ex.spheres[0]
+    out = dict(launches=launches, k4_rel=max(r["rel"] for r in k4), plan_seconds=plan_s,
+               iters=iters, best=best, waypoints=len(waypoints))
+
+    for physics in ("kinematic", "dynamics"):
+        card = sim_episode(physics, dev, waypoints, spheres, goal)
+        cpu = sim_episode(physics, "cpu", waypoints, spheres, goal)
+        panda = card["env"].panda
+        lo, hi = panda.jl_lower, panda.jl_upper
+        last = np.clip(waypoints[-1], lo, hi)
+        q = card["states"][:, :7]
+        err = float(np.abs(q[-1] - last).max())
+        tol = SIM_KIN_TOL if physics == "kinematic" else SIM_DYN_TOL
+        if not np.isfinite(card["states"]).all() or err > tol:
+            fail(f"panda-sim ({physics}): final q {err:.3g} from the last target (tol {tol})")
+        if physics == "kinematic" and ((q < lo).any() or (q > hi).any()):
+            fail("panda-sim (kinematic): a joint left its limits")
+        apart = float(np.abs(card["states"] - cpu["states"]).max())
+        if apart > SIM_CPU_TOL[physics] or card["flags"] != cpu["flags"]:
+            fail(f"panda-sim ({physics}): card and CPU joint states {apart:.3g} apart (tol "
+                 f"{SIM_CPU_TOL[physics]}), contact flags equal {card['flags'] == cpu['flags']}")
+        out[physics] = dict(
+            final_err=err, card_vs_cpu=apart, steps=card["steps"],
+            contact_steps=sum(f[0] for f in card["flags"]), done=card["done"],
+            reached=card["reached"], wall_s=card["wall"], cpu_wall_s=cpu["wall"],
+            step_ms=card["wall"] / card["steps"] * 1e3,
+            cpu_step_ms=cpu["wall"] / cpu["steps"] * 1e3)
+        if physics == "dynamics":
+            env = card["env"]
+            target = waypoints[-1]
+            dev_ms, top, ops = device_breakdown(lambda: env.step(target), 2)  # noqa: B023
+            out[physics].update(step_device_ms=dev_ms, step_device_ops=ops,
+                                step_top=top[:4])
+    out["graph_vs_eager"] = _graph_vs_eager(dev)
+
+    # one substep, graph and eager, at a state of the episode
+    from stoch_gpmp_tpu_torch.envs.objects import Panda
+
+    panda = Panda(use_dynamics=True, device=dev)
+    st = panda._integrators()
+    q, dq, u, dt = waypoints[-1].copy(), np.zeros(7), waypoints[-1].copy(), 1.0 / 240.0
+    t = st.dyn._t
+    qt, dqt, ut, dtt = t(q), t(dq), t(u), t(dt)
+    st.pd_step(q, dq, u, dt)
+    torch.cuda.synchronize()
+    n = 50
+    t0 = time.perf_counter()
+    for _ in range(n):
+        st.pd_step(q, dq, u, dt)
+    graph_ms = (time.perf_counter() - t0) / n * 1e3
+    eager_ms = cuda_ms(lambda: st.pd_eager(qt, dqt, ut, dtt), SIM_EAGER_STEPS)
+    e_dev, _, e_ops = device_breakdown(lambda: st.pd_eager(qt, dqt, ut, dtt), 2)
+    g_dev, _, g_ops = device_breakdown(lambda: st.pd_step(q, dq, u, dt), 2)
+    out["substep"] = dict(graph_ms=graph_ms, eager_ms=eager_ms, eager_device_ms=e_dev,
+                          eager_ops=e_ops, graph_device_ms=g_dev, graph_ops=g_ops)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _sim_lines(sim: dict, smi: str) -> None:
+    phase("panda-sim", f"plan: {sim['iters']} iters of build_panda_example(fast=True) in "
+                       f"{sim['plan_seconds']:.2f} s, launches {sim['launches']}, every K4 launch "
+                       f"held within {sim['k4_rel']:.2e} of float64 (rtol {K4_RTOL}); the best "
+                       f"final mean (particle {sim['best']}) as {sim['waypoints']} targets, then "
+                       f"the last for {SIM_HOLD} steps, {SIM_FREQ} substeps of 1/240 s a step")
+    for physics in ("kinematic", "dynamics"):
+        r = sim[physics]
+        tol = SIM_KIN_TOL if physics == "kinematic" else SIM_DYN_TOL
+        extra = ""
+        if physics == "dynamics":
+            extra = (f"; env step under the profiler: device time {fmt_ms(r['step_device_ms'])} in "
+                     f"{r['step_device_ops']:.0f} device operations, largest "
+                     + ", ".join(f"{k} {ms:.4f}" for k, ms in r["step_top"]))
+        phase("panda-sim", f"{physics}: {r['steps']} steps, final q {r['final_err']:.2e} from "
+                           f"the last target (tol {tol}), contact on {r['contact_steps']} steps, "
+                           f"goal reached {r['reached'][0]}; card vs CPU (float64) "
+                           f"{r['card_vs_cpu']:.2e} (tol {SIM_CPU_TOL[physics]}), contact "
+                           f"flags equal; episode {r['wall_s']:.3f} s on the card, "
+                           f"{r['step_ms']:.3f} ms per env step (CPU {r['cpu_step_ms']:.3f} "
+                           f"ms){extra} on {smi}")
+    g = sim["graph_vs_eager"]
+    phase("panda-sim", "graph vs eager substep on the card over "
+                       f"{SIM_GRAPH_STATES} states: " + ", ".join(
+                           f"{k} {v:.2e}" for k, v in g.items()) + f" (tol {SIM_GRAPH_TOL})")
+    sub = sim["substep"]
+    phase("panda-sim", f"PD substep (7 DOF): CUDA graph {sub['graph_ms']:.4f} ms per call with "
+                       f"its copies and sync (device {fmt_ms(sub['graph_device_ms'])} in "
+                       f"{sub['graph_ops']:.0f} device operations), eager {sub['eager_ms']:.4f} "
+                       f"ms (device {fmt_ms(sub['eager_device_ms'])} in {sub['eager_ops']:.0f} "
+                       f"device operations) on {smi}; the phase took {sim['seconds']:.1f} s")
+
+
 def sharded_phases() -> tuple[list, list]:
     """The sharded phases: SH_RANKS ranks, then nccl-1; each rank's rows."""
     from stoch_gpmp_tpu_torch.parallel.launch import launch
@@ -3769,6 +3985,8 @@ def main() -> int:
     phase("sharded", f"{SH_RANKS} ranks and nccl-1 in {time.perf_counter() - t0:.1f} s, the "
                      "ranks sharing one card (no scaling figure)")
     _sharded_lines(ranks, nccl, smi)
+    sim = panda_sim(dev, torch.tensor(px["q_goal"], device=dev))
+    _sim_lines(sim, smi)
     details.update(K1=k1, K2=k2, K2_split=k2_split, moments=mom, main=mp, K3=k3, K4=k4,
                    K4_generic=fkg, K5=k5, K5_split=k5_split, K5_shapes=k5_shapes,
                    K5_rng_free=k5_free, K5_moments=k5_mom, panda_main=pm, K6=k6,
@@ -3779,7 +3997,7 @@ def main() -> int:
                    planar_ref_main=pr,
                    gn_main=gn, S1=sc, long_horizon_main=lh, long_horizon_api=api,
                    panda_example=px, panda_mesh=pmesh, panda_gn=pg, gn_long=gl,
-                   sharded=ranks, nccl_1=nccl)
+                   sharded=ranks, nccl_1=nccl, panda_sim=sim)
     if args.log_dir:
         out = Path(args.log_dir)
         out.mkdir(parents=True, exist_ok=True)
@@ -3816,10 +4034,11 @@ def main() -> int:
         ("dof_quad_eval", "dof_quad_eval.cu", "stoch_gpmp_tpu/ops/pallas/stencil.py:242",
          pm["dof"]["launches"]["dof_quad_eval"] + sharded("dof_quad_eval", *sh_dof), k3,
          k3["bound"]),
-        # K4: config 5's dof path, panda-example (b) and sharded-dof
+        # K4: config 5's dof path, panda-example (b), sharded-dof and
+        # panda-sim's plan
         ("fk_fields", "fk_fields.cu", "stoch_gpmp_tpu/ops/pallas/panda_fields.py:325",
          pm["dof"]["launches"]["fk_fields"] + px["b"]["launches"]["fk_fields"]
-         + sharded("fk_fields", *sh_dof), k4, k4["bound"]),
+         + sharded("fk_fields", *sh_dof) + sim["launches"]["fk_fields"], k4, k4["bound"]),
         ("fused_panda_dof_step", "fused_panda_dof_step.cu",
          "stoch_gpmp_tpu/ops/pallas/panda_step_dof.py:225",
          pm["fused"]["launches"]["fused_panda_dof_step"], k5, k5["bound"]),

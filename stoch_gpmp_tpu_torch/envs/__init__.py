@@ -5,7 +5,20 @@ from stoch_gpmp_tpu_torch.envs.obst_map import (
     ObstacleMap,
     ObstacleRectangle,
 )
-from stoch_gpmp_tpu_torch.envs.panda_env import random_init_static_sphere
+
+
+def __getattr__(name):
+    # lazy: panda_env pulls in the kinematics stack
+    if name in ("PandaEnv", "random_init_static_sphere", "update_linear_velocity_sphere"):
+        from stoch_gpmp_tpu_torch.envs import panda_env
+
+        return getattr(panda_env, name)
+    if name in ("Panda", "Sphere", "BodyCore", "DynamicBodyCore"):
+        from stoch_gpmp_tpu_torch.envs import objects
+
+        return getattr(objects, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "generate_obstacle_map",
@@ -13,5 +26,7 @@ __all__ = [
     "ObstacleCircle",
     "ObstacleMap",
     "ObstacleRectangle",
-    "random_init_static_sphere",
+    "PandaEnv",
+    "Panda",
+    "Sphere",
 ]

@@ -1,4 +1,5 @@
 from stoch_gpmp_tpu_torch.kinematics.chain import KinematicChain, LinkState
+from stoch_gpmp_tpu_torch.kinematics.dynamics import ChainDynamics
 from stoch_gpmp_tpu_torch.kinematics.panda_model import (
     PANDA_FK_LINKS,
     PANDA_GRIPPER_FK_LINKS,
@@ -6,6 +7,7 @@ from stoch_gpmp_tpu_torch.kinematics.panda_model import (
     PANDA_WITH_GRIPPER,
     DifferentiableFrankaPanda,
     franka_panda,
+    panda_dynamics,
 )
 from stoch_gpmp_tpu_torch.kinematics.se3 import (
     Frame,
@@ -20,9 +22,10 @@ from stoch_gpmp_tpu_torch.kinematics.se3 import (
     y_rot,
     z_rot,
 )
-from stoch_gpmp_tpu_torch.kinematics.urdf import JointSpec, RobotModel, parse_urdf
+from stoch_gpmp_tpu_torch.kinematics.urdf import InertialSpec, JointSpec, RobotModel, parse_urdf
 
 __all__ = [
+    "ChainDynamics",
     "DifferentiableFrankaPanda",
     "Frame",
     "KinematicChain",
@@ -33,6 +36,7 @@ __all__ = [
     "PANDA_WITH_GRIPPER",
     "axis_angle_to_matrix",
     "franka_panda",
+    "panda_dynamics",
     "homogeneous",
     "matrix_to_quaternion",
     "quaternion_to_matrix",
@@ -42,6 +46,7 @@ __all__ = [
     "x_rot",
     "y_rot",
     "z_rot",
+    "InertialSpec",
     "JointSpec",
     "RobotModel",
     "parse_urdf",

@@ -5,8 +5,9 @@ its own copy of the joint tables: the public Franka Emika Panda
 specification (``franka_description``), the no-gripper arm (7 revolute
 joints plus the fixed base, hand and end-effector frames) and the gripper
 variant (the same 7 joints with slightly wider limits, link 8, the hand,
-two prismatic finger joints and the grasp-target frame: 9 DOF). The
-inertial parameters (inverse dynamics) are not ported yet.
+two prismatic finger joints and the grasp-target frame: 9 DOF), and the
+per-link inertials both models carry for the rigid-body dynamics
+(:func:`panda_dynamics`).
 """
 
 from __future__ import annotations
@@ -16,9 +17,29 @@ import math
 import torch
 
 from stoch_gpmp_tpu_torch.kinematics.chain import KinematicChain
-from stoch_gpmp_tpu_torch.kinematics.urdf import JointSpec, RobotModel
+from stoch_gpmp_tpu_torch.kinematics.urdf import InertialSpec, JointSpec, RobotModel
+from stoch_gpmp_tpu_torch.utils.device import resolve_device
 
 _HALF_PI = math.pi / 2.0
+
+# Inertial parameters of the franka_description asset's <inertial> blocks:
+# masses and COM offsets per link, diag(0.1) rotational inertia.
+_D = dict(ixx=0.1, iyy=0.1, izz=0.1)
+PANDA_INERTIALS = (
+    InertialSpec("panda_link0", 2.9, (0.0, 0.0, 0.05), **_D),
+    InertialSpec("panda_link1", 2.7, (0.0, -0.04, -0.05), **_D),
+    InertialSpec("panda_link2", 2.73, (0.0, -0.04, 0.06), **_D),
+    InertialSpec("panda_link3", 2.04, (0.01, 0.01, -0.05), **_D),
+    InertialSpec("panda_link4", 2.08, (-0.03, 0.03, 0.02), **_D),
+    InertialSpec("panda_link5", 3.0, (0.0, 0.04, -0.12), **_D),
+    InertialSpec("panda_link6", 1.3, (0.04, 0.0, 0.0), **_D),
+    InertialSpec("panda_link7", 0.2, (0.0, 0.0, 0.08), **_D),
+    InertialSpec("panda_link8", 0.0, (0.0, 0.0, 0.0), **_D),
+    InertialSpec("panda_hand", 0.81, (0.0, 0.0, 0.04), **_D),
+    InertialSpec("panda_leftfinger", 0.1, (0.0, 0.01, 0.02), **_D),
+    InertialSpec("panda_rightfinger", 0.1, (0.0, -0.01, 0.02), **_D),
+    InertialSpec("panda_grasptarget", 0.0, (0.0, 0.0, 0.0), **_D),
+)
 
 PANDA_NO_GRIPPER = RobotModel(
     name="panda_no_gripper",
@@ -72,6 +93,7 @@ PANDA_NO_GRIPPER = RobotModel(
             origin_xyz=(0.0, 0.0, 0.1), origin_rpy=(0.0, 0.0, -1.57),
         ),
     ),
+    inertials=PANDA_INERTIALS,
 )
 
 # The movable-link frames the FK exposes by default, end-effector last.
@@ -165,6 +187,7 @@ PANDA_WITH_GRIPPER = RobotModel(
             origin_xyz=(0.0, 0.0, 0.105),
         ),
     ),
+    inertials=PANDA_INERTIALS,
 )
 
 PANDA_GRIPPER_FK_LINKS = [
@@ -190,6 +213,16 @@ def franka_panda(dtype=torch.float32, link_names=None, gripper: bool = False) ->
     default_links = PANDA_GRIPPER_FK_LINKS if gripper else PANDA_FK_LINKS
     return KinematicChain(model, link_names=link_names if link_names is not None
                           else default_links, dtype=dtype)
+
+
+def panda_dynamics(gripper: bool = False, dtype=torch.float64, device=None):
+    """Batched RNEA dynamics for the Panda (inertials ``PANDA_INERTIALS``).
+    Float64 by default, as the JAX package computes it under x64; the
+    device is the CUDA card unless ``device`` says otherwise."""
+    from stoch_gpmp_tpu_torch.kinematics.dynamics import ChainDynamics
+
+    return ChainDynamics(PANDA_WITH_GRIPPER if gripper else PANDA_NO_GRIPPER, dtype=dtype,
+                         device=resolve_device(device))
 
 
 class DifferentiableFrankaPanda:

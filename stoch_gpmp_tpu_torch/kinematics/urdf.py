@@ -1,9 +1,10 @@
 """Minimal URDF parser producing a kinematic-chain specification.
 
 PyTorch counterpart of ``stoch_gpmp_tpu/kinematics/urdf.py``: joints
-(type, origin, axis, limits incl. effort) and the link graph. The per-link
-``<inertial>`` blocks feed inverse dynamics, which is not ported yet; the
-parser skips them, as it skips visual and collision geometry.
+(type, origin, axis, limits incl. effort), the link graph and the per-link
+``<inertial>`` blocks (mass, COM origin, inertia tensor), the inputs of
+the rigid-body dynamics (``kinematics/dynamics.py``). Visual and collision
+geometry are ignored.
 """
 
 from __future__ import annotations
@@ -32,10 +33,34 @@ class JointSpec:
 
 
 @dataclass(frozen=True)
+class InertialSpec:
+    """Per-link ``<inertial>``: mass, COM pose in the link frame, and the
+    symmetric inertia tensor about the COM expressed in the inertial frame."""
+
+    link: str
+    mass: float
+    com_xyz: tuple[float, float, float] = (0.0, 0.0, 0.0)
+    com_rpy: tuple[float, float, float] = (0.0, 0.0, 0.0)
+    ixx: float = 0.0
+    ixy: float = 0.0
+    ixz: float = 0.0
+    iyy: float = 0.0
+    iyz: float = 0.0
+    izz: float = 0.0
+
+
+@dataclass(frozen=True)
 class RobotModel:
     name: str
     joints: tuple[JointSpec, ...]
     links: tuple[str, ...] = field(default_factory=tuple)
+    inertials: tuple[InertialSpec, ...] = field(default_factory=tuple)
+
+    def inertial_for(self, link: str) -> InertialSpec | None:
+        for it in self.inertials:
+            if it.link == link:
+                return it
+        return None
 
     @property
     def root_link(self) -> str:
@@ -94,4 +119,24 @@ def parse_urdf(source: str) -> RobotModel:
             limit_effort=_limit(limit, "effort"),
         ))
     links = tuple(link.get("name") for link in root.findall("link"))
-    return RobotModel(name=root.get("name", "robot"), joints=tuple(joints), links=links)
+    return RobotModel(name=root.get("name", "robot"), joints=tuple(joints), links=links,
+                      inertials=tuple(_inertial(link) for link in root.findall("link")
+                                      if link.find("inertial") is not None))
+
+
+def _inertial(link) -> InertialSpec:
+    """The ``<inertial>`` block of a ``<link>`` element: absent entries are
+    0 (mass, inertia) or the identity pose."""
+    node = link.find("inertial")
+    origin, mass, inertia = node.find("origin"), node.find("mass"), node.find("inertia")
+
+    def moment(attr):
+        return 0.0 if inertia is None or inertia.get(attr) is None else float(inertia.get(attr))
+
+    return InertialSpec(
+        link=link.get("name"),
+        mass=float(mass.get("value")) if mass is not None else 0.0,
+        com_xyz=_floats(origin.get("xyz") if origin is not None else None, (0.0, 0.0, 0.0)),
+        com_rpy=_floats(origin.get("rpy") if origin is not None else None, (0.0, 0.0, 0.0)),
+        **{a: moment(a) for a in ("ixx", "ixy", "ixz", "iyy", "iyz", "izz")},
+    )

@@ -1,10 +1,11 @@
 """Rank programs: run the sharded paths on given problems, return numpy.
 
-``run_cases(cases)`` runs in every rank of a ``parallel.launch`` call; each
-case names a path, a mesh shape and its inputs (the port's objects on the
-CPU, the global initial means, the global draws), and every rank returns
-each case's global outputs as numpy arrays. The CPU tests run it on four
-gloo ranks against the JAX package's sharded results:
+``run_cases(cases, device)`` runs in every rank of a ``parallel.launch``
+call; each case names a path, a mesh shape and its inputs (the port's
+objects on the CPU, the global initial means, the global draws), and every
+rank returns each case's global outputs as numpy arrays. ``device`` None
+means the CUDA card, as at every entry point of the port. The CPU tests run
+it on four gloo ranks against the JAX package's sharded results:
 
     from stoch_gpmp_tpu_torch.parallel.launch import launch
     from stoch_gpmp_tpu_torch.parallel.drive import run_cases
@@ -42,10 +43,14 @@ def _inject(planner, eps: list) -> None:
     planner._sharded_runner = runner
 
 
-def run_cases(cases: list, device: str = "cpu") -> list:
-    """Each case's global outputs (a dict of numpy arrays) on this rank."""
+def run_cases(cases: list, device=None) -> list:
+    """Each case's global outputs (a dict of numpy arrays) on this rank, on
+    ``device`` (None: the CUDA card; raises before any collective when
+    there is none)."""
     from stoch_gpmp_tpu_torch.parallel import make_mesh
+    from stoch_gpmp_tpu_torch.utils.device import resolve_device
 
+    device = resolve_device(device)
     meshes, out = {}, []
     for case in cases:
         shape = tuple(case["mesh"])

@@ -24,8 +24,7 @@ PACKAGES = ("costs", "envs", "gp", "kinematics", "parallel", "planners", "utils"
 POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY, inspect.Parameter.POSITIONAL_OR_KEYWORD)
 
 # JAX-only positional parameters, left out of the comparison, by qualified
-# name: each is an execution or layout choice of a TPU kernel, or belongs to
-# a module not ported yet.
+# name: each is an execution or layout choice of a TPU kernel.
 OMITTED = {
     # the Pallas or gather/one-hot choice of a TPU kernel: the port has one
     # CUDA kernel per field
@@ -41,9 +40,6 @@ OMITTED = {
     # given
     "PlaneFieldsCost": ("num_obstacles", "use_pallas", "sel", "tmask", "tpad"),
     "PlaneFieldsCost.__init__": ("num_obstacles", "use_pallas", "sel", "tmask", "tpad"),
-    # inertial parameters: inverse dynamics is not ported yet
-    "RobotModel": ("inertials",),
-    "RobotModel.__init__": ("inertials",),
 }
 # the same position under another name: a JAX PRNG key is a torch.Generator
 RENAMED = {"key": "generator"}
@@ -51,12 +47,13 @@ RENAMED = {"key": "generator"}
 # shard_particles, keep JAX's names and places but not its meaning: in JAX a
 # sharding constraint of one global program, in the port this rank's place
 # in a mesh of processes, each holding its block; their docstrings say so.)
+# (The simulator takes its device after JAX's parameters: ``device=`` on
+# ``ChainDynamics`` and ``panda_dynamics``, keyword-only on ``Panda`` and
+# ``PandaEnv``; ``Panda.solveInverseKinematics`` takes the IK starts as a
+# keyword-only ``starts=``, as ``solve_ik_multistart`` does.)
 # public names of the JAX modules the port does not have yet, by qualified
-# name: inverse dynamics and the simulator (the Panda environment and its
-# bodies, envs/objects.py), the next slice in queue 1 of ROADMAP.md
-NOT_PORTED = {"ChainDynamics", "InertialSpec", "panda_dynamics", "RobotModel.inertial_for",
-              "PandaEnv", "Panda", "Sphere", "update_linear_velocity_sphere",
-              "update_linear_velocity_sphere_simple"}
+# name: none, the port covers every module of the JAX package
+NOT_PORTED: set = set()
 
 
 def _modules():

@@ -656,9 +656,11 @@ def test_panda_builders_match_jax_stacks():
 
 
 def test_panda_planning_modules_never_import_jax():
-    """The modules of this slice, a CPU build of each Panda problem (IK
-    included) and a step of each load no JAX and nothing of the JAX
-    package."""
+    """The Panda planning modules, a CPU build of each Panda problem (IK
+    included) and a step of each, and the simulator (dynamics, bodies,
+    environment, the example twins) with an environment step through the
+    dynamics and a torque step of the 9-DOF arm load no JAX and nothing of
+    the JAX package."""
     import subprocess
 
     code = (
@@ -675,6 +677,14 @@ def test_panda_planning_modules_never_import_jax():
         "    b.planner.optimize(opt_iters=1, observation=b.observation)\n"
         "g = pr.build_panda_gpmp(method='woodbury', device='cpu')\n"
         "g.planner.optimize(opt_iters=1, observation=g.observation)\n"
+        "import stoch_gpmp_tpu_torch.kinematics.dynamics, stoch_gpmp_tpu_torch.envs.objects\n"
+        "import stoch_gpmp_tpu_torch.examples.panda_environment\n"
+        "import stoch_gpmp_tpu_torch.examples.planar_sharded\n"
+        "from stoch_gpmp_tpu_torch.envs import Panda, PandaEnv\n"
+        "env = PandaEnv(num_obst=2, seed=0, physics='dynamics', device='cpu')\n"
+        "env.reset(); env.step(env.panda.q + 0.05)\n"
+        "p = Panda(gripper=True, device='cpu')\n"
+        "p.setTargetTorques(p.solveInverseDynamics(p.q, p.dq, p.dq)); p.step(1 / 240)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'stoch_gpmp_tpu.', 'benchmarks')))\n"
         "assert not bad, bad\n"
     )

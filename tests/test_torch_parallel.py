@@ -539,6 +539,21 @@ def test_shard_dof_quad_takes_only_a_viewed_quadratic():
     np.testing.assert_allclose(got.numpy(), whole.numpy()[12:36], rtol=1e-12)
 
 
+def test_run_cases_defaults_to_the_card():
+    """``run_cases``'s device defaults to None, the card: on a host without
+    one it raises ``resolve_device``'s error before any collective (no
+    process group exists here), as every entry point of the port does."""
+    import inspect
+
+    from stoch_gpmp_tpu_torch.parallel.drive import run_cases
+
+    assert inspect.signature(run_cases).parameters["device"].default is None
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves to it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_cases([dict(kind="mesh", mesh=(1, 1))])
+
+
 def test_single_rank_mesh_is_the_unsharded_path():
     """On a mesh of one rank the sharded classes give the unsharded results
     bit for bit (every collective is the identity)."""
