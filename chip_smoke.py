@@ -190,7 +190,22 @@ Phases, one line each; any failure exits non-zero before the result line:
     states within 1e-12 / 1e-9, equal contact flags); the graph-replayed
     substep against the eager one within 1e-12 on 20 states, PD and torque
     mode, 7 and 9 DOF; ms per env step and per substep (graph and eager)
-    and device operations per substep and per env step.
+    and device operations per substep and per env step;
+28. planar-examples: the twins of the planar demos,
+    ``stoch_gpmp_tpu_torch/examples/planar_environment.py`` and
+    ``planar_gpmp.py``, through their ``main()`` on the card at their
+    defaults (seed 0, no plot flag): (a) ``--fast``, 500 iterations (P = 15,
+    S = 128, T = 64; K10 once an iteration), (b) without ``--fast``, 500
+    (K10), (c) ``--fast --traj-len 2048`` (M = 8192), 200 iterations on the
+    ``"planes"`` route (S1 and K1 once an iteration, every iteration's S1
+    launch by TMA, one more S1 launch for the init draw), (d) 100
+    Gauss-Newton iterations each of ``cholesky`` and ``woodbury`` (K10);
+    the main path's planar gates on (a)-(c), gn-main's on (d) and woodbury
+    within 1e-4 of cholesky; then the first 5 iterations of each run again
+    with every K10, K1 and S1 launch held against its plain version on the
+    path's own inputs; updates/s over ``main()``, and wall and device ms,
+    device operations per iteration, the busy share and the largest kernels
+    over a 10-iteration window.
 
 Times: ``ms``/``plain_ms`` are per call over back-to-back calls through
 the wrapper (CUDA events), which includes the host's launch cost where it
@@ -438,6 +453,22 @@ SIM_PLAN_ITERS, SIM_FREQ, SIM_HOLD = 100, 24, 50
 SIM_KIN_TOL, SIM_DYN_TOL = 1e-9, 1e-3
 SIM_CPU_TOL = {"kinematic": 1e-12, "dynamics": 1e-9}
 SIM_GRAPH_TOL, SIM_GRAPH_STATES, SIM_EAGER_STEPS = 1e-12, 20, 5
+# planar-examples: the example twins stoch_gpmp_tpu_torch/examples/
+# planar_environment.py and planar_gpmp.py run on the card through main(),
+# at their defaults (--seed 0, no plot flag): (a) --fast, PE_ITERS
+# iterations (QuadraticCost + the grid, K10 once an iteration); (b) without
+# --fast, PE_ITERS (the reference-shaped stack on the grid, K10); (c) --fast
+# --traj-len PE_LONG_T (M = 8192), PE_LONG_ITERS iterations on the "planes"
+# route (S1 and K1 once an iteration, every iteration's S1 launch by TMA; the
+# planner's init draw is one more S1 launch, on stride-d planes); (d)
+# planar_gpmp, PE_GN_ITERS iterations of cholesky and of woodbury from the
+# same init draw (seed 0). Gates: (a)-(c) the main path's GOAL_TOL /
+# START_TOL, (d) gn-main's GN_GOAL_TOL / GN_START_TOL and woodbury within
+# GN_METHOD_ATOL of cholesky. Then each run again for PE_WINDOW iterations
+# (the first iterations of the same run) with every K10, K1 and S1 launch
+# held against its plain version on the path's own inputs under the K10,
+# K1 and S1 phases' gates, and a profiled window of PE_PROFILE iterations.
+PE_ITERS, PE_LONG_T, PE_LONG_ITERS, PE_GN_ITERS, PE_WINDOW, PE_PROFILE = 500, 2048, 200, 100, 5, 5
 # Peak rates of one H100 SXM (data sheet) for the bound_ms column.
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
 FP32_FLOP_PER_SM = FP32_FLOP_PER_S / 132
@@ -588,20 +619,20 @@ def _cast(obj, dtype, device):
 
 
 def planar_gates(what: str, means, out=None) -> tuple[float, float]:
-    """The planar paths' gates on the final ``means [15, T, 4]`` (and the
-    planner's 6-tuple ``out``, when given: its shapes and finite values):
-    end points within GOAL_TOL of their goals, starts within START_TOL.
-    Returns ``(goal_err, start_err)``."""
+    """The planar paths' gates on the final ``means [P, T, 4]`` (3 goals,
+    goal-major; and the planner's 6-tuple ``out``, when given: its shapes
+    and finite values): end points within GOAL_TOL of their goals, starts
+    within START_TOL. Returns ``(goal_err, start_err)``."""
     from stoch_gpmp_tpu_torch.problems import GOALS, START
 
-    p = means.shape[0]
+    p, t = means.shape[:2]
     if out is not None:
         shapes = [tuple(o.shape) for o in out]
-        if shapes != [(p, T, 2), (p, T, 2), (p, S, T, 2), (p, S, T, 2), (p, S), (p, T, 4)]:
+        if shapes != [(p, t, 2), (p, t, 2), (p, S, t, 2), (p, S, t, 2), (p, S), (p, t, 4)]:
             fail(f"{what}: unexpected 6-tuple shapes {shapes}")
     if not all(bool(torch.isfinite(o).all()) for o in (out or (means,))):
         fail(f"{what}: non-finite output")
-    ends = means.reshape(3, PPG, T, 4)[:, :, -1, :2].cpu()
+    ends = means[:, -1, :2].reshape(3, p // 3, 2).cpu()
     goal_err = float((ends - torch.tensor(GOALS)[:, None, :2]).norm(dim=-1).max())
     start_err = float((means[:, 0, :2].cpu() - torch.tensor(START[:2])).abs().max())
     if goal_err >= GOAL_TOL or start_err >= START_TOL:
@@ -3018,7 +3049,7 @@ def _check_k10(got, grid, points, cell_size):
 
     want = grid_lookup_plain(grid, points, cell_size)
     if not torch.equal(got, want):
-        fail(f"K10 on a rank's points {list(points.shape)}: differs from the plain version at "
+        fail(f"K10 on the path's points {list(points.shape)}: differs from the plain version at "
              f"{int((got != want).sum())} of {want.numel()} points")
     return dict(shape=list(points.shape), hits=int((got > 0).sum()))
 
@@ -3028,7 +3059,7 @@ def _check_s1(got, solver, planes, *, backward, out=None):
 
     x = torch.stack(tuple(planes))
     plain = torch.stack(plain_solve(solver, tuple(planes), backward=backward))
-    err = _s1_errors(f"on a rank's planes {list(x.shape)}", x.dtype, torch.stack(tuple(got)),
+    err = _s1_errors(f"on the path's planes {list(x.shape)}", x.dtype, torch.stack(tuple(got)),
                      plain, _serial_s1(solver, x, backward))
     return dict(err, shape=list(x.shape), backward=backward)
 
@@ -3536,6 +3567,174 @@ def _sim_lines(sim: dict, smi: str) -> None:
                        f"device operations) on {smi}; the phase took {sim['seconds']:.1f} s")
 
 
+def _check_k1(got, rect_bounds, circles, points, *, cell_size, nx, ny):
+    from stoch_gpmp_tpu_torch.ops.kernels.fields import raster_primitive_cost_plain
+
+    want = raster_primitive_cost_plain(rect_bounds, circles, points, cell_size=cell_size, nx=nx,
+                                       ny=ny)
+    if not torch.equal(got, want):
+        fail(f"K1 on the path's points {list(points.shape)} at strides {list(points.stride())}: "
+             f"differs from the plain version at {int((got != want).sum())} of {want.numel()} "
+             "points")
+    return dict(shape=list(points.shape), hits=int((got > 0).sum()))
+
+
+@contextlib.contextmanager
+def counts_at_first_call(cls, name: str, seen: list):
+    """Within the block, the first call of ``cls.name`` appends the launch
+    counts and S1's staged launches as they stand just before it."""
+    from stoch_gpmp_tpu_torch.ops.kernels.bidiag_scan import bidiag_scan
+
+    fn = getattr(cls, name)
+
+    def first(self, *args, **kw):
+        if not seen:
+            seen.append((_counted(), bidiag_scan.staged_launches))
+        return fn(self, *args, **kw)
+
+    setattr(cls, name, first)
+    try:
+        yield
+    finally:
+        setattr(cls, name, fn)
+
+
+def planar_examples(dev) -> dict:
+    """Phase 28: the planar example twins on the card through their
+    ``main()`` (the constants' comment at PE_ITERS): per run the launch
+    counts, the gates, updates/s over ``main()``, a held window and a
+    profiled one."""
+    import io
+
+    from stoch_gpmp_tpu_torch import problems
+    from stoch_gpmp_tpu_torch.examples import planar_environment, planar_gpmp
+    from stoch_gpmp_tpu_torch.ops.kernels import bidiag_scan as s1_mod, fields
+    from stoch_gpmp_tpu_torch.planners import StochGPMP
+    from stoch_gpmp_tpu_torch.planners.stoch_gpmp import _route
+
+    t_phase = time.perf_counter()
+    s1 = s1_mod.bidiag_scan
+    runs = {
+        "a": (planar_environment.main, ["--fast"], PE_ITERS),
+        "b": (planar_environment.main, [], PE_ITERS),
+        "c": (planar_environment.main, ["--fast", "--traj-len", str(PE_LONG_T)], PE_LONG_ITERS),
+        "d cholesky": (planar_gpmp.main, ["--method", "cholesky"], PE_GN_ITERS),
+        "d woodbury": (planar_gpmp.main, ["--method", "woodbury"], PE_GN_ITERS),
+    }
+    out, gn_means = {}, {}
+    for key, (main_fn, flags, iters) in runs.items():
+        argv = [*flags, "--seed", "0", "--iters", str(iters)]
+        gn = key.startswith("d")
+        first, log = [], io.StringIO()
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counts_at_first_call(StochGPMP, "optimize", first), contextlib.redirect_stdout(log):
+            res = main_fn(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, staged = _counted(), s1.staged_launches
+        generic = {k: n for k, n in generic_walks(kernel_counters()).items() if n}
+        lines = log.getvalue().splitlines()
+        row = dict(argv=argv, iters=iters, seconds=seconds, launches=launches,
+                   last_line=" ".join(" ".join(lines[-3 if gn else -1:]).split()))
+        if gn:
+            vel, pos, costs = res
+            p = pos.shape[0]
+            want = {"grid_lookup": iters + 1}  # each linearisation, the returned costs
+            if not all(bool(torch.isfinite(o).all()) for o in res):
+                fail(f"planar-examples ({key}): non-finite output")
+            goals = torch.tensor(problems.GPMP_GOALS, device=pos.device)[:, None, :2]
+            row["goal_err"] = float((pos[:, -1].reshape(2, -1, 2) - goals).norm(dim=-1).max())
+            row["start_err"] = float((pos[:, 0] - torch.tensor(problems.START[:2],
+                                                               device=pos.device)).abs().max())
+            if row["goal_err"] >= GN_GOAL_TOL or row["start_err"] >= GN_START_TOL:
+                fail(f"planar-examples ({key}): end points {row['goal_err']:.3g} from the goals, "
+                     f"start {row['start_err']:.3g}")
+            gn_means[key] = torch.cat([pos, vel], dim=-1)
+            planner = problems.build_planar_gpmp_problem(3, method=key.split()[1], seed=0,
+                                                         device=dev)
+        else:
+            planner = res
+            p, t = planner.particle_means.shape[:2]
+            long = key == "c"
+            want = ({"bidiag_scan": iters + 1, "raster_field": iters} if long
+                    else {"grid_lookup": iters})
+            route = _route(planner.sampler, planner.cost, t)
+            if route != ("planes" if long else "flat"):
+                fail(f"planar-examples ({key}): route {route}")
+            row["route"] = route
+            if long:
+                before, staged0 = first[0]
+                row.update(init_launches=before, init_staged=staged0,
+                           iteration_staged=staged - staged0)
+                if before != {"bidiag_scan": 1} or staged != staged0:
+                    fail(f"planar-examples ({key}): {before} before the first iteration, "
+                         f"{staged - staged0} S1 launches of the iterations without TMA")
+            row["goal_err"], row["start_err"] = planar_gates(f"planar-examples ({key})",
+                                                             planner.particle_means)
+        if launches != want or generic:
+            fail(f"planar-examples ({key}): launches {launches} ({generic} runtime-d or "
+                 f"generic), expected {want}")
+        row["particles"] = p
+        row["updates_per_s"] = p * iters / seconds
+        # the held window: the first PE_WINDOW iterations of the same run
+        t_held = time.perf_counter()
+        held = {"K10": [], "K1": [], "S1": []}
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(held_kernel(fields, "grid_lookup", _check_k10, held["K10"]))
+            stack.enter_context(held_kernel(fields, "raster_primitive_cost", _check_k1,
+                                            held["K1"]))
+            stack.enter_context(held_kernel(s1_mod, "bidiag_scan", _check_s1, held["S1"]))
+            stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
+            main_fn([*flags, "--seed", "0", "--iters", str(PE_WINDOW)])
+        n_held = {k: len(v) for k, v in held.items() if v}
+        want_held = {k: n for k, n in (("K10", 0 if key == "c" else PE_WINDOW + gn),
+                                       ("K1", PE_WINDOW if key == "c" else 0),
+                                       ("S1", PE_WINDOW + 1 if key == "c" else 0)) if n}
+        if n_held != want_held:
+            fail(f"planar-examples ({key}): held {n_held} launches, expected {want_held}")
+        row["held"] = n_held
+        if held["S1"]:
+            row["s1_held_rel"] = max(h["s1_rel"] for h in held["S1"])
+        t_window = time.perf_counter()
+        row.update(_path_row(*_windowed(lambda: planner.optimize(opt_iters=PE_PROFILE),
+                                        PE_PROFILE)),
+                   held_seconds=t_window - t_held, window_seconds=time.perf_counter() - t_window)
+        out[key] = row
+    diff = float((gn_means["d cholesky"] - gn_means["d woodbury"]).abs().max())
+    if not diff <= GN_METHOD_ATOL:
+        fail(f"planar-examples (d): woodbury {diff:.3g} from cholesky (atol {GN_METHOD_ATOL})")
+    return dict(runs=out, woodbury_vs_cholesky=diff, seconds=time.perf_counter() - t_phase)
+
+
+def _planar_example_lines(pe: dict, smi: str) -> None:
+    for key, r in pe["runs"].items():
+        busy = "not measured" if r["device_busy"] is None else format(r["device_busy"], ".1%")
+        extra = ""
+        if key == "c":
+            extra = (f", {r['init_launches']} before the first iteration (the init draw; "
+                     f"staged {r['init_staged']}), iterations' S1 launches staged "
+                     f"{r['iteration_staged']}, held S1 within {r['s1_held_rel']:.2e} of the "
+                     f"float64 recurrence (rtol {S1_RTOL[torch.float32]})")
+        phase("planar-examples", f"({key}) main({' '.join(r['argv'])}): {r['iters']} iters at P = "
+                                 f"{r['particles']}{'' if 'route' not in r else ', ' + r['route']}"
+                                 f", launches {r['launches']}{extra}; held against plain "
+                                 f"{r['held']}; goal err {r['goal_err']:.3g}, start err "
+                                 f"{r['start_err']:.2e}; {r['updates_per_s']:.0f} updates/s over "
+                                 f"main() ({r['seconds']:.2f} s); {PE_PROFILE}-iteration window "
+                                 f"{r['iter_wall_ms']:.4f} ms/iter wall, device time "
+                                 f"{fmt_ms(r['iter_device_ms'])}/iter in "
+                                 f"{r['device_ops_per_iter']:.0f} device operations, device "
+                                 f"busy {busy} on {smi}; held window {r['held_seconds']:.2f} "
+                                 f"s, profiled window {r['window_seconds']:.2f} s")
+        phase("planar-examples", f"({key}) printed: {r['last_line']}; device ms per iteration "
+                                 "by kernel: " + "; ".join(
+                                     f"{n} {ms:.4f}" for n, ms in r["top_kernels_ms_per_iter"]))
+    phase("planar-examples", f"(d) woodbury within {pe['woodbury_vs_cholesky']:.2e} of cholesky "
+                             f"(atol {GN_METHOD_ATOL}); the phase took {pe['seconds']:.1f} s")
+
+
 def sharded_phases() -> tuple[list, list]:
     """The sharded phases: SH_RANKS ranks, then nccl-1; each rank's rows."""
     from stoch_gpmp_tpu_torch.parallel.launch import launch
@@ -3987,6 +4186,8 @@ def main() -> int:
     _sharded_lines(ranks, nccl, smi)
     sim = panda_sim(dev, torch.tensor(px["q_goal"], device=dev))
     _sim_lines(sim, smi)
+    pe = planar_examples(dev)
+    _planar_example_lines(pe, smi)
     details.update(K1=k1, K2=k2, K2_split=k2_split, moments=mom, main=mp, K3=k3, K4=k4,
                    K4_generic=fkg, K5=k5, K5_split=k5_split, K5_shapes=k5_shapes,
                    K5_rng_free=k5_free, K5_moments=k5_mom, panda_main=pm, K6=k6,
@@ -3997,7 +4198,7 @@ def main() -> int:
                    planar_ref_main=pr,
                    gn_main=gn, S1=sc, long_horizon_main=lh, long_horizon_api=api,
                    panda_example=px, panda_mesh=pmesh, panda_gn=pg, gn_long=gl,
-                   sharded=ranks, nccl_1=nccl, panda_sim=sim)
+                   sharded=ranks, nccl_1=nccl, panda_sim=sim, planar_examples=pe)
     if args.log_dir:
         out = Path(args.log_dir)
         out.mkdir(parents=True, exist_ok=True)
@@ -4021,12 +4222,14 @@ def main() -> int:
     sh_long = [lambda r: r["long"]]
     record = [
         # K1: the planar main path's launch, long-horizon-main's at T = 4096,
-        # gn-long's (cholesky), sharded-planar's, sharded-long's and nccl-1's
+        # gn-long's (cholesky), sharded-planar's, sharded-long's, nccl-1's
+        # and planar-examples (c)'s
         ("raster_field", "raster_field.cu", "stoch_gpmp_tpu/ops/pallas/fields.py:147",
          mp["launches"]["raster_field"] + lh[LH_HORIZONS[0]]["launches"]["raster_field"]
          + gl["cholesky"]["launches"]["raster_field"]
          + sharded("raster_field", *sh_planar, *sh_long)
-         + sum(r["launches"]["raster_field"] for r in nccl), k1, k1_bound),
+         + sum(r["launches"]["raster_field"] for r in nccl)
+         + pe["runs"]["c"]["launches"]["raster_field"], k1, k1_bound),
         ("fused_planar_step", "fused_planar_step.cu",
          "stoch_gpmp_tpu/ops/pallas/fused_step.py:419", mp["launches"]["fused_planar_step"],
          dict(k2["matmul"], max_abs_err=max(r["max_abs_err"] for r in k2.values())), k2_bound),
@@ -4057,10 +4260,11 @@ def main() -> int:
          dict(k9["matmul"], max_abs_err=max(r["max_abs_err"] for r in k9.values())),
          bound(4 * (3 * 3 * PPG * m2 + 2 * m2 * m2 + 3 * PPG * S + 2 * 3 * PPG),
                2 * 2 * 3 * PPG * S * m2 * m2)),
-        # K10: planar-ref (g) and sharded-gn
+        # K10: planar-ref (g), sharded-gn and planar-examples (a), (b), (d)
         ("grid_lookup", "grid_lookup.cu", "stoch_gpmp_tpu/ops/pallas/fields.py:69",
-         pr["g"]["launches"]["grid_lookup"] + sharded("grid_lookup", *sh_gn), f2["K10"],
-         f2["K10"]["bound"]),
+         pr["g"]["launches"]["grid_lookup"] + sharded("grid_lookup", *sh_gn)
+         + sum(r["launches"].get("grid_lookup", 0) for r in pe["runs"].values()),
+         f2["K10"], f2["K10"]["bound"]),
         ("primitive_field", "primitive_field.cu", "stoch_gpmp_tpu/ops/pallas/fields.py:214",
          pr["p"]["launches"]["primitive_field"], f2["K11"], f2["K11"]["bound"]),
     ]
@@ -4068,7 +4272,8 @@ def main() -> int:
                    "stoch_gpmp_tpu/gp/tridiag.py:259 (XLA associative_scan)",
                    lh[LH_HORIZONS[0]]["launches"]["bidiag_scan"]
                    + gl["cholesky"]["launches"]["bidiag_scan"]
-                   + sharded("bidiag_scan", *sh_long), sc, sc["bound"]))
+                   + sharded("bidiag_scan", *sh_long) + pe["runs"]["c"]["launches"]["bidiag_scan"],
+                   sc, sc["bound"]))
     kernels = [
         {"name": n, "route": "cuda", "source": f"stoch_gpmp_tpu_torch/csrc/{src}",
          "replaces": rep, "launches": launches, "max_abs_err": r["max_abs_err"],

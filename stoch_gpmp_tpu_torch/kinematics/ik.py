@@ -109,17 +109,16 @@ def solve_ik_multistart(
     ``q_init``, among the solutions within 0.05 of the best, the one closest
     to ``q_init`` in joint space.
 
-    The draw comes from ``generator``; ``starts`` (``[num_starts, n_dof]``
-    in ``[0, 1)``) replaces it, as the JAX package's ``jax.random.uniform(
-    key, (num_starts, n_dof))``. Dtype and device follow ``q_init``, else
-    ``starts``, else the chain's dtype and the generator's device (the
-    CPU without one)."""
-    ref = q_init if q_init is not None else starts
-    if ref is not None:
-        dtype, device = ref.dtype, ref.device
-    else:
-        dtype = chain.dtype
-        device = generator.device if generator is not None else torch.device("cpu")
+    The draw comes from ``generator`` (the default generator of the
+    device without one); ``starts`` (``[num_starts, n_dof]`` in ``[0, 1)``)
+    replaces it, as the JAX package's ``jax.random.uniform(key,
+    (num_starts, n_dof))``. Dtype and device follow ``q_init``, else
+    ``starts``, else ``target_h``. A ``generator`` on another device type
+    than the draw's raises ``ValueError``."""
+    ref = q_init if q_init is not None else starts if starts is not None else target_h
+    dtype, device = ref.dtype, ref.device
+    if starts is None and generator is not None and generator.device.type != device.type:
+        raise ValueError(f"the generator is on {generator.device}, the IK draw on {device}")
     lo = chain.limits_lower.to(dtype=dtype, device=device)
     hi = chain.limits_upper.to(dtype=dtype, device=device)
     lo = torch.where(torch.isfinite(lo), lo, torch.full_like(lo, -math.pi))

@@ -53,7 +53,13 @@ linearisation, the float64 pair under the same bounds). Multi-device: the
 dof layout at config 5 on a (4, 1) mesh of 4 gloo ranks sharing the card
 (``parallel.launch``; means within 1e-5 / 1e-5 and costs 1e-4 / 1e-4 of the
 single-rank run, every K3 and K4 launch within 1e-3 / 1e-4 of float64), and
-a world of one NCCL rank whose means equal the unsharded run's.
+a world of one NCCL rank whose means equal the unsharded run's. The planar
+example twins through their ``main()`` (planar-examples, at reduced
+iteration counts): K10 once an iteration on ``--fast`` and the reference
+stack, S1 and K1 once an iteration on the ``"planes"`` route at
+``--traj-len 2048`` with every iteration's S1 launch by TMA, GN on both
+methods; the planar and GN gates, woodbury within 1e-4 of cholesky, and
+every K10, K1 and S1 launch of the held windows against its plain version.
 """
 
 import sys
@@ -327,3 +333,18 @@ def test_nccl_world_of_one(dev):
 
     (r,) = launch(chip_smoke.nccl_rank, 1, (2,), device="cuda", timeout=300)
     assert r["backend"] == "nccl" and r["launches"] == {"raster_field": 2}
+
+
+def test_planar_example_twins(dev, monkeypatch):
+    """planar-examples at 100 / 50 / 100 iterations: each run's launches and
+    gates, and its held window."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "PE_ITERS", 100)
+    monkeypatch.setattr(chip_smoke, "PE_LONG_ITERS", 50)
+    r = chip_smoke.planar_examples(dev)
+    runs = r["runs"]
+    assert runs["a"]["launches"] == {"grid_lookup": 100}
+    assert runs["c"]["launches"] == {"bidiag_scan": 51, "raster_field": 50}
+    assert runs["c"]["iteration_staged"] == 0 and runs["c"]["held"] == {"K1": 5, "S1": 6}
+    assert r["woodbury_vs_cholesky"] <= chip_smoke.GN_METHOD_ATOL

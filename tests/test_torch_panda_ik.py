@@ -206,6 +206,40 @@ def test_solve_ik_multistart_draws_from_the_generator(target):
     assert a.dtype == torch.float64 and torch.equal(a, b)
 
 
+def test_solve_ik_multistart_draws_on_the_target_device(monkeypatch):
+    """Without ``q_init``, ``starts`` and a generator, the uniform draw is
+    made on ``target_h``'s device in its dtype (a target on the card keeps
+    the solve there): a target on ``"meta"``, ``torch.rand`` spied."""
+    from stoch_gpmp_tpu_torch.kinematics import franka_panda
+
+    class Drawn(Exception):
+        pass
+
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append((kw.get("device"), kw.get("dtype"), kw.get("generator")))
+        raise Drawn
+
+    monkeypatch.setattr(torch, "rand", spy)
+    target = torch.eye(4, dtype=torch.float64, device="meta")
+    with pytest.raises(Drawn):
+        tik.solve_ik_multistart(franka_panda(torch.float32), target, num_starts=4)
+    assert seen == [(torch.device("meta"), torch.float64, None)]
+
+
+def test_solve_ik_multistart_follows_the_target_and_refuses_a_foreign_generator(target):
+    """On the CPU the solution takes the target's dtype, not the chain's; a
+    generator on another device than the target's raises."""
+    from stoch_gpmp_tpu_torch.kinematics import franka_panda
+
+    chain = franka_panda(torch.float64)
+    got = tik.solve_ik_multistart(chain, _t(target).float(), num_starts=2, num_iters=3)
+    assert got.dtype == torch.float32 and got.device.type == "cpu"
+    with pytest.raises(ValueError, match="generator"):
+        tik.solve_ik_multistart(chain, _t(target).to("meta"), torch.Generator(), num_starts=2)
+
+
 def test_random_init_static_sphere_matches_jax():
     """The same ``default_rng`` seed gives JAX's radii and positions; the
     port refuses a missing generator."""
