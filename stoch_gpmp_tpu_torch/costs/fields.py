@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from stoch_gpmp_tpu_torch.kinematics.se3 import se3_distance
+from stoch_gpmp_tpu_torch.utils.profiling import annotate
 
 
 def _link_pos(link_tensor) -> torch.Tensor:
@@ -303,6 +304,7 @@ class RasterPrimitive2DField(_Occupancy2D):
     ny: int
 
     @classmethod
+    @annotate("costs.raster_field")
     def from_map(cls, obst_map, obstacles, dtype=torch.float32, device=None):
         """``obst_map``: an ``envs.ObstacleMap``; ``obstacles``: the primitive
         list it was rasterized from (``generate_obstacle_map`` returns both)."""

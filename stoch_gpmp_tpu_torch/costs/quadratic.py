@@ -23,6 +23,7 @@ from stoch_gpmp_tpu_torch.costs.costs import (
     particle_goals,
 )
 from stoch_gpmp_tpu_torch.gp.tridiag import BlockTridiag
+from stoch_gpmp_tpu_torch.utils.profiling import annotate
 
 
 @dataclass
@@ -40,6 +41,7 @@ class QuadraticCost(Cost):
     stencil_required: bool = True
 
     @classmethod
+    @annotate("costs.quadratic")
     def from_gp_and_goal_prior(
         cls, gp: CostGP, goal_prior: CostGoalPrior | None, traj_len: int
     ) -> "QuadraticCost":

@@ -18,8 +18,10 @@ import torch
 
 from stoch_gpmp_tpu_torch.envs.obst_map import ObstacleMap
 from stoch_gpmp_tpu_torch.envs.obst_utils import random_circle, random_rect
+from stoch_gpmp_tpu_torch.utils.profiling import annotate
 
 
+@annotate("envs.obstacle_map")
 def generate_obstacle_map(
     map_dim=(10, 10),
     obst_list=(),

@@ -18,6 +18,7 @@ import torch
 
 from stoch_gpmp_tpu_torch.gp.lift import phi_matrix, q_inv_block, unary_weight
 from stoch_gpmp_tpu_torch.gp.tridiag import BlockBidiagChol, BlockTridiag, ParallelBidiagSolver
+from stoch_gpmp_tpu_torch.utils.profiling import annotate
 
 
 def build_precision(
@@ -167,6 +168,7 @@ def sample_correction(model, eps: torch.Tensor, method: str = "auto") -> torch.T
     raise ValueError(f"unknown sampling method: {method}")
 
 
+@annotate("gp.prior")
 def make_gp_prior(
     dof: int,
     traj_len: int,

@@ -38,6 +38,7 @@ from stoch_gpmp_tpu_torch.gp.tridiag import (
     stack_planes,
 )
 from stoch_gpmp_tpu_torch.utils.device import resolve_device
+from stoch_gpmp_tpu_torch.utils.profiling import annotate, count
 
 
 @dataclass
@@ -164,57 +165,61 @@ def stoch_gpmp_step(
     if shard is not None:
         num_samples = shard.local_samples(num_samples)
         cost = shard.rows(cost, p)
-    if plane_stream and sampler.psolver is not None:
-        if shard is not None:
-            eps = shard.draw(state.generator, (d, p, num_samples, t), 1, 2, dtype=eps_dtype,
-                             device=means.device, eps=eps)
-        elif eps is None:
-            eps = torch.randn((d, p, num_samples, t), generator=state.generator,
-                              dtype=eps_dtype, device=means.device)
-        corr_planes = sampler.psolver.solve_LT_planes(
-            tuple(eps[i].to(means.dtype) for i in range(d)))
-        corr = torch.stack(corr_planes, dim=-1).reshape(p, num_samples, m)
-    else:
-        if shard is not None:
-            eps = shard.draw(state.generator, (p, num_samples, m), 0, 1, dtype=eps_dtype,
-                             device=means.device, eps=eps)
-        elif eps is None:
-            eps = torch.randn((p, num_samples, m), generator=state.generator,
-                              dtype=eps_dtype, device=means.device)
-        eps = eps.to(eps_dtype)
-        if sample_method == "dense" and sampler.weight_t is not None:
-            # x = mu + eps @ L^{-1}
-            corr = (eps @ sampler.weight_t.to(eps_dtype)).to(means.dtype)
+    with annotate("step.draw"):
+        if plane_stream and sampler.psolver is not None:
+            if shard is not None:
+                eps = shard.draw(state.generator, (d, p, num_samples, t), 1, 2, dtype=eps_dtype,
+                                 device=means.device, eps=eps)
+            elif eps is None:
+                eps = torch.randn((d, p, num_samples, t), generator=state.generator,
+                                  dtype=eps_dtype, device=means.device)
+            corr_planes = sampler.psolver.solve_LT_planes(
+                tuple(eps[i].to(means.dtype) for i in range(d)))
+            corr = torch.stack(corr_planes, dim=-1).reshape(p, num_samples, m)
         else:
-            solver = sampler.psolver if sampler.psolver is not None else sampler.chol
-            corr = solver.solve_LT(eps.to(means.dtype).reshape(p, num_samples, t, d)).reshape(
-                p, num_samples, m)
-    flat = means_flat[:, None] + corr  # [P, S, M]
-    samples = flat.reshape(p, num_samples, t, d)
+            if shard is not None:
+                eps = shard.draw(state.generator, (p, num_samples, m), 0, 1, dtype=eps_dtype,
+                                 device=means.device, eps=eps)
+            elif eps is None:
+                eps = torch.randn((p, num_samples, m), generator=state.generator,
+                                  dtype=eps_dtype, device=means.device)
+            eps = eps.to(eps_dtype)
+            if sample_method == "dense" and sampler.weight_t is not None:
+                # x = mu + eps @ L^{-1}
+                corr = (eps @ sampler.weight_t.to(eps_dtype)).to(means.dtype)
+            else:
+                solver = sampler.psolver if sampler.psolver is not None else sampler.chol
+                corr = solver.solve_LT(eps.to(means.dtype).reshape(p, num_samples, t, d)).reshape(
+                    p, num_samples, m)
+        flat = means_flat[:, None] + corr  # [P, S, M]
+        samples = flat.reshape(p, num_samples, t, d)
 
-    costs = cost.eval(
-        samples.reshape(p * num_samples, t, d), observation=observation
-    ).reshape(p, num_samples)
+    with annotate("step.cost"):
+        costs = cost.eval(
+            samples.reshape(p * num_samples, t, d), observation=observation
+        ).reshape(p, num_samples)
 
     # --- importance correction + tau * x . Sigma^{-1} mu, Sigma^{-1} mu by
     # the exact O(T) factor-graph stencil when the prior is dof-factored ---
-    if sampler.dof is not None and sampler.dof.q_i2 is not None:
-        prec_u = sampler.dof.matvec_flat(means).reshape(p, m)
-    elif sampler.precision_dense is not None:
-        prec_u = means_flat @ sampler.precision_dense
-    else:
-        prec_u = sampler.precision.matvec(means).reshape(p, m)
-    costs = costs + temperature * torch.sum(flat * prec_u[:, None], dim=-1)
+    with annotate("step.prior_term"):
+        if sampler.dof is not None and sampler.dof.q_i2 is not None:
+            prec_u = sampler.dof.matvec_flat(means).reshape(p, m)
+        elif sampler.precision_dense is not None:
+            prec_u = means_flat @ sampler.precision_dense
+        else:
+            prec_u = sampler.precision.matvec(means).reshape(p, m)
+        costs = costs + temperature * torch.sum(flat * prec_u[:, None], dim=-1)
 
     # --- softmax re-weighting and mean update ---
-    if shard is None:
-        weights = torch.softmax(-costs / temperature, dim=1)
-        grad_flat = torch.einsum("ps,psm->pm", weights, flat - means_flat[:, None])
-    else:
-        weights = shard.softmax(-costs / temperature)
-        grad_flat = shard.sum_samples(
-            torch.einsum("ps,psm->pm", weights, flat - means_flat[:, None]))
-    new_means = (means_flat + step_size * grad_flat).reshape(p, t, d)
+    with annotate("step.update"):
+        if shard is None:
+            weights = torch.softmax(-costs / temperature, dim=1)
+            grad_flat = torch.einsum("ps,psm->pm", weights, flat - means_flat[:, None])
+        else:
+            weights = shard.softmax(-costs / temperature)
+            grad_flat = shard.sum_samples(
+                torch.einsum("ps,psm->pm", weights, flat - means_flat[:, None]))
+        new_means = (means_flat + step_size * grad_flat).reshape(p, t, d)
     return (
         replace(state, particle_means=new_means),
         StochGPMPAux(samples=samples, costs=costs, weights=weights,
@@ -452,31 +457,34 @@ def stoch_gpmp_optimize(
             route = "dof"
     else:
         route = _route(sampler, cost, t, sample_method, sample_dtype)
+    count("iterations." + route, opt_iters)
     if route != "flat":
         run = _stoch_gpmp_optimize_dof if route == "dof" else _stoch_gpmp_optimize_planes
         extra = dict(shard_dof=shard_dof, shard_dof_quad=shard_dof_quad) if route == "dof" else {}
-        return run(
-            sampler, cost, state, observation, opt_iters=opt_iters, num_samples=num_samples,
-            temperature=temperature, step_size=step_size, collect_metrics=collect_metrics,
-            eps=eps, **extra,
-        )
+        with annotate("planner." + route, n=opt_iters):
+            return run(
+                sampler, cost, state, observation, opt_iters=opt_iters, num_samples=num_samples,
+                temperature=temperature, step_size=step_size, collect_metrics=collect_metrics,
+                eps=eps, **extra,
+            )
     plane_stream = (shard_samples is not None and sample_dtype is None
                     and _plane_eligible(sampler, cost, sample_method))
     metrics = []
     aux = None
-    for i in range(opt_iters):
-        state, aux = stoch_gpmp_step(
-            sampler, cost, state, observation, num_samples=num_samples,
-            temperature=temperature, step_size=step_size, sample_method=sample_method,
-            shard_samples=shard_samples, sample_dtype=sample_dtype, plane_stream=plane_stream,
-            eps=_eps_at(eps, i),
-        )
-        if collect_metrics and shard_samples is not None:
-            g = aux.grad.reshape(aux.grad.shape[0], -1)
-            metrics.append(shard_samples.metrics(aux.costs, aux.weights,
-                                                 torch.linalg.norm(g, dim=-1), step_size))
-        elif collect_metrics:
-            metrics.append(IterMetrics.from_aux(aux, step_size))
+    with annotate("planner.flat", n=opt_iters):
+        for i in range(opt_iters):
+            state, aux = stoch_gpmp_step(
+                sampler, cost, state, observation, num_samples=num_samples,
+                temperature=temperature, step_size=step_size, sample_method=sample_method,
+                shard_samples=shard_samples, sample_dtype=sample_dtype,
+                plane_stream=plane_stream, eps=_eps_at(eps, i),
+            )
+            if collect_metrics and shard_samples is not None:
+                g = aux.grad.reshape(aux.grad.shape[0], -1)
+                metrics.append(shard_samples.metrics(aux.costs, aux.weights,
+                                                     torch.linalg.norm(g, dim=-1), step_size))
+            elif collect_metrics:
+                metrics.append(IterMetrics.from_aux(aux, step_size))
     if collect_metrics:
         return state, aux, IterMetrics.stack(metrics)
     return state, aux
@@ -504,6 +512,7 @@ class StochGPMP:
     raises without one); pass ``device="cpu"`` for the plain PyTorch
     versions on the CPU."""
 
+    @annotate("planner.init")
     def __init__(
         self,
         num_particles_per_goal,
@@ -572,6 +581,7 @@ class StochGPMP:
     def _tensor(self, x):
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
 
+    @annotate("planner.reset")
     def reset(self, start_state=None, multi_goal_states=None, initial_particle_means=None):
         if start_state is not None:
             self.start_state = self._tensor(start_state)
@@ -600,7 +610,8 @@ class StochGPMP:
                 sigma_goal=self.sigma_goal_init if self.goal_directed else None,
                 goal_states=goals, dtype=self.dtype, device=self.device,
             )
-            means = init_prior.sample(self.generator, self.num_particles_per_goal)
+            with annotate("gp.prior_sample"):
+                means = init_prior.sample(self.generator, self.num_particles_per_goal)
         particle_means = means.reshape(self.num_particles, self.traj_len, self.d_state_opt)
 
         sample_prior = make_gp_prior(
@@ -642,8 +653,15 @@ class StochGPMP:
         observation = dict(observation or {})
         observation.update(obs_kwargs)
         iters = self.opt_iters if opt_iters is None else opt_iters
+        with annotate("planner.optimize", n=iters):
+            return self._optimize(observation, iters, collect_metrics)
+
+    def _optimize(self, observation: dict, iters: int, collect_metrics: bool):
         if self.fused_kernel and not collect_metrics and iters > 1:
-            self.state = self._fused_runner(observation)(self.state, iters - 1)
+            run = self._fused_runner(observation)
+            with annotate("planner.fused_loop", n=iters - 1, device=self.device.type == "cuda"):
+                self.state = run(self.state, iters - 1)
+            count("iterations.fused", iters - 1)
             iters = 1  # final iteration on the flat path -> full aux
         if self.mesh is not None:
             out = self._sharded_runner(iters, collect_metrics)(
@@ -685,13 +703,15 @@ class StochGPMP:
         if self._fused is None or self._fused[0] != key:
             from stoch_gpmp_tpu_torch.planners.fused_exec import build_fused_executor
 
-            run, reason = build_fused_executor(
-                self.sampler, self.cost, observation,
-                num_particles=self.num_particles, num_samples=self.num_samples,
-                temperature=self.temperature, step_size=self.step_size,
-            )
+            with annotate("planner.fused_build"):
+                run, reason = build_fused_executor(
+                    self.sampler, self.cost, observation,
+                    num_particles=self.num_particles, num_samples=self.num_samples,
+                    temperature=self.temperature, step_size=self.step_size,
+                )
             if run is None:
                 raise ValueError(f"fused_kernel=True but the stack is ineligible: {reason}")
+            count("executor_builds")
             self._fused = (key, run)
         return self._fused[1]
 
@@ -718,6 +738,7 @@ class StochGPMP:
         n = self.n_dof
         return self._recent_aux.samples[..., :n], self._recent_aux.samples[..., n:]
 
+    @annotate("planner.get_traj")
     def get_traj(self, mode: str = "best"):
         """The globally highest-weight sample of the last call, or the means."""
         if mode == "best":
