@@ -105,7 +105,13 @@ Phases, one line each; any failure exits non-zero before the result line:
     ``inverse`` against ``cholesky``; finite means, goal and start gates,
     the methods' agreement and K10's launches per iteration, with
     particle-updates/s, wall and device ms per iteration, the busy share
-    and the largest kernels;
+    and the largest kernels; then C1, the GP prior's block Cholesky and
+    dense ``L^{-1}`` in one launch, on the priors' and Gauss-Newton
+    systems of C1_CASES against the plain loops and the float64 loop
+    (exact zeros above the diagonal, NaN carried from a block that is not
+    positive definite), ``make_gp_prior``'s two launches, and C1's time
+    per call beside the loops' and the library's dense factor. Every
+    path's launch gate counts C1 too;
 18. S1, the block-bidiagonal plane solve of the long-horizon sampler,
     against the float64 serial substitution on the same factor and against
     its plain version (the log-step scan) on the card, forward and
@@ -169,7 +175,9 @@ Phases, one line each; any failure exits non-zero before the result line:
     the goals (main's gates), then ``StochGPMP(mesh=(2, 2))`` against
     ``StochGPMP()``; sharded-dof: config 5 on the dof layout (K3, K4) on
     (4, 1) and (2, 2); sharded-long: long-horizon-main's problem at T =
-    4096 through the flat step with ``plane_stream`` (S1, K1) on (1, 2);
+    4096 through the flat step with ``plane_stream`` (S1, K1) on (1, 2),
+    the single-rank run solving each rank's block of samples by an S1
+    launch of its own;
     sharded-gn: gn-main's problem (K10) on (4, 1) with ``cholesky`` and the
     trust region and with ``woodbury``, in float32 and (without the grid
     field) float64, then ``GPMP(mesh=)``. Every K1, K3, K4, K10 and S1
@@ -349,6 +357,27 @@ S1_SHAPES = ((4, 480, 1), (4, 480, 2), (4, 480, 77), (4, 480, 1024), (4, 480, 40
 S1_STRIDED = (77, 4096)
 # the main path's solve: d, rows (15 x 32), T
 S1_MAIN = (4, 480, 4096)
+# C1, the GP prior's block Cholesky and its dense L^{-1} in one launch:
+# (block size d, T, leading batch, dtype, with L^{-1}) per case: the demo's
+# two planar priors, their per-dof factors, the Panda example's two priors,
+# the long-horizon Gauss-Newton system (15 particles, T = 1024) in float32
+# and float64, and the long-horizon prior (T = 4096). Each against the
+# float64 loop on the same input (the float64 factor), by the largest over
+# the columns of the column's largest |C1 - float64| over its largest
+# |float64|: C1_RTOL32 in float32 up to T = 1024 and C1_RTOL32_LONG at T =
+# 4096 (an H100 read 4.0e-8 to 5.9e-8 and 5.1e-7; the float32 loop reads
+# 1.2e-3 to 7.6e-2, and C1 is held no further than it too), C1_RTOL64 in
+# float64 (1.0e-11 over the Gauss-Newton batch's 1,024 steps). A block that
+# is not positive definite makes it and every later block NaN.
+C1_CASES = {
+    "planar": (4, 64, (), torch.float32, True),
+    "dof": (2, 64, (), torch.float32, True),
+    "panda": (14, 64, (), torch.float32, True),
+    "gn32": (4, 1024, (15,), torch.float32, False),
+    "gn64": (4, 1024, (15,), torch.float64, False),
+    "long": (4, 4096, (), torch.float32, False),
+}
+C1_RTOL32, C1_RTOL32_LONG, C1_RTOL64 = 1e-6, 5e-6, 1e-9
 # The long-horizon main path (benchmarks/long_horizon.py): 1 goal x 15
 # particles, 32 samples, T = 4096 and 1024, LH_ITERS iterations after
 # LH_WARMUP. Gates: finite means, starts and end points within LH_TOL of the
@@ -566,8 +595,9 @@ def kernel_counters() -> dict:
     from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import fused_panda_dof_step
     from stoch_gpmp_tpu_torch.ops.kernels.stencil import dof_quad_eval
     from stoch_gpmp_tpu_torch.ops.kernels.bidiag_scan import bidiag_scan
+    from stoch_gpmp_tpu_torch.ops.kernels.block_chol import block_chol
 
-    return {"bidiag_scan": bidiag_scan, "raster_field": raster_primitive_cost, "fused_planar_step": fused_planar_step,
+    return {"block_chol": block_chol, "bidiag_scan": bidiag_scan, "raster_field": raster_primitive_cost, "fused_planar_step": fused_planar_step,
             "dof_quad_eval": dof_quad_eval, "fk_fields": fk_link_fields_cost_rows,
             "fused_panda_dof_step": fused_panda_dof_step, "fused_panda_step": fused_panda_step,
             "link_fields": fused_link_fields_cost, "fk_fields_points": fk_link_fields_cost,
@@ -577,8 +607,9 @@ def kernel_counters() -> dict:
 
 def reset_counters() -> None:
     """Set every kernel's launch count (and the count of generic or
-    runtime-size launches of the FK kernels, K7 and S1, and S1's launches
-    whose planes did not go by TMA) to 0, just before a main path runs."""
+    runtime-size launches of the FK kernels, K7, S1 and C1, and S1's
+    launches whose planes did not go by TMA) to 0, just before a main path
+    runs."""
     for fn in kernel_counters().values():
         fn.launches = 0
         if hasattr(fn, "generic_launches"):
@@ -864,6 +895,7 @@ def main_path(dev) -> dict:
 
     cost, _ = build_planar_cost(dtype=torch.float32, device=dev)
     s_start, s_gp, s_goal = SAMPLE_SIGMAS
+    reset_counters()
     planner = StochGPMP(
         num_particles_per_goal=PPG, num_samples=S, traj_len=T, opt_iters=ITERS, dt=DT,
         n_dof=2, step_size=STEP, temperature=TAU, start_state=START,
@@ -871,6 +903,7 @@ def main_path(dev) -> dict:
         sigma_start_sample=s_start, sigma_gp_sample=s_gp, sigma_goal_sample=s_goal,
         seed=0, dtype=torch.float32, device=dev, fused_kernel=True,
     )
+    c1_build = c1_gate("main path's build (the sampling prior)", c1_per_prior(T))
     p = planner.num_particles
     reset_counters()
     torch.cuda.synchronize()
@@ -882,6 +915,7 @@ def main_path(dev) -> dict:
                 if k in ("raster_field", "fused_planar_step")}
     if min(launches.values()) < 1:
         fail(f"main path did not launch every kernel: {launches}")
+    c1_gate("main path's optimize()", 0)
     goal_err, start_err = planar_gates("main path", planner.particle_means, out)
 
     # the fused loop, kernel vs plain K2 on the card: plain, kernel, kernel, plain
@@ -916,7 +950,7 @@ def main_path(dev) -> dict:
                                     1)
     iter_ms = 1e3 * sum(times["kernel"]) / len(times["kernel"]) / (ITERS - 1)
     loop_gate("main", ops / 50)
-    return dict(launches=launches, goal_err=goal_err, start_err=start_err,
+    return dict(launches=launches, c1_build=c1_build, goal_err=goal_err, start_err=start_err,
                 optimize_seconds=seconds, optimize_updates_per_s=p * ITERS / seconds,
                 loop_updates_per_s_kernel=per_s["kernel"],
                 loop_updates_per_s_plain=per_s["plain"],
@@ -1449,13 +1483,14 @@ def panda_main_path(dev) -> dict:
     start_q = torch.tensor(PANDA_START_Q, device=dev)
     start = torch.cat([start_q, torch.zeros_like(start_q)])
     counters = {k: fn for k, fn in kernel_counters().items()
-                if k in ("dof_quad_eval", "fk_fields", "fused_panda_dof_step")}
+                if k in ("dof_quad_eval", "fk_fields", "fused_panda_dof_step", "block_chol")}
 
     def cost_of(means):
         return float(cost.eval_dof_planes(to_dof_planes(means), observation=obs).mean())
 
     out = {}
     for name, fused in (("fused", True), ("dof", False)):
+        reset_counters()
         planner = StochGPMP(
             num_particles_per_goal=PANDA["ppg"], num_samples=s, traj_len=PANDA["traj_len"],
             dt=PANDA_DT, n_dof=7, opt_iters=PANDA_ITERS, temperature=PANDA_TAU,
@@ -1463,6 +1498,8 @@ def panda_main_path(dev) -> dict:
             sigma_start_init=1e-3, sigma_goal_init=0.07, sigma_gp_init=0.1,
             sigma_start_sample=1e-3, sigma_goal_sample=0.07, sigma_gp_sample=0.1, seed=0,
             dtype=torch.float32, device=dev, fused_kernel=fused)
+        c1_gate(f"panda {name}: the build (the init and sampling priors)",
+                2 * c1_per_prior(PANDA["traj_len"]))
         p = planner.num_particles
         c0 = cost_of(planner.particle_means)
         reset_counters()
@@ -1481,9 +1518,10 @@ def panda_main_path(dev) -> dict:
             fail(f"panda {name}: non-finite output")
         c1 = cost_of(planner.particle_means)
         start_err = float((planner.particle_means[:, 0, :n] - start_q).abs().max())
-        want = ({"dof_quad_eval": 1, "fk_fields": 1, "fused_panda_dof_step": PANDA_ITERS - 1}
-                if fused else
-                {"dof_quad_eval": PANDA_ITERS, "fk_fields": PANDA_ITERS, "fused_panda_dof_step": 0})
+        want = ({"dof_quad_eval": 1, "fk_fields": 1, "fused_panda_dof_step": PANDA_ITERS - 1,
+                 "block_chol": 0} if fused else
+                {"dof_quad_eval": PANDA_ITERS, "fk_fields": PANDA_ITERS, "fused_panda_dof_step": 0,
+                 "block_chol": 0})
         if launches != want:
             fail(f"panda {name}: launches {launches}, expected {want}")
         if any(generic.values()):
@@ -1800,7 +1838,7 @@ def panda4_main_path(dev) -> dict:
     start_q = torch.tensor(PANDA_START_Q, device=dev)
     dq = fast.costs[0].dof_form
     goals = torch.cat([dq.g_pd[..., 0], dq.g_pd[..., 1]], dim=-1)
-    names = ("fk_fields", "fused_panda_step", "link_fields", "fk_fields_points")
+    names = ("fk_fields", "fused_panda_step", "link_fields", "fk_fields_points", "block_chol")
     counters = {k: fn for k, fn in kernel_counters().items() if k in names}
     expect = {"a": "fused_panda_step", "b": "fk_fields", "c": None, "d": "link_fields"}
 
@@ -1812,6 +1850,7 @@ def panda4_main_path(dev) -> dict:
     out = {}
     for route in ("a", "b", "c", "d"):
         gen = torch.Generator(device=dev).manual_seed(0)
+        reset_counters()
         if route != "a":
             planner = StochGPMP(
                 num_particles_per_goal=PANDA4["ppg"], num_samples=s, traj_len=t, dt=PANDA_DT,
@@ -1820,6 +1859,8 @@ def panda4_main_path(dev) -> dict:
                 multi_goal_states=goals, initial_particle_means=means0, cost=stacks[route],
                 sigma_start_sample=1e-3, sigma_goal_sample=0.07, sigma_gp_sample=0.1, seed=0,
                 dtype=torch.float32, device=dev)
+        c1_gate(f"panda4 ({route}): the build (the sampling prior)",
+                0 if route == "a" else c1_per_prior(t))
         reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1898,7 +1939,7 @@ def k9_loop(dev) -> dict:
     p = means0.shape[0]
     gen = torch.Generator(device=dev).manual_seed(1)
     counters = {k: fn for k, fn in kernel_counters().items()
-                if k in ("fused_planar_step", "fused_planar_step_per_particle")}
+                if k in ("fused_planar_step", "fused_planar_step_per_particle", "block_chol")}
     reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1906,7 +1947,8 @@ def k9_loop(dev) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
-    if launches != {"fused_planar_step": 0, "fused_planar_step_per_particle": ITERS}:
+    if launches != {"fused_planar_step": 0, "fused_planar_step_per_particle": ITERS,
+                    "block_chol": 0}:
         fail(f"K9 loop: launches {launches}")
     goal_err, start_err = planar_gates("K9 loop", means)
     busy, _, ops = device_breakdown(lambda: fused_planar_optimize(step, means0, gen, 50), 1)
@@ -2116,18 +2158,20 @@ def planar_ref_main(dev) -> dict:
     from stoch_gpmp_tpu_torch.problems import DT, GOALS, SAMPLE_SIGMAS, START, build_planar_cost
 
     s_start, s_gp, s_goal = SAMPLE_SIGMAS
-    names = ("raster_field", "grid_lookup", "primitive_field")
+    names = ("raster_field", "grid_lookup", "primitive_field", "block_chol")
     counters = {k: fn for k, fn in kernel_counters().items() if k in names}
     out = {}
     for route, field, kname in (("g", "grid", "grid_lookup"),
                                 ("p", "primitive", "primitive_field")):
         cost, _ = build_planar_cost(dtype=torch.float32, device=dev, fast=False, field=field)
+        reset_counters()
         planner = StochGPMP(
             num_particles_per_goal=PPG, num_samples=S, traj_len=T, opt_iters=ITERS, dt=DT,
             n_dof=2, step_size=STEP, temperature=TAU, start_state=START,
             multi_goal_states=GOALS, initial_particle_means="const_vel", cost=cost,
             sigma_start_sample=s_start, sigma_gp_sample=s_gp, sigma_goal_sample=s_goal,
             seed=0, dtype=torch.float32, device=dev)
+        c1_gate(f"planar-ref ({route}): the build (the sampling prior)", c1_per_prior(T))
         p = planner.num_particles
         reset_counters()
         torch.cuda.synchronize()
@@ -2167,7 +2211,9 @@ def gn_main(dev) -> dict:
     from stoch_gpmp_tpu_torch.planners import gpmp_optimize
     from stoch_gpmp_tpu_torch.problems import GPMP_GOALS, START, build_planar_gpmp_problem
 
+    reset_counters()
     first = build_planar_gpmp_problem(GN_PPG, method="cholesky", device=dev)
+    c1_gate("gn: the build (the init and sampling priors)", 2 * c1_per_prior(T))
     init = first.particle_means.clone()
     goals = torch.tensor(GPMP_GOALS, device=dev)[:, None, :2]
     out, means = {}, {}
@@ -2182,9 +2228,13 @@ def gn_main(dev) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in kernel_counters().items() if fn.launches}
-        # one field evaluation per linearisation, one for the returned costs
-        if launches != {"grid_lookup": GN_ITERS + 1}:
-            fail(f"gn ({method}): launches {launches}, expected grid_lookup {GN_ITERS + 1}")
+        # one field evaluation per linearisation, one for the returned costs;
+        # cholesky factors each linearisation's system by one C1 launch
+        want = {"grid_lookup": GN_ITERS + 1}
+        if method == "cholesky":
+            want["block_chol"] = GN_ITERS
+        if launches != want:
+            fail(f"gn ({method}): launches {launches}, expected {want}")
         if not all(bool(torch.isfinite(o).all()) for o in (vel, pos, costs)):
             fail(f"gn ({method}): non-finite output")
         goal_err = float((pos[:, -1].reshape(2, GN_PPG, 2) - goals).norm(dim=-1).max())
@@ -2223,6 +2273,208 @@ def gn_main(dev) -> dict:
              f"after 3 iterations {diff3:.3g} (atol {GN_INVERSE3_ATOL})")
     out.update(woodbury_vs_cholesky=diff, inverse_vs_cholesky_3=diff3)
     return out
+
+
+def c1_per_prior(t: int) -> int:
+    """C1's launches in one ``make_gp_prior`` at T = ``t``: the factor (with
+    ``L^{-1}`` where M <= 2048) and, where 2T <= 2048, the per-dof factor
+    with its ``L^{-1}``."""
+    return 1 + int(2 * t <= 2048)
+
+
+def c1_gate(what: str, want: int) -> int:
+    """C1's launches since the last ``reset_counters``; fails unless
+    ``want`` (``c1_per_prior`` a prior, one a Gauss-Newton iteration of
+    ``cholesky``)."""
+    n = kernel_counters()["block_chol"].launches
+    if n != want:
+        fail(f"{what}: C1 launched {n} times, expected {want}")
+    return n
+
+
+def _c1_systems(case, dev):
+    """The case's block-tridiagonal systems, built in float64 on the card:
+    a prior's precision from its sigmas (start, gp, goal), or the
+    long-horizon Gauss-Newton system at its planner's initial means with
+    a per-particle ``k h h^T`` term on every step."""
+    from stoch_gpmp_tpu_torch.gp.lift import q_inv_block, unary_weight
+    from stoch_gpmp_tpu_torch.gp.prior import build_precision
+    from stoch_gpmp_tpu_torch.gp.tridiag import BlockTridiag
+    from stoch_gpmp_tpu_torch.problems import DT, PANDA_DT, build_long_horizon_gpmp
+
+    f64 = torch.float64
+
+    def prec(dof, t, dt, s_start, s_gp, s_goal):
+        d = 2 * dof
+        return build_precision(dof, t, dt, unary_weight(d, s_start, dtype=f64, device=dev),
+                               q_inv_block(dof, dt, sigma=s_gp, dtype=f64, device=dev),
+                               k_g_inv=unary_weight(d, s_goal, dtype=f64, device=dev),
+                               dtype=f64, device=dev)
+
+    if case in ("gn32", "gn64"):
+        pl = build_long_horizon_gpmp(1024, with_obstacles=False, dtype=f64, device=dev)
+        c = pl.cost.gn_contrib(pl.particle_means, observation={})
+        gen = torch.Generator(device=dev).manual_seed(0)
+        h = torch.randn(c.diag.shape[:-1], generator=gen, dtype=f64, device=dev)
+        eye = torch.eye(4, dtype=f64, device=dev)
+        hh = h[..., :, None] * h[..., None, :]
+        diag = c.diag + float(pl.solver_params["delta"]) * eye + 1e2 * hh
+        return {"gn": BlockTridiag(diag, c.lower.expand(diag.shape[:-3] + c.lower.shape[-3:]))}
+    if case == "planar":  # the demo's init and sampling priors
+        return {"init": prec(2, 64, DT, 1e-3, 20.0, 1e-3),
+                "sample": prec(2, 64, DT, 1e-3, 3.0, 1e-3)}
+    if case == "dof":  # their per-dof factors
+        return {"init": prec(1, 64, DT, 1e-3, 20.0, 1e-3),
+                "sample": prec(1, 64, DT, 1e-3, 3.0, 1e-3)}
+    if case == "panda":  # the Panda example's init and sampling priors
+        return {"init": prec(7, 64, PANDA_DT, 1e-4, 0.8, 0.1),
+                "sample": prec(7, 64, PANDA_DT, 1e-3, 0.1, 0.07)}
+    return {"prior": prec(2, 4096, DT, 1e-3, 3.0, 1e-3)}
+
+
+def _c1_col_err(got, ref) -> float:
+    """The largest over the factor's columns (``D_j``'s column over
+    ``L_{j+1}``'s) of the column's largest ``|got - ref|`` over its largest
+    ``|ref|``; inf where ``got`` is not finite."""
+    def cols(ch):
+        lo = torch.cat([ch.lower, torch.zeros_like(ch.diag[..., :1, :, :])], dim=-3)
+        return torch.cat([ch.diag, lo], dim=-2).double()
+
+    g, r = cols(got), cols(ref)
+    err = (g - r).abs().amax(dim=-2) / r.abs().amax(dim=-2)
+    return float(torch.nan_to_num(err, nan=float("inf")).max())
+
+
+def _c1_inv_err(got, ref) -> float:
+    """The same over the columns of a dense ``L^{-1}``."""
+    err = (got.double() - ref).abs().amax(dim=0) / ref.abs().amax(dim=0)
+    return float(torch.nan_to_num(err, nan=float("inf")).max())
+
+
+def _c1_counted(what, before, d):
+    """C1's counters; fails unless it launched once since ``before`` and, at
+    a compiled-in d, not through the runtime-d instantiation."""
+    from stoch_gpmp_tpu_torch.ops.kernels.block_chol import UNROLLED, block_chol
+
+    now = (block_chol.launches, block_chol.generic_launches)
+    want = (before[0] + 1, before[1] + int(d not in UNROLLED))
+    if now != want:
+        fail(f"C1 {what}: counters (launches, generic) {now}, expected {want}")
+    return now
+
+
+def c1_check(dev, case) -> list:
+    """C1 on each system of the case against the plain loops and the
+    float64 loop on the same input (the float64 factor): its factor and
+    ``L^{-1}`` within C1_RTOL32 (C1_RTOL32_LONG at T = 4096; C1_RTOL64 in
+    float64) and, in float32, no further than the loops', exact zeros above
+    the diagonal of ``L^{-1}``, one launch a call; then the system with
+    block T / 2 of the first batch entry negated: that block and every
+    later one NaN, everything before it and every other batch entry as
+    without the fault. One row of readings per system."""
+    from stoch_gpmp_tpu_torch.gp.tridiag import BlockTridiag
+    from stoch_gpmp_tpu_torch.ops.kernels.block_chol import block_chol
+
+    d, t, lead, dtype, inverse = C1_CASES[case]
+    rtol = (C1_RTOL64 if dtype == torch.float64
+            else C1_RTOL32_LONG if t > 1024 else C1_RTOL32)
+    rows = []
+    for label, s64 in _c1_systems(case, dev).items():
+        what = f"{case} {label}"
+        system = BlockTridiag(s64.diag.to(dtype), s64.lower.to(dtype))
+        if tuple(system.diag.shape) != lead + (t, d, d):
+            fail(f"C1 {what}: blocks {list(system.diag.shape)}")
+        counts = (block_chol.launches, block_chol.generic_launches)
+        got, linv = system.cholesky_inverse() if inverse else (system.cholesky(), None)
+        counts = _c1_counted(what, counts, d)
+        loop = system.cholesky_loop()
+        ref = BlockTridiag(system.diag.double(), system.lower.double()).cholesky_loop()
+        row = dict(case=what, dtype=str(dtype)[6:], rtol=rtol, factor=_c1_col_err(got, ref),
+                   loop_factor=_c1_col_err(loop, ref))
+        if not (bool(torch.isfinite(got.diag).all()) and bool(torch.isfinite(got.lower).all())):
+            fail(f"C1 {what}: a factor that is not finite")
+        if inverse:
+            ref_inv = ref.dense_inv_transpose().T
+            row.update(inverse=_c1_inv_err(linv, ref_inv),
+                       loop_inverse=_c1_inv_err(loop.dense_inv_transpose().T, ref_inv))
+            if int(torch.triu(linv, 1).count_nonzero()) != 0:
+                fail(f"C1 {what}: L^-1 is not 0 above its diagonal")
+        for mine in ("factor", "inverse")[:1 + inverse]:
+            theirs = row[f"loop_{mine}"]
+            if not row[mine] <= rtol or (dtype == torch.float32 and not row[mine] <= theirs):
+                fail(f"C1 {what}: {mine} {row[mine]:.3g} from float64 (rtol {rtol:g}, the "
+                     f"loop's {theirs:.3g})")
+        # a block that is not positive definite, in the first batch entry
+        t0 = t // 2
+        diag = system.diag.clone()
+        diag.view(-1, t, d, d)[0, t0] *= -1
+        bad_sys = BlockTridiag(diag, system.lower)
+        bad, bad_inv = bad_sys.cholesky_inverse() if inverse else (bad_sys.cholesky(), None)
+        _c1_counted(f"{what} with a fault", counts, d)
+        bd, bl = bad.diag.view(-1, t, d, d), bad.lower.view(-1, t - 1, d, d)
+        gd, gl = got.diag.view(-1, t, d, d), got.lower.view(-1, t - 1, d, d)
+        nan_ok = (torch.equal(bd[0, :t0], gd[0, :t0]) and torch.equal(bl[0, :t0], gl[0, :t0])
+                  and bool(bd[0, t0:].isnan().all()) and bool(bl[0, t0:].isnan().all())
+                  and torch.equal(bd[1:], gd[1:]) and torch.equal(bl[1:], gl[1:]))
+        if inverse:
+            k = t0 * d
+            low = torch.ones_like(bad_inv, dtype=torch.bool).tril()[k:]
+            nan_ok = (nan_ok and torch.equal(bad_inv[:k], linv[:k])
+                      and bool(bad_inv[k:][low].isnan().all())
+                      and int(bad_inv[k:][~low].count_nonzero()) == 0)
+        if not nan_ok:
+            fail(f"C1 {what}: block {t0} not positive definite did not give NaN from there on "
+                 "and the factor unchanged before it")
+        loop_bad = bad_sys.cholesky_loop().diag.view(-1, t, d, d)[0, t0:]
+        if not bool(loop_bad.isnan().flatten(-2).any(-1).all()):
+            fail(f"C1 {what}: the loop's factor is not NaN from block {t0} on")
+        rows.append(row)
+    return rows
+
+
+def c1_phase(dev) -> dict:
+    """The C1 phase: ``c1_check`` on every case; ``make_gp_prior`` at the
+    planar and Panda shapes, two launches each; and at the demo's planar
+    prior (d = 4, T = 64, with ``L^{-1}``) C1's time per call beside the
+    loops' and the library's (``cholesky_ex`` of the dense ``M x M``
+    precision and ``solve_triangular`` for ``L^{-1}``), and its largest
+    absolute error from the float64 loop."""
+    from stoch_gpmp_tpu_torch.gp.prior import make_gp_prior
+    from stoch_gpmp_tpu_torch.gp.tridiag import BlockTridiag
+    from stoch_gpmp_tpu_torch.ops.kernels.block_chol import block_chol_plain
+
+    rows = [row for case in C1_CASES for row in c1_check(dev, case)]
+    for dof in (2, 7):
+        reset_counters()
+        prior = make_gp_prior(dof, 64, 0.02, [0.0] * (2 * dof), 1e-3, 3.0, sigma_goal=1e-3,
+                              goal_states=[[1.0] * (2 * dof)], device=dev)
+        c1_gate(f"C1 make_gp_prior ({dof} dof, T = 64)", c1_per_prior(64))
+        if prior.weight_t is None or prior.dof is None:
+            fail(f"C1 make_gp_prior ({dof} dof): no dense L^-1 or no per-dof factor")
+    s64 = _c1_systems("planar", dev)["sample"]
+    system = BlockTridiag(s64.diag.float(), s64.lower.float())
+    dense = system.to_dense()
+    eye = torch.eye(dense.shape[-1], device=dev)
+
+    def library():
+        return torch.linalg.solve_triangular(torch.linalg.cholesky_ex(dense)[0], eye,
+                                             upper=False)
+
+    chol, linv = system.cholesky_inverse()
+    ref = s64.cholesky_loop()
+    err = max(float((chol.diag.double() - ref.diag).abs().max()),
+              float((chol.lower.double() - ref.lower).abs().max()),
+              float((linv.double() - ref.dense_inv_transpose().T).abs().max()))
+    ms = cuda_ms(system.cholesky_inverse, 50)
+    plain_ms = cuda_ms(lambda: block_chol_plain(system, inverse=True), 3)
+    library_ms = cuda_ms(library, 20)
+    t, d = C1_CASES["planar"][:2]
+    m = t * d
+    # reads the blocks, writes the factor and L^{-1}; the chain's FMAs and
+    # M T d^2 for the walk of L^{-1}'s columns
+    bd = bound(4 * (2 * 2 * t * d * d + m * m), 2 * (t * 3 * d ** 3 + m * t * d * d))
+    return dict(rows=rows, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                device_ms=device_ms(system.cholesky_inverse, 20), max_abs_err=err, bound=bd)
 
 
 def _s1_prior(d, t, dtype, dev):
@@ -2444,6 +2696,29 @@ def held_s1(seen: list):
 
 
 @contextlib.contextmanager
+def s1_by_sample_blocks(n_s: int):
+    """Within the block, ``ParallelBidiagSolver.solve_LT_planes`` on planes
+    ``[..., S, T]`` makes one S1 launch per block of ``S / n_s`` samples, on
+    the views a rank of a mesh with ``n_s`` ranks on its sample axis
+    solves: S1 picks its launch shape (rows per CTA, chunks per segment) by
+    its row count, and its rounding with it."""
+    from stoch_gpmp_tpu_torch.gp.tridiag import ParallelBidiagSolver
+
+    solve = ParallelBidiagSolver.solve_LT_planes
+
+    def blocks(self, planes, out=None):
+        n = planes[0].shape[-2] // n_s
+        parts = [solve(self, tuple(x.narrow(-2, k * n, n) for x in planes)) for k in range(n_s)]
+        return tuple(torch.cat(ys, dim=-2) for ys in zip(*parts))
+
+    ParallelBidiagSolver.solve_LT_planes = blocks
+    try:
+        yield
+    finally:
+        ParallelBidiagSolver.solve_LT_planes = solve
+
+
+@contextlib.contextmanager
 def plain_kernels():
     """Within the block, S1 and K1 run their plain versions on the card's
     tensors (the wrappers the plane path calls are swapped and restored)."""
@@ -2595,10 +2870,12 @@ def long_horizon_api(dev) -> dict:
     finite = all(bool(torch.isfinite(o).all()) for o in (*out, pos, vel, gpos,
                                                          metrics.cost_mean))
     # init prior draws (two resets), 2 x iters optimize iterations, the
-    # trajectory draws, GPMP's init draw and its trajectory draws
+    # trajectory draws, GPMP's init draw and its trajectory draws; C1: the
+    # init and sampling priors of StochGPMP's build, its reset and GPMP's
     api_launches = {k: fn.launches for k, fn in kernel_counters().items() if fn.launches}
     if (shapes != want or not finite or planner.sampler.psolver is None
-            or api_launches.get("bidiag_scan", 0) != 2 * iters + 5):
+            or api_launches.get("bidiag_scan", 0) != 2 * iters + 5
+            or api_launches.get("block_chol", 0) != 6 * c1_per_prior(t)):
         fail(f"long-horizon-api: shapes {shapes} (expected {want}), finite {finite}, "
              f"launches {api_launches}")
     start_err = float((gpos[:, :, 0] - torch.tensor(START[:2], device=dev)).abs().max())
@@ -2905,10 +3182,11 @@ def panda_gn(dev, iters: int = PG_ITERS) -> dict:
         means = planner.particle_means
         d1 = ee_dist(means)
         start_err = float((means[:, 0, :7] - pb.start_q).abs().max())
-        if (launches or not all(bool(torch.isfinite(o).all()) for o in (vel, pos, costs))
+        want = {"block_chol": iters} if method == "cholesky" else {}  # one C1 a linearisation
+        if (launches != want or not all(bool(torch.isfinite(o).all()) for o in (vel, pos, costs))
                 or not d1 < d0 or start_err > PG_START_TOL):
-            fail(f"panda-gn ({method}): launches {launches}, EE distance {d0:.4g} -> {d1:.4g}, "
-                 f"start moved {start_err:.3g}")
+            fail(f"panda-gn ({method}): launches {launches} (expected {want}), EE distance "
+                 f"{d0:.4g} -> {d1:.4g}, start moved {start_err:.3g}")
         state = planner.state
         wall, dev_ms, top, ops = _windowed(lambda: gpmp_optimize(  # noqa: B023
             planner.cost, state, obs, opt_iters=5, delta=1e-2, trust_region=False,
@@ -2922,7 +3200,8 @@ def panda_gn(dev, iters: int = PG_ITERS) -> dict:
             if first_nan is None and not bool(torch.isfinite(probe.planner.particle_means).all()):
                 first_nan = i + 1
         f32_seconds = time.perf_counter() - t0
-        out[method] = _path_row(wall, dev_ms, top, ops, ee_dist0=d0, ee_dist=d1,
+        out[method] = _path_row(wall, dev_ms, top, ops, launches=launches, ee_dist0=d0,
+                                ee_dist=d1,
                                 start_err=start_err, mean_cost=float(costs.mean()),
                                 optimize_seconds=seconds,
                                 updates_per_s=planner.num_particles * iters / seconds,
@@ -2959,7 +3238,10 @@ def gn_long(dev, iters: int = GNL_ITERS) -> dict:
             vel, pos, costs = planner.optimize(opt_iters=iters)
         launches = {k: fn.launches for k, fn in kernel_counters().items() if fn.launches}
         staged = kernel_counters()["bidiag_scan"].staged_launches
-        want = {"bidiag_scan": 1, "raster_field": iters + 1}
+        # C1: the init and sampling priors, and each linearisation's system
+        # under cholesky
+        want = {"bidiag_scan": 1, "raster_field": iters + 1,
+                "block_chol": 2 * c1_per_prior(GNL_T) + iters * (method == "cholesky")}
         if launches != want:
             fail(f"gn-long ({method}): launches {launches}, expected {want}")
         # the init draw: L^{-T} eps on [1, P, T, 4] through its stride-4 planes
@@ -3220,8 +3502,8 @@ def sharded_dof(meshes, shapes=((4, 1), (2, 2))) -> dict:
 def sharded_long(mesh) -> dict | None:
     """sharded-long in one rank of mesh (1, 2): long-horizon-main's problem
     at T = 4096 through the flat step with ``plane_stream`` (S1 draws in
-    each rank), against the single-rank flat step with ``plane_stream``;
-    every S1 and K1 launch held."""
+    each rank), against the single-rank flat step with ``plane_stream``
+    (``s1_by_sample_blocks``); every S1 and K1 launch held."""
     from stoch_gpmp_tpu_torch.ops.kernels import bidiag_scan as s1
     from stoch_gpmp_tpu_torch.parallel import make_sharded_optimize, shard_planner_state
     from stoch_gpmp_tpu_torch.planners import stoch_gpmp_step
@@ -3234,9 +3516,15 @@ def sharded_long(mesh) -> dict | None:
     sampler, cost, state = build_long_horizon_problem(t, device=dev)
     kw = dict(num_samples=LONG_HORIZON["num_samples"], temperature=LONG_HORIZON["temperature"],
               step_size=LONG_HORIZON["step_size"])
+    # the single-rank run solves each rank's block of samples by an S1 launch
+    # of its own, as the ranks do: S1's rounding follows its launch shape
+    # (3.7e-7 of the largest |draw| apart between 480 and 240 rows at T =
+    # 4096 on an H100, where the draws reach ~490), so one launch over all
+    # samples would hold the collectives to S1's roundoff instead
     ref = _fresh(state)
-    for _ in range(SH_CHECK_ITERS):
-        ref, _ = stoch_gpmp_step(sampler, cost, ref, {}, plane_stream=True, **kw)
+    with s1_by_sample_blocks(mesh.devices.shape[1]):
+        for _ in range(SH_CHECK_ITERS):
+            ref, _ = stoch_gpmp_step(sampler, cost, ref, {}, plane_stream=True, **kw)
     run = make_sharded_optimize(mesh, opt_iters=SH_CHECK_ITERS, **kw)
     s1_seen, k1 = [], []
     reset_counters()
@@ -3280,9 +3568,12 @@ def sharded_gn(mesh) -> dict:
         with held_kernel(fields, "grid_lookup", _check_k10, k10):
             st = run(planner.cost, shard_gpmp_state(mesh, planner.state), {})
         launches = _counted()
-        if launches != {"grid_lookup": SH_GN_ITERS} or len(k10) != SH_GN_ITERS:
+        want = {"grid_lookup": SH_GN_ITERS}
+        if method == "cholesky":  # one C1 a linearisation, on the rank's block
+            want["block_chol"] = SH_GN_ITERS
+        if launches != want or len(k10) != SH_GN_ITERS:
             fail(f"sharded-gn ({method}): launches {launches}, {len(k10)} K10 held, expected "
-                 f"grid_lookup {SH_GN_ITERS}")
+                 f"{want}")
         err32 = float((run.shard.gather_particles(st.particle_means)
                        - ref.particle_means).abs().max())
         if not err32 <= GN_METHOD_ATOL:
@@ -3641,7 +3932,10 @@ def planar_examples(dev) -> dict:
         if gn:
             vel, pos, costs = res
             p = pos.shape[0]
-            want = {"grid_lookup": iters + 1}  # each linearisation, the returned costs
+            # each linearisation, the returned costs; C1: the init and sampling
+            # priors, and each linearisation's system under cholesky
+            want = {"grid_lookup": iters + 1,
+                    "block_chol": 2 * c1_per_prior(64) + iters * (key == "d cholesky")}
             if not all(bool(torch.isfinite(o).all()) for o in res):
                 fail(f"planar-examples ({key}): non-finite output")
             goals = torch.tensor(problems.GPMP_GOALS, device=pos.device)[:, None, :2]
@@ -3658,8 +3952,10 @@ def planar_examples(dev) -> dict:
             planner = res
             p, t = planner.particle_means.shape[:2]
             long = key == "c"
-            want = ({"bidiag_scan": iters + 1, "raster_field": iters} if long
-                    else {"grid_lookup": iters})
+            # C1: the planner's init and sampling priors
+            c1 = 2 * c1_per_prior(t)
+            want = ({"bidiag_scan": iters + 1, "raster_field": iters, "block_chol": c1} if long
+                    else {"grid_lookup": iters, "block_chol": c1})
             route = _route(planner.sampler, planner.cost, t)
             if route != ("planes" if long else "flat"):
                 fail(f"planar-examples ({key}): route {route}")
@@ -3668,7 +3964,7 @@ def planar_examples(dev) -> dict:
                 before, staged0 = first[0]
                 row.update(init_launches=before, init_staged=staged0,
                            iteration_staged=staged - staged0)
-                if before != {"bidiag_scan": 1} or staged != staged0:
+                if before != {"bidiag_scan": 1, "block_chol": c1} or staged != staged0:
                     fail(f"planar-examples ({key}): {before} before the first iteration, "
                          f"{staged - staged0} S1 launches of the iterations without TMA")
             row["goal_err"], row["start_err"] = planar_gates(f"planar-examples ({key})",
@@ -4060,6 +4356,20 @@ def main() -> int:
     phase("gn-main", f"means: woodbury vs cholesky {gn['woodbury_vs_cholesky']:.2e} (atol "
                      f"{GN_METHOD_ATOL}), inverse vs cholesky after 3 iterations "
                      f"{gn['inverse_vs_cholesky_3']:.2e} (atol {GN_INVERSE3_ATOL})")
+    c1 = c1_phase(dev)
+    for r in c1["rows"]:
+        inv = ("" if "inverse" not in r else f", L^-1 {r['inverse']:.2e} (loop "
+               f"{r['loop_inverse']:.2e})")
+        phase("C1", f"{r['case']} {r['dtype']}: factor {r['factor']:.2e} (loop "
+                    f"{r['loop_factor']:.2e}){inv} from the float64 loop, largest column error "
+                    f"over the column's largest entry (rtol {r['rtol']:g}); exact zeros above "
+                    "the diagonal, NaN from a block that is not positive definite on")
+    phase("C1", f"planar prior (4, 64) with L^-1: per call kernel {c1['ms']:.4f} ms, plain "
+                f"loops {c1['plain_ms']:.4f} ms, library (dense cholesky_ex + "
+                f"solve_triangular) {c1['library_ms']:.4f} ms; device time kernel "
+                f"{fmt_ms(c1['device_ms'])}; bound {c1['bound'][0]:.4f} ms ({c1['bound'][1]}); "
+                f"largest |error| {c1['max_abs_err']:.2e} from float64; make_gp_prior at 2 and "
+                f"7 dof: {c1_per_prior(64)} launches each on {smi}")
     sc = s1_check(dev)
     for c in sc["cases"]:
         phase("S1", f"{c['case']}: S1 {c['s1_rel']:.2e}, plain {c['plain_rel']:.2e} relative "
@@ -4196,7 +4506,7 @@ def main() -> int:
                    panda4_main=p4, K9=k9, K9_split=k9_split, K9_moments=k9_mom,
                    K9_loop=k9_run, K10=f2["K10"], K11=f2["K11"], shapes=shapes,
                    planar_ref_main=pr,
-                   gn_main=gn, S1=sc, long_horizon_main=lh, long_horizon_api=api,
+                   gn_main=gn, C1=c1, S1=sc, long_horizon_main=lh, long_horizon_api=api,
                    panda_example=px, panda_mesh=pmesh, panda_gn=pg, gn_long=gl,
                    sharded=ranks, nccl_1=nccl, panda_sim=sim, planar_examples=pe)
     if args.log_dir:
@@ -4274,6 +4584,17 @@ def main() -> int:
                    + gl["cholesky"]["launches"]["bidiag_scan"]
                    + sharded("bidiag_scan", *sh_long) + pe["runs"]["c"]["launches"]["bidiag_scan"],
                    sc, sc["bound"]))
+    # C1: the main path's sampling prior, gn-main's, panda-gn's, gn-long's
+    # and sharded-gn's cholesky iterations, gn-long's priors and the
+    # planar-examples' builds and cholesky iterations
+    record.append(("block_chol", "block_chol.cu",
+                   "none (lax.scan recurrences, stoch_gpmp_tpu/gp/tridiag.py)",
+                   mp["c1_build"] + gn["cholesky"]["launches"]["block_chol"]
+                   + pg["cholesky"]["launches"]["block_chol"]
+                   + sum(gl[m]["launches"]["block_chol"] for m in ("cholesky", "woodbury"))
+                   + sharded("block_chol", *sh_gn)
+                   + sum(r["launches"]["block_chol"] for r in pe["runs"].values()),
+                   c1, c1["bound"]))
     kernels = [
         {"name": n, "route": "cuda", "source": f"stoch_gpmp_tpu_torch/csrc/{src}",
          "replaces": rep, "launches": launches, "max_abs_err": r["max_abs_err"],

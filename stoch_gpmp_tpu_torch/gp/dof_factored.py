@@ -228,7 +228,7 @@ def make_dof_factored_prior(
     prec1 = build_precision(
         1, traj_len, dt, k_s_inv, q_inv, k_g_inv=k_g_inv, dtype=dtype, device=device
     )
-    w1 = prec1.cholesky().dense_inv_transpose().T  # [2T, 2T] = L^{-1}
+    w1 = prec1.cholesky_inverse()[1]  # [2T, 2T] = L^{-1}
     perm = plane_perm(traj_len)
     k_g2 = torch.zeros((2, 2), dtype=dtype, device=device) if k_g_inv is None else k_g_inv
     return DofFactoredPrior(

@@ -2,11 +2,12 @@
 
 PyTorch counterpart of ``stoch_gpmp_tpu/gp/prior.py``: the precision
 ``Sigma^{-1}`` is built directly in block-tridiagonal form and factored once
-by the structured block Cholesky. Up to ``M = 2048`` sampling is ``x = mu +
-eps @ L^{-1}`` with ``L^{-1}`` materialized once (one matmul per draw
-batch); beyond, the prior holds the parallel-in-time solver
-(``ParallelBidiagSolver``, kernel S1 on the card) and sampling is ``x = mu +
-L^{-T} eps``. All modes share the precision; means differ per mode.
+by the structured block Cholesky (kernel C1 on the card). Up to ``M = 2048``
+sampling is ``x = mu + eps @ L^{-1}`` with ``L^{-1}`` materialized once, by
+the factor's launch (one matmul per draw batch); beyond, the prior holds the
+parallel-in-time solver (``ParallelBidiagSolver``, kernel S1 on the card)
+and sampling is ``x = mu + L^{-T} eps``. All modes share the precision;
+means differ per mode.
 """
 
 from __future__ import annotations
@@ -109,10 +110,11 @@ class GPPrior:
         this prior samples with: the dense ``L^{-1}`` or the
         parallel-in-time solver. The per-dof factored form cannot be rebuilt
         from an arbitrary precision, so it is dropped."""
-        chol = precision.cholesky()
         if self.weight_t is not None:
-            return replace(self, precision=precision, chol=chol,
-                           weight_t=chol.dense_inv_transpose().T, psolver=None, dof=None)
+            chol, weight_t = precision.cholesky_inverse()
+            return replace(self, precision=precision, chol=chol, weight_t=weight_t,
+                           psolver=None, dof=None)
+        chol = precision.cholesky()
         return replace(self, precision=precision, chol=chol, weight_t=None,
                        psolver=ParallelBidiagSolver.from_chol(chol), dof=None)
 
@@ -207,11 +209,11 @@ def make_gp_prior(
     precision = build_precision(
         dof, traj_len, dt, k_s_inv, q_inv, k_g_inv=k_g_inv, dtype=dtype, device=device
     )
-    chol = precision.cholesky()
     weight_t = psolver = None
     if materialize_dense:
-        weight_t = chol.dense_inv_transpose().T  # [M, M] = L^{-1}
+        chol, weight_t = precision.cholesky_inverse()  # weight_t [M, M] = L^{-1}
     else:
+        chol = precision.cholesky()
         psolver = ParallelBidiagSolver.from_chol(chol)
 
     dof_factor = None

@@ -10,6 +10,10 @@ PyTorch counterpart of ``stoch_gpmp_tpu/gp/tridiag.py``:
 - ``BlockBidiagChol``: its lower block-bidiagonal factor with the
   structured triangular solves, ``solve`` and ``dense_inv_transpose``
   (``W = L^{-T}``, built once so that sampling is one matmul per iteration).
+  On a CUDA tensor ``BlockTridiag.cholesky`` and ``cholesky_inverse`` (the
+  factor and ``L^{-1} = W^T`` together) are one launch of kernel C1
+  (``ops/kernels/block_chol.py``); on a CPU tensor they are the loops
+  ``cholesky_loop`` and ``dense_inv_transpose``.
 - ``ParallelBidiagSolver``: the same substitutions as affine recurrences
   over time whose transitions depend only on the factor, the long-horizon
   sampler. On a CUDA tensor each solve is one launch of kernel S1
@@ -22,8 +26,9 @@ then take ``b [..., T, d]`` with the same leading dimensions. An unbatched
 factor (``diag [T, d, d]``) solves against any ``b [..., T, d]``.
 
 The JAX ``lax.scan`` recurrences are Python loops over the ``T`` blocks of
-small batched operations. The prior runs them once at construction; the
-Gauss-Newton planner's ``cholesky`` method runs them in every iteration.
+small batched operations. The prior factors once at construction; the
+Gauss-Newton planner's ``cholesky`` method factors in every iteration and
+runs the solves' loops.
 """
 
 from __future__ import annotations
@@ -122,7 +127,9 @@ class BlockBidiagChol:
 
     def dense_inv_transpose(self) -> torch.Tensor:
         """Materialize ``W = L^{-T}`` as a dense ``[M, M]`` matrix
-        (unbatched factor)."""
+        (unbatched factor) by ``M`` backward substitutions, a loop of ``T``
+        steps: the inverse half of C1's plain version. The prior's build
+        takes ``L^{-1}`` from ``BlockTridiag.cholesky_inverse``."""
         t, d = self.num_blocks, self.block_dim
         m = t * d
         eye = torch.eye(m, dtype=self.diag.dtype, device=self.diag.device)
@@ -185,8 +192,24 @@ class BlockTridiag:
     def cholesky(self) -> BlockBidiagChol:
         """Block Cholesky ``A = L L^T``, batched over leading dimensions:
         per step ``L_t = C_t D_{t-1}^{-T}``, ``D_t D_t^T = B_t - L_t L_t^T``.
-        A block that is not positive definite gives NaN, as in the JAX
-        package, and nothing is read back from the device."""
+        A block that is not positive definite gives NaN from there on, as in
+        the JAX package, and nothing is read back from the device. One
+        launch of kernel C1 on CUDA blocks (``ops/kernels/block_chol.py``),
+        :meth:`cholesky_loop` on CPU ones."""
+        from stoch_gpmp_tpu_torch.ops.kernels.block_chol import block_chol
+
+        return block_chol(self)[0]
+
+    def cholesky_inverse(self) -> tuple[BlockBidiagChol, torch.Tensor]:
+        """The factor of :meth:`cholesky` and the dense ``L^{-1} [M, M]``
+        (an unbatched system), from one C1 launch on the card."""
+        from stoch_gpmp_tpu_torch.ops.kernels.block_chol import block_chol
+
+        return block_chol(self, inverse=True)
+
+    def cholesky_loop(self) -> BlockBidiagChol:
+        """:meth:`cholesky` as a loop of ``T`` steps of batched ``d x d``
+        operations (C1's plain version)."""
         d_prev = cholesky_nan(self.diag[..., 0, :, :])
         ds, ls = [d_prev], []
         for t in range(1, self.num_blocks):
@@ -330,15 +353,22 @@ class ParallelBidiagSolver:
 
     @classmethod
     def from_chol(cls, chol: BlockBidiagChol) -> "ParallelBidiagSolver":
-        d = chol.block_dim
-        eye = torch.eye(d, dtype=chol.diag.dtype, device=chol.diag.device)
-        dinv = torch.linalg.solve_triangular(chol.diag, eye.expand_as(chol.diag), upper=False)
-        zero = chol.diag.new_zeros((1, d, d))
+        """The solver of ``chol``. ``D_t^{-1}`` and the transitions are
+        formed in float64 and rounded to the factor's dtype: formed in
+        float32 from a factor that is float32's rounding of the exact one,
+        the long-horizon prior's transitions put the solves 2e-5 (T = 1024)
+        to 6e-5 (T = 4096) of their largest entry from float64, against
+        1e-6 formed in float64."""
+        d, dtype = chol.block_dim, chol.diag.dtype
+        diag, lower = chol.diag.double(), chol.lower.double()
+        eye = torch.eye(d, dtype=diag.dtype, device=diag.device)
+        dinv = torch.linalg.solve_triangular(diag, eye.expand_as(diag), upper=False)
+        zero = diag.new_zeros((1, d, d))
         if chol.num_blocks == 1:
-            return cls.from_tables(dinv, zero, zero)
-        a_fwd = torch.cat([zero, -dinv[1:] @ chol.lower], dim=0)
-        a_bwd = torch.cat([-dinv[:-1].mT @ chol.lower.mT, zero], dim=0)
-        return cls.from_tables(dinv, a_fwd, a_bwd)
+            return cls.from_tables(dinv.to(dtype), zero.to(dtype), zero.to(dtype))
+        a_fwd = torch.cat([zero, -dinv[1:] @ lower], dim=0)
+        a_bwd = torch.cat([-dinv[:-1].mT @ lower.mT, zero], dim=0)
+        return cls.from_tables(dinv.to(dtype), a_fwd.to(dtype), a_bwd.to(dtype))
 
     @classmethod
     def from_tables(cls, dinv, a_fwd, a_bwd) -> "ParallelBidiagSolver":

@@ -16,7 +16,11 @@ launch-counting wrapper and a plain PyTorch version in the same module.
   iteration with one seed pair per particle;
 - ``fields.grid_lookup`` (K10): the occupancy-grid read;
 - ``fields.primitive_field_cost`` (K11): the analytic rectangle and circle
-  field.
+  field;
+- ``bidiag_scan.bidiag_scan`` (S1): the long-horizon sampler's
+  block-bidiagonal plane solve;
+- ``block_chol.block_chol`` (C1): the GP prior's block Cholesky factor and
+  its dense inverse.
 
 A wrapper launches its kernel for a CUDA tensor and runs the plain version
 only for a CPU tensor; it never falls back from one to the other.

@@ -127,6 +127,10 @@ SIGNATURES = {
         _I, _I, _I, _I, _I,  # P, S, M, n_dof, CTAs per particle
         _I, _I, _I, _P,  # R, C, K9's instantiation, int shape[4]
     ],
+    "block_chol_launch": [
+        _P, _P, _P, _P, _P,  # diag, lower (or null), dout, lout (or null), linv (or null)
+        _I, _I, _I, _I, _P,  # B, T, d, is_double, stream
+    ],
 }
 
 _LIB = None

@@ -3,7 +3,7 @@ phases of the fused kernels K2, K6 and K5 and of the FK + fields kernel K4,
 and the kernels' device time per call across shapes.
 
     python3 -m stoch_gpmp_tpu_torch.tools.fused_timing phases [--out DIR] [--only K5,K4,S1]
-    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing shapes [--only K5,K4,K7,S1,S1-sweep,floor]
+    python3 -m stoch_gpmp_tpu_torch.tools.fused_timing shapes [--only K5,K4,K7,S1,S1-sweep,C1,floor]
 
 ``phases`` builds instrumented copies of ``csrc/fused_planar_step.cu`` (K2),
 ``csrc/fused_panda_step.cu`` (K6), ``csrc/fused_panda_dof_step.cu`` (K5)
@@ -45,7 +45,11 @@ backward plane solve of ``build_long_horizon_problem``'s sampler on ``[4,
 launcher's shape, and ptxas's report of its source; ``S1-sweep`` adds its
 launch at a sweep of shapes (rows per CTA, chunks per segment, steps per
 table stage, plane buffers, table stages; device ms by ``torch.profiler``);
-``S1-host`` the host's time per call of its wrapper's pieces. ``phases --only S1`` stamps the
+``S1-host`` the host's time per call of its wrapper's pieces. ``C1`` times
+the GP prior's block Cholesky (with ``L^{-1}`` at the planar, per-dof and
+Panda priors' shapes; the factor alone for the long-horizon Gauss-Newton
+batch and prior) beside the plain loops and the library's dense Cholesky,
+and ``make_gp_prior`` through C1. ``phases --only S1`` stamps the
 last time segment of each CTA of S1 (consumer thread 0): the wait for the
 segment's planes (TMA, issued one or more segments earlier), phases 1, 2
 and 3.
@@ -641,6 +645,70 @@ def s1_host(dev, reps: int = 3000) -> None:
         print(f"S1 host: {what} {us:.2f} us per call", flush=True)
 
 
+def c1_launches(dev) -> None:
+    """C1 at the shapes the port factors (the demo's planar sampling prior
+    and its per-dof factor, the Panda example's prior, each with ``L^{-1}``;
+    the long-horizon Gauss-Newton batch and prior, the factor alone) beside
+    its plain version, the loops, and beside the library's dense factor
+    (``torch.linalg.cholesky_ex`` of the ``M x M`` precision, and
+    ``solve_triangular`` against the identity for ``L^{-1}``) on the card;
+    then ``make_gp_prior`` at the demo's shape, two C1 launches."""
+    from stoch_gpmp_tpu_torch.gp.lift import q_inv_block, unary_weight
+    from stoch_gpmp_tpu_torch.gp.prior import build_precision, make_gp_prior
+    from stoch_gpmp_tpu_torch.ops.kernels.block_chol import block_chol_plain
+    from stoch_gpmp_tpu_torch.problems import DT, GOALS, PANDA_DT, START
+
+    def prec(dof, t, dt, s_start, s_gp, s_goal, lead=()):
+        d = 2 * dof
+        p = build_precision(dof, t, dt, unary_weight(d, s_start, device=dev),
+                            q_inv_block(dof, dt, sigma=s_gp, device=dev),
+                            k_g_inv=unary_weight(d, s_goal, device=dev), device=dev)
+        return type(p)(p.diag.expand(lead + p.diag.shape).contiguous(),
+                       p.lower.expand(lead + p.lower.shape).contiguous())
+
+    for what, system, inverse, library in (
+            ("planar prior (4, 64) with L^-1", prec(2, 64, DT, 1e-3, 3.0, 1e-3), True, True),
+            ("per-dof factor (2, 64) with L^-1", prec(1, 64, DT, 1e-3, 3.0, 1e-3), True, True),
+            ("Panda prior (14, 64) with L^-1", prec(7, 64, PANDA_DT, 1e-3, 0.1, 0.07), True,
+             True),
+            ("Gauss-Newton batch [15, 1024, 4, 4]", prec(2, 1024, DT, 1e-3, 3.0, 1e-3, (15,)),
+             False, True),
+            ("long-horizon prior (4, 4096)", prec(2, 4096, DT, 1e-3, 3.0, 1e-3), False, False)):
+        kernel = system.cholesky_inverse if inverse else system.cholesky
+
+        def plain(system=system, inverse=inverse):
+            return block_chol_plain(system, inverse=inverse)
+
+        time_point(f"C1 {what}", kernel, "block_chol_kernel", reps=20)
+        _, every = device_per_call(plain, 2, "")
+        print(f"C1 {what}, plain loops: device {every:.4f} ms every operation, per call "
+              f"{events_per_call(plain, 2):.4f} ms (CUDA events)", flush=True)
+        if library:
+            dense = system.to_dense()
+            eye = torch.eye(dense.shape[-1], dtype=dense.dtype, device=dev)
+
+            def lib(dense=dense, eye=eye, inverse=inverse):
+                chol = torch.linalg.cholesky_ex(dense)[0]  # no host check of info
+                if inverse:
+                    return torch.linalg.solve_triangular(chol, eye, upper=False)
+                return chol
+
+            _, every = device_per_call(lib, 5, "")
+            print(f"C1 {what}, library (dense cholesky_ex{' + solve_triangular' * inverse} on "
+                  f"{list(dense.shape)}): device {every:.4f} ms every operation, per call "
+                  f"{events_per_call(lib, 5):.4f} ms (CUDA events)", flush=True)
+
+    def prior():
+        return make_gp_prior(2, 64, DT, START, 1e-3, 3.0, sigma_goal=1e-3, goal_states=GOALS,
+                             device=dev)
+
+    _, every = device_per_call(prior, 3, "")
+    runs = [events_per_call(prior, 10) for _ in range(5)]
+    print(f"make_gp_prior (2 dof, T = 64) through C1: device {every:.4f} ms every operation, "
+          f"per call {float(np.median(runs)):.4f} ms median of 5 x 10 (CUDA events)",
+          flush=True)
+
+
 def ptxas_report(src: str) -> str:
     """ptxas's registers, spills and stack frames per kernel of ``csrc/src``,
     from a build of that source alone with the kernels' flags (the shared
@@ -656,6 +724,9 @@ def ptxas_report(src: str) -> str:
 
 
 def shapes(dev, only) -> None:
+    if "C1" in only:
+        c1_launches(dev)
+        print(f"ptxas block_chol.cu: {ptxas_report('block_chol.cu')}", flush=True)
     if "S1" in only or "S1-sweep" in only:
         s1_launches(dev, "S1-sweep" in only)
         print(f"ptxas bidiag_scan.cu: {ptxas_report('bidiag_scan.cu')}", flush=True)

@@ -344,7 +344,44 @@ def test_planar_example_twins(dev, monkeypatch):
     monkeypatch.setattr(chip_smoke, "PE_LONG_ITERS", 50)
     r = chip_smoke.planar_examples(dev)
     runs = r["runs"]
-    assert runs["a"]["launches"] == {"grid_lookup": 100}
-    assert runs["c"]["launches"] == {"bidiag_scan": 51, "raster_field": 50}
+    assert runs["a"]["launches"] == {"grid_lookup": 100, "block_chol": 4}
+    assert runs["c"]["launches"] == {"bidiag_scan": 51, "raster_field": 50, "block_chol": 2}
     assert runs["c"]["iteration_staged"] == 0 and runs["c"]["held"] == {"K1": 5, "S1": 6}
     assert r["woodbury_vs_cholesky"] <= chip_smoke.GN_METHOD_ATOL
+
+
+# --- C1: the GP prior's block Cholesky and dense L^{-1} ---------------------
+
+
+@pytest.mark.parametrize("case", ["planar", "dof", "panda", "gn32", "gn64", "long"])
+def test_block_chol_kernel(dev, case):
+    """C1 (``ops/kernels/block_chol.py``) at the planar, per-dof and Panda
+    priors' shapes with ``L^{-1}``, the long-horizon Gauss-Newton batch in
+    float32 and float64 and the long-horizon prior: ``chip_smoke.c1_check``'s
+    gates (within C1_RTOL32, C1_RTOL32_LONG or C1_RTOL64 of the float64 loop
+    and, in float32, no further than the loops; exact zeros above the
+    diagonal of ``L^{-1}``; NaN from a block that is not positive definite
+    on; one launch a call), held here again; one line of readings per
+    system. At the planar and Panda shapes, ``make_gp_prior`` takes two
+    launches (the prior and its per-dof factor, each with ``L^{-1}``)."""
+    import json
+
+    import chip_smoke
+    from stoch_gpmp_tpu_torch.gp.prior import make_gp_prior
+    from stoch_gpmp_tpu_torch.ops.kernels.block_chol import block_chol
+
+    t, dtype = chip_smoke.C1_CASES[case][1], chip_smoke.C1_CASES[case][3]
+    rtol = (chip_smoke.C1_RTOL64 if dtype == torch.float64
+            else chip_smoke.C1_RTOL32_LONG if t > 1024 else chip_smoke.C1_RTOL32)
+    for row in chip_smoke.c1_check(dev, case):
+        print(json.dumps(row), flush=True)
+        for mine in ("factor", "inverse"):
+            if mine in row:
+                assert row[mine] <= rtol
+                assert dtype == torch.float64 or row[mine] <= row[f"loop_{mine}"]
+    if case in ("planar", "panda"):
+        n, dof = block_chol.launches, chip_smoke.C1_CASES[case][0] // 2
+        prior = make_gp_prior(dof, 64, 0.02, [0.0] * (2 * dof), 1e-3, 3.0, sigma_goal=1e-3,
+                              goal_states=[[1.0] * (2 * dof)], device=dev)
+        assert block_chol.launches - n == 2 == chip_smoke.c1_per_prior(64)
+        assert prior.weight_t is not None and prior.dof is not None
