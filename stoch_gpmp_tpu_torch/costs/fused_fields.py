@@ -32,6 +32,7 @@ from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (
     fk_link_fields_cost_rows,
     fused_link_fields_cost,
 )
+from stoch_gpmp_tpu_torch.utils.profiling import annotate
 
 
 def ee_goal_distance(chain, q_last, target_h, *, w_pos: float, w_rot: float, acos=torch.arccos):
@@ -100,6 +101,7 @@ class PlaneFieldsCost(Cost):
     w_rot: float = 1.0
 
     @classmethod
+    @annotate("costs.plane_fields")
     def create(cls, n_dof, traj_len, chain, target_h, *, margin=0.03, sigma_self=0.01,
                sigma_coll=0.01, sigma_goal=0.00007, w_pos=1.0, w_rot=1.0):
         """The obstacle term takes every sphere of the observation, as the

@@ -360,28 +360,32 @@ def _stoch_gpmp_optimize_dof(
     quad_eval = shard_dof_quad or dof_quad_eval
 
     def step(mu, eps_i):
-        if shard is not None:
-            eps_i = shard.draw(state.generator, (mu.shape[0], p, num_samples, 2 * t), 1, 2,
-                               dtype=mu.dtype, device=mu.device, eps=eps_i)
-        x, corr = dof.sample_planes(state.generator, mu, num_samples, eps=eps_i)
-        x_flat = x.reshape(x.shape[0], p * num_samples, 2 * t)
-        pu = dof.matvec_planes(mu)  # exact stencil Sigma^{-1} mu, [d, P, 2T]
-        if dq is not None:
-            costs = quad_eval(dq, x_flat, pu=pu, temperature=temperature,
-                              num_samples=num_samples)
-            for c in rest:
+        with annotate("dof.draw"):
+            if shard is not None:
+                eps_i = shard.draw(state.generator, (mu.shape[0], p, num_samples, 2 * t), 1, 2,
+                                   dtype=mu.dtype, device=mu.device, eps=eps_i)
+            x, corr = dof.sample_planes(state.generator, mu, num_samples, eps=eps_i)
+            x_flat = x.reshape(x.shape[0], p * num_samples, 2 * t)
+        with annotate("dof.quad"):
+            pu = dof.matvec_planes(mu)  # exact stencil Sigma^{-1} mu, [d, P, 2T]
+            if dq is not None:
+                costs = quad_eval(dq, x_flat, pu=pu, temperature=temperature,
+                                  num_samples=num_samples)
+            else:
+                costs = temperature * torch.sum(x * pu[:, :, None], dim=(0, -1)).reshape(-1)
+        with annotate("dof.fields"):
+            for c in rest if dq is not None else [cost]:
                 costs = costs + c.eval_dof_planes(x_flat, observation=observation)
             costs = costs.reshape(p, num_samples)
-        else:
-            costs = cost.eval_dof_planes(x_flat, observation=observation).reshape(
-                p, num_samples) + temperature * torch.sum(x * pu[:, :, None], dim=(0, -1))
-        if shard is None:
-            weights = torch.softmax(-costs / temperature, dim=1)
-            grad = torch.einsum("ps,dpsk->dpk", weights, corr)
-        else:
-            weights = shard.softmax(-costs / temperature)
-            grad = shard.sum_samples(torch.einsum("ps,dpsk->dpk", weights, corr))
-        return mu + step_size * grad, costs, weights, grad, x
+        with annotate("dof.update"):
+            if shard is None:
+                weights = torch.softmax(-costs / temperature, dim=1)
+                grad = torch.einsum("ps,dpsk->dpk", weights, corr)
+            else:
+                weights = shard.softmax(-costs / temperature)
+                grad = shard.sum_samples(torch.einsum("ps,dpsk->dpk", weights, corr))
+            new_mu = mu + step_size * grad
+        return new_mu, costs, weights, grad, x
 
     mu = to_dof_planes(state.particle_means)
     metrics = []

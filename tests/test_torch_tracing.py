@@ -96,6 +96,55 @@ def test_route_counters_count_each_route():
     assert [r.name[len(P):] for r in spans() if r.name.endswith(".dof")] == ["planner.dof"]
 
 
+def panda_planner(**kw):
+    """The Panda on the fast stack (``QuadraticCost`` + ``PlaneFieldsCost``)
+    at 1 goal x 2 particles, 4 samples, T = 128: the dof route, on the CPU."""
+    from stoch_gpmp_tpu_torch.problems import PANDA_DT, _panda_setup, _panda_stack
+
+    chain, target_h, _, start = _panda_setup(torch.float32, "cpu")
+    goals = start[None].clone()
+    cost = _panda_stack(chain, target_h, start, goals, 128, fast=True)
+    return StochGPMP(
+        num_particles_per_goal=2, num_samples=4, traj_len=128, dt=PANDA_DT, n_dof=7,
+        opt_iters=1, start_state=start, multi_goal_states=goals, cost=cost, step_size=0.1,
+        sigma_start_init=1e-4, sigma_goal_init=0.1, sigma_gp_init=0.8, sigma_start_sample=1e-3,
+        sigma_goal_sample=0.07, sigma_gp_sample=0.1, seed=0, device="cpu", **kw)
+
+
+DOF_STEP = [("dof.draw", None), ("dof.quad", None), ("dof.fields", None), ("dof.update", None)]
+
+
+def test_dof_route_opens_its_step_spans():
+    planner = panda_planner()
+    roots = [r.name[len(P):] for r in spans() if r.parent < 0]
+    assert roots[:2] == ["costs.quadratic", "costs.plane_fields"]
+    first = spans()[-1].index
+    observation = {"obstacle_spheres": torch.tensor([[[0.7, 0.1, 0.8, 0.15]]])}
+    planner.optimize(opt_iters=3, observation=observation)
+    records = [r for r in spans() if r.index > first]
+    dof = next(r for r in records if r.name == P + "planner.dof")
+    assert dof.n == 3 and children(records, dof) == DOF_STEP * 3
+    fused = panda_planner(fused_kernel=True)
+    first = spans()[-1].index
+    fused.optimize(opt_iters=3, observation=observation)
+    records = [r for r in spans() if r.index > first]
+    opt = next(r for r in records if r.name == P + "planner.optimize")
+    assert [n for n, _ in children(records, opt)] == ["planner.fused_build", "planner.fused_loop",
+                                                       "planner.dof"]
+    dof = next(r for r in records if r.name == P + "planner.dof")
+    assert dof.n == 1 and children(records, dof) == DOF_STEP
+
+
+@pytest.mark.parametrize("kw", [dict(fused_kernel=True), dict(fused_kernel=False)],
+                         ids=["fused", "flat"])
+def test_planar_routes_open_no_dof_spans(kw):
+    planner = planar_planner(**kw)
+    planner.optimize(opt_iters=3)
+    names = {r.name[len(P):] for r in spans()}
+    assert {"planner.optimize", "step.draw"} <= names
+    assert not {n for n in names if n.startswith("dof.")} | {"costs.plane_fields"} & names
+
+
 def test_counters_read_the_wrappers(monkeypatch):
     from stoch_gpmp_tpu_torch.ops.kernels import bidiag_scan, fused_step
 
