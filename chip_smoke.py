@@ -39,15 +39,17 @@ Phases, one line each; any failure exits non-zero before the result line:
    (``generic_chain``) against float64 oracles, each counted as a generic
    launch (``.generic_launches``), and K5 and K6 through it on a tilted
    Panda;
-9. K5, the fused dof Panda iteration (persistent CTAs, ``Sigma^{-1} mu``
-   in the kernel, ``W_dof``'s zero half skipped): eps operand against its
-   plain version at config 5 with its launch; seed mode at the persistent
-   launch against one particle per CTA (equal to the last bit); the dense
-   instantiation on the prior's W (equal to the last bit) and on a W
-   without the zero half (against the plain version); at the other shapes
-   of ``K5_SHAPES`` (T = 224, 192; S = 16) against the plain version; the
-   RNG-free tier (``W = 0``) against float64 oracles, and the Philox
-   moments;
+9. K5, the fused dof Panda iteration (one CTA a particle, ``Sigma^{-1} mu``
+   in the kernel, the draws by the backward substitution on the prior's
+   factor): eps operand against its plain version at config 5 with its
+   launch (no dense launch counted); seed mode with persistent CTAs
+   against one particle per CTA (equal to the last bit); the dense
+   instantiation on the prior's W against the substitution (K5's gates),
+   the two's draws whitened against the float64 factor (the substitution no
+   worse), and the dense instantiation on a W the caller gave (against the
+   plain version); at the other shapes of ``K5_SHAPES`` (T = 224, 192; S =
+   16) by substitution against the plain version; the RNG-free tier (``W =
+   0``, dense) against float64 oracles, and the Philox moments;
 10. the Panda main path: ``build_panda_problem`` at config 5 through
     ``StochGPMP(fused_kernel=True)`` and ``StochGPMP`` on the dof path, 200
     iterations each, with descent, start-anchor and launch-count gates (no
@@ -331,9 +333,9 @@ GN_GOAL_TOL, GN_START_TOL, GN_METHOD_ATOL, GN_INVERSE3_ATOL = 0.05, 0.02, 1e-4, 
 # roundoff on means of up to ~10.
 SPLIT_MEAN_ATOL = 1e-5
 # K5 away from config 5 (T, S), 2 goals x 32 particles each, under K5's
-# gates: T = 224 (one K part per window, a last block of 2 warps) and T =
-# 192 (the packed W does not fit: the dense instantiation), and S = 16 at T =
-# 128 (two passes of 56 rows: the dense instantiation).
+# gates, by substitution: T = 224 (28 chunks of 8 steps: a pair a warp, 4
+# lanes idle) and T = 192 (24 chunks), and S = 16 at T = 128 (32 sample
+# pairs).
 K5_SHAPES = ((224, 8), (192, 8), (128, 16))
 # The fused loops (main, K9-loop, panda4-main (a)) launch one kernel per
 # iteration; the seeds' draw adds one or two operations per window.
@@ -607,15 +609,17 @@ def kernel_counters() -> dict:
 
 def reset_counters() -> None:
     """Set every kernel's launch count (and the count of generic or
-    runtime-size launches of the FK kernels, K7, S1 and C1, and S1's
-    launches whose planes did not go by TMA) to 0, just before a main path
-    runs."""
+    runtime-size launches of the FK kernels, K7, S1 and C1, S1's launches
+    whose planes did not go by TMA and K5's dense-product launches) to 0,
+    just before a main path runs."""
     for fn in kernel_counters().values():
         fn.launches = 0
         if hasattr(fn, "generic_launches"):
             fn.generic_launches = 0
         if hasattr(fn, "staged_launches"):
             fn.staged_launches = 0
+        if hasattr(fn, "dense_launches"):
+            fn.dense_launches = 0
 
 
 def generic_walks(counters: dict) -> dict:
@@ -1189,9 +1193,10 @@ def tilted_panda():
 
 def fused_generic_walk_check(dev) -> dict:
     """K5 (config 5) and K6 (config 4) with the eps operand on a chain no FK
-    spec matches (``tilted_panda``: the generic walk, K5's dense
-    instantiation) against their plain versions on the same chain, under
-    K5's gates (K6: every particle's best sample agreeing)."""
+    spec matches (``tilted_panda``: the generic walk; K5 by substitution and
+    by its dense instantiation on the prior's W) against their plain
+    versions on the same chain, under K5's gates (K6: every particle's best
+    sample agreeing)."""
     from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
     from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import fk_variant
     from stoch_gpmp_tpu_torch.ops.kernels.panda_step import (
@@ -1213,8 +1218,10 @@ def fused_generic_walk_check(dev) -> dict:
     step = make_dof_step(sampler, cost, obs, p, s, chain=chain)
     means = to_dof_planes(state.particle_means).contiguous()
     eps = torch.randn((7, p, s, means.shape[-1]), generator=gen, device=dev)
-    k5 = _k5_gates("K5 generic walk", *fused_panda_dof_step(step, means, eps=eps),
-                   *fused_panda_dof_step_plain(step, means, eps))
+    plain = fused_panda_dof_step_plain(step, means, eps)
+    k5 = _k5_gates("K5 generic walk", *fused_panda_dof_step(step, means, eps=eps), *plain)
+    k5d = _k5_gates("K5 generic walk, dense", *fused_panda_dof_step(
+        replace(step, tables=None), means, eps=eps), *plain)
     sampler4, cost4, state4, obs4, s4 = panda4_problem(dev)
     p4 = state4.particle_means.shape[0]
     step4 = make_flat_step(sampler4, cost4, obs4, p4, s4, chain=chain)
@@ -1227,10 +1234,10 @@ def fused_generic_walk_check(dev) -> dict:
         fail(f"K6 generic walk: best sample agrees for only {k6[1]}/{p4} particles")
     walks = (fused_panda_dof_step.generic_launches - before[0],
              fused_panda_step.generic_launches - before[1])
-    if walks != (1, 1):
-        fail(f"generic FK walk: K5 and K6 counted {walks} generic launches, expected (1, 1)")
-    return dict(k5_cost_max_rel=k5[0], k5_mean_max_err=k5[2], k6_cost_max_rel=k6[0],
-                k6_mean_max_err=k6[2])
+    if walks != (2, 1):
+        fail(f"generic FK walk: K5 and K6 counted {walks} generic launches, expected (2, 1)")
+    return dict(k5_cost_max_rel=max(k5[0], k5d[0]), k5_mean_max_err=max(k5[2], k5d[2]),
+                k6_cost_max_rel=k6[0], k6_mean_max_err=k6[2])
 
 
 def make_dof_step(sampler, cost, obs, p, s, **over):
@@ -1271,9 +1278,10 @@ def _k5_gates(what: str, new_k, cost_k, new_p, cost_p) -> tuple[float, int, floa
 
 def fused_dof_check(dev) -> dict:
     """K5 with an eps operand vs its plain version at config 5, through the
-    instantiation that skips W_dof's zero half (the prior's W), with its
-    launch; the bound counts the dense product, ``nonzero_bound`` only the
-    half of W the kernel reads."""
+    substitution (the prior's factor; no launch counted in
+    ``dense_launches``), with its launch; ``bound`` counts the dense product
+    (the benchmark's ``k5_roofline`` yardstick), ``substitution_bound`` the
+    work the kernel does: 7 multiply-adds a row and step."""
     from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
     from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import (
         fused_panda_dof_step,
@@ -1284,12 +1292,15 @@ def fused_dof_check(dev) -> dict:
     sampler, cost, state, obs, s = panda_problem(dev)
     p = state.particle_means.shape[0]
     step = make_dof_step(sampler, cost, obs, p, s)
-    if not step.triangular:
-        fail("K5: the prior's W_dof did not take the instantiation that skips its zero half")
+    if not step.substitution:
+        fail("K5: the prior's step did not take the substitution")
     means = to_dof_planes(state.particle_means).contiguous()
     gen = torch.Generator(device=dev).manual_seed(6)
     eps = torch.randn((7, p, s, means.shape[-1]), generator=gen, device=dev)
+    dense = fused_panda_dof_step.dense_launches
     new_k, cost_k = fused_panda_dof_step(step, means, eps=eps)
+    if fused_panda_dof_step.dense_launches != dense:
+        fail("K5: the prior's step ran the dense product (dense_launches moved)")
     new_p, cost_p = fused_panda_dof_step_plain(step, means, eps)
     torch.cuda.synchronize()
     rel, agree, mean_err = _k5_gates("K5", new_k, cost_k, new_p, cost_p)
@@ -1299,70 +1310,114 @@ def fused_dof_check(dev) -> dict:
     m, t = means.shape[-1], means.shape[-1] // 2
     fields = p * s * (t - 1) * K4_OPS_PER_POINT
     nb = 4 * (3 * means.numel() + m * m + p * s)
-    # the non-zero half: per row, 2 (T - t(m)) products per column m
-    nonzero_macs = 7 * p * s * 2 * t * (t + 1)
+    # the substitution: per row and step D_t^{-T} eps_t (3) and A_t y_{t+1} (4)
+    sub_macs = 7 * p * s * t * 7
     return dict(cost_max_rel=rel, argmax_agree=agree, particles=p,
                 max_abs_err=mean_err, ms=cuda_ms(kernel, 50), plain_ms=cuda_ms(plain, 10),
                 device_ms=device_ms(kernel, 20), plain_device_ms=device_ms(plain, 5),
                 bound=bound(nb, 2 * 7 * p * s * m * m + fields),
-                nonzero_bound=bound(4 * (3 * means.numel() + step.w_windows.numel() + p * s),
-                                    2 * nonzero_macs + fields),
+                substitution_bound=bound(4 * (3 * means.numel() + step.tables.numel() + p * s),
+                                         2 * sub_macs + fields),
                 launch=launch_shape(step))
 
 
+def uniform_dof_step(sampler, cost, obs, p, s, **over):
+    """K5's step at config 5 with every cost zeroed (the quadratic, the
+    fields, the goal and the sampling prior's stencil weights, so the
+    in-kernel importance term is 0), temperature 1e30 and step 1: the
+    weights are 1 / S exactly and the update is the samples' mean
+    correction, ``mean_s (x_s - mu)``."""
+    z = torch.zeros((2, 2), device=sampler.dof.w_dof.device)
+    return make_dof_step(sampler, cost, obs, p, s, dof_quad=replace(
+        cost.costs[0].dof_form, q_i2=z, k_s2=z, k_g2=z), w_self=0.0, w_obst=0.0, w_goal=0.0,
+        dof_prior=replace(sampler.dof, q_i2=z, k_s2=z, k_g2=z), temperature=1e30,
+        step_size=1.0, **over)
+
+
 def fused_dof_split_check(dev) -> dict:
-    """K5 in seed mode at the persistent launch against one particle per CTA
-    (the same draws: the Philox counter does not depend on the CTA): costs
-    and new means equal to the last bit, and the means within SPLIT_MEAN_ATOL
-    in any case. Then the dense instantiation: on the prior's W (its zero
-    half multiplied, summed in the same order) equal to the last bit to the
-    instantiation that skips it, and on a W without the zeros (the prior's
-    plus noise of 1e-4 of its largest entry) against the plain version under
-    K5's gates."""
+    """K5 in seed mode with persistent CTAs (as many as are resident on the
+    card, each looping over particles) against its launch of one particle
+    per CTA (the same draws: the Philox counter does not depend on the
+    CTA): costs and new means equal to the last bit, and the means within
+    SPLIT_MEAN_ATOL in any case. Then the dense instantiation on the
+    prior's W against the substitution on the same draws, under K5's gates;
+    and the draws alone
+    (:func:`uniform_dof_step` from zero means, with an eps operand, so the
+    new means are the samples' mean ``y``): whitened against the float64
+    factor (``|y L - mean_s eps| / |mean_s eps|`` per row), the
+    substitution's error no larger than the dense instantiation's. Last,
+    a W the caller gives (the prior's plus noise of 1e-4 of its largest
+    entry) takes the dense instantiation and runs under K5's gates against
+    the plain version."""
     from dataclasses import replace as dc_replace
 
-    from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
+    from stoch_gpmp_tpu_torch.gp.dof_factored import (
+        make_dof_factored_prior,
+        plane_perm,
+        to_dof_planes,
+    )
     from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import (
         fused_panda_dof_step,
         fused_panda_dof_step_plain,
         launch_shape,
     )
+    from stoch_gpmp_tpu_torch.problems import PANDA_DT, PANDA_SAMPLE_SIGMAS
 
     sampler, cost, state, obs, s = panda_problem(dev)
     p = state.particle_means.shape[0]
     step = make_dof_step(sampler, cost, obs, p, s)
     means = to_dof_planes(state.particle_means).contiguous()
-    split = launch_shape(step)["ctas"]
-    new_1, cost_1 = fused_panda_dof_step(step, means, seed=17, ctas=p)
-    new_c, cost_c = fused_panda_dof_step(step, means, seed=17)
-    dense = dc_replace(step, w_windows=None)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = min(p, launch_shape(step)["ctas_per_sm"] * sms)
+    new_1, cost_1 = fused_panda_dof_step(step, means, seed=17)
+    new_c, cost_c = fused_panda_dof_step(step, means, seed=17, ctas=split)
+    dense = dc_replace(step, tables=None)
     new_d, cost_d = fused_panda_dof_step(dense, means, seed=17)
     torch.cuda.synchronize()
     mean_err = float((new_c - new_1).abs().max())
     if not (torch.equal(cost_c, cost_1) and mean_err <= SPLIT_MEAN_ATOL):
         fail(f"K5: {split} persistent CTAs against one per particle: costs "
              f"{float((cost_c - cost_1).abs().max()):.3g} apart, new means {mean_err:.3g}")
-    if not (torch.equal(cost_d, cost_c) and torch.equal(new_d, new_c)):
-        fail("K5: the dense instantiation on the prior's W differs from the one that skips "
-             f"its zeros by {float((cost_d - cost_c).abs().max()):.3g}")
+    sub = _k5_gates("K5 substitution against the dense product", new_c, cost_c, new_d, cost_d)
+    # the draws alone, whitened against the float64 factor
     gen = torch.Generator(device=dev).manual_seed(8)
+    m = means.shape[-1]
+    t = m // 2
+    eps = torch.randn((7, p, s, m), generator=gen, device=dev)
+    draws = uniform_dof_step(sampler, cost, obs, p, s)
+    p64 = make_dof_factored_prior(t, PANDA_DT, *PANDA_SAMPLE_SIGMAS, dtype=torch.float64,
+                                  device="cpu")
+    idx = torch.as_tensor(plane_perm(t))
+    lp = p64.chol.to_dense()[idx][:, idx]
+    target = eps.double().cpu().mean(dim=2)  # [7, P, M]
+
+    def whitened(st) -> float:
+        y = fused_panda_dof_step(st, torch.zeros_like(means), eps=eps)[0].double().cpu()
+        return float(((y @ lp - target).norm(dim=-1) / target.norm(dim=-1)).max())
+
+    w_sub, w_dense = whitened(draws), whitened(dc_replace(draws, tables=None))
+    if not w_sub <= w_dense:
+        fail(f"K5: the substitution's draws whiten to {w_sub:.3g}, the dense product's to "
+             f"{w_dense:.3g}")
     w = sampler.dof.w_dof
     w_noisy = w + 1e-4 * w.abs().max() * torch.randn(w.shape, generator=gen, device=dev)
     over = make_dof_step(sampler, cost, obs, p, s, w_dof=w_noisy)
-    if over.triangular:
-        fail("K5: a W without the zero half took the triangular instantiation")
-    eps = torch.randn((7, p, s, means.shape[-1]), generator=gen, device=dev)
+    if over.substitution:
+        fail("K5: a W the caller gave took the substitution")
     new_k, cost_k = fused_panda_dof_step(over, means, eps=eps)
     new_p, cost_p = fused_panda_dof_step_plain(over, means, eps)
     torch.cuda.synchronize()
     rel, agree, err = _k5_gates("K5 dense", new_k, cost_k, new_p, cost_p)
-    return dict(ctas=split, particles=p, mean_max_err=mean_err, dense_cost_max_rel=rel,
+    return dict(ctas=split, particles=p, mean_max_err=mean_err, sub_dense_cost_max_rel=sub[0],
+                sub_dense_argmax_agree=sub[1], sub_dense_mean_max_err=sub[2],
+                draw_whitened_sub=w_sub, draw_whitened_dense=w_dense, dense_cost_max_rel=rel,
                 dense_argmax_agree=agree, dense_mean_max_err=err)
 
 
 def fused_dof_shapes_check(dev) -> dict:
     """K5 with an eps operand against its plain version at the shapes of
-    ``K5_SHAPES``, under K5's gates, with the launch each took. The Panda
+    ``K5_SHAPES``, each through the substitution, under K5's gates, with the
+    launch each took. The Panda
     problem's stencil weights, anchors, fields and spheres (2 goals x 32
     particles), the dof-factored sampling prior built at each horizon (the
     planner's flat prior refuses 14 T > 2048) and straight start-to-goal
@@ -1386,6 +1441,8 @@ def fused_dof_shapes_check(dev) -> dict:
         p = state.particle_means.shape[0]
         prior = make_dof_factored_prior(t, PANDA_DT, *PANDA_SAMPLE_SIGMAS, device=dev)
         step = make_dof_step(sampler, cost, obs, p, s, traj_len=t, dof_prior=prior)
+        if not step.substitution:
+            fail(f"K5 at T = {t}, S = {s}: the prior's step did not take the substitution")
         dq = cost.costs[0].dof_form
         s0 = dq.s_pd[:, :1, None]  # [d, 1, 1] start positions
         goal = dq.g_pd[..., 0].repeat_interleave(p // dq.num_goals, 0).T[:, :, None]  # [d, P, 1]
@@ -1448,11 +1505,7 @@ def fused_dof_moments_check(dev) -> dict:
 
     sampler, cost, state, obs, s = panda_problem(dev)
     p = state.particle_means.shape[0]
-    z = torch.zeros((2, 2), device=dev)
-    step = make_dof_step(sampler, cost, obs, p, s, dof_quad=replace(
-        cost.costs[0].dof_form, q_i2=z, k_s2=z, k_g2=z), w_self=0.0, w_obst=0.0, w_goal=0.0,
-        dof_prior=replace(sampler.dof, q_i2=z, k_s2=z, k_g2=z), temperature=1e30,
-        step_size=1.0)
+    step = uniform_dof_step(sampler, cost, obs, p, s)
     means = to_dof_planes(state.particle_means).contiguous()
     d = torch.stack([fused_panda_dof_step(step, means, seed=2000 + k)[0] - means
                      for k in range(10)]).double()  # [seeds, d, P, 2T]
@@ -1526,6 +1579,9 @@ def panda_main_path(dev) -> dict:
             fail(f"panda {name}: launches {launches}, expected {want}")
         if any(generic.values()):
             fail(f"panda {name}: generic FK walks {generic}: the Panda takes the specialised one")
+        dense = counters["fused_panda_dof_step"].dense_launches
+        if dense:
+            fail(f"panda {name}: {dense} K5 launches ran the dense product, not the substitution")
         if not c1 < c0 or start_err > PANDA_START_TOL:
             fail(f"panda {name}: mean cost {c0:.6g} -> {c1:.6g}, start moved {start_err:.3g}")
         # device time per iteration over a profiled window of the same loop
@@ -4190,16 +4246,22 @@ def main() -> int:
                 f"means max err {k5['max_abs_err']:.2e}; per call kernel {k5['ms']:.4f} ms, "
                 f"plain {k5['plain_ms']:.4f} ms; device time kernel {fmt_ms(k5['device_ms'])},"
                 f" plain {fmt_ms(k5['plain_device_ms'])}; bound {k5['bound'][0]:.4f} ms "
-                f"({k5['bound'][1]}), non-zero work {k5['nonzero_bound'][0]:.4f} ms; "
-                f"{ln['ctas']} persistent CTAs of {ln['threads']} threads, {ln['smem_bytes']} B "
-                f"of shared memory, {ln['ctas_per_sm']} per SM, W's zero half skipped: "
-                f"{ln['triangular']}, FK variant {ln['variant']} on {smi}")
+                f"({k5['bound'][1]}), the substitution's work "
+                f"{k5['substitution_bound'][0]:.4f} ms ({k5['substitution_bound'][1]}); "
+                f"{ln['ctas']} CTAs of {ln['threads']} threads, {ln['smem_bytes']} B "
+                f"of shared memory, {ln['ctas_per_sm']} per SM, substitution: "
+                f"{ln['substitution']}, FK variant {ln['variant']} on {smi}")
     k5_split = fused_dof_split_check(dev)
     phase("K5-split", f"seed mode at {k5_split['ctas']} persistent CTAs against "
                       f"{k5_split['particles']} (one particle each): costs equal, new means "
                       f"within {k5_split['mean_max_err']:.2e} (atol {SPLIT_MEAN_ATOL})")
-    phase("K5-dense", f"dense instantiation: on the prior's W equal to the last bit to the one "
-                      f"that skips its zeros; on a W without them costs within "
+    phase("K5-dense", f"substitution against the dense instantiation on the prior's W: costs "
+                      f"within {k5_split['sub_dense_cost_max_rel']:.2e} relative, best sample "
+                      f"agrees {k5_split['sub_dense_argmax_agree']}/{k5_split['particles']}, "
+                      f"means max err {k5_split['sub_dense_mean_max_err']:.2e}; draws whitened "
+                      f"against the float64 factor {k5_split['draw_whitened_sub']:.3e} "
+                      f"(substitution) against {k5_split['draw_whitened_dense']:.3e} (dense); "
+                      f"on a W the caller gave costs within "
                       f"{k5_split['dense_cost_max_rel']:.2e} relative of the plain version, best "
                       f"sample agrees {k5_split['dense_argmax_agree']}/{k5_split['particles']}, "
                       f"means max err {k5_split['dense_mean_max_err']:.2e}")
@@ -4209,8 +4271,8 @@ def main() -> int:
         phase("K5-shapes", f"{k}, eps operand: costs within {r['cost_max_rel']:.2e} relative, "
                            f"best sample agrees {r['argmax_agree']}/{r['particles']}, means max "
                            f"err {r['mean_max_err']:.2e}; {ln['threads']} threads, "
-                           f"{ln['smem_bytes']} B of shared memory, W's zero half skipped: "
-                           f"{ln['triangular']}, FK variant {ln['variant']}")
+                           f"{ln['smem_bytes']} B of shared memory, substitution: "
+                           f"{ln['substitution']}, FK variant {ln['variant']}")
     k5_free = fused_dof_rng_free_check(dev)
     phase("K5-rng-free", " | ".join(
         f"{k}: costs within {v['max_rel']:.2e} relative, means moved {v['means_moved']:.1e}"

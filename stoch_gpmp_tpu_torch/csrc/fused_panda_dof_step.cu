@@ -7,6 +7,7 @@
 // velocities):
 //   pu_d    = Sigma^{-1} mu_d, the sampling prior's stencil (prec_u_plane)
 //   x_{d,s} = mu_d + eps_{d,s} @ W_dof                 (eps: operand or Philox)
+//           = mu_d + y_{d,s},  L^T y_{d,s} = eps_{d,s}  (the prior's factor L)
 //   cost_s  = sum_d stencil energy of x_{d,s} + anchors (as dof_quad_eval.cu)
 //           + tau * sum_d x_{d,s} . pu_d
 //           + sum_{t>=1} link_fields(FK(x_{:,s}[t]))    (fk_chain.cuh)
@@ -16,46 +17,50 @@
 // The SE(3) angle uses the TPU kernel's Abramowitz & Stegun 4.4.46
 // polynomial (|err| <= 2e-8 rad); the plain version does too.
 //
-// Bound on the H100: the FP32 sampling product, 2 D P S (2T)^2 = 9.4 GFLOP
-// at config 5 (P = 1280, S = 8, D = 7, T = 128), 140 us at 67 TFLOP/s, of
-// which half multiplies exact zeros; FK and the fields add ~1,200
-// operations and 81 exp2 at each of 1.3 M points. No TF32: the stencil
-// weights reach ~2e11. Design:
-// - W_dof = L^{-1} of the banded precision in plane order is lower
-//   triangular in time within each of its four T x T blocks: W[k, m] = 0
-//   where t(k) < t(m). The host checks this once (TRI) and packs, per window
-//   of 32 columns of one plane starting at time t0, the rows of time >= t0
-//   of both planes: 2T(T + 32) floats (160 KB at T = 128), which stay in
-//   shared memory for the whole launch. Skipped entries are exact zeros
-//   (fmaf(a, 0, acc) == acc), and the rows kept are summed in the dense
-//   order, so the TRI and the dense instantiations agree bit for bit on
-//   such a W. A W without the zeros (an override) runs the dense
-//   instantiation, which reads W through L1 from device memory.
-// - Persistent CTAs, one per SM (the W windows and one particle's rows fill
-//   the shared memory), loop over particles: W is read from L2 once per CTA,
-//   not once per particle.
-// - The product: each thread holds a 7-row x 8-column block in registers;
-//   per K step it reads 7 row values (4-byte loads, the warp's 8 row blocks
-//   in distinct banks) and 8 values of W's row (two 16-byte loads, broadcast
-//   to the warp's row blocks) for 56 FMAs. A warp takes one item: a
-//   32-column window and, at T <= 128, one K part (the position rows or the
-//   velocity rows; the parts are added to mu in that order), so a window
-//   starting at t0 runs T - t0 K steps per part; the items are dealt to
-//   warps so that each SM sub-partition (warp % 4) gets the same steps. By
-//   the clock64 phases (tools/fused_timing.py) it issues ~2 FFMA warp
-//   instructions per cycle per SM, half the FP32 rate, as a 7 x 4 block
-//   with 16-column windows did, and worse with 32 warps of 7 x 4 blocks.
-//   The eps rows sit lane-major (56 floats per lane) and the x rows
-//   overwrite them once the product is done.
+// Bound on the H100: FK and the link fields, ~1,200 operations and 81 exp2
+// at each of 1.3 M points at config 5 (P = 1280, S = 8, D = 7, T = 128), and
+// the Philox draws; the sampling itself is ~7 FMAs a lane. No TF32: the
+// stencil weights reach ~2e11. Design:
+// - The sampling correction y = eps @ W_dof with W_dof = L^{-1}, the
+//   inverse of the per-dof prior's lower block-bidiagonal Cholesky factor
+//   (2 x 2 blocks in time-major order), is the backward substitution
+//   L^T y = eps: y_t = D_t^{-T} eps_t + A_t y_{t+1}, y_T = 0, with eps_t =
+//   (eps[t], eps[T + t]) and y_t = (y[t], y[T + t]) in plane order. The
+//   host forms the tables (D_t^{-T}: 3 numbers, A_t: 4) in float64 from the
+//   factor and rounds them to float32, [7][T] (ops/kernels/panda_step_dof.py
+//   backward_tables); they sit in shared memory for the whole launch,
+//   chunk-interleaved so that a warp's reads are free of bank conflicts.
+// - The substitution (SUB): one thread per (dof, sample pair, chunk of CH
+//   time steps), a pair's T / CH chunks in consecutive lanes of one warp.
+//   Pass 1 draws the thread's normals in registers (the Philox counter
+//   (lane, sample pair, particle, dof) and the dual-output Box-Muller: the
+//   draws do not depend on the CTA that runs a particle) and runs the
+//   chunk's recurrence from a zero carry, keeping it in registers; a
+//   shuffle scan over the pair's chunks composes each chunk's affine map
+//   (its local result and its transition Phi_c = A_t0 ... A_{t0 + CH - 1},
+//   formed once per CTA) into the true y at each chunk's first step; pass 2
+//   adds the carry's homogeneous part Phi(t, t1) y_{t1} step by step and
+//   writes x = mu + y as float4 rows.
+// - The dense instantiation runs x = mu + eps @ W for a W the caller gave
+//   (no factor to substitute with): each thread holds a 7-row x 8-column
+//   block in registers, per K step 7 row values (the eps rows sit
+//   lane-major in shared memory, 56 floats per lane) and 8 values of W's row
+//   through L1 from device memory for 56 FMAs; a warp takes a 32-column
+//   window and, at T <= 128, one K part (the position rows or the velocity
+//   rows; the parts are added to mu in that order).
+// - CTAs loop over particles (blockIdx.x, + gridDim.x, ...); the wrapper
+//   launches one a particle, which the block scheduler balances better than
+//   2 resident CTAs an SM looping over ~5 particles each (0.228 against
+//   0.236 ms at config 5 on an H100). SUB: two CTAs of 512 threads an SM, 64 registers
+//   a thread (FK spills ~0.4 KB a thread; 256 x 3 at 80 registers, 448 x 2
+//   and 480 x 2 measured no faster), 69 KB of shared memory at config 5; the
+//   dense instantiation one CTA of 32 threads per product item an SM.
 // - Sigma^{-1} mu per lane from the means (prec_u_plane), the stencil energy
 //   and importance one warp per row, FK + fields + goal one thread per
 //   (sample, t) point with the walk specialised for the chain where
 //   fk_spec.h has a spec for it (positions in registers), else the
-//   generic walk (positions in shared memory; dense instantiation only),
-//   then the costs and the softmax in one warp and the mean update.
-// Philox4x32-10 is keyed on the seed with the counter (lane, sample pair,
-// particle, dof), two normals per draw by the dual-output Box-Muller, so the
-// draws do not depend on the CTA that runs the particle.
+//   generic walk (positions in shared memory), then the costs and the
+//   softmax in one warp and the mean update.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,33 +82,40 @@ struct DofStepParams {
 
 namespace {
 
-constexpr int RB = 7;           // rows per thread: one row block
-constexpr int CB = 8;           // columns per thread
-constexpr int PASS = RB * 8;    // 56 rows per pass of the product: 8 row blocks
-constexpr int WIN = 4 * CB;     // 32 columns per window: 4 column groups
+constexpr int RB = 7;           // dense: rows per thread, one row block
+constexpr int CB = 8;           // dense: columns per thread
+constexpr int PASS = RB * 8;    // dense: 56 rows per pass of the product, 8 row blocks
+constexpr int WIN = 4 * CB;     // dense: 32 columns per window, 4 column groups
 constexpr int MAX_WARPS = 16;
 constexpr int MAX_LANES = 512;
+constexpr int CH = 8;           // SUB: time steps per chunk, so T / CH <= 32 chunks a pair
+constexpr int TAB = 7;          // SUB: table entries per step, D^{-T} (3) and A (4)
+constexpr int SUB_THREADS = 512, SUB_MIN_CTAS = 2;  // SUB: threads per CTA, CTAs per SM
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float quad2(float a11, float a12, float a22, float r, float s) {
   return a11 * r * r + 2.0f * a12 * r * s + a22 * s * s;
 }
 
-// Floats of shared memory: the packed W windows (TRI), the rows (eps
-// lane-major, [M][56] per pass of 56 rows, then x [R][M] in their place),
-// Sigma^{-1} mu [D][M], per row its stencil + importance sum, per sample the
-// field sums [T / 32], goal, cost and weight; then the spheres (float4) and,
-// for the generic walk, its position columns [3 L][threads].
+// Floats of shared memory: SUB's tables (chunk-interleaved, [TAB][CH][T /
+// CH]) and each chunk's transition ([4][T / CH]); the rows (dense: eps
+// lane-major, [M][56] per pass of 56 rows, then x [R][M] in their place;
+// SUB: x [R][M]); Sigma^{-1} mu [D][M], per row its stencil + importance
+// sum, per sample the field sums [T / 32], goal, cost and weight; then the
+// spheres (float4) and, for the generic walk, its position columns [3 L]
+// [threads].
 struct Layout {
-  size_t win, rows, pu, rowq, field, goal, cost, w, sph, pos, total;
+  size_t tab, phi, rows, pu, rowq, field, goal, cost, w, sph, pos, total;
 };
 
 __host__ __device__ inline Layout layout(int T, int D, int S, int n_obst, int n_links,
-                                         bool tri, bool generic, int threads) {
+                                         bool sub, bool generic, int threads) {
   const int M = 2 * T, R = D * S, passes = (R + PASS - 1) / PASS;
   Layout l;
-  l.win = 0;
-  l.rows = l.win + (tri ? (size_t)2 * T * (T + WIN) : 0);
-  l.pu = l.rows + (size_t)passes * PASS * M;
+  l.tab = 0;
+  l.phi = l.tab + (sub ? (size_t)TAB * T : 0);
+  l.rows = l.phi + (sub ? (size_t)4 * (T / CH) : 0);  // 16-byte aligned: T % 32 == 0
+  l.pu = l.rows + (size_t)(sub ? R : passes * PASS) * M;
   l.rowq = l.pu + (size_t)D * M;
   l.field = l.rowq + R;
   l.goal = l.field + (size_t)S * (T / 32);
@@ -123,11 +135,10 @@ __host__ __device__ inline int k_parts(int T) { return 2 * (2 * T / WIN) <= MAX_
 // MAX_WARPS for 2T <= MAX_LANES.
 __host__ __device__ inline int items_for(int T) { return 2 * T / WIN * k_parts(T); }
 
-// The product item of warp w < items: ranks r by work (window j of its
-// plane runs T - 32 j K steps per part), per j its planes and K parts (half:
-// 0 the position rows, 1 the velocity rows, -1 both), dealt to the warps in a
-// snake over the 4 SM sub-partitions (warp % 4) so that each gets the same
-// work; a last block of fewer than 4 warps takes its ranks in order.
+// The product item of warp w < items: rank r, per window j its planes and
+// K parts (half: 0 the position rows, 1 the velocity rows, -1 both), dealt
+// to the warps in a snake over the 4 SM sub-partitions (warp % 4); a last
+// block of fewer than 4 warps takes its ranks in order.
 __device__ __forceinline__ void item_of(int w, int items, int ks, int& plane, int& half,
                                         int& j) {
   const int blk = w >> 2, sub = w & 3;
@@ -141,19 +152,27 @@ __device__ __forceinline__ void item_of(int w, int items, int ks, int& plane, in
 
 __device__ __forceinline__ float warp_allmax(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
 __device__ __forceinline__ float warp_allsum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
 
-// minimum one block per SM: ptxas may use up to 128 registers (65,536 / 512)
-template <bool TRI, int VARIANT>
-__global__ void __launch_bounds__(MAX_LANES, 1)
+// The normals of a sample pair at one lane: .x sample 2j, .y sample 2j + 1.
+__device__ __forceinline__ float2 normals(int k, int j, int p, int d, uint2 key) {
+  const uint4 bits =
+      philox4x32_10(make_uint4((uint32_t)k, (uint32_t)j, (uint32_t)p, (uint32_t)d), key);
+  return box_muller(bits.x, bits.y);
+}
+
+// The dense instantiation: one 512-thread CTA per SM (ptxas may use 128
+// registers); SUB: SUB_MIN_CTAS CTAs of SUB_THREADS threads.
+template <bool SUB, int VARIANT>
+__global__ void __launch_bounds__(SUB ? SUB_THREADS : MAX_LANES, SUB ? SUB_MIN_CTAS : 1)
 fused_panda_dof_step_kernel(const float* __restrict__ means, const float* __restrict__ g_pd,
                             const float* __restrict__ W, const float* __restrict__ spheres,
                             const float* __restrict__ eps, float* __restrict__ new_means,
@@ -164,9 +183,10 @@ fused_panda_dof_step_kernel(const float* __restrict__ means, const float* __rest
   const int T = prm.T, M = 2 * T, S = prm.S, D = prm.D, P = prm.P, R = D * S;
   const int NT = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = NT >> 5, wpr = T >> 5, passes = (R + PASS - 1) / PASS;
-  const int L = chain.n_links;
-  const Layout lo = layout(T, D, S, prm.n_obst, L, TRI, VARIANT == 0, NT);
-  float* win_sh = smem + lo.win;
+  const int L = chain.n_links, NC = T / CH;
+  const Layout lo = layout(T, D, S, prm.n_obst, L, SUB, VARIANT == 0, NT);
+  float* tab_sh = smem + lo.tab;
+  float* phi_sh = smem + lo.phi;
   float* rows_sh = smem + lo.rows;
   float* pu_sh = smem + lo.pu;
   float* rowq_sh = smem + lo.rowq;
@@ -177,40 +197,53 @@ fused_panda_dof_step_kernel(const float* __restrict__ means, const float* __rest
   float4* sph = reinterpret_cast<float4*>(smem + lo.sph);
   float* pos_sh = smem + lo.pos;
   load_spheres(spheres, prm.n_obst, sph);
-  if constexpr (TRI) {  // the packed W windows, once per CTA
-    const float4* src = reinterpret_cast<const float4*>(W);
-    float4* dst = reinterpret_cast<float4*>(win_sh);
-    for (int i = tid; i < T * (T + WIN) / 2; i += NT) dst[i] = __ldg(src + i);
+  if constexpr (SUB) {  // the tables [TAB][T] as tab_sh[(k CH + i) NC + c] for t = c CH + i
+    for (int i = tid; i < TAB * T; i += NT) {
+      const int k = i / T, t = i - k * T;
+      tab_sh[k * T + (t % CH) * NC + t / CH] = __ldg(W + i);
+    }
+    __syncthreads();
+    if (tid < NC) {  // chunk c's transition Phi_c = A_{c CH} ... A_{c CH + CH - 1}
+      float f00 = 1.0f, f01 = 0.0f, f10 = 0.0f, f11 = 1.0f;
+      for (int i = CH - 1; i >= 0; --i) {
+        const float* a = tab_sh + 3 * T + i * NC + tid;
+        const float a00 = a[0], a01 = a[T], a10 = a[2 * T], a11 = a[3 * T];
+        const float n00 = a00 * f00 + a01 * f10, n01 = a00 * f01 + a01 * f11;
+        const float n10 = a10 * f00 + a11 * f10, n11 = a10 * f01 + a11 * f11;
+        f00 = n00, f01 = n01, f10 = n10, f11 = n11;
+      }
+      phi_sh[tid] = f00, phi_sh[NC + tid] = f01, phi_sh[2 * NC + tid] = f10;
+      phi_sh[3 * NC + tid] = f11;
+    }
   }
   const uint2 key = make_uint2(prm.key_lo, prm.key_hi);
-  const int rb = lane >> 2, cg = lane & 3;  // the thread's row block and column group
-  const int ks = k_parts(T), items = items_for(T);
+  const int npairs = (S + 1) / 2, dj = D * npairs;
 
   for (int p = blockIdx.x; p < P; p += gridDim.x) {
     __syncthreads();  // the previous particle's rows are consumed
-    // --- 1. eps rows, lane-major: eps of row r = d S + s at lane k goes to
-    // rows_sh[(pass * M + k) * 56 + r % 56], pass = r / 56
-    const int npairs = (S + 1) / 2, dj = D * npairs;
-    auto put = [&](int k, int d, int j, float2 z) {
+    if constexpr (!SUB) {
+      // --- 1. eps rows, lane-major: eps of row r = d S + s at lane k goes to
+      // rows_sh[(pass * M + k) * 56 + r % 56], pass = r / 56
+      auto put = [&](int k, int d, int j, float2 z) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = d * S + 2 * j + h;
-        if (2 * j + h < S) rows_sh[((size_t)(r / PASS) * M + k) * PASS + r % PASS] = h ? z.y : z.x;
-      }
-    };
-    if (eps != nullptr) {
-      for (int i = tid; i < M * dj; i += NT) {
-        const int k = i / dj, e = i - k * dj, d = e / npairs, j = e - d * npairs;
-        const float* er = eps + (((size_t)d * P + p) * S + 2 * j) * M + k;
-        put(k, d, j, make_float2(er[0], 2 * j + 1 < S ? er[M] : 0.0f));
-      }
-    } else {
+        for (int h = 0; h < 2; ++h) {
+          const int r = d * S + 2 * j + h;
+          if (2 * j + h < S)
+            rows_sh[((size_t)(r / PASS) * M + k) * PASS + r % PASS] = h ? z.y : z.x;
+        }
+      };
+      if (eps != nullptr) {
+        for (int i = tid; i < M * dj; i += NT) {
+          const int k = i / dj, e = i - k * dj, d = e / npairs, j = e - d * npairs;
+          const float* er = eps + (((size_t)d * P + p) * S + 2 * j) * M + k;
+          put(k, d, j, make_float2(er[0], 2 * j + 1 < S ? er[M] : 0.0f));
+        }
+      } else {
 #pragma unroll 2
-      for (int i = tid; i < M * dj; i += NT) {
-        const int k = i / dj, e = i - k * dj, d = e / npairs, j = e - d * npairs;
-        const uint4 bits =
-            philox4x32_10(make_uint4((uint32_t)k, (uint32_t)j, (uint32_t)p, (uint32_t)d), key);
-        put(k, d, j, box_muller(bits.x, bits.y));
+        for (int i = tid; i < M * dj; i += NT) {
+          const int k = i / dj, e = i - k * dj, d = e / npairs, j = e - d * npairs;
+          put(k, d, j, normals(k, j, p, d, key));
+        }
       }
     }
     // Sigma^{-1} mu of each dof plane
@@ -218,62 +251,147 @@ fused_panda_dof_step_kernel(const float* __restrict__ means, const float* __rest
       const int d = i / M;
       pu_sh[i] = prec_u_plane(means + ((size_t)d * P + p) * M, i - d * M, T, prm.prior);
     }
-    __syncthreads();
-
-    // --- 2. x = mu + eps @ W, a pass of 56 rows at a time -------------------------
-    for (int pass = 0; pass < passes; ++pass) {
-      float acc[RB][CB] = {};
-      int plane, half, j;
-      item_of(warp, items, ks, plane, half, j);
-      const int col = plane * T + j * WIN + CB * cg;
-      const bool active = warp < items;
-      if (active) {
-        const int t0 = TRI ? j * WIN : 0, n = T - t0;
-        const float* e_pass = rows_sh + (size_t)pass * M * PASS + rb * RB;
-        const float* w_item =
-            TRI ? win_sh + (size_t)plane * T * (T + WIN) +
-                      (size_t)2 * WIN * (j * T - WIN / 2 * j * (j - 1)) + CB * cg
-                : W + col;
-        for (int kh = half < 0 ? 0 : half; kh <= (half < 0 ? 1 : half); ++kh) {
-          const float* e = e_pass + (size_t)(kh * T + t0) * PASS;
-          const float* g = TRI ? w_item + (size_t)kh * n * WIN : w_item + (size_t)kh * T * M;
-          const int gs = TRI ? WIN : M;  // W row stride
-#pragma unroll 2
-          for (int k = 0; k < n; ++k) {
-            float ev[RB];
+    if constexpr (SUB) {
+      // --- 2. x = mu + y, L^T y = eps, by chunks of CH steps ---------------------------
+      // Lane (g, c) of a warp: sample pair q0 + g, chunk c (steps t0 .. t0 + CH - 1).
+      const int gpw = 32 / NC, g = lane / NC, c = lane - g * NC, t0 = c * CH;
+      const float* tb = tab_sh + c;  // entry k of step t0 + i at tb[k T + i NC]
+      for (int q0 = warp * gpw; q0 < dj; q0 += nwarps * gpw) {  // uniform in a warp
+        const int q = q0 + g;
+        const bool on = g < gpw && q < dj;
+        const int d = on ? q / npairs : 0, j = on ? q - d * npairs : 0;
+        const bool two = 2 * j + 1 < S;
+        // pass 1: the draws and the chunk's recurrence from a zero carry
+        float z[CH][4];  // y of rows 2j (p, v) and 2j + 1 (p, v) at step t0 + i
+        float y0p = 0.0f, y0v = 0.0f, y1p = 0.0f, y1v = 0.0f;
 #pragma unroll
-            for (int i = 0; i < RB; ++i) ev[i] = e[(size_t)k * PASS + i];
-            const float4* gk = reinterpret_cast<const float4*>(g + (size_t)k * gs);
-            const float4 w0 = TRI ? gk[0] : __ldg(gk), w1 = TRI ? gk[1] : __ldg(gk + 1);
-            const float wv[CB] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+        for (int i = CH - 1; i >= 0; --i) {
+          const int t = t0 + i;
+          float2 ep, ev;  // the pair's normals at lanes t and T + t
+          if (eps != nullptr) {
+            const float* er = eps + (((size_t)d * P + p) * S + 2 * j) * M;
+            ep = make_float2(on ? er[t] : 0.0f, on && two ? er[M + t] : 0.0f);
+            ev = make_float2(on ? er[T + t] : 0.0f, on && two ? er[M + T + t] : 0.0f);
+          } else {
+            ep = normals(t, j, p, d, key);
+            ev = normals(T + t, j, p, d, key);
+          }
+          const float* tt = tb + i * NC;
+          const float d00 = tt[0], d01 = tt[T], d11 = tt[2 * T];
+          const float a00 = tt[3 * T], a01 = tt[4 * T], a10 = tt[5 * T], a11 = tt[6 * T];
+          const float n0p = fmaf(d00, ep.x, fmaf(d01, ev.x, fmaf(a00, y0p, a01 * y0v)));
+          const float n0v = fmaf(d11, ev.x, fmaf(a10, y0p, a11 * y0v));
+          const float n1p = fmaf(d00, ep.y, fmaf(d01, ev.y, fmaf(a00, y1p, a01 * y1v)));
+          const float n1v = fmaf(d11, ev.y, fmaf(a10, y1p, a11 * y1v));
+          y0p = n0p, y0v = n0v, y1p = n1p, y1v = n1v;
+          z[i][0] = n0p, z[i][1] = n0v, z[i][2] = n1p, z[i][3] = n1v;
+        }
+        // the carries: y at step t0 is y0 + Phi_c y(t0 + CH); a suffix scan of the
+        // chunks' affine maps over the pair's lanes
+        float f00 = phi_sh[c], f01 = phi_sh[NC + c], f10 = phi_sh[2 * NC + c];
+        float f11 = phi_sh[3 * NC + c];
 #pragma unroll
-            for (int i = 0; i < RB; ++i)
-#pragma unroll
-              for (int c = 0; c < CB; ++c) acc[i][c] = fmaf(ev[i], wv[c], acc[i][c]);
+        for (int o = 1; o < 32; o <<= 1) {
+          if (o >= NC) break;
+          const float g00 = __shfl_down_sync(FULL, f00, o), g01 = __shfl_down_sync(FULL, f01, o);
+          const float g10 = __shfl_down_sync(FULL, f10, o), g11 = __shfl_down_sync(FULL, f11, o);
+          const float u0p = __shfl_down_sync(FULL, y0p, o), u0v = __shfl_down_sync(FULL, y0v, o);
+          const float u1p = __shfl_down_sync(FULL, y1p, o), u1v = __shfl_down_sync(FULL, y1v, o);
+          if (c + o < NC) {
+            y0p = fmaf(f00, u0p, fmaf(f01, u0v, y0p)), y0v = fmaf(f10, u0p, fmaf(f11, u0v, y0v));
+            y1p = fmaf(f00, u1p, fmaf(f01, u1v, y1p)), y1v = fmaf(f10, u1p, fmaf(f11, u1v, y1v));
+            const float n00 = f00 * g00 + f01 * g10, n01 = f00 * g01 + f01 * g11;
+            const float n10 = f10 * g00 + f11 * g10, n11 = f10 * g01 + f11 * g11;
+            f00 = n00, f01 = n01, f10 = n10, f11 = n11;
           }
         }
-      }
-      __syncthreads();  // every read of this pass's eps is done: x takes its place
-      // x = mu + (the position rows' part) + (the velocity rows' part), in this order
-      for (int stage = 0; stage < 2; ++stage) {
-        if (active && (half < 0 ? 0 : half) == stage) {
+        // the carry into the chunk: y at the next chunk's first step (0 past the last)
+        const bool last = c + 1 == NC;
+        float h0p = __shfl_down_sync(FULL, y0p, 1), h0v = __shfl_down_sync(FULL, y0v, 1);
+        float h1p = __shfl_down_sync(FULL, y1p, 1), h1v = __shfl_down_sync(FULL, y1v, 1);
+        if (last) h0p = h0v = h1p = h1v = 0.0f;
+        // pass 2: y_t = z_t + A_t ... A_{t0 + CH - 1} carry, then x = mu + y
 #pragma unroll
-          for (int i = 0; i < RB; ++i) {
-            const int r = pass * PASS + rb * RB + i;
-            if (r < R) {
-              float4* x = reinterpret_cast<float4*>(rows_sh + (size_t)r * M + col);
-              const float4* mu = reinterpret_cast<const float4*>(
-                  means + ((size_t)(r / S) * P + p) * M + col);
-              const float4 a = stage == 0 ? __ldg(mu) : x[0];
-              const float4 b = stage == 0 ? __ldg(mu + 1) : x[1];
-              x[0] = make_float4(a.x + acc[i][0], a.y + acc[i][1], a.z + acc[i][2],
-                                 a.w + acc[i][3]);
-              x[1] = make_float4(b.x + acc[i][4], b.y + acc[i][5], b.z + acc[i][6],
-                                 b.w + acc[i][7]);
+        for (int i = CH - 1; i >= 0; --i) {
+          const float* tt = tb + i * NC;
+          const float a00 = tt[3 * T], a01 = tt[4 * T], a10 = tt[5 * T], a11 = tt[6 * T];
+          const float n0p = fmaf(a00, h0p, a01 * h0v), n0v = fmaf(a10, h0p, a11 * h0v);
+          const float n1p = fmaf(a00, h1p, a01 * h1v), n1v = fmaf(a10, h1p, a11 * h1v);
+          h0p = n0p, h0v = n0v, h1p = n1p, h1v = n1v;
+          z[i][0] += n0p, z[i][1] += n0v, z[i][2] += n1p, z[i][3] += n1v;
+        }
+        if (on) {
+          const float* mu = means + ((size_t)d * P + p) * M + t0;
+          float* x = rows_sh + (size_t)(d * S + 2 * j) * M + t0;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)  // the position lanes, the velocity lanes
+#pragma unroll
+            for (int k = 0; k < CH; k += 4) {
+              const float4 m = __ldg(reinterpret_cast<const float4*>(mu + h * T + k));
+              *reinterpret_cast<float4*>(x + h * T + k) =
+                  make_float4(m.x + z[k][h], m.y + z[k + 1][h], m.z + z[k + 2][h],
+                              m.w + z[k + 3][h]);
+              if (two)
+                *reinterpret_cast<float4*>(x + M + h * T + k) =
+                    make_float4(m.x + z[k][2 + h], m.y + z[k + 1][2 + h], m.z + z[k + 2][2 + h],
+                                m.w + z[k + 3][2 + h]);
+            }
+        }
+      }
+      __syncthreads();
+    } else {
+      __syncthreads();
+      // --- 2. x = mu + eps @ W, a pass of 56 rows at a time -------------------------
+      const int rb = lane >> 2, cg = lane & 3;  // the thread's row block and column group
+      const int ks = k_parts(T), items = items_for(T);
+      for (int pass = 0; pass < passes; ++pass) {
+        float acc[RB][CB] = {};
+        int plane, half, j;
+        item_of(warp, items, ks, plane, half, j);
+        const int col = plane * T + j * WIN + CB * cg;
+        const bool active = warp < items;
+        if (active) {
+          const float* e_pass = rows_sh + (size_t)pass * M * PASS + rb * RB;
+          for (int kh = half < 0 ? 0 : half; kh <= (half < 0 ? 1 : half); ++kh) {
+            const float* e = e_pass + (size_t)kh * T * PASS;
+            const float* g = W + col + (size_t)kh * T * M;
+#pragma unroll 2
+            for (int k = 0; k < T; ++k) {
+              float ev[RB];
+#pragma unroll
+              for (int i = 0; i < RB; ++i) ev[i] = e[(size_t)k * PASS + i];
+              const float4* gk = reinterpret_cast<const float4*>(g + (size_t)k * M);
+              const float4 w0 = __ldg(gk), w1 = __ldg(gk + 1);
+              const float wv[CB] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+              for (int i = 0; i < RB; ++i)
+#pragma unroll
+                for (int c = 0; c < CB; ++c) acc[i][c] = fmaf(ev[i], wv[c], acc[i][c]);
             }
           }
         }
-        __syncthreads();
+        __syncthreads();  // every read of this pass's eps is done: x takes its place
+        // x = mu + (the position rows' part) + (the velocity rows' part), in this order
+        for (int stage = 0; stage < 2; ++stage) {
+          if (active && (half < 0 ? 0 : half) == stage) {
+#pragma unroll
+            for (int i = 0; i < RB; ++i) {
+              const int r = pass * PASS + rb * RB + i;
+              if (r < R) {
+                float4* x = reinterpret_cast<float4*>(rows_sh + (size_t)r * M + col);
+                const float4* mu = reinterpret_cast<const float4*>(
+                    means + ((size_t)(r / S) * P + p) * M + col);
+                const float4 a = stage == 0 ? __ldg(mu) : x[0];
+                const float4 b = stage == 0 ? __ldg(mu + 1) : x[1];
+                x[0] = make_float4(a.x + acc[i][0], a.y + acc[i][1], a.z + acc[i][2],
+                                   a.w + acc[i][3]);
+                x[1] = make_float4(b.x + acc[i][4], b.y + acc[i][5], b.z + acc[i][6],
+                                   b.w + acc[i][7]);
+              }
+            }
+          }
+          __syncthreads();
+        }
       }
     }
 
@@ -372,64 +490,67 @@ fused_panda_dof_step_kernel(const float* __restrict__ means, const float* __rest
   }
 }
 
-bool valid(const DofStepParams* prm, const FkChain* chain, int tri, int variant) {
+bool valid(const DofStepParams* prm, const FkChain* chain, int variant) {
   const int M = 2 * prm->T;
-  if (prm->T % 32 != 0 || M > MAX_LANES || items_for(prm->T) > MAX_WARPS || prm->D < 1 ||
-      prm->D > FK_MAX_JOINTS || prm->S < 1 || prm->ppg < 1 || prm->P < 1 || prm->n_obst < 0 ||
-      !fk_variant_valid(*chain, variant))
-    return false;
-  return variant != 0 || !tri;  // the generic walk's positions need the W windows' room
+  return prm->T % 32 == 0 && M <= MAX_LANES && items_for(prm->T) <= MAX_WARPS && prm->D >= 1 &&
+         prm->D <= FK_MAX_JOINTS && prm->S >= 1 && prm->ppg >= 1 && prm->P >= 1 &&
+         prm->n_obst >= 0 && fk_variant_valid(*chain, variant);
 }
 
-template <bool TRI, int VARIANT>
+template <bool SUB, int VARIANT>
 void* kernel_of() {
-  return reinterpret_cast<void*>(fused_panda_dof_step_kernel<TRI, VARIANT>);
+  return reinterpret_cast<void*>(fused_panda_dof_step_kernel<SUB, VARIANT>);
 }
 
-void* pick(int tri, int variant) {
-  if (variant == 0) return kernel_of<false, 0>();
-  return tri ? kernel_of<true, 1>() : kernel_of<false, 1>();
+void* pick(int sub, int variant) {
+  if (sub) return variant ? kernel_of<true, 1>() : kernel_of<true, 0>();
+  return variant ? kernel_of<false, 1>() : kernel_of<false, 0>();
 }
 
 // The launch at this shape: threads and shared memory per CTA; refuses a
 // CTA whose shared memory exceeds kSmemLimit.
-cudaError_t configure(const DofStepParams* prm, const FkChain* chain, int tri, int variant,
+cudaError_t configure(const DofStepParams* prm, const FkChain* chain, int sub, int variant,
                       int* threads, size_t* smem) {
-  *threads = 32 * items_for(prm->T);
-  *smem = sizeof(float) * layout(prm->T, prm->D, prm->S, prm->n_obst, chain->n_links, tri,
+  *threads = sub ? SUB_THREADS : 32 * items_for(prm->T);
+  *smem = sizeof(float) * layout(prm->T, prm->D, prm->S, prm->n_obst, chain->n_links, sub,
                                  variant == 0, *threads).total;
   if (*smem > kSmemLimit) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(pick(tri, variant), cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return cudaFuncSetAttribute(pick(sub, variant), cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)*smem);
 }
 
 }  // namespace
 
-// One launch of `ctas` persistent CTAs (each loops over the particles
-// blockIdx.x, blockIdx.x + ctas, ...). tri: W is packed in windows
-// (2T(T + 32) floats, see above); variant: the chain's FK spec (1: FkPanda,
-// 0: the generic walk).
+// One launch of `ctas` CTAs (each loops over the particles blockIdx.x,
+// blockIdx.x + ctas, ...). sub: W is the prior factor's
+// backward tables [7][T] (D_t^{-T}: (0,0), (0,1), (1,1); A_t: (0,0), (0,1),
+// (1,0), (1,1)) and the kernel substitutes, else W is the dense [2T, 2T]
+// sampling map; variant: the chain's FK spec (1: FkPanda, 0: the generic
+// walk).
 extern "C" int fused_panda_dof_step_launch(const float* means, const float* g_pd,
                                            const float* W, const float* spheres,
                                            const float* eps, float* new_means, float* costs,
-                                           int ctas, int tri, int variant,
+                                           int ctas, int sub, int variant,
                                            const DofStepParams* prm, const FkChain* chain,
                                            void* stream) {
-  if (!valid(prm, chain, tri, variant) || ctas < 1) return (int)cudaErrorInvalidValue;
+  if (!valid(prm, chain, variant) || ctas < 1) return (int)cudaErrorInvalidValue;
   int threads;
   size_t smem;
-  cudaError_t err = configure(prm, chain, tri, variant, &threads, &smem);
+  cudaError_t err = configure(prm, chain, sub, variant, &threads, &smem);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (variant == 0)
-    fused_panda_dof_step_kernel<false, 0><<<ctas, threads, smem, st>>>(
-        means, g_pd, W, spheres, eps, new_means, costs, *prm, *chain);
-  else if (tri)
-    fused_panda_dof_step_kernel<true, 1><<<ctas, threads, smem, st>>>(
-        means, g_pd, W, spheres, eps, new_means, costs, *prm, *chain);
+#define K5_LAUNCH(SUB, VARIANT)                                                       \
+  fused_panda_dof_step_kernel<SUB, VARIANT><<<ctas, threads, smem, st>>>(            \
+      means, g_pd, W, spheres, eps, new_means, costs, *prm, *chain)
+  if (sub && variant)
+    K5_LAUNCH(true, 1);
+  else if (sub)
+    K5_LAUNCH(true, 0);
+  else if (variant)
+    K5_LAUNCH(false, 1);
   else
-    fused_panda_dof_step_kernel<false, 1><<<ctas, threads, smem, st>>>(
-        means, g_pd, W, spheres, eps, new_means, costs, *prm, *chain);
+    K5_LAUNCH(false, 0);
+#undef K5_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -437,16 +558,16 @@ extern "C" int fused_panda_dof_step_launch(const float* means, const float* g_pd
 // where the shared memory exceeds kSmemLimit), the dynamic shared memory per
 // CTA in bytes and the threads per CTA.
 extern "C" int fused_panda_dof_step_config(const DofStepParams* prm, const FkChain* chain,
-                                           int tri, int variant, int* shape) {
-  if (!valid(prm, chain, tri, variant)) return (int)cudaErrorInvalidValue;
+                                           int sub, int variant, int* shape) {
+  if (!valid(prm, chain, variant)) return (int)cudaErrorInvalidValue;
   int threads;
   size_t smem;
-  const cudaError_t err = configure(prm, chain, tri, variant, &threads, &smem);
+  const cudaError_t err = configure(prm, chain, sub, variant, &threads, &smem);
   shape[0] = 0;
   shape[1] = (int)smem;
   shape[2] = threads;
   if (smem > kSmemLimit) return (int)cudaSuccess;
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(shape, pick(tri, variant), threads,
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(shape, pick(sub, variant), threads,
                                                             smem);
 }

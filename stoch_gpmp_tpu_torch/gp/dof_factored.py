@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from stoch_gpmp_tpu_torch.gp.lift import q_inv_block, unary_weight
-from stoch_gpmp_tpu_torch.gp.tridiag import BlockTridiag
+from stoch_gpmp_tpu_torch.gp.tridiag import BlockBidiagChol, BlockTridiag
 
 
 def plane_perm(traj_len: int) -> np.ndarray:
@@ -171,7 +171,10 @@ class DofFactoredPrior:
 
     ``w_dof [2T, 2T]`` with ``x_d = mu_d + eps_d @ w_dof``; ``prec_dof``
     the per-dof ``Sigma^{-1}``; ``q_i2``/``k_s2``/``k_g2`` the factor-graph
-    stencil weights of the same precision (``k_g2`` zeros without goals).
+    stencil weights of the same precision (``k_g2`` zeros without goals);
+    ``chol`` the per-dof precision's block Cholesky factor ``L`` (time-major,
+    2 x 2 blocks; ``w_dof`` is ``L^{-1}`` in plane order), which K5 samples
+    with by substitution, or None where the prior was built without it.
     """
 
     w_dof: torch.Tensor
@@ -181,6 +184,7 @@ class DofFactoredPrior:
     k_s2: torch.Tensor | None = None
     k_g2: torch.Tensor | None = None
     dt: float = 0.0
+    chol: BlockBidiagChol | None = None
 
     def matvec_flat(self, x: torch.Tensor) -> torch.Tensor:
         """``Sigma^{-1} x`` on flat ``[..., T, 2d]`` trajectories by the
@@ -228,7 +232,7 @@ def make_dof_factored_prior(
     prec1 = build_precision(
         1, traj_len, dt, k_s_inv, q_inv, k_g_inv=k_g_inv, dtype=dtype, device=device
     )
-    w1 = prec1.cholesky_inverse()[1]  # [2T, 2T] = L^{-1}
+    chol1, w1 = prec1.cholesky_inverse()  # L and [2T, 2T] L^{-1}
     perm = plane_perm(traj_len)
     k_g2 = torch.zeros((2, 2), dtype=dtype, device=device) if k_g_inv is None else k_g_inv
     return DofFactoredPrior(
@@ -239,6 +243,7 @@ def make_dof_factored_prior(
         k_s2=k_s_inv,
         k_g2=k_g2,
         dt=float(dt),
+        chol=chol1,
     )
 
 

@@ -7,6 +7,7 @@ as dof planes ``[d, P, 2T]``:
 
     pu_d     = Sigma^{-1} mu_d of the sampling prior   (prec_u_planes)
     x_{d,s}  = mu_d + eps_{d,s} @ W_dof            (eps: operand or Philox)
+             = mu_d + y_{d,s},  L^T y_{d,s} = eps_{d,s}   (L: the prior's factor)
     cost_s   = sum_d stencil energy of x_{d,s} + tau * x_{d,s} . pu_d   (as K3)
              + sum_{t >= 1} link fields at FK(x_{:,s}[t])               (as K4)
              + w_goal * (w_pos |p_ee - p*| + w_rot acos_poly(...))^2 at t = T-1
@@ -15,15 +16,16 @@ as dof planes ``[d, P, 2T]``:
 
 The SE(3) angle uses the Abramowitz & Stegun 4.4.46 polynomial of the TPU
 kernel (|err| <= 2e-8 rad) in both the kernel and the plain version. The
-CUDA source is ``csrc/fused_panda_dof_step.cu``: persistent CTAs, one per
-SM, each looping over particles; ``W_dof``'s non-zero half (it is lower
-triangular in time within each ``T x T`` block, checked once when the step
-is built: :func:`time_lower_triangular`) stays packed in shared memory for
-the whole launch (:func:`pack_windows`) where the kernel reports that this
-CTA fits; a ``W`` without those zeros, or a shape where the packed CTA does
-not fit, runs the dense instantiation. See the source for the design and its
-bound. The CTA's layout lives in the source alone: :func:`kernel_config`
-asks the kernel for its shared memory, threads and resident CTAs.
+CUDA source is ``csrc/fused_panda_dof_step.cu``: CTAs that loop over
+particles, one particle each by default. A step that samples with the
+prior's own factor (:func:`substitutes`) draws by the backward
+substitution ``L^T y = eps`` on the factor's tables
+(:func:`backward_tables`, formed when the step is built); a ``w_dof`` the
+caller gives runs the dense product ``eps @ W``, counted in
+``fused_panda_dof_step.dense_launches`` besides ``.launches``. See the
+source for the design and its bound. The CTA's layout lives in the source
+alone: :func:`kernel_config` asks the kernel for its shared memory,
+threads and resident CTAs.
 
 The random draws are an ``eps [d, P, S, 2T]`` operand (the tests' mode) or
 a 64-bit seed per launch: in-kernel Philox4x32-10 keyed on ``(seed,
@@ -58,7 +60,6 @@ from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import (
 from stoch_gpmp_tpu_torch.ops.kernels.stencil import dof_quad_eval_plain
 
 _SEED_HIGH = 2**63 - 1
-_WIN = 32  # csrc/fused_panda_dof_step.cu: columns per window of the packed W
 
 
 class DofStepParamsC(ctypes.Structure):
@@ -98,7 +99,7 @@ class FusedPandaDofStep:
 
     chain: Any
     w_dof: torch.Tensor  # [2T, 2T]; x = mu + eps @ w_dof
-    w_windows: torch.Tensor | None  # w_dof's non-zero half packed (pack_windows), or None
+    tables: torch.Tensor | None  # [7, T] the factor's backward tables (backward_tables), or None
     dof_prior: Any  # DofFactoredPrior: the exact stencil Sigma^{-1} mu
     dof_quad: Any  # DofQuadraticCost: stencil weights and anchors
     spheres: torch.Tensor  # [O, 4]
@@ -118,38 +119,48 @@ class FusedPandaDofStep:
     params: DofStepParamsC  # the kernel's constants; a launch copies it and sets the key
 
     @property
-    def triangular(self) -> bool:
-        """Whether the kernel skips ``w_dof``'s zero half (the TRI
-        instantiation)."""
-        return self.w_windows is not None
+    def substitution(self) -> bool:
+        """Whether the kernel draws by the backward substitution on
+        :attr:`tables` (else by the dense product with ``w_dof``)."""
+        return self.tables is not None
 
     def __call__(self, means_planes: torch.Tensor, *, seed: int | None = None, eps=None):
         return fused_panda_dof_step(self, means_planes, eps=eps, seed=seed)
 
 
-def time_lower_triangular(w: torch.Tensor, traj_len: int) -> bool:
-    """Whether ``w [2T, 2T]`` (plane order) holds exact zeros wherever the
-    row's time step precedes the column's, ``t(k) < t(m)`` with ``t(i) = i
-    mod T``, in each of its four ``T x T`` blocks, as ``L^{-1}`` of the
-    banded precision does. One read of the device."""
-    t = torch.arange(2 * traj_len, device=w.device) % traj_len
-    return bool((w[t[:, None] < t[None, :]] == 0).all())
+def substitutes(dof_prior, w_dof=None) -> bool:
+    """K5's rule for drawing: the backward substitution where the step
+    samples with the prior's own factor (no ``w_dof`` given and the factor
+    kept on the prior, ``DofFactoredPrior.chol``); the dense product
+    ``eps @ W`` for a ``W`` the caller gives (the RNG-free check's zeros, a
+    perturbed ``W``) or a prior that holds no factor."""
+    return w_dof is None and dof_prior.chol is not None
 
 
-def pack_windows(w: torch.Tensor, traj_len: int) -> torch.Tensor:
-    """The non-zero half of a time-lower-triangular ``w [2T, 2T]`` as the
-    kernel keeps it: per plane of columns, per window of 32 columns from
-    time ``t0 = 32 j``, the rows of time ``>= t0`` of the position plane and
-    then of the velocity plane (``2 (T - t0)`` rows of 32 floats); ``2T (T +
-    32)`` floats in all."""
-    t = traj_len
-    out = []
-    for plane in range(2):
-        for t0 in range(0, t, _WIN):
-            rows = torch.cat([torch.arange(t0, t), t + torch.arange(t0, t)]).to(w.device)
-            cols = plane * t + t0
-            out.append(w[rows, cols:cols + _WIN].reshape(-1))
-    return torch.cat(out).contiguous()
+def backward_tables(chol) -> torch.Tensor:
+    """The backward substitution ``L^T y = eps`` of a per-dof factor ``chol``
+    (``BlockBidiagChol``, 2 x 2 blocks, time-major) as the kernel reads it:
+    ``[7, T]``, per step ``t`` the upper triangle of ``D_t^{-T}`` ((0, 0),
+    (0, 1), (1, 1)) and ``A_t = -D_t^{-T} L_{t+1}^T`` ((0, 0), (0, 1), (1, 0),
+    (1, 1); ``A_{T-1} = 0``), so that ``y_t = D_t^{-T} eps_t + A_t y_{t+1}``
+    with ``eps_t = (eps[t], eps[T + t])`` in plane order. Formed in float64
+    and rounded to the factor's dtype, as ``ParallelBidiagSolver.from_chol``
+    forms its transitions and for the reason it gives; elementwise, on the
+    factor's device, with no read back."""
+    diag, lower = chol.diag.double(), chol.lower.double()
+    a, b, c = diag[:, 0, 0], diag[:, 1, 0], diag[:, 1, 1]  # D_t = [[a, 0], [b, c]]
+    i00, i01, i11 = 1.0 / a, -b / (a * c), 1.0 / c  # D_t^{-T} = [[i00, i01], [0, i11]]
+    l00, l01, l10, l11 = (lower[:, r, k] for r in (0, 1) for k in (0, 1))
+    zero = diag.new_zeros(1)
+
+    def last0(v):  # A_t for t < T - 1, then A_{T-1} = 0
+        return torch.cat([v, zero])
+
+    a00 = last0(-(i00[:-1] * l00 + i01[:-1] * l01))  # L_{t+1}^T = [[l00, l10], [l01, l11]]
+    a01 = last0(-(i00[:-1] * l10 + i01[:-1] * l11))
+    a10 = last0(-(i11[:-1] * l01))
+    a11 = last0(-(i11[:-1] * l11))
+    return torch.stack([i00, i01, i11, a00, a01, a10, a11]).to(chol.diag.dtype).contiguous()
 
 
 def make_fused_panda_dof_step(
@@ -158,11 +169,9 @@ def make_fused_panda_dof_step(
     step_size=0.1, w_dof=None,
 ) -> FusedPandaDofStep:
     """Build the step for one problem. ``w_dof`` overrides the sampling
-    factor (zeros give the RNG-free check). On the card, a factor that is
-    lower triangular in time (the prior's, zeros) is packed for the kernel
-    that skips its zero half where that kernel takes the chain (a
-    specialised FK walk, ``panda_fields.fk_variant``) and its CTA fits
-    (:func:`kernel_config`); else the dense kernel runs."""
+    factor (zeros give the RNG-free check) and takes the dense product;
+    without it the step holds the prior factor's backward tables
+    (:func:`substitutes`, :func:`backward_tables`)."""
     w = dof_prior.w_dof if w_dof is None else w_dof
     target = np.asarray(target_h.cpu() if torch.is_tensor(target_h) else target_h,
                         dtype=np.float64)
@@ -178,10 +187,9 @@ def make_fused_panda_dof_step(
      prm.kg11, prm.kg12, prm.kg22) = dof_quad.stencil_weights
     prm.s_pd[: 2 * n_dof] = dof_quad.s_pd.detach().double().cpu().numpy().ravel().tolist()
     prm.target[:] = target.ravel().tolist()
-    tri = (w.device.type == "cuda" and time_lower_triangular(w, traj_len)
-           and fk_variant(chain) != 0 and kernel_config(prm, chain, True)[0] > 0)
+    tables = backward_tables(dof_prior.chol) if substitutes(dof_prior, w_dof) else None
     return FusedPandaDofStep(
-        chain=chain, w_dof=w.contiguous(), w_windows=pack_windows(w, traj_len) if tri else None,
+        chain=chain, w_dof=w.contiguous(), tables=tables,
         dof_prior=dof_prior, dof_quad=dof_quad, spheres=spheres, target_h=target,
         num_particles=num_particles,
         num_samples=num_samples, n_dof=n_dof, traj_len=traj_len, margin=float(margin),
@@ -228,15 +236,15 @@ def _params(step: FusedPandaDofStep, seed: int) -> DofStepParamsC:
     return prm
 
 
-def kernel_config(params: DofStepParamsC, chain, triangular: bool) -> tuple[int, int, int]:
+def kernel_config(params: DofStepParamsC, chain, substitution: bool) -> tuple[int, int, int]:
     """The kernel's own launch configuration at ``params``' shape for the
-    chain's FK walk and the instantiation ``triangular`` (its
+    chain's FK walk and the instantiation ``substitution`` (its
     ``fused_panda_dof_step_config``): CTAs resident on one SM (0 where the
     CTA does not fit or the kernel refuses the shape), shared memory per CTA
     in bytes and threads per CTA."""
     out = (ctypes.c_int * 3)()
     err = _build.load_library().fused_panda_dof_step_config(
-        ctypes.byref(params), ctypes.byref(fk_chain_c(chain)), int(triangular),
+        ctypes.byref(params), ctypes.byref(fk_chain_c(chain)), int(substitution),
         fk_variant(chain), ctypes.byref(out))
     return (int(out[0]) if err == 0 else 0), int(out[1]), int(out[2])
 
@@ -246,25 +254,23 @@ _SHAPES: dict = {}  # launch shape -> launch_shape's dict
 
 def launch_shape(step: FusedPandaDofStep, ctas: int | None = None) -> dict:
     """The kernel's launch at this step's shape, as :func:`kernel_config`
-    reports it (asked once per shape): the instantiation (``triangular``,
+    reports it (asked once per shape): the instantiation (``substitution``,
     the FK ``variant``), threads and shared memory per CTA, the CTAs
-    resident on one SM and the persistent CTAs launched (``ctas``, default
-    as many as are resident on the card, at most one per particle). Raises
-    where a CTA does not fit."""
+    resident on one SM and the CTAs launched (``ctas``, default one per
+    particle; fewer loop over the particles). Raises where a CTA does not
+    fit."""
     dev = step.w_dof.device
     variant = fk_variant(step.chain)
     key = (step.num_particles, step.num_samples, step.traj_len, step.n_dof,
-           int(step.spheres.shape[0]), step.triangular, variant, ctas, dev)
+           int(step.spheres.shape[0]), step.substitution, variant, ctas, dev)
     if key not in _SHAPES:
-        per_sm, smem, threads = kernel_config(step.params, step.chain, step.triangular)
+        per_sm, smem, threads = kernel_config(step.params, step.chain, step.substitution)
         if per_sm < 1:
             raise ValueError(f"fused panda dof step kernel: a CTA of {threads} threads and "
                              f"{smem} B of shared memory does not fit on the device")
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         _SHAPES[key] = dict(
-            triangular=step.triangular, variant=variant, threads=threads, smem_bytes=smem,
-            ctas_per_sm=per_sm,
-            ctas=ctas if ctas is not None else min(step.num_particles, per_sm * sms))
+            substitution=step.substitution, variant=variant, threads=threads, smem_bytes=smem,
+            ctas_per_sm=per_sm, ctas=ctas if ctas is not None else step.num_particles)
     return _SHAPES[key]
 
 
@@ -272,10 +278,12 @@ def _check_cuda(step: FusedPandaDofStep, means, eps):
     d, p, s, t = step.n_dof, step.num_particles, step.num_samples, step.traj_len
     m = 2 * t
     dev = means.device
-    want = {"means": (means, (d, p, m)), "w_dof": (step.w_dof, (m, m)),
+    want = {"means": (means, (d, p, m)),
             "spheres": (step.spheres, (step.spheres.shape[0], 4))}
-    if step.triangular:
-        want["w_windows"] = (step.w_windows, (2 * t * (t + _WIN),))
+    if step.substitution:
+        want["tables"] = (step.tables, (7, t))
+    else:
+        want["w_dof"] = (step.w_dof, (m, m))
     if eps is not None:
         want["eps"] = (eps, (d, p, s, m))
     for name, (ten, shape) in want.items():
@@ -296,8 +304,8 @@ def fused_panda_dof_step(step: FusedPandaDofStep, means, *, eps=None, seed=None,
     """One fused iteration: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. Exactly one of ``eps [d, P, S, 2T]`` and
     ``seed`` (an int in ``[0, 2**63)``) is given; ``ctas`` sets the number
-    of persistent CTAs (default :func:`launch_shape`'s; ``num_particles``
-    runs one particle per CTA)."""
+    of CTAs, each looping over the particles ``c, c + ctas, ...`` (default
+    :func:`launch_shape`'s: one particle per CTA)."""
     if (eps is None) == (seed is None):
         raise ValueError("give exactly one of eps and seed")
     d, p, m = means.shape
@@ -315,23 +323,25 @@ def fused_panda_dof_step(step: FusedPandaDofStep, means, *, eps=None, seed=None,
     g_pd = step.dof_quad.g_pd.to(device=dev, dtype=torch.float32).contiguous()
     new_means = torch.empty_like(means)
     costs = torch.empty((p, s), dtype=torch.float32, device=dev)
-    w = step.w_windows if step.triangular else step.w_dof
+    w = step.tables if step.substitution else step.w_dof
     lib = _build.load_library()
     err = lib.fused_panda_dof_step_launch(
         means.data_ptr(), g_pd.data_ptr(), w.data_ptr(), step.spheres.data_ptr(),
         None if eps is None else eps.data_ptr(), new_means.data_ptr(), costs.data_ptr(),
-        shape["ctas"], int(shape["triangular"]), shape["variant"],
+        shape["ctas"], int(shape["substitution"]), shape["variant"],
         ctypes.byref(_params(step, 0 if seed is None else int(seed))),
         ctypes.byref(fk_chain_c(step.chain)), _build.stream_ptr(dev),
     )
     _build.check(err, "fused_panda_dof_step_launch")
     fused_panda_dof_step.launches += 1
     fused_panda_dof_step.generic_launches += int(shape["variant"] == 0)  # the generic FK walk's
+    fused_panda_dof_step.dense_launches += int(not shape["substitution"])  # eps @ W's
     return new_means, costs
 
 
 fused_panda_dof_step.launches = 0
 fused_panda_dof_step.generic_launches = 0
+fused_panda_dof_step.dense_launches = 0
 
 
 def fused_panda_dof_optimize(step, means, generator, opt_iters: int):

@@ -16,7 +16,7 @@ once is used, so the module run from an older checkout (with ``tools/``
 copied in) stamps that checkout's kernels. It runs K2 at the planar parity
 shape and K6 at Panda config 4 (seed mode, the wrapper's split and 1 CTA
 per particle; with 1 a phase that loops over tiles sums them and the stamps
-of the last tile count), K5 at Panda config 5 (seed mode) and K4 on config
+of the last tile count), K5 at Panda config 5 (seed mode and an eps operand) and K4 on config
 5's dof planes, through the port's wrappers with the instrumented launchers
 in place, and prints per phase the median and the largest cycle count over
 the CTAs and the largest total, then ptxas's report of the shipped kernels.
@@ -75,16 +75,28 @@ from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import fk_link_fields_cost_ro
 
 STAMPS = '''#include <cuda_runtime.h>
 __device__ long long g_phase_clock[16384][8];
-#define STAMP(k) if (threadIdx.x == STAMP_THREAD && blockIdx.x < 16384) \\
-  g_phase_clock[blockIdx.x][k] = clock64();
+__device__ long long g_phase_acc[16384][4];
+#define STAMP(k) if (threadIdx.x == STAMP_THREAD && blockIdx.x < 16384) { \\
+  g_phase_clock[blockIdx.x][k] = clock64(); \\
+  if (k == 0) for (int a = 0; a < 4; ++a) g_phase_acc[blockIdx.x][a] = 0; }
+#define ACC_BEGIN(k) const long long stamp_acc_##k = clock64();
+#define ACC_END(k) if (threadIdx.x == STAMP_THREAD && blockIdx.x < 16384) \\
+  g_phase_acc[blockIdx.x][k] += clock64() - stamp_acc_##k;
 extern "C" int phase_clock_read(long long* host, int n) {
   return (int)cudaMemcpyFromSymbol(host, g_phase_clock, (size_t)n * 8 * sizeof(long long));
+}
+extern "C" int phase_acc_read(long long* host, int n) {
+  return (int)cudaMemcpyFromSymbol(host, g_phase_acc, (size_t)n * 4 * sizeof(long long));
 }
 '''
 # Per kernel: its source, the phases, and per design an anchor set: the
 # stamping thread, then (file, anchor text, stamp index, stamp after the
 # anchor or before it); the file is the kernel's source or a header it
-# includes, whose instrumented copy sits beside the instrumented source.
+# includes, whose instrumented copy sits beside the instrumented source. A
+# stamp index may instead be the macro text to place: ACC_BEGIN(k) and
+# ACC_END(k) sum the stamping thread's cycles between them into counter k
+# (zeroed at STAMP(0)), for work that a loop interleaves; "phases_of" gives a
+# design its own phase names and "accs" names the counters.
 K2 = dict(src="fused_planar_step.cu", phases=[
     "prior pu", "draws", "x = mu + eps W", "x A", "per-row sums", "cluster combine"], designs={
     "cluster split": (0, [
@@ -113,9 +125,32 @@ K6 = dict(src="fused_panda_step.cu", phases=[
                "--------", 4, False),
         (None, "                         prm.temperature, prm.step_size, new_means + (size_t)p "
                "* M);", 5, True)])})
+_K5_PRODUCT_PHASES = ["draws (persistent: and pu)", "x = mu + eps W", "stencil, importance",
+                      "FK, fields, goal", "cost, softmax", "update"]  # the product designs
 K5 = dict(src="fused_panda_dof_step.cu", phases=[
-    "draws (persistent: and pu)", "x = mu + eps W", "stencil, importance", "FK, fields, goal",
-    "cost, softmax", "update"], designs={
+    "Sigma^-1 mu", "draws + substitution", "stencil, importance", "FK, fields, goal",
+    "cost, softmax", "update"], accs=[
+    "pass 1: draws + chunk recurrence (thread 0's warp)", "carries, pass 2, x rows (same)"],
+    phases_of={"persistent": _K5_PRODUCT_PHASES, "one particle per CTA": _K5_PRODUCT_PHASES},
+    designs={
+    "substitution": (0, [  # the stamps of each CTA's last particle
+        (None, "    __syncthreads();  // the previous particle's rows are consumed", 0, True),
+        (None, "    if constexpr (SUB) {\n      // --- 2. x = mu + y, L^T y = eps", 1, False),
+        (None, "        // pass 1: the draws and the chunk's recurrence from a zero carry",
+         "ACC_BEGIN(0)", False),
+        (None, "        // the carries: y at step t0 is y0 + Phi_c y(t0 + CH); a suffix scan of "
+               "the", "ACC_END(0) ACC_BEGIN(1)", False),
+        (None, "                                m.w + z[k + 3][2 + h]);\n            }\n        }",
+         "ACC_END(1)", True),
+        (None, "    // --- 3. stencil energy + anchors + importance, one warp per row -----------"
+               "----", 2, False),
+        (None, "    // --- 4. FK + link fields per (sample, t); SE(3) goal at t = T-1 -----------"
+               "--", 3, False),
+        (None, "    // --- 5. per-sample cost, the softmax over the S samples -------------------"
+               "-----", 4, False),
+        (None, "    // --- 6. the mean update ---------------------------------------------------"
+               "--------", 5, False),
+        (None, "      new_means[idx] = mu + prm.step_size * grad;\n    }", 6, True)]),
     "persistent": (0, [  # the stamps of each CTA's last particle
         (None, "    __syncthreads();  // the previous particle's rows are consumed", 0, True),
         (None, "    // --- 2. x = mu + eps @ W, a pass of 56 rows at a time ---------------------"
@@ -283,8 +318,9 @@ def instrumented(spec: dict, out_dir: Path) -> tuple[ctypes.CDLL, str]:
     else:
         raise RuntimeError(f"{name}: no anchor set matches this source")
     for f, anchor, k, after in stamps:
+        mark = f"STAMP({k});" if isinstance(k, int) else k
         files[f] = files[f].replace(
-            anchor, f"{anchor}\n  STAMP({k});" if after else f"  STAMP({k});\n{anchor}")
+            anchor, f"{anchor}\n  {mark}" if after else f"  {mark}\n{anchor}")
     kdir = out_dir / Path(name).stem
     kdir.mkdir(parents=True, exist_ok=True)
     for f, text in files.items():
@@ -296,14 +332,16 @@ def instrumented(spec: dict, out_dir: Path) -> tuple[ctypes.CDLL, str]:
                     str(cu)], check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     lib.phase_clock_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.phase_acc_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     return lib, design
 
 
-def report(what: str, lib, n_ctas: int, phases) -> None:
+def report(what: str, lib, n_ctas: int, phases, accs=()) -> None:
     clocks = np.zeros((n_ctas, 8), dtype=np.int64)
     if lib.phase_clock_read(clocks.ctypes.data, n_ctas) != 0:
         raise RuntimeError("reading the phase clocks failed")
-    clocks = clocks[(clocks[:, 0] != 0) & (clocks[:, len(phases)] != 0)]  # the CTAs launched
+    launched = (clocks[:, 0] != 0) & (clocks[:, len(phases)] != 0)  # the CTAs launched
+    clocks = clocks[launched]
     n_ctas = clocks.shape[0]
     d = np.diff(clocks[:, : len(phases) + 1], axis=1)
     total = int((clocks[:, len(phases)] - clocks[:, 0]).max())
@@ -311,6 +349,13 @@ def report(what: str, lib, n_ctas: int, phases) -> None:
     for name, med, top in zip(phases, np.median(d, axis=0), d.max(axis=0)):
         print(f"  {name:28s} {int(med):8d} / {int(top):8d}")
     print(f"  {'total, largest CTA':28s} {total:8d}")
+    if accs:
+        acc = np.zeros((launched.shape[0], 4), dtype=np.int64)
+        if lib.phase_acc_read(acc.ctypes.data, launched.shape[0]) != 0:
+            raise RuntimeError("reading the phase counters failed")
+        acc = acc[launched]
+        for k, name in enumerate(accs):
+            print(f"  of which {name}: {int(np.median(acc[:, k]))} / {int(acc[:, k].max())}")
 
 
 def use(lib, so) -> None:
@@ -352,11 +397,16 @@ def phases(dev, out_dir: Path, only) -> None:
         k5, design = instrumented(K5, out_dir)
         use(lib, k5)
         step5, planes = panda_dof_step(dev)
-        for _ in range(3):
-            step5(planes, seed=3)
-        torch.cuda.synchronize()
-        report(f"K5 ({design} design), Panda config 5 (seed mode)", k5,
-               min(16384, step5.num_particles), K5["phases"])
+        names = K5["phases_of"].get(design, K5["phases"])
+        accs = K5["accs"] if design not in K5["phases_of"] else ()
+        eps = torch.randn((step5.n_dof, step5.num_particles, step5.num_samples,
+                           planes.shape[-1]), device=dev)
+        for mode, kw in (("seed mode", dict(seed=3)), ("eps operand", dict(eps=eps))):
+            for _ in range(3):
+                step5(planes, **kw)
+            torch.cuda.synchronize()
+            report(f"K5 ({design} design), Panda config 5 ({mode})", k5,
+                   min(16384, step5.num_particles), names, accs)
     if "S1" in only:
         from stoch_gpmp_tpu_torch.problems import build_long_horizon_problem
 
@@ -745,10 +795,14 @@ def shapes(dev, only) -> None:
                                           "fused_panda_dof_step")
                 print(f"K5 Panda config 5, {c} CTAs: kernel {kern:.4f} ms device per call",
                       flush=True)
-        if getattr(step, "triangular", False):  # the dense instantiation on the same W
-            from dataclasses import replace
+        from dataclasses import replace
 
+        dense = None  # the dense instantiation on the same W
+        if getattr(step, "substitution", False):
+            dense = replace(step, tables=None)
+        elif getattr(step, "triangular", False):  # the window design before it
             dense = replace(step, w_windows=None)
+        if dense is not None:
             kern, _ = device_per_call(lambda: dense(planes, seed=3), 20, "fused_panda_dof_step")
             print(f"K5 Panda config 5, dense instantiation: kernel {kern:.4f} ms device per "
                   "call", flush=True)

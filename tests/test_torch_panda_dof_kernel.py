@@ -1,9 +1,12 @@
 """The pieces K5 (the fused dof-factored Panda iteration) and the FK kernels
 rely on, on the CPU: ``Sigma^{-1} mu`` on dof planes against the JAX
-package, the zero pattern of ``W_dof`` that K5 skips, the packed layout K5
-reads it in, and the choice between the specialised and the generic FK walk.
-Inputs come from numpy with fixed seeds; each test states its tolerance.
-The kernels themselves run on the card (``tests/test_torch_cuda.py``).
+package, the zero pattern of ``W_dof``, the backward tables K5 draws its
+samples with (``L^T y = eps`` on the prior's factor) and the order of work
+its threads take through them, K5's rule between the substitution and the
+dense product, and the choice between the specialised and the generic FK
+walk. Inputs come from numpy with fixed seeds; each test states its
+tolerance. The kernels themselves run on the card
+(``tests/test_torch_cuda.py``).
 """
 
 import sys
@@ -18,23 +21,27 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from stoch_gpmp_tpu_torch.gp.dof_factored import (  # noqa: E402
+    DofFactoredPrior,
+    _perm2,
     make_dof_factored_prior,
+    plane_perm,
     prec_u_planes,
 )
+from stoch_gpmp_tpu_torch.gp.tridiag import BlockBidiagChol  # noqa: E402
 from stoch_gpmp_tpu_torch.kinematics.panda_model import (  # noqa: E402
     PANDA_FK_LINKS,
     franka_panda,
 )
 from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import fk_variant  # noqa: E402
 from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import (  # noqa: E402
-    pack_windows,
-    time_lower_triangular,
+    backward_tables,
+    substitutes,
 )
 
 D, DT = 7, 0.05
 # the Panda's sampling prior (chip_smoke.py, benchmarks/run.py config 5)
 SIGMA_START, SIGMA_GP, SIGMA_GOAL = 1e-3, 0.1, 0.07
-WIN = 32  # csrc/fused_panda_dof_step.cu: columns per window
+CH = 8  # csrc/fused_panda_dof_step.cu: time steps per chunk of the substitution
 
 
 def _prior(t, dtype=torch.float64):
@@ -76,50 +83,144 @@ def test_w_dof_is_lower_triangular_in_time(t, dtype):
     below = tk[:, None] < tk[None, :]
     assert np.all(w[below] == 0.0)
     assert 0.45 < np.count_nonzero(w) / w.size <= 0.5 + 1.0 / t
-    assert time_lower_triangular(torch.from_numpy(w), t)
 
 
-def test_zero_pattern_flag():
-    """The flag the K5 wrapper computes once per step: true for the prior's
-    ``W_dof`` and for zeros (the RNG-free check), false for a dense random
-    override and for the prior's ``W`` with one entry above its time
-    diagonal set."""
-    t = 128
-    w = _prior(t, torch.float32).w_dof
-    assert time_lower_triangular(w, t)
-    assert time_lower_triangular(torch.zeros_like(w), t)
-    dense = torch.from_numpy(np.random.default_rng(1).normal(size=w.shape).astype(np.float32))
-    assert not time_lower_triangular(dense, t)
-    one = w.clone()
-    one[3, t + 4] = 1e-30  # row time 3 < column time 4
-    assert not time_lower_triangular(one, t)
+def _substitute(tab, eps):
+    """``L^T y = eps`` by the serial backward recurrence on dof planes
+    ``eps [..., 2T]`` with K5's tables ``tab [7, T]``: ``y_t = D_t^{-T}
+    eps_t + A_t y_{t+1}``, ``eps_t = (eps[t], eps[T + t])``."""
+    t = tab.shape[1]
+    y = torch.zeros_like(eps)
+    yp = yv = torch.zeros_like(eps[..., 0])
+    for s in range(t - 1, -1, -1):
+        d00, d01, d11, a00, a01, a10, a11 = tab[:, s]
+        ep, ev = eps[..., s], eps[..., t + s]
+        yp, yv = d00 * ep + d01 * ev + a00 * yp + a01 * yv, d11 * ev + a10 * yp + a11 * yv
+        y[..., s], y[..., t + s] = yp, yv
+    return y
+
+
+def _card_prior(t):
+    """The float64 prior, and its factor and ``L^{-1}`` rounded to float32:
+    what the card holds, since C1 runs the chain in float64 and rounds its
+    results to float32."""
+    p64 = _prior(t)
+    chol32 = BlockBidiagChol(p64.chol.diag.float(), p64.chol.lower.float())
+    return p64, chol32, p64.w_dof.float()
 
 
 @pytest.mark.parametrize("t", [64, 128])
-def test_packed_windows_layout(t):
-    """``pack_windows`` in the layout K5's product reads it: the window of
-    plane ``h`` (positions 0, velocities 1) starting at time ``32 j`` sits
-    at ``h T (T + 32) + 64 (j T - 16 j (j - 1))``, its row ``kh (T - 32 j) +
-    k`` holds ``W[kh T + 32 j + k, h T + 32 j .. + 32]`` (exact); and the
-    product of random eps rows through the windows, in the kernel's order
-    of terms, equals ``eps @ W`` within float64 roundoff (rtol 1e-12)."""
-    w = _prior(t).w_dof
-    packed = pack_windows(w, t).numpy()
-    wn = w.numpy()
-    assert packed.shape == (2 * t * (t + WIN),)
-    eps = np.random.default_rng(2).normal(size=(5, 2 * t))
-    x = np.zeros((5, 2 * t))
-    for h in range(2):
-        for j in range(t // WIN):
-            t0, n = WIN * j, t - WIN * j
-            base = h * t * (t + WIN) + 2 * WIN * (j * t - WIN // 2 * j * (j - 1))
-            win = packed[base: base + 2 * n * WIN].reshape(2, n, WIN)
-            for kh in range(2):
-                np.testing.assert_array_equal(
-                    win[kh], wn[kh * t + t0: kh * t + t, h * t + t0: h * t + t0 + WIN])
-                x[:, h * t + t0: h * t + t0 + WIN] += eps[:, kh * t + t0: kh * t + t] @ win[kh]
-    want = eps @ wn
-    np.testing.assert_allclose(x, want, rtol=0, atol=1e-12 * np.abs(want).max())
+def test_backward_tables_equal_w_dof(t):
+    """K5's tables of the prior's float64 factor, run as the serial
+    recurrence on dof planes, equal ``eps @ w_dof`` (``L^{-1}`` in plane
+    order) within 1e-12 of its largest entry; ``A_{T-1}`` is 0 and each
+    ``D_t^{-T}`` is upper triangular by construction (3 entries kept)."""
+    prior = _prior(t)
+    tab = backward_tables(prior.chol)
+    assert tab.shape == (7, t) and tab.dtype == torch.float64
+    assert torch.all(tab[3:, -1] == 0)
+    eps = torch.from_numpy(np.random.default_rng(t).normal(size=(D, 5, 2 * t)))
+    want = eps @ prior.w_dof
+    got = _substitute(tab, eps)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-12 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("t", [64, 128])
+def test_backward_tables_float32_whitened(t):
+    """In float32, as the card runs them: the tables formed in float64 from
+    the float32 factor and rounded, run on float32 normals, whiten (against
+    the float64 factor, ``|y L - eps| / |eps|`` per row) no worse than the
+    float32 product ``eps @ w_dof`` with the rounded ``L^{-1}``."""
+    p64, chol32, w32 = _card_prior(t)
+    tab = backward_tables(chol32)
+    assert tab.dtype == torch.float32
+    lp = _perm2(p64.chol.to_dense(), plane_perm(t))
+    eps = torch.from_numpy(np.random.default_rng(t + 1).normal(size=(64, 2 * t)))
+    e32 = eps.float()
+
+    def whitened(y):
+        return float(((y.double() @ lp - eps).norm(dim=-1) / eps.norm(dim=-1)).max())
+
+    sub, dense = whitened(_substitute(tab, e32)), whitened(e32 @ w32)
+    assert sub <= dense < 1e-3
+
+
+def _chunked(tab, eps, ch=CH):
+    """``L^T y = eps`` in K5's order of work: the time axis in chunks of
+    ``ch`` steps, each run from a zero carry (pass 1); each chunk's
+    transition ``Phi_c = A_{t0} ... A_{t0 + ch - 1}``; a Hillis-Steele
+    suffix scan over the chunks of the affine maps ``y(t0) = z_c + Phi_c
+    y(t0 + ch)``; then each chunk again with its carry's homogeneous part
+    ``A_t ... A_{t0 + ch - 1} y(t0 + ch)`` added step by step (pass 2)."""
+    t = tab.shape[1]
+    nc = t // ch
+    d00, d01, d11, a00, a01, a10, a11 = (r.reshape(nc, ch) for r in tab)
+    ep = eps[..., :t].reshape(eps.shape[:-1] + (nc, ch))
+    ev = eps[..., t:].reshape(ep.shape)
+    zp, zv = torch.zeros_like(ep), torch.zeros_like(ep)
+    yp = yv = torch.zeros_like(ep[..., 0])
+    f = torch.eye(2, dtype=tab.dtype).expand(nc, 2, 2)
+    for i in range(ch - 1, -1, -1):
+        yp, yv = (d00[:, i] * ep[..., i] + d01[:, i] * ev[..., i] + a00[:, i] * yp
+                  + a01[:, i] * yv, d11[:, i] * ev[..., i] + a10[:, i] * yp + a11[:, i] * yv)
+        zp[..., i], zv[..., i] = yp, yv
+        a = torch.stack([torch.stack([a00[:, i], a01[:, i]], -1),
+                         torch.stack([a10[:, i], a11[:, i]], -1)], -2)
+        f = a @ f
+    o = 1
+    while o < nc:  # lane c takes lane c + o's map where c + o < nc
+        up, uv = yp[..., o:], yv[..., o:]
+        g = f[o:]
+        fc = f[:-o]
+        yp = torch.cat([yp[..., :-o] + fc[:, 0, 0] * up + fc[:, 0, 1] * uv, yp[..., -o:]], -1)
+        yv = torch.cat([yv[..., :-o] + fc[:, 1, 0] * up + fc[:, 1, 1] * uv, yv[..., -o:]], -1)
+        f = torch.cat([fc @ g, f[-o:]])
+        o *= 2
+    zero = torch.zeros_like(yp[..., :1])
+    hp, hv = torch.cat([yp[..., 1:], zero], -1), torch.cat([yv[..., 1:], zero], -1)
+    for i in range(ch - 1, -1, -1):
+        hp, hv = a00[:, i] * hp + a01[:, i] * hv, a10[:, i] * hp + a11[:, i] * hv
+        zp[..., i] += hp
+        zv[..., i] += hv
+    return torch.cat([zp.flatten(-2), zv.flatten(-2)], -1)
+
+
+@pytest.mark.parametrize("t", [64, 128, 224])
+def test_chunked_order_equals_the_recurrence(t):
+    """K5's order of work (chunks of 8 steps, the scan of the chunks'
+    carries, the carries' homogeneous part) on the float64 tables equals the
+    serial recurrence within 1e-12 of its largest entry, at T = 64 (8
+    chunks), 128 (16) and 224 (28: not a power of two)."""
+    tab = backward_tables(_prior(t).chol)
+    eps = torch.from_numpy(np.random.default_rng(t + 2).normal(size=(3, 4, 2 * t)))
+    want = _substitute(tab, eps)
+    np.testing.assert_allclose(_chunked(tab, eps).numpy(), want.numpy(), rtol=0,
+                               atol=1e-12 * float(want.abs().max()))
+
+
+def _no_factor(prior):
+    """The prior without its factor, as ``convert`` builds it from the JAX
+    package's."""
+    return DofFactoredPrior(w_dof=prior.w_dof, prec_dof=prior.prec_dof, traj_len=prior.traj_len,
+                            q_i2=prior.q_i2, k_s2=prior.k_s2, k_g2=prior.k_g2, dt=prior.dt)
+
+
+@pytest.mark.parametrize("case, want", [
+    ("prior", True), ("prior_w", False), ("zeros", False), ("noisy", False),
+    ("no_factor", False)])
+def test_substitution_rule(case, want):
+    """K5's rule, decided on the host from what the step is given: the
+    substitution where it samples with the prior's own factor; the dense
+    product where the caller gives a ``w_dof`` (the prior's own ``W``, the
+    RNG-free check's zeros, a perturbed ``W``) or the prior holds no factor."""
+    prior = _prior(64, torch.float32)
+    w = prior.w_dof
+    dof_prior, w_dof = {
+        "prior": (prior, None), "prior_w": (prior, w), "zeros": (prior, torch.zeros_like(w)),
+        "noisy": (prior, w + 1e-4 * w.abs().max() * torch.randn(w.shape)),
+        "no_factor": (_no_factor(prior), None)}[case]
+    assert substitutes(dof_prior, w_dof) is want
 
 
 def _host_fk_rule(tmp_path):
