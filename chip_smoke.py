@@ -42,14 +42,12 @@ Phases, one line each; any failure exits non-zero before the result line:
 9. K5, the fused dof Panda iteration (one CTA a particle, ``Sigma^{-1} mu``
    in the kernel, the draws by the backward substitution on the prior's
    factor): eps operand against its plain version at config 5 with its
-   launch (no dense launch counted); seed mode with persistent CTAs
-   against one particle per CTA (equal to the last bit); the dense
-   instantiation on the prior's W against the substitution (K5's gates),
-   the two's draws whitened against the float64 factor (the substitution no
-   worse), and the dense instantiation on a W the caller gave (against the
-   plain version); at the other shapes of ``K5_SHAPES`` (T = 224, 192; S =
-   16) by substitution against the plain version; the RNG-free tier (``W =
-   0``, dense) against float64 oracles, and the Philox moments;
+   launch; seed mode with persistent CTAs against one particle per CTA
+   (equal to the last bit); its draws whitened against the float64 factor,
+   no worse than the plain version's float32 product ``eps @ W``; at the
+   other shapes of ``K5_SHAPES`` (T = 224, 192; S = 16) against the plain
+   version; the RNG-free tiers (an eps operand of zeros) against float64
+   oracles, and the Philox moments;
 10. the Panda main path: ``build_panda_problem`` at config 5 through
     ``StochGPMP(fused_kernel=True)`` and ``StochGPMP`` on the dof path, 200
     iterations each, with descent, start-anchor and launch-count gates (no
@@ -243,6 +241,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from stoch_gpmp_tpu_torch.tools import fused_timing
+from stoch_gpmp_tpu_torch.tools.fused_timing import device_breakdown, events_per_call
 
 T, PPG, S, TAU, STEP = 64, 5, 128, 1.0, 0.5
 ITERS = 500
@@ -514,66 +515,13 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Time per call of ``fn()`` over ``reps`` back-to-back calls, CUDA
-    events: the device's time, or the host's where launching is slower."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(fn, reps: int) -> float | None:
-    """Device time per call of ``fn()`` over ``reps`` calls under
-    ``torch.profiler``: the summed time of the device's kernels and copies
-    (device activity only, so no time is counted twice). None when the
-    profiler saw no device activity."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return busy_us / 1e3 / reps if busy_us > 0 else None
-
-
 def queued_ms(fn) -> float | None:
     """Device time per call of ``fn()`` by CUDA events around 200 calls
     queued behind a sleeping kernel (``tools/fused_timing.py queued_ms``):
-    the cross-check of :func:`device_ms`, whose profiler can lose a kernel's
+    the cross-check of :func:`device_breakdown`, whose profiler can lose a kernel's
     records. None when the host did not keep ahead of the device."""
-    from stoch_gpmp_tpu_torch.tools.fused_timing import queued_ms as queued
-
-    ms, held = queued(fn)
+    ms, held = fused_timing.queued_ms(fn)
     return ms if held else None
-
-
-def device_breakdown(fn, reps: int, top: int = 8) -> tuple[float | None, list, float]:
-    """Like :func:`device_ms`, plus the ``top`` device kernels by time and
-    the number of device operations (kernels and copies) per call:
-    ``(total ms per call or None, [(name, ms per call), ...], ops per call)``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    rows = [(e.key, e.self_device_time_total / 1e3 / reps) for e in events]
-    busy = sum(ms for _, ms in rows)
-    rows = sorted(rows, key=lambda r: -r[1])[:top]
-    ops = sum(e.count for e in events) / reps
-    return (busy if busy > 0 else None), [(name[:48], ms) for name, ms in rows], ops
 
 
 def kernel_counters() -> dict:
@@ -609,17 +557,15 @@ def kernel_counters() -> dict:
 
 def reset_counters() -> None:
     """Set every kernel's launch count (and the count of generic or
-    runtime-size launches of the FK kernels, K7, S1 and C1, S1's launches
-    whose planes did not go by TMA and K5's dense-product launches) to 0,
-    just before a main path runs."""
+    runtime-size launches of the FK kernels, K7, S1 and C1, and S1's
+    launches whose planes did not go by TMA) to 0, just before a main path
+    runs."""
     for fn in kernel_counters().values():
         fn.launches = 0
         if hasattr(fn, "generic_launches"):
             fn.generic_launches = 0
         if hasattr(fn, "staged_launches"):
             fn.staged_launches = 0
-        if hasattr(fn, "dense_launches"):
-            fn.dense_launches = 0
 
 
 def generic_walks(counters: dict) -> dict:
@@ -702,9 +648,10 @@ def raster_check(dev) -> dict:
     kernel = lambda: raster_primitive_cost(*args, view, **kw)  # noqa: E731
     plain = lambda: raster_primitive_cost_plain(*args, view, **kw)  # noqa: E731
     return dict(points=view.shape[0] * view.shape[1], edge_points=edges.shape[0],
-                max_abs_err=max(errs), ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 50),
-                device_ms=device_ms(kernel, 100), queued_ms=queued_ms(kernel),
-                plain_device_ms=device_ms(plain, 20))
+                max_abs_err=max(errs), ms=events_per_call(kernel, 200),
+                plain_ms=events_per_call(plain, 50),
+                device_ms=device_breakdown(kernel, 100)[0], queued_ms=queued_ms(kernel),
+                plain_device_ms=device_breakdown(plain, 20)[0])
 
 
 def make_step(dev, sigma_goal_prior=1e-3, zero_quad=False, per_particle=False):
@@ -791,8 +738,9 @@ def fused_check(dev, branch: str, per_particle: bool = False) -> dict:
         kernel = lambda: wrapper(step, means, **rng)  # noqa: E731
         plain = lambda: fused_planar_step_plain(  # noqa: E731
             step, means, torch.randn((p, S, means.shape[1]), generator=gen, device=dev))
-        out.update(ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 50),
-                   device_ms=device_ms(kernel, 50), plain_device_ms=device_ms(plain, 20),
+        out.update(ms=events_per_call(kernel, 200), plain_ms=events_per_call(plain, 50),
+                   device_ms=device_breakdown(kernel, 50)[0],
+                   plain_device_ms=device_breakdown(plain, 20)[0],
                    **planar_launch(step, per_particle))
     return out
 
@@ -1024,8 +972,9 @@ def dof_quad_check(dev) -> dict:
     kernel = lambda: dof_quad_eval(dq, xp, **kw)  # noqa: E731
     plain = lambda: dof_quad_eval_plain(dq, xp, **kw)  # noqa: E731
     return dict(rows=b, max_rel=max(e[0] for e in errs), max_abs_err=max(e[1] for e in errs),
-                ms=cuda_ms(kernel, 100), plain_ms=cuda_ms(plain, 20),
-                device_ms=device_ms(kernel, 50), plain_device_ms=device_ms(plain, 10),
+                ms=events_per_call(kernel, 100), plain_ms=events_per_call(plain, 20),
+                device_ms=device_breakdown(kernel, 50)[0],
+                plain_device_ms=device_breakdown(plain, 10)[0],
                 bound=bound(nb, ops))
 
 
@@ -1104,8 +1053,9 @@ def fk_fields_check(dev) -> dict:
     plain = lambda: fk_link_fields_cost_rows_plain(chain, q, spheres, **kw)  # noqa: E731
     return dict(rows=b, points=b * (t - 1), max_rel=rel,
                 max_abs_err=float((got.double() - want).abs().max()), flat_rel=flat_rel,
-                ms=cuda_ms(kernel, 50), plain_ms=cuda_ms(plain, 10),
-                device_ms=device_ms(kernel, 20), plain_device_ms=device_ms(plain, 5),
+                ms=events_per_call(kernel, 50), plain_ms=events_per_call(plain, 10),
+                device_ms=device_breakdown(kernel, 20)[0],
+                plain_device_ms=device_breakdown(plain, 5)[0],
                 bound=bound(nb, b * (t - 1) * K4_OPS_PER_POINT))
 
 
@@ -1193,8 +1143,7 @@ def tilted_panda():
 
 def fused_generic_walk_check(dev) -> dict:
     """K5 (config 5) and K6 (config 4) with the eps operand on a chain no FK
-    spec matches (``tilted_panda``: the generic walk; K5 by substitution and
-    by its dense instantiation on the prior's W) against their plain
+    spec matches (``tilted_panda``: the generic walk) against their plain
     versions on the same chain, under K5's gates (K6: every particle's best
     sample agreeing)."""
     from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
@@ -1220,8 +1169,6 @@ def fused_generic_walk_check(dev) -> dict:
     eps = torch.randn((7, p, s, means.shape[-1]), generator=gen, device=dev)
     plain = fused_panda_dof_step_plain(step, means, eps)
     k5 = _k5_gates("K5 generic walk", *fused_panda_dof_step(step, means, eps=eps), *plain)
-    k5d = _k5_gates("K5 generic walk, dense", *fused_panda_dof_step(
-        replace(step, tables=None), means, eps=eps), *plain)
     sampler4, cost4, state4, obs4, s4 = panda4_problem(dev)
     p4 = state4.particle_means.shape[0]
     step4 = make_flat_step(sampler4, cost4, obs4, p4, s4, chain=chain)
@@ -1234,10 +1181,10 @@ def fused_generic_walk_check(dev) -> dict:
         fail(f"K6 generic walk: best sample agrees for only {k6[1]}/{p4} particles")
     walks = (fused_panda_dof_step.generic_launches - before[0],
              fused_panda_step.generic_launches - before[1])
-    if walks != (2, 1):
-        fail(f"generic FK walk: K5 and K6 counted {walks} generic launches, expected (2, 1)")
-    return dict(k5_cost_max_rel=max(k5[0], k5d[0]), k5_mean_max_err=max(k5[2], k5d[2]),
-                k6_cost_max_rel=k6[0], k6_mean_max_err=k6[2])
+    if walks != (1, 1):
+        fail(f"generic FK walk: K5 and K6 counted {walks} generic launches, expected (1, 1)")
+    return dict(k5_cost_max_rel=k5[0], k5_mean_max_err=k5[2], k6_cost_max_rel=k6[0],
+                k6_mean_max_err=k6[2])
 
 
 def make_dof_step(sampler, cost, obs, p, s, **over):
@@ -1277,11 +1224,10 @@ def _k5_gates(what: str, new_k, cost_k, new_p, cost_p) -> tuple[float, int, floa
 
 
 def fused_dof_check(dev) -> dict:
-    """K5 with an eps operand vs its plain version at config 5, through the
-    substitution (the prior's factor; no launch counted in
-    ``dense_launches``), with its launch; ``bound`` counts the dense product
-    (the benchmark's ``k5_roofline`` yardstick), ``substitution_bound`` the
-    work the kernel does: 7 multiply-adds a row and step."""
+    """K5 with an eps operand vs its plain version at config 5, with its
+    launch; ``bound`` counts the dense product ``eps @ W`` (the benchmark's
+    ``k5_roofline`` yardstick), ``substitution_bound`` the work the kernel
+    does: 7 multiply-adds a row and step."""
     from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
     from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import (
         fused_panda_dof_step,
@@ -1292,15 +1238,10 @@ def fused_dof_check(dev) -> dict:
     sampler, cost, state, obs, s = panda_problem(dev)
     p = state.particle_means.shape[0]
     step = make_dof_step(sampler, cost, obs, p, s)
-    if not step.substitution:
-        fail("K5: the prior's step did not take the substitution")
     means = to_dof_planes(state.particle_means).contiguous()
     gen = torch.Generator(device=dev).manual_seed(6)
     eps = torch.randn((7, p, s, means.shape[-1]), generator=gen, device=dev)
-    dense = fused_panda_dof_step.dense_launches
     new_k, cost_k = fused_panda_dof_step(step, means, eps=eps)
-    if fused_panda_dof_step.dense_launches != dense:
-        fail("K5: the prior's step ran the dense product (dense_launches moved)")
     new_p, cost_p = fused_panda_dof_step_plain(step, means, eps)
     torch.cuda.synchronize()
     rel, agree, mean_err = _k5_gates("K5", new_k, cost_k, new_p, cost_p)
@@ -1313,8 +1254,10 @@ def fused_dof_check(dev) -> dict:
     # the substitution: per row and step D_t^{-T} eps_t (3) and A_t y_{t+1} (4)
     sub_macs = 7 * p * s * t * 7
     return dict(cost_max_rel=rel, argmax_agree=agree, particles=p,
-                max_abs_err=mean_err, ms=cuda_ms(kernel, 50), plain_ms=cuda_ms(plain, 10),
-                device_ms=device_ms(kernel, 20), plain_device_ms=device_ms(plain, 5),
+                max_abs_err=mean_err, ms=events_per_call(kernel, 50),
+                plain_ms=events_per_call(plain, 10),
+                device_ms=device_breakdown(kernel, 20)[0],
+                plain_device_ms=device_breakdown(plain, 5)[0],
                 bound=bound(nb, 2 * 7 * p * s * m * m + fields),
                 substitution_bound=bound(4 * (3 * means.numel() + step.tables.numel() + p * s),
                                          2 * sub_macs + fields),
@@ -1339,18 +1282,12 @@ def fused_dof_split_check(dev) -> dict:
     card, each looping over particles) against its launch of one particle
     per CTA (the same draws: the Philox counter does not depend on the
     CTA): costs and new means equal to the last bit, and the means within
-    SPLIT_MEAN_ATOL in any case. Then the dense instantiation on the
-    prior's W against the substitution on the same draws, under K5's gates;
-    and the draws alone
+    SPLIT_MEAN_ATOL in any case. Then the draws alone
     (:func:`uniform_dof_step` from zero means, with an eps operand, so the
     new means are the samples' mean ``y``): whitened against the float64
-    factor (``|y L - mean_s eps| / |mean_s eps|`` per row), the
-    substitution's error no larger than the dense instantiation's. Last,
-    a W the caller gives (the prior's plus noise of 1e-4 of its largest
-    entry) takes the dense instantiation and runs under K5's gates against
-    the plain version."""
-    from dataclasses import replace as dc_replace
-
+    factor (``|y L - mean_s eps| / |mean_s eps|`` per row), the kernel's
+    error no larger than that of the plain version's float32 product ``eps
+    @ W`` on the card."""
     from stoch_gpmp_tpu_torch.gp.dof_factored import (
         make_dof_factored_prior,
         plane_perm,
@@ -1371,14 +1308,11 @@ def fused_dof_split_check(dev) -> dict:
     split = min(p, launch_shape(step)["ctas_per_sm"] * sms)
     new_1, cost_1 = fused_panda_dof_step(step, means, seed=17)
     new_c, cost_c = fused_panda_dof_step(step, means, seed=17, ctas=split)
-    dense = dc_replace(step, tables=None)
-    new_d, cost_d = fused_panda_dof_step(dense, means, seed=17)
     torch.cuda.synchronize()
     mean_err = float((new_c - new_1).abs().max())
     if not (torch.equal(cost_c, cost_1) and mean_err <= SPLIT_MEAN_ATOL):
         fail(f"K5: {split} persistent CTAs against one per particle: costs "
              f"{float((cost_c - cost_1).abs().max()):.3g} apart, new means {mean_err:.3g}")
-    sub = _k5_gates("K5 substitution against the dense product", new_c, cost_c, new_d, cost_d)
     # the draws alone, whitened against the float64 factor
     gen = torch.Generator(device=dev).manual_seed(8)
     m = means.shape[-1]
@@ -1391,33 +1325,23 @@ def fused_dof_split_check(dev) -> dict:
     lp = p64.chol.to_dense()[idx][:, idx]
     target = eps.double().cpu().mean(dim=2)  # [7, P, M]
 
-    def whitened(st) -> float:
-        y = fused_panda_dof_step(st, torch.zeros_like(means), eps=eps)[0].double().cpu()
+    def whitened(y) -> float:
+        y = y.double().cpu()
         return float(((y @ lp - target).norm(dim=-1) / target.norm(dim=-1)).max())
 
-    w_sub, w_dense = whitened(draws), whitened(dc_replace(draws, tables=None))
-    if not w_sub <= w_dense:
-        fail(f"K5: the substitution's draws whiten to {w_sub:.3g}, the dense product's to "
-             f"{w_dense:.3g}")
-    w = sampler.dof.w_dof
-    w_noisy = w + 1e-4 * w.abs().max() * torch.randn(w.shape, generator=gen, device=dev)
-    over = make_dof_step(sampler, cost, obs, p, s, w_dof=w_noisy)
-    if over.substitution:
-        fail("K5: a W the caller gave took the substitution")
-    new_k, cost_k = fused_panda_dof_step(over, means, eps=eps)
-    new_p, cost_p = fused_panda_dof_step_plain(over, means, eps)
-    torch.cuda.synchronize()
-    rel, agree, err = _k5_gates("K5 dense", new_k, cost_k, new_p, cost_p)
-    return dict(ctas=split, particles=p, mean_max_err=mean_err, sub_dense_cost_max_rel=sub[0],
-                sub_dense_argmax_agree=sub[1], sub_dense_mean_max_err=sub[2],
-                draw_whitened_sub=w_sub, draw_whitened_dense=w_dense, dense_cost_max_rel=rel,
-                dense_argmax_agree=agree, dense_mean_max_err=err)
+    zero = torch.zeros_like(means)
+    w_sub = whitened(fused_panda_dof_step(draws, zero, eps=eps)[0])
+    w_plain = whitened(fused_panda_dof_step_plain(draws, zero, eps)[0])
+    if not w_sub <= w_plain:
+        fail(f"K5: the substitution's draws whiten to {w_sub:.3g}, the plain version's "
+             f"float32 product's to {w_plain:.3g}")
+    return dict(ctas=split, particles=p, mean_max_err=mean_err, draw_whitened_sub=w_sub,
+                draw_whitened_plain=w_plain)
 
 
 def fused_dof_shapes_check(dev) -> dict:
     """K5 with an eps operand against its plain version at the shapes of
-    ``K5_SHAPES``, each through the substitution, under K5's gates, with the
-    launch each took. The Panda
+    ``K5_SHAPES``, under K5's gates, with the launch each took. The Panda
     problem's stencil weights, anchors, fields and spheres (2 goals x 32
     particles), the dof-factored sampling prior built at each horizon (the
     planner's flat prior refuses 14 T > 2048) and straight start-to-goal
@@ -1441,8 +1365,6 @@ def fused_dof_shapes_check(dev) -> dict:
         p = state.particle_means.shape[0]
         prior = make_dof_factored_prior(t, PANDA_DT, *PANDA_SAMPLE_SIGMAS, device=dev)
         step = make_dof_step(sampler, cost, obs, p, s, traj_len=t, dof_prior=prior)
-        if not step.substitution:
-            fail(f"K5 at T = {t}, S = {s}: the prior's step did not take the substitution")
         dq = cost.costs[0].dof_form
         s0 = dq.s_pd[:, :1, None]  # [d, 1, 1] start positions
         goal = dq.g_pd[..., 0].repeat_interleave(p // dq.num_goals, 0).T[:, :, None]  # [d, P, 1]
@@ -1460,10 +1382,10 @@ def fused_dof_shapes_check(dev) -> dict:
 
 
 def fused_dof_rng_free_check(dev) -> dict:
-    """K5 with ``W = 0`` (every sample is its particle's mean), the tiers of
-    the JAX package's TPU test: fields + goal + importance with the
-    quadratic zeroed, then the full stack, against float64 oracles built on
-    the CPU; the means must not move."""
+    """K5 with an eps operand of zeros (``y = L^{-T} 0 = 0``: every sample is
+    its particle's mean), the tiers of the JAX package's TPU test: fields +
+    goal + importance with the quadratic zeroed, then the full stack,
+    against float64 oracles built on the CPU; the means must not move."""
     from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
     from stoch_gpmp_tpu_torch.ops.kernels.stencil import dof_quad_eval_plain
 
@@ -1478,12 +1400,12 @@ def fused_dof_rng_free_check(dev) -> dict:
     ref = dof_quad_eval_plain(cost64.costs[0].dof_form, m64) + ref_f
     dq = cost.costs[0].dof_form
     z = torch.zeros((2, 2), device=dev)
-    zero_w = torch.zeros_like(sampler.dof.w_dof)
+    zero_eps = torch.zeros((7, p, s, means.shape[-1]), device=dev)
     out = {}
     for tier, dquad, want, rtol in (("tier1", replace(dq, q_i2=z, k_s2=z, k_g2=z), ref_f,
                                      K5_TIER1_RTOL), ("tier2", dq, ref, K5_TIER2_RTOL)):
-        step = make_dof_step(sampler, cost, obs, p, s, w_dof=zero_w, dof_quad=dquad)
-        new, costs = step(means, seed=0)
+        step = make_dof_step(sampler, cost, obs, p, s, dof_quad=dquad)
+        new, costs = step(means, eps=zero_eps)
         torch.cuda.synchronize()
         rel = float(((costs.double().cpu() - want[:, None]).abs() / want.abs()[:, None]).max())
         still = float((new - means).abs().max())
@@ -1579,9 +1501,6 @@ def panda_main_path(dev) -> dict:
             fail(f"panda {name}: launches {launches}, expected {want}")
         if any(generic.values()):
             fail(f"panda {name}: generic FK walks {generic}: the Panda takes the specialised one")
-        dense = counters["fused_panda_dof_step"].dense_launches
-        if dense:
-            fail(f"panda {name}: {dense} K5 launches ran the dense product, not the substitution")
         if not c1 < c0 or start_err > PANDA_START_TOL:
             fail(f"panda {name}: mean cost {c0:.6g} -> {c1:.6g}, start moved {start_err:.3g}")
         # device time per iteration over a profiled window of the same loop
@@ -1679,8 +1598,10 @@ def fused_flat_check(dev) -> dict:
     # the same operations on the SMs that the kernel's CTAs occupy
     sms_ms = flops / (FP32_FLOP_PER_SM * min(132, shape["ctas_launched"])) * 1e3
     return dict(cost_max_rel=rel, argmax_agree=int(agree.sum()), particles=p,
-                max_abs_err=mean_err, ms=cuda_ms(kernel, 100), plain_ms=cuda_ms(plain, 20),
-                device_ms=device_ms(kernel, 50), plain_device_ms=device_ms(plain, 10),
+                max_abs_err=mean_err, ms=events_per_call(kernel, 100),
+                plain_ms=events_per_call(plain, 20),
+                device_ms=device_breakdown(kernel, 50)[0],
+                plain_device_ms=device_breakdown(plain, 10)[0],
                 bound=bound(nb, flops), bound_on_sms_ms=sms_ms, **shape,
                 waves=-(-p // shape["max_active_clusters"]))
 
@@ -1808,15 +1729,18 @@ def link_fields_check(dev) -> dict:
     return {
         "K7": dict(points=n_big, max_rel=k7_rel, config4_points=n4, config4_max_rel=k7_4_rel,
                    max_abs_err=float((k7_4.double() - want7_4).abs().max()),
-                   ms=cuda_ms(k7_kernel, 200), plain_ms=cuda_ms(k7_plain, 50),
-                   device_ms=device_ms(k7_kernel, 100), plain_device_ms=device_ms(k7_plain, 20),
-                   big_ms=cuda_ms(big_kernel, 20), big_device_ms=device_ms(big_kernel, 10),
+                   ms=events_per_call(k7_kernel, 200), plain_ms=events_per_call(k7_plain, 50),
+                   device_ms=device_breakdown(k7_kernel, 100)[0],
+                   plain_device_ms=device_breakdown(k7_plain, 20)[0],
+                   big_ms=events_per_call(big_kernel, 20),
+                   big_device_ms=device_breakdown(big_kernel, 10)[0],
                    bound=bound(n4 * (12 * n_links + 4), n4 * ops),
                    big_bound=bound(n_big * (12 * n_links + 4), n_big * ops)),
         "K8": dict(points=n_q, max_rel=k8_rel, k7_rel=k8_k7,
                    max_abs_err=float((k8.double() - want8).abs().max()),
-                   ms=cuda_ms(k8_kernel, 20), plain_ms=cuda_ms(k8_plain, 5),
-                   device_ms=device_ms(k8_kernel, 10), plain_device_ms=device_ms(k8_plain, 3),
+                   ms=events_per_call(k8_kernel, 20), plain_ms=events_per_call(k8_plain, 5),
+                   device_ms=device_breakdown(k8_kernel, 10)[0],
+                   plain_device_ms=device_breakdown(k8_plain, 3)[0],
                    bound=bound(n_q * (4 * q.shape[1] + 4), n_q * K4_OPS_PER_POINT)),
     }
 
@@ -2092,13 +2016,13 @@ def field2d_check(dev) -> dict:
         ops = 0.0 if name == "K10" else 6.0 * n_prims
         out[name] = dict(
             points=n, edge_points=(cell_edges if name == "K10" else prim_edges).shape[0],
-            max_abs_err=0.0, ms=cuda_ms(lambda: kernel(*args), 200),
-            plain_ms=cuda_ms(lambda: plain(*args), 50),
-            device_ms=device_ms(lambda: kernel(*args), 100),
+            max_abs_err=0.0, ms=events_per_call(lambda: kernel(*args), 200),
+            plain_ms=events_per_call(lambda: plain(*args), 50),
+            device_ms=device_breakdown(lambda: kernel(*args), 100)[0],
             queued_ms=queued_ms(lambda: kernel(*args)),
-            plain_device_ms=device_ms(lambda: plain(*args), 20),
-            big_points=BIG_POINTS, big_ms=cuda_ms(lambda: kernel(*big_args), 50),
-            big_device_ms=device_ms(lambda: kernel(*big_args), 20),
+            plain_device_ms=device_breakdown(lambda: plain(*args), 20)[0],
+            big_points=BIG_POINTS, big_ms=events_per_call(lambda: kernel(*big_args), 50),
+            big_device_ms=device_breakdown(lambda: kernel(*big_args), 20)[0],
             big_queued_ms=queued_ms(lambda: kernel(*big_args)),
             bound=bound(12 * n + grid_bytes, ops * n),
             big_bound=bound(12 * BIG_POINTS + grid_bytes, ops * BIG_POINTS),
@@ -2521,16 +2445,17 @@ def c1_phase(dev) -> dict:
     err = max(float((chol.diag.double() - ref.diag).abs().max()),
               float((chol.lower.double() - ref.lower).abs().max()),
               float((linv.double() - ref.dense_inv_transpose().T).abs().max()))
-    ms = cuda_ms(system.cholesky_inverse, 50)
-    plain_ms = cuda_ms(lambda: block_chol_plain(system, inverse=True), 3)
-    library_ms = cuda_ms(library, 20)
+    ms = events_per_call(system.cholesky_inverse, 50)
+    plain_ms = events_per_call(lambda: block_chol_plain(system, inverse=True), 3)
+    library_ms = events_per_call(library, 20)
     t, d = C1_CASES["planar"][:2]
     m = t * d
     # reads the blocks, writes the factor and L^{-1}; the chain's FMAs and
     # M T d^2 for the walk of L^{-1}'s columns
     bd = bound(4 * (2 * 2 * t * d * d + m * m), 2 * (t * 3 * d ** 3 + m * t * d * d))
     return dict(rows=rows, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                device_ms=device_ms(system.cholesky_inverse, 20), max_abs_err=err, bound=bd)
+                device_ms=device_breakdown(system.cholesky_inverse, 20)[0], max_abs_err=err,
+                bound=bd)
 
 
 def _s1_prior(d, t, dtype, dev):
@@ -2618,9 +2543,10 @@ def s1_check(dev) -> dict:
     phi_max = {n: float(getattr(ps, n).abs().max()) for n in ("phi_fwd", "phi_bwd")}
     return dict(cases=cases, worst=worst, phi_max=phi_max,
                 max_abs_err=max(c["s1_vs_plain_abs"] for c in cases if c["dtype"] == "float32"),
-                ms=cuda_ms(kernel, 100), plain_ms=cuda_ms(plain, 5),
-                device_ms=device_ms(kernel, 50), queued_ms=queued_ms(kernel),
-                plain_device_ms=device_ms(plain, 3), library_ms=cuda_ms(library, 5),
+                ms=events_per_call(kernel, 100), plain_ms=events_per_call(plain, 5),
+                device_ms=device_breakdown(kernel, 50)[0], queued_ms=queued_ms(kernel),
+                plain_device_ms=device_breakdown(plain, 3)[0],
+                library_ms=events_per_call(library, 5),
                 library_err=lib_err, bound=bd)
 
 
@@ -3546,7 +3472,8 @@ def sharded_dof(meshes, shapes=((4, 1), (2, 2))) -> dict:
         p, t2 = state.particle_means.shape[0], 2 * state.particle_means.shape[1]
         d = state.particle_means.shape[2] // 2
         gen = torch.Generator(device=dev).manual_seed(3)
-        draw = {k: cuda_ms(lambda n=n: torch.randn((d, n, s, t2), generator=gen, device=dev), 10)
+        draw = {k: events_per_call(
+                    lambda n=n: torch.randn((d, n, s, t2), generator=gen, device=dev), 10)
                 for k, n in (("global", p), ("block", p // shape[0]))}
         out[str(shape)] = dict(row, launches=launches, mean_ratio=mean_ratio,
                                cost_ratio=cost_ratio, block=st.particle_means.shape[0],
@@ -3872,7 +3799,7 @@ def panda_sim(dev, q_goal, iters: int = SIM_PLAN_ITERS) -> dict:
     for _ in range(n):
         st.pd_step(q, dq, u, dt)
     graph_ms = (time.perf_counter() - t0) / n * 1e3
-    eager_ms = cuda_ms(lambda: st.pd_eager(qt, dqt, ut, dtt), SIM_EAGER_STEPS)
+    eager_ms = events_per_call(lambda: st.pd_eager(qt, dqt, ut, dtt), SIM_EAGER_STEPS)
     e_dev, _, e_ops = device_breakdown(lambda: st.pd_eager(qt, dqt, ut, dtt), 2)
     g_dev, _, g_ops = device_breakdown(lambda: st.pd_step(q, dq, u, dt), 2)
     out["substep"] = dict(graph_ms=graph_ms, eager_ms=eager_ms, eager_device_ms=e_dev,
@@ -4249,30 +4176,23 @@ def main() -> int:
                 f"({k5['bound'][1]}), the substitution's work "
                 f"{k5['substitution_bound'][0]:.4f} ms ({k5['substitution_bound'][1]}); "
                 f"{ln['ctas']} CTAs of {ln['threads']} threads, {ln['smem_bytes']} B "
-                f"of shared memory, {ln['ctas_per_sm']} per SM, substitution: "
-                f"{ln['substitution']}, FK variant {ln['variant']} on {smi}")
+                f"of shared memory, {ln['ctas_per_sm']} per SM, FK variant {ln['variant']} on "
+                f"{smi}")
     k5_split = fused_dof_split_check(dev)
     phase("K5-split", f"seed mode at {k5_split['ctas']} persistent CTAs against "
                       f"{k5_split['particles']} (one particle each): costs equal, new means "
-                      f"within {k5_split['mean_max_err']:.2e} (atol {SPLIT_MEAN_ATOL})")
-    phase("K5-dense", f"substitution against the dense instantiation on the prior's W: costs "
-                      f"within {k5_split['sub_dense_cost_max_rel']:.2e} relative, best sample "
-                      f"agrees {k5_split['sub_dense_argmax_agree']}/{k5_split['particles']}, "
-                      f"means max err {k5_split['sub_dense_mean_max_err']:.2e}; draws whitened "
-                      f"against the float64 factor {k5_split['draw_whitened_sub']:.3e} "
-                      f"(substitution) against {k5_split['draw_whitened_dense']:.3e} (dense); "
-                      f"on a W the caller gave costs within "
-                      f"{k5_split['dense_cost_max_rel']:.2e} relative of the plain version, best "
-                      f"sample agrees {k5_split['dense_argmax_agree']}/{k5_split['particles']}, "
-                      f"means max err {k5_split['dense_mean_max_err']:.2e}")
+                      f"within {k5_split['mean_max_err']:.2e} (atol {SPLIT_MEAN_ATOL}); draws "
+                      f"whitened against the float64 factor {k5_split['draw_whitened_sub']:.3e} "
+                      f"(substitution) against {k5_split['draw_whitened_plain']:.3e} (the plain "
+                      f"version's float32 eps @ W)")
     k5_shapes = fused_dof_shapes_check(dev)
     for k, r in k5_shapes.items():
         ln = r["launch"]
         phase("K5-shapes", f"{k}, eps operand: costs within {r['cost_max_rel']:.2e} relative, "
                            f"best sample agrees {r['argmax_agree']}/{r['particles']}, means max "
                            f"err {r['mean_max_err']:.2e}; {ln['threads']} threads, "
-                           f"{ln['smem_bytes']} B of shared memory, substitution: "
-                           f"{ln['substitution']}, FK variant {ln['variant']}")
+                           f"{ln['smem_bytes']} B of shared memory, FK variant "
+                           f"{ln['variant']}")
     k5_free = fused_dof_rng_free_check(dev)
     phase("K5-rng-free", " | ".join(
         f"{k}: costs within {v['max_rel']:.2e} relative, means moved {v['means_moved']:.1e}"

@@ -39,6 +39,7 @@ from stoch_gpmp_tpu_torch.costs.fields import (
 from stoch_gpmp_tpu_torch.costs.fused_fields import FusedLinkFieldsCost, PlaneFieldsCost
 from stoch_gpmp_tpu_torch.costs.quadratic import QuadraticCost
 from stoch_gpmp_tpu_torch.gp.dof_factored import DofFactoredPrior, DofQuadraticCost
+from stoch_gpmp_tpu_torch.gp.prior import build_precision
 from stoch_gpmp_tpu_torch.gp.tridiag import BlockBidiagChol, BlockTridiag, ParallelBidiagSolver
 from stoch_gpmp_tpu_torch.kinematics import JointSpec, KinematicChain, LinkState, RobotModel
 from stoch_gpmp_tpu_torch.planners.gpmp import GPMPState
@@ -58,7 +59,8 @@ def sampler_from_jax(sampler, *, device=None, dtype=torch.float64) -> SamplerMod
     """``SamplerModel``: the dense factor or, for a long-horizon sampler,
     the parallel-in-time solver (its ``dinv``, ``a_fwd`` and ``a_bwd``
     carried across, the kernel's chunk tables built from them), the
-    Cholesky and the per-dof factor."""
+    Cholesky and the per-dof factor (the JAX prior keeps no per-dof
+    Cholesky: it is formed here from the carried stencil weights)."""
     device = resolve_device(device)
     t = lambda x: _t(x, dtype, device)  # noqa: E731
     dof, ps = sampler.dof, sampler.psolver
@@ -66,13 +68,22 @@ def sampler_from_jax(sampler, *, device=None, dtype=torch.float64) -> SamplerMod
         precision=BlockTridiag(t(sampler.precision.diag), t(sampler.precision.lower)),
         weight_t=t(sampler.weight_t),
         precision_dense=t(sampler.precision_dense),
-        dof=None if dof is None else DofFactoredPrior(
-            w_dof=t(dof.w_dof), prec_dof=t(dof.prec_dof), traj_len=int(dof.traj_len),
-            q_i2=t(dof.q_i2), k_s2=t(dof.k_s2), k_g2=t(dof.k_g2), dt=float(dof.dt),
-        ),
+        dof=None if dof is None else _dof_prior_from_jax(dof, dtype, device),
         chol=BlockBidiagChol(t(sampler.chol.diag), t(sampler.chol.lower)),
         psolver=None if ps is None else ParallelBidiagSolver.from_tables(
             t(ps.dinv), t(ps.a_fwd), t(ps.a_bwd)),
+    )
+
+
+def _dof_prior_from_jax(dof, dtype, device) -> DofFactoredPrior:
+    t = lambda x: _t(x, dtype, device)  # noqa: E731
+    q_i2, k_s2, k_g2 = t(dof.q_i2), t(dof.k_s2), t(dof.k_g2)
+    traj_len, dt = int(dof.traj_len), float(dof.dt)
+    chol = build_precision(1, traj_len, dt, k_s2, q_i2, k_g_inv=k_g2, dtype=dtype,
+                           device=device).cholesky()
+    return DofFactoredPrior(
+        w_dof=t(dof.w_dof), prec_dof=t(dof.prec_dof), traj_len=traj_len, chol=chol,
+        q_i2=q_i2, k_s2=k_s2, k_g2=k_g2, dt=dt,
     )
 
 

@@ -6,8 +6,8 @@
 // with the means as dof planes [D, P, 2T] (lanes [0, T) positions, [T, 2T)
 // velocities):
 //   pu_d    = Sigma^{-1} mu_d, the sampling prior's stencil (prec_u_plane)
-//   x_{d,s} = mu_d + eps_{d,s} @ W_dof                 (eps: operand or Philox)
-//           = mu_d + y_{d,s},  L^T y_{d,s} = eps_{d,s}  (the prior's factor L)
+//   x_{d,s} = mu_d + y_{d,s},  L^T y_{d,s} = eps_{d,s}  (eps: operand or Philox;
+//                                                    L: the prior's factor)
 //   cost_s  = sum_d stencil energy of x_{d,s} + anchors (as dof_quad_eval.cu)
 //           + tau * sum_d x_{d,s} . pu_d
 //           + sum_{t>=1} link_fields(FK(x_{:,s}[t]))    (fk_chain.cuh)
@@ -21,17 +21,17 @@
 // at each of 1.3 M points at config 5 (P = 1280, S = 8, D = 7, T = 128), and
 // the Philox draws; the sampling itself is ~7 FMAs a lane. No TF32: the
 // stencil weights reach ~2e11. Design:
-// - The sampling correction y = eps @ W_dof with W_dof = L^{-1}, the
-//   inverse of the per-dof prior's lower block-bidiagonal Cholesky factor
-//   (2 x 2 blocks in time-major order), is the backward substitution
-//   L^T y = eps: y_t = D_t^{-T} eps_t + A_t y_{t+1}, y_T = 0, with eps_t =
-//   (eps[t], eps[T + t]) and y_t = (y[t], y[T + t]) in plane order. The
-//   host forms the tables (D_t^{-T}: 3 numbers, A_t: 4) in float64 from the
-//   factor and rounds them to float32, [7][T] (ops/kernels/panda_step_dof.py
-//   backward_tables); they sit in shared memory for the whole launch,
-//   chunk-interleaved so that a warp's reads are free of bank conflicts.
-// - The substitution (SUB): one thread per (dof, sample pair, chunk of CH
-//   time steps), a pair's T / CH chunks in consecutive lanes of one warp.
+// - The sampling correction y = eps @ L^{-1}, with L the per-dof prior's
+//   lower block-bidiagonal Cholesky factor (2 x 2 blocks in time-major
+//   order), is the backward substitution L^T y = eps: y_t = D_t^{-T} eps_t
+//   + A_t y_{t+1}, y_T = 0, with eps_t = (eps[t], eps[T + t]) and y_t =
+//   (y[t], y[T + t]) in plane order. The host forms the tables (D_t^{-T}:
+//   3 numbers, A_t: 4) in float64 from the factor and rounds them to
+//   float32, [7][T] (ops/kernels/panda_step_dof.py backward_tables); they
+//   sit in shared memory for the whole launch, chunk-interleaved so that a
+//   warp's reads are free of bank conflicts.
+// - The substitution: one thread per (dof, sample pair, chunk of CH time
+//   steps), a pair's T / CH chunks in consecutive lanes of one warp.
 //   Pass 1 draws the thread's normals in registers (the Philox counter
 //   (lane, sample pair, particle, dof) and the dual-output Box-Muller: the
 //   draws do not depend on the CTA that runs a particle) and runs the
@@ -41,20 +41,13 @@
 //   formed once per CTA) into the true y at each chunk's first step; pass 2
 //   adds the carry's homogeneous part Phi(t, t1) y_{t1} step by step and
 //   writes x = mu + y as float4 rows.
-// - The dense instantiation runs x = mu + eps @ W for a W the caller gave
-//   (no factor to substitute with): each thread holds a 7-row x 8-column
-//   block in registers, per K step 7 row values (the eps rows sit
-//   lane-major in shared memory, 56 floats per lane) and 8 values of W's row
-//   through L1 from device memory for 56 FMAs; a warp takes a 32-column
-//   window and, at T <= 128, one K part (the position rows or the velocity
-//   rows; the parts are added to mu in that order).
 // - CTAs loop over particles (blockIdx.x, + gridDim.x, ...); the wrapper
 //   launches one a particle, which the block scheduler balances better than
 //   2 resident CTAs an SM looping over ~5 particles each (0.228 against
-//   0.236 ms at config 5 on an H100). SUB: two CTAs of 512 threads an SM, 64 registers
-//   a thread (FK spills ~0.4 KB a thread; 256 x 3 at 80 registers, 448 x 2
-//   and 480 x 2 measured no faster), 69 KB of shared memory at config 5; the
-//   dense instantiation one CTA of 32 threads per product item an SM.
+//   0.236 ms at config 5 on an H100). Two CTAs of 512 threads an SM, 64
+//   registers a thread (FK spills ~0.4 KB a thread; 256 x 3 at 80
+//   registers, 448 x 2 and 480 x 2 measured no faster), 69 KB of shared
+//   memory at config 5.
 // - Sigma^{-1} mu per lane from the means (prec_u_plane), the stencil energy
 //   and importance one warp per row, FK + fields + goal one thread per
 //   (sample, t) point with the walk specialised for the chain where
@@ -82,40 +75,34 @@ struct DofStepParams {
 
 namespace {
 
-constexpr int RB = 7;           // dense: rows per thread, one row block
-constexpr int CB = 8;           // dense: columns per thread
-constexpr int PASS = RB * 8;    // dense: 56 rows per pass of the product, 8 row blocks
-constexpr int WIN = 4 * CB;     // dense: 32 columns per window, 4 column groups
-constexpr int MAX_WARPS = 16;
-constexpr int MAX_LANES = 512;
-constexpr int CH = 8;           // SUB: time steps per chunk, so T / CH <= 32 chunks a pair
-constexpr int TAB = 7;          // SUB: table entries per step, D^{-T} (3) and A (4)
-constexpr int SUB_THREADS = 512, SUB_MIN_CTAS = 2;  // SUB: threads per CTA, CTAs per SM
+constexpr int MAX_LANES = 512;  // 2T
+constexpr int CH = 8;           // time steps per chunk; a pair's T / CH <= 32 chunks share a warp
+constexpr int TAB = 7;          // table entries per step, D^{-T} (3) and A (4)
+constexpr int SUB_THREADS = 512, SUB_MIN_CTAS = 2;  // threads per CTA, CTAs per SM
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float quad2(float a11, float a12, float a22, float r, float s) {
   return a11 * r * r + 2.0f * a12 * r * s + a22 * s * s;
 }
 
-// Floats of shared memory: SUB's tables (chunk-interleaved, [TAB][CH][T /
-// CH]) and each chunk's transition ([4][T / CH]); the rows (dense: eps
-// lane-major, [M][56] per pass of 56 rows, then x [R][M] in their place;
-// SUB: x [R][M]); Sigma^{-1} mu [D][M], per row its stencil + importance
-// sum, per sample the field sums [T / 32], goal, cost and weight; then the
-// spheres (float4) and, for the generic walk, its position columns [3 L]
+// Floats of shared memory: the tables (chunk-interleaved, [TAB][CH][T /
+// CH]) and each chunk's transition ([4][T / CH]); the rows x [R][M];
+// Sigma^{-1} mu [D][M], per row its stencil + importance sum, per sample
+// the field sums [T / 32], goal, cost and weight; then the spheres
+// (float4) and, for the generic walk, its position columns [3 L]
 // [threads].
 struct Layout {
   size_t tab, phi, rows, pu, rowq, field, goal, cost, w, sph, pos, total;
 };
 
 __host__ __device__ inline Layout layout(int T, int D, int S, int n_obst, int n_links,
-                                         bool sub, bool generic, int threads) {
-  const int M = 2 * T, R = D * S, passes = (R + PASS - 1) / PASS;
+                                         bool generic, int threads) {
+  const int M = 2 * T, R = D * S;
   Layout l;
   l.tab = 0;
-  l.phi = l.tab + (sub ? (size_t)TAB * T : 0);
-  l.rows = l.phi + (sub ? (size_t)4 * (T / CH) : 0);  // 16-byte aligned: T % 32 == 0
-  l.pu = l.rows + (size_t)(sub ? R : passes * PASS) * M;
+  l.phi = l.tab + (size_t)TAB * T;
+  l.rows = l.phi + (size_t)4 * (T / CH);  // 16-byte aligned: T % 32 == 0
+  l.pu = l.rows + (size_t)R * M;
   l.rowq = l.pu + (size_t)D * M;
   l.field = l.rowq + R;
   l.goal = l.field + (size_t)S * (T / 32);
@@ -125,29 +112,6 @@ __host__ __device__ inline Layout layout(int T, int D, int S, int n_obst, int n_
   l.pos = l.sph + 4 * (size_t)n_obst;
   l.total = l.pos + (generic ? (size_t)3 * n_links * threads : 0);
   return l;
-}
-
-// K parts of a window: 2 (the position rows, the velocity rows) while two
-// items per window fit in MAX_WARPS warps (T <= 128), else 1.
-__host__ __device__ inline int k_parts(int T) { return 2 * (2 * T / WIN) <= MAX_WARPS ? 2 : 1; }
-
-// The product items (a window and its K part), one warp each: at most
-// MAX_WARPS for 2T <= MAX_LANES.
-__host__ __device__ inline int items_for(int T) { return 2 * T / WIN * k_parts(T); }
-
-// The product item of warp w < items: rank r, per window j its planes and
-// K parts (half: 0 the position rows, 1 the velocity rows, -1 both), dealt
-// to the warps in a snake over the 4 SM sub-partitions (warp % 4); a last
-// block of fewer than 4 warps takes its ranks in order.
-__device__ __forceinline__ void item_of(int w, int items, int ks, int& plane, int& half,
-                                        int& j) {
-  const int blk = w >> 2, sub = w & 3;
-  const bool back = (blk & 1) && 4 * blk + 4 <= items;
-  const int r = 4 * blk + (back ? 3 - sub : sub);
-  j = r / (2 * ks);
-  const int c = r - j * 2 * ks;
-  plane = c & 1;
-  half = ks == 2 ? c >> 1 : -1;
 }
 
 __device__ __forceinline__ float warp_allmax(float v) {
@@ -169,12 +133,10 @@ __device__ __forceinline__ float2 normals(int k, int j, int p, int d, uint2 key)
   return box_muller(bits.x, bits.y);
 }
 
-// The dense instantiation: one 512-thread CTA per SM (ptxas may use 128
-// registers); SUB: SUB_MIN_CTAS CTAs of SUB_THREADS threads.
-template <bool SUB, int VARIANT>
-__global__ void __launch_bounds__(SUB ? SUB_THREADS : MAX_LANES, SUB ? SUB_MIN_CTAS : 1)
+template <int VARIANT>
+__global__ void __launch_bounds__(SUB_THREADS, SUB_MIN_CTAS)
 fused_panda_dof_step_kernel(const float* __restrict__ means, const float* __restrict__ g_pd,
-                            const float* __restrict__ W, const float* __restrict__ spheres,
+                            const float* __restrict__ tables, const float* __restrict__ spheres,
                             const float* __restrict__ eps, float* __restrict__ new_means,
                             float* __restrict__ costs, const __grid_constant__ DofStepParams prm,
                             const __grid_constant__ FkChain chain) {
@@ -182,9 +144,9 @@ fused_panda_dof_step_kernel(const float* __restrict__ means, const float* __rest
   float* smem = reinterpret_cast<float*>(smem4);
   const int T = prm.T, M = 2 * T, S = prm.S, D = prm.D, P = prm.P, R = D * S;
   const int NT = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = NT >> 5, wpr = T >> 5, passes = (R + PASS - 1) / PASS;
+  const int nwarps = NT >> 5, wpr = T >> 5;
   const int L = chain.n_links, NC = T / CH;
-  const Layout lo = layout(T, D, S, prm.n_obst, L, SUB, VARIANT == 0, NT);
+  const Layout lo = layout(T, D, S, prm.n_obst, L, VARIANT == 0, NT);
   float* tab_sh = smem + lo.tab;
   float* phi_sh = smem + lo.phi;
   float* rows_sh = smem + lo.rows;
@@ -197,62 +159,35 @@ fused_panda_dof_step_kernel(const float* __restrict__ means, const float* __rest
   float4* sph = reinterpret_cast<float4*>(smem + lo.sph);
   float* pos_sh = smem + lo.pos;
   load_spheres(spheres, prm.n_obst, sph);
-  if constexpr (SUB) {  // the tables [TAB][T] as tab_sh[(k CH + i) NC + c] for t = c CH + i
-    for (int i = tid; i < TAB * T; i += NT) {
-      const int k = i / T, t = i - k * T;
-      tab_sh[k * T + (t % CH) * NC + t / CH] = __ldg(W + i);
+  // the tables [TAB][T] as tab_sh[(k CH + i) NC + c] for t = c CH + i
+  for (int i = tid; i < TAB * T; i += NT) {
+    const int k = i / T, t = i - k * T;
+    tab_sh[k * T + (t % CH) * NC + t / CH] = __ldg(tables + i);
+  }
+  __syncthreads();
+  if (tid < NC) {  // chunk c's transition Phi_c = A_{c CH} ... A_{c CH + CH - 1}
+    float f00 = 1.0f, f01 = 0.0f, f10 = 0.0f, f11 = 1.0f;
+    for (int i = CH - 1; i >= 0; --i) {
+      const float* a = tab_sh + 3 * T + i * NC + tid;
+      const float a00 = a[0], a01 = a[T], a10 = a[2 * T], a11 = a[3 * T];
+      const float n00 = a00 * f00 + a01 * f10, n01 = a00 * f01 + a01 * f11;
+      const float n10 = a10 * f00 + a11 * f10, n11 = a10 * f01 + a11 * f11;
+      f00 = n00, f01 = n01, f10 = n10, f11 = n11;
     }
-    __syncthreads();
-    if (tid < NC) {  // chunk c's transition Phi_c = A_{c CH} ... A_{c CH + CH - 1}
-      float f00 = 1.0f, f01 = 0.0f, f10 = 0.0f, f11 = 1.0f;
-      for (int i = CH - 1; i >= 0; --i) {
-        const float* a = tab_sh + 3 * T + i * NC + tid;
-        const float a00 = a[0], a01 = a[T], a10 = a[2 * T], a11 = a[3 * T];
-        const float n00 = a00 * f00 + a01 * f10, n01 = a00 * f01 + a01 * f11;
-        const float n10 = a10 * f00 + a11 * f10, n11 = a10 * f01 + a11 * f11;
-        f00 = n00, f01 = n01, f10 = n10, f11 = n11;
-      }
-      phi_sh[tid] = f00, phi_sh[NC + tid] = f01, phi_sh[2 * NC + tid] = f10;
-      phi_sh[3 * NC + tid] = f11;
-    }
+    phi_sh[tid] = f00, phi_sh[NC + tid] = f01, phi_sh[2 * NC + tid] = f10;
+    phi_sh[3 * NC + tid] = f11;
   }
   const uint2 key = make_uint2(prm.key_lo, prm.key_hi);
   const int npairs = (S + 1) / 2, dj = D * npairs;
 
   for (int p = blockIdx.x; p < P; p += gridDim.x) {
     __syncthreads();  // the previous particle's rows are consumed
-    if constexpr (!SUB) {
-      // --- 1. eps rows, lane-major: eps of row r = d S + s at lane k goes to
-      // rows_sh[(pass * M + k) * 56 + r % 56], pass = r / 56
-      auto put = [&](int k, int d, int j, float2 z) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = d * S + 2 * j + h;
-          if (2 * j + h < S)
-            rows_sh[((size_t)(r / PASS) * M + k) * PASS + r % PASS] = h ? z.y : z.x;
-        }
-      };
-      if (eps != nullptr) {
-        for (int i = tid; i < M * dj; i += NT) {
-          const int k = i / dj, e = i - k * dj, d = e / npairs, j = e - d * npairs;
-          const float* er = eps + (((size_t)d * P + p) * S + 2 * j) * M + k;
-          put(k, d, j, make_float2(er[0], 2 * j + 1 < S ? er[M] : 0.0f));
-        }
-      } else {
-#pragma unroll 2
-        for (int i = tid; i < M * dj; i += NT) {
-          const int k = i / dj, e = i - k * dj, d = e / npairs, j = e - d * npairs;
-          put(k, d, j, normals(k, j, p, d, key));
-        }
-      }
-    }
     // Sigma^{-1} mu of each dof plane
     for (int i = tid; i < D * M; i += NT) {
       const int d = i / M;
       pu_sh[i] = prec_u_plane(means + ((size_t)d * P + p) * M, i - d * M, T, prm.prior);
     }
-    if constexpr (SUB) {
-      // --- 2. x = mu + y, L^T y = eps, by chunks of CH steps ---------------------------
+    {  // --- 2. x = mu + y, L^T y = eps, by chunks of CH steps --------------------------
       // Lane (g, c) of a warp: sample pair q0 + g, chunk c (steps t0 .. t0 + CH - 1).
       const int gpw = 32 / NC, g = lane / NC, c = lane - g * NC, t0 = c * CH;
       const float* tb = tab_sh + c;  // entry k of step t0 + i at tb[k T + i NC]
@@ -339,60 +274,6 @@ fused_panda_dof_step_kernel(const float* __restrict__ means, const float* __rest
         }
       }
       __syncthreads();
-    } else {
-      __syncthreads();
-      // --- 2. x = mu + eps @ W, a pass of 56 rows at a time -------------------------
-      const int rb = lane >> 2, cg = lane & 3;  // the thread's row block and column group
-      const int ks = k_parts(T), items = items_for(T);
-      for (int pass = 0; pass < passes; ++pass) {
-        float acc[RB][CB] = {};
-        int plane, half, j;
-        item_of(warp, items, ks, plane, half, j);
-        const int col = plane * T + j * WIN + CB * cg;
-        const bool active = warp < items;
-        if (active) {
-          const float* e_pass = rows_sh + (size_t)pass * M * PASS + rb * RB;
-          for (int kh = half < 0 ? 0 : half; kh <= (half < 0 ? 1 : half); ++kh) {
-            const float* e = e_pass + (size_t)kh * T * PASS;
-            const float* g = W + col + (size_t)kh * T * M;
-#pragma unroll 2
-            for (int k = 0; k < T; ++k) {
-              float ev[RB];
-#pragma unroll
-              for (int i = 0; i < RB; ++i) ev[i] = e[(size_t)k * PASS + i];
-              const float4* gk = reinterpret_cast<const float4*>(g + (size_t)k * M);
-              const float4 w0 = __ldg(gk), w1 = __ldg(gk + 1);
-              const float wv[CB] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-              for (int i = 0; i < RB; ++i)
-#pragma unroll
-                for (int c = 0; c < CB; ++c) acc[i][c] = fmaf(ev[i], wv[c], acc[i][c]);
-            }
-          }
-        }
-        __syncthreads();  // every read of this pass's eps is done: x takes its place
-        // x = mu + (the position rows' part) + (the velocity rows' part), in this order
-        for (int stage = 0; stage < 2; ++stage) {
-          if (active && (half < 0 ? 0 : half) == stage) {
-#pragma unroll
-            for (int i = 0; i < RB; ++i) {
-              const int r = pass * PASS + rb * RB + i;
-              if (r < R) {
-                float4* x = reinterpret_cast<float4*>(rows_sh + (size_t)r * M + col);
-                const float4* mu = reinterpret_cast<const float4*>(
-                    means + ((size_t)(r / S) * P + p) * M + col);
-                const float4 a = stage == 0 ? __ldg(mu) : x[0];
-                const float4 b = stage == 0 ? __ldg(mu + 1) : x[1];
-                x[0] = make_float4(a.x + acc[i][0], a.y + acc[i][1], a.z + acc[i][2],
-                                   a.w + acc[i][3]);
-                x[1] = make_float4(b.x + acc[i][4], b.y + acc[i][5], b.z + acc[i][6],
-                                   b.w + acc[i][7]);
-              }
-            }
-          }
-          __syncthreads();
-        }
-      }
     }
 
     // --- 3. stencil energy + anchors + importance, one warp per row ---------------
@@ -490,67 +371,55 @@ fused_panda_dof_step_kernel(const float* __restrict__ means, const float* __rest
   }
 }
 
+// The substitution's limits: whole warps of time steps, 2T lanes of a row
+// within MAX_LANES, and a pair's chunks within one warp.
 bool valid(const DofStepParams* prm, const FkChain* chain, int variant) {
-  const int M = 2 * prm->T;
-  return prm->T % 32 == 0 && M <= MAX_LANES && items_for(prm->T) <= MAX_WARPS && prm->D >= 1 &&
+  const int T = prm->T;
+  return T % 32 == 0 && 2 * T <= MAX_LANES && T / CH <= 32 && prm->D >= 1 &&
          prm->D <= FK_MAX_JOINTS && prm->S >= 1 && prm->ppg >= 1 && prm->P >= 1 &&
          prm->n_obst >= 0 && fk_variant_valid(*chain, variant);
 }
 
-template <bool SUB, int VARIANT>
-void* kernel_of() {
-  return reinterpret_cast<void*>(fused_panda_dof_step_kernel<SUB, VARIANT>);
-}
-
-void* pick(int sub, int variant) {
-  if (sub) return variant ? kernel_of<true, 1>() : kernel_of<true, 0>();
-  return variant ? kernel_of<false, 1>() : kernel_of<false, 0>();
+void* pick(int variant) {
+  return variant ? reinterpret_cast<void*>(fused_panda_dof_step_kernel<1>)
+                 : reinterpret_cast<void*>(fused_panda_dof_step_kernel<0>);
 }
 
 // The launch at this shape: threads and shared memory per CTA; refuses a
 // CTA whose shared memory exceeds kSmemLimit.
-cudaError_t configure(const DofStepParams* prm, const FkChain* chain, int sub, int variant,
-                      int* threads, size_t* smem) {
-  *threads = sub ? SUB_THREADS : 32 * items_for(prm->T);
-  *smem = sizeof(float) * layout(prm->T, prm->D, prm->S, prm->n_obst, chain->n_links, sub,
-                                 variant == 0, *threads).total;
+cudaError_t configure(const DofStepParams* prm, const FkChain* chain, int variant, int* threads,
+                      size_t* smem) {
+  *threads = SUB_THREADS;
+  *smem = sizeof(float) *
+          layout(prm->T, prm->D, prm->S, prm->n_obst, chain->n_links, variant == 0, *threads).total;
   if (*smem > kSmemLimit) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(pick(sub, variant), cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return cudaFuncSetAttribute(pick(variant), cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)*smem);
 }
 
 }  // namespace
 
 // One launch of `ctas` CTAs (each loops over the particles blockIdx.x,
-// blockIdx.x + ctas, ...). sub: W is the prior factor's
-// backward tables [7][T] (D_t^{-T}: (0,0), (0,1), (1,1); A_t: (0,0), (0,1),
-// (1,0), (1,1)) and the kernel substitutes, else W is the dense [2T, 2T]
-// sampling map; variant: the chain's FK spec (1: FkPanda, 0: the generic
-// walk).
+// blockIdx.x + ctas, ...). tables: the prior factor's backward tables
+// [7][T] (D_t^{-T}: (0,0), (0,1), (1,1); A_t: (0,0), (0,1), (1,0), (1,1));
+// variant: the chain's FK spec (1: FkPanda, 0: the generic walk).
 extern "C" int fused_panda_dof_step_launch(const float* means, const float* g_pd,
-                                           const float* W, const float* spheres,
+                                           const float* tables, const float* spheres,
                                            const float* eps, float* new_means, float* costs,
-                                           int ctas, int sub, int variant,
-                                           const DofStepParams* prm, const FkChain* chain,
-                                           void* stream) {
+                                           int ctas, int variant, const DofStepParams* prm,
+                                           const FkChain* chain, void* stream) {
   if (!valid(prm, chain, variant) || ctas < 1) return (int)cudaErrorInvalidValue;
   int threads;
   size_t smem;
-  cudaError_t err = configure(prm, chain, sub, variant, &threads, &smem);
+  cudaError_t err = configure(prm, chain, variant, &threads, &smem);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = (cudaStream_t)stream;
-#define K5_LAUNCH(SUB, VARIANT)                                                       \
-  fused_panda_dof_step_kernel<SUB, VARIANT><<<ctas, threads, smem, st>>>(            \
-      means, g_pd, W, spheres, eps, new_means, costs, *prm, *chain)
-  if (sub && variant)
-    K5_LAUNCH(true, 1);
-  else if (sub)
-    K5_LAUNCH(true, 0);
-  else if (variant)
-    K5_LAUNCH(false, 1);
+  if (variant)
+    fused_panda_dof_step_kernel<1><<<ctas, threads, smem, st>>>(
+        means, g_pd, tables, spheres, eps, new_means, costs, *prm, *chain);
   else
-    K5_LAUNCH(false, 0);
-#undef K5_LAUNCH
+    fused_panda_dof_step_kernel<0><<<ctas, threads, smem, st>>>(
+        means, g_pd, tables, spheres, eps, new_means, costs, *prm, *chain);
   return (int)cudaGetLastError();
 }
 
@@ -558,16 +427,15 @@ extern "C" int fused_panda_dof_step_launch(const float* means, const float* g_pd
 // where the shared memory exceeds kSmemLimit), the dynamic shared memory per
 // CTA in bytes and the threads per CTA.
 extern "C" int fused_panda_dof_step_config(const DofStepParams* prm, const FkChain* chain,
-                                           int sub, int variant, int* shape) {
+                                           int variant, int* shape) {
   if (!valid(prm, chain, variant)) return (int)cudaErrorInvalidValue;
   int threads;
   size_t smem;
-  const cudaError_t err = configure(prm, chain, sub, variant, &threads, &smem);
+  const cudaError_t err = configure(prm, chain, variant, &threads, &smem);
   shape[0] = 0;
   shape[1] = (int)smem;
   shape[2] = threads;
   if (smem > kSmemLimit) return (int)cudaSuccess;
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(shape, pick(sub, variant), threads,
-                                                            smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(shape, pick(variant), threads, smem);
 }

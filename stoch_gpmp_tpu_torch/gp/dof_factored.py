@@ -18,7 +18,7 @@ stencil ``matvec_planes`` and the residual-form quadratic
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from functools import cached_property
 
 import numpy as np
@@ -174,7 +174,8 @@ class DofFactoredPrior:
     stencil weights of the same precision (``k_g2`` zeros without goals);
     ``chol`` the per-dof precision's block Cholesky factor ``L`` (time-major,
     2 x 2 blocks; ``w_dof`` is ``L^{-1}`` in plane order), which K5 samples
-    with by substitution, or None where the prior was built without it.
+    with by substitution: required, by keyword (the JAX package's prior has
+    no such field, and its positional fields lead).
     """
 
     w_dof: torch.Tensor
@@ -184,7 +185,7 @@ class DofFactoredPrior:
     k_s2: torch.Tensor | None = None
     k_g2: torch.Tensor | None = None
     dt: float = 0.0
-    chol: BlockBidiagChol | None = None
+    chol: BlockBidiagChol = field(kw_only=True)
 
     def matvec_flat(self, x: torch.Tensor) -> torch.Tensor:
         """``Sigma^{-1} x`` on flat ``[..., T, 2d]`` trajectories by the

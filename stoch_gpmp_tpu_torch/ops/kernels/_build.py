@@ -101,12 +101,12 @@ SIGNATURES = {
     # params, chain, CTAs, FK variant, int shape[4]
     "fused_panda_step_max_clusters": [_P, _P, _I, _I, _P],
     "fused_panda_dof_step_launch": [
-        _P, _P, _P, _P, _P,  # means, g_pd, W (or the backward tables), spheres, eps (or null)
-        _P, _P, _I, _I, _I,  # new_means, costs, CTAs, substitution, FK variant
+        _P, _P, _P, _P, _P,  # means, g_pd, the backward tables, spheres, eps (or null)
+        _P, _P, _I, _I,  # new_means, costs, CTAs, FK variant
         _P, _P, _P,  # DofStepParams*, FkChain*, stream
     ],
-    # params, chain, substitution, FK variant, int shape[3]
-    "fused_panda_dof_step_config": [_P, _P, _I, _I, _P],
+    # params, chain, FK variant, int shape[3]
+    "fused_panda_dof_step_config": [_P, _P, _I, _P],
     "fk_chain_variant": [_P],  # FkChain* -> the FK walk (csrc/fk_spec.cpp; not an error code)
     "fused_planar_step_launch": _planar_step_args(ctypes.c_ulonglong),  # seed
     "fused_planar_step_per_particle_launch": _planar_step_args(_P),  # seeds [P, 2] or null

@@ -17,15 +17,12 @@ as dof planes ``[d, P, 2T]``:
 The SE(3) angle uses the Abramowitz & Stegun 4.4.46 polynomial of the TPU
 kernel (|err| <= 2e-8 rad) in both the kernel and the plain version. The
 CUDA source is ``csrc/fused_panda_dof_step.cu``: CTAs that loop over
-particles, one particle each by default. A step that samples with the
-prior's own factor (:func:`substitutes`) draws by the backward
-substitution ``L^T y = eps`` on the factor's tables
-(:func:`backward_tables`, formed when the step is built); a ``w_dof`` the
-caller gives runs the dense product ``eps @ W``, counted in
-``fused_panda_dof_step.dense_launches`` besides ``.launches``. See the
-source for the design and its bound. The CTA's layout lives in the source
-alone: :func:`kernel_config` asks the kernel for its shared memory,
-threads and resident CTAs.
+particles, one particle each by default. The kernel draws by the backward
+substitution ``L^T y = eps`` on the prior factor's tables
+(:func:`backward_tables`, formed when the step is built); the plain
+version multiplies by ``W_dof``. See the source for the design and its
+bound. The CTA's layout lives in the source alone: :func:`kernel_config`
+asks the kernel for its shared memory, threads and resident CTAs.
 
 The random draws are an ``eps [d, P, S, 2T]`` operand (the tests' mode) or
 a 64-bit seed per launch: in-kernel Philox4x32-10 keyed on ``(seed,
@@ -98,8 +95,8 @@ class FusedPandaDofStep:
     ``(new_means_planes, costs [P, S])``."""
 
     chain: Any
-    w_dof: torch.Tensor  # [2T, 2T]; x = mu + eps @ w_dof
-    tables: torch.Tensor | None  # [7, T] the factor's backward tables (backward_tables), or None
+    w_dof: torch.Tensor  # [2T, 2T]; x = mu + eps @ w_dof (the plain version's)
+    tables: torch.Tensor  # [7, T] the factor's backward tables (backward_tables; the kernel's)
     dof_prior: Any  # DofFactoredPrior: the exact stencil Sigma^{-1} mu
     dof_quad: Any  # DofQuadraticCost: stencil weights and anchors
     spheres: torch.Tensor  # [O, 4]
@@ -118,23 +115,8 @@ class FusedPandaDofStep:
     step_size: float
     params: DofStepParamsC  # the kernel's constants; a launch copies it and sets the key
 
-    @property
-    def substitution(self) -> bool:
-        """Whether the kernel draws by the backward substitution on
-        :attr:`tables` (else by the dense product with ``w_dof``)."""
-        return self.tables is not None
-
     def __call__(self, means_planes: torch.Tensor, *, seed: int | None = None, eps=None):
         return fused_panda_dof_step(self, means_planes, eps=eps, seed=seed)
-
-
-def substitutes(dof_prior, w_dof=None) -> bool:
-    """K5's rule for drawing: the backward substitution where the step
-    samples with the prior's own factor (no ``w_dof`` given and the factor
-    kept on the prior, ``DofFactoredPrior.chol``); the dense product
-    ``eps @ W`` for a ``W`` the caller gives (the RNG-free check's zeros, a
-    perturbed ``W``) or a prior that holds no factor."""
-    return w_dof is None and dof_prior.chol is not None
 
 
 def backward_tables(chol) -> torch.Tensor:
@@ -166,13 +148,11 @@ def backward_tables(chol) -> torch.Tensor:
 def make_fused_panda_dof_step(
     *, chain, dof_prior, dof_quad, num_particles, spheres, target_h, n_dof, traj_len,
     num_samples, margin, w_self, w_obst, w_goal, w_pos=1.0, w_rot=1.0, temperature=1.0,
-    step_size=0.1, w_dof=None,
+    step_size=0.1,
 ) -> FusedPandaDofStep:
-    """Build the step for one problem. ``w_dof`` overrides the sampling
-    factor (zeros give the RNG-free check) and takes the dense product;
-    without it the step holds the prior factor's backward tables
-    (:func:`substitutes`, :func:`backward_tables`)."""
-    w = dof_prior.w_dof if w_dof is None else w_dof
+    """Build the step for one problem: it samples with the prior's factor,
+    as its backward tables (:func:`backward_tables`)."""
+    w = dof_prior.w_dof
     target = np.asarray(target_h.cpu() if torch.is_tensor(target_h) else target_h,
                         dtype=np.float64)
     spheres = torch.as_tensor(spheres, dtype=w.dtype, device=w.device).reshape(-1, 4)
@@ -187,9 +167,8 @@ def make_fused_panda_dof_step(
      prm.kg11, prm.kg12, prm.kg22) = dof_quad.stencil_weights
     prm.s_pd[: 2 * n_dof] = dof_quad.s_pd.detach().double().cpu().numpy().ravel().tolist()
     prm.target[:] = target.ravel().tolist()
-    tables = backward_tables(dof_prior.chol) if substitutes(dof_prior, w_dof) else None
     return FusedPandaDofStep(
-        chain=chain, w_dof=w.contiguous(), tables=tables,
+        chain=chain, w_dof=w.contiguous(), tables=backward_tables(dof_prior.chol),
         dof_prior=dof_prior, dof_quad=dof_quad, spheres=spheres, target_h=target,
         num_particles=num_particles,
         num_samples=num_samples, n_dof=n_dof, traj_len=traj_len, margin=float(margin),
@@ -236,16 +215,15 @@ def _params(step: FusedPandaDofStep, seed: int) -> DofStepParamsC:
     return prm
 
 
-def kernel_config(params: DofStepParamsC, chain, substitution: bool) -> tuple[int, int, int]:
+def kernel_config(params: DofStepParamsC, chain) -> tuple[int, int, int]:
     """The kernel's own launch configuration at ``params``' shape for the
-    chain's FK walk and the instantiation ``substitution`` (its
-    ``fused_panda_dof_step_config``): CTAs resident on one SM (0 where the
-    CTA does not fit or the kernel refuses the shape), shared memory per CTA
-    in bytes and threads per CTA."""
+    chain's FK walk (its ``fused_panda_dof_step_config``): CTAs resident on
+    one SM (0 where the CTA does not fit or the kernel refuses the shape),
+    shared memory per CTA in bytes and threads per CTA."""
     out = (ctypes.c_int * 3)()
     err = _build.load_library().fused_panda_dof_step_config(
-        ctypes.byref(params), ctypes.byref(fk_chain_c(chain)), int(substitution),
-        fk_variant(chain), ctypes.byref(out))
+        ctypes.byref(params), ctypes.byref(fk_chain_c(chain)), fk_variant(chain),
+        ctypes.byref(out))
     return (int(out[0]) if err == 0 else 0), int(out[1]), int(out[2])
 
 
@@ -254,23 +232,22 @@ _SHAPES: dict = {}  # launch shape -> launch_shape's dict
 
 def launch_shape(step: FusedPandaDofStep, ctas: int | None = None) -> dict:
     """The kernel's launch at this step's shape, as :func:`kernel_config`
-    reports it (asked once per shape): the instantiation (``substitution``,
-    the FK ``variant``), threads and shared memory per CTA, the CTAs
-    resident on one SM and the CTAs launched (``ctas``, default one per
-    particle; fewer loop over the particles). Raises where a CTA does not
-    fit."""
+    reports it (asked once per shape): the FK ``variant``, threads and
+    shared memory per CTA, the CTAs resident on one SM and the CTAs
+    launched (``ctas``, default one per particle; fewer loop over the
+    particles). Raises where a CTA does not fit."""
     dev = step.w_dof.device
     variant = fk_variant(step.chain)
     key = (step.num_particles, step.num_samples, step.traj_len, step.n_dof,
-           int(step.spheres.shape[0]), step.substitution, variant, ctas, dev)
+           int(step.spheres.shape[0]), variant, ctas, dev)
     if key not in _SHAPES:
-        per_sm, smem, threads = kernel_config(step.params, step.chain, step.substitution)
+        per_sm, smem, threads = kernel_config(step.params, step.chain)
         if per_sm < 1:
             raise ValueError(f"fused panda dof step kernel: a CTA of {threads} threads and "
                              f"{smem} B of shared memory does not fit on the device")
         _SHAPES[key] = dict(
-            substitution=step.substitution, variant=variant, threads=threads, smem_bytes=smem,
-            ctas_per_sm=per_sm, ctas=ctas if ctas is not None else step.num_particles)
+            variant=variant, threads=threads, smem_bytes=smem, ctas_per_sm=per_sm,
+            ctas=ctas if ctas is not None else step.num_particles)
     return _SHAPES[key]
 
 
@@ -278,12 +255,8 @@ def _check_cuda(step: FusedPandaDofStep, means, eps):
     d, p, s, t = step.n_dof, step.num_particles, step.num_samples, step.traj_len
     m = 2 * t
     dev = means.device
-    want = {"means": (means, (d, p, m)),
+    want = {"means": (means, (d, p, m)), "tables": (step.tables, (7, t)),
             "spheres": (step.spheres, (step.spheres.shape[0], 4))}
-    if step.substitution:
-        want["tables"] = (step.tables, (7, t))
-    else:
-        want["w_dof"] = (step.w_dof, (m, m))
     if eps is not None:
         want["eps"] = (eps, (d, p, s, m))
     for name, (ten, shape) in want.items():
@@ -323,25 +296,22 @@ def fused_panda_dof_step(step: FusedPandaDofStep, means, *, eps=None, seed=None,
     g_pd = step.dof_quad.g_pd.to(device=dev, dtype=torch.float32).contiguous()
     new_means = torch.empty_like(means)
     costs = torch.empty((p, s), dtype=torch.float32, device=dev)
-    w = step.tables if step.substitution else step.w_dof
     lib = _build.load_library()
     err = lib.fused_panda_dof_step_launch(
-        means.data_ptr(), g_pd.data_ptr(), w.data_ptr(), step.spheres.data_ptr(),
+        means.data_ptr(), g_pd.data_ptr(), step.tables.data_ptr(), step.spheres.data_ptr(),
         None if eps is None else eps.data_ptr(), new_means.data_ptr(), costs.data_ptr(),
-        shape["ctas"], int(shape["substitution"]), shape["variant"],
+        shape["ctas"], shape["variant"],
         ctypes.byref(_params(step, 0 if seed is None else int(seed))),
         ctypes.byref(fk_chain_c(step.chain)), _build.stream_ptr(dev),
     )
     _build.check(err, "fused_panda_dof_step_launch")
     fused_panda_dof_step.launches += 1
     fused_panda_dof_step.generic_launches += int(shape["variant"] == 0)  # the generic FK walk's
-    fused_panda_dof_step.dense_launches += int(not shape["substitution"])  # eps @ W's
     return new_means, costs
 
 
 fused_panda_dof_step.launches = 0
 fused_panda_dof_step.generic_launches = 0
-fused_panda_dof_step.dense_launches = 0
 
 
 def fused_panda_dof_optimize(step, means, generator, opt_iters: int):

@@ -6,40 +6,37 @@ and the kernels' device time per call across shapes.
     python3 -m stoch_gpmp_tpu_torch.tools.fused_timing shapes [--only K5,K4,K7,S1,S1-sweep,C1,floor]
 
 ``phases`` builds instrumented copies of ``csrc/fused_planar_step.cu`` (K2),
-``csrc/fused_panda_step.cu`` (K6), ``csrc/fused_panda_dof_step.cu`` (K5)
-and ``csrc/fk_fields.cu`` (K4, with its copy of ``csrc/fk_chain.cuh``) into
-``DIR`` (default ``build/phase_timing``): one thread of every CTA stamps
-``clock64()`` at the phase boundaries. The stamps are placed at anchor
-lines of the source; each kernel has one anchor set per design (this
-checkout's and the one before it), and the set whose anchors all occur
-once is used, so the module run from an older checkout (with ``tools/``
-copied in) stamps that checkout's kernels. It runs K2 at the planar parity
-shape and K6 at Panda config 4 (seed mode, the wrapper's split and 1 CTA
-per particle; with 1 a phase that loops over tiles sums them and the stamps
-of the last tile count), K5 at Panda config 5 (seed mode and an eps operand) and K4 on config
-5's dof planes, through the port's wrappers with the instrumented launchers
-in place, and prints per phase the median and the largest cycle count over
-the CTAs and the largest total, then ptxas's report of the shipped kernels.
+``csrc/fused_panda_step.cu`` (K6), ``csrc/fused_panda_dof_step.cu`` (K5),
+``csrc/fk_fields.cu`` (K4, with its copy of ``csrc/fk_chain.cuh``) and
+``csrc/bidiag_scan.cu`` (S1) into ``DIR`` (default ``build/phase_timing``):
+one thread of every CTA stamps ``clock64()`` at the phase boundaries. The
+stamps are placed at anchor lines of this checkout's sources, one anchor
+set per kernel; an anchor that does not occur exactly once is an error. To
+compare two commits, run each checkout's own copy of this module. It runs
+K2 at the planar parity shape and K6 at Panda config 4 (seed mode, the
+wrapper's split and 1 CTA per particle; with 1 a phase that loops over
+tiles sums them and the stamps of the last tile count), K5 at Panda config
+5 (seed mode and an eps operand) and K4 on config 5's dof planes, through
+the port's wrappers with the instrumented launchers in place, and prints
+per phase the median and the largest cycle count over the CTAs and the
+largest total, then ptxas's report of the shipped kernels.
 
 ``shapes`` times K5 (seed mode, also at 1 and 2 CTAs per SM and at half
-and all of the particles' CTAs, and its dense instantiation), K4, K8 and
-K7 at config 5 (K7 on the FK positions of K8's configurations) and K4 and
-K7 at config 4, and K2 in seed mode at planar parity (P = 15, S = 128) and at
-the planar shapes of ``benchmarks/run.py`` ``planar-parity-64ppg`` (P = 192,
-S = 128) and ``planar-512ppg`` (P = 1536, S = 32), and K6 at config 4 (P =
-5, S = 32) and at P = 128: per shape the device time per call of the kernel
-alone and of the whole step (``torch.profiler``), at the wrapper's split
-and, where the wrapper takes ``ctas=``, at 1, 2, 4 and 8 CTAs per particle,
-with the launch's shared memory and resident clusters. It also times the
-point kernels: K7 at config 4's ``[160, 63, 9, 3]`` view and at 1.30 M
-points, K1, K10 and K11 at the planner's ``[1920, 63, 2]`` view and at 1.31
-M points, and the launch floor (a one-element ``fill_``), each by
-``torch.profiler``, by CUDA events around calls queued behind a sleeping
-kernel (so they run back to back on the device) and per call through the
-wrapper, then ptxas's report of their sources (``floor``, ``host``: the
-host's share of a wrapper call). It uses only the steps' and wrappers'
-public calls, so the same module run from an older checkout of the port
-times that checkout's kernels. ``S1`` times the long-horizon solve (the
+and all of the particles' CTAs), K4, K8 and K7 at config 5 (K7 on the FK
+positions of K8's configurations) and K4 and K7 at config 4, and K2 in seed
+mode at planar parity (P = 15, S = 128) and at the planar shapes of
+``benchmarks/run.py`` ``planar-parity-64ppg`` (P = 192, S = 128) and
+``planar-512ppg`` (P = 1536, S = 32), and K6 at config 4 (P = 5, S = 32)
+and at P = 128: per shape the device time per call of the kernel alone and
+of the whole step (``torch.profiler``), at the wrapper's split and at 1, 2,
+4 and 8 CTAs per particle, with the launch's shared memory and resident
+clusters. It also times the point kernels: K7 at config 4's ``[160, 63, 9,
+3]`` view and at 1.30 M points, K1, K10 and K11 at the planner's ``[1920,
+63, 2]`` view and at 1.31 M points, and the launch floor (a one-element
+``fill_``), each by ``torch.profiler``, by CUDA events around calls queued
+behind a sleeping kernel (so they run back to back on the device) and per
+call through the wrapper, then ptxas's report of their sources (``floor``, ``host``: the
+host's share of a wrapper call). ``S1`` times the long-horizon solve (the
 backward plane solve of ``build_long_horizon_problem``'s sampler on ``[4,
 480, T]`` planes, T = 4096 and 1024) through the wrapper, beside the
 launcher's shape, and ptxas's report of its source; ``S1-sweep`` adds its
@@ -62,7 +59,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -89,17 +85,16 @@ extern "C" int phase_acc_read(long long* host, int n) {
   return (int)cudaMemcpyFromSymbol(host, g_phase_acc, (size_t)n * 4 * sizeof(long long));
 }
 '''
-# Per kernel: its source, the phases, and per design an anchor set: the
-# stamping thread, then (file, anchor text, stamp index, stamp after the
-# anchor or before it); the file is the kernel's source or a header it
-# includes, whose instrumented copy sits beside the instrumented source. A
-# stamp index may instead be the macro text to place: ACC_BEGIN(k) and
-# ACC_END(k) sum the stamping thread's cycles between them into counter k
-# (zeroed at STAMP(0)), for work that a loop interleaves; "phases_of" gives a
-# design its own phase names and "accs" names the counters.
+# Per kernel: its source, the phases, the stamping thread and the anchors:
+# (file, anchor text, stamp index, stamp after the anchor or before it); the
+# file is the kernel's source or a header it includes, whose instrumented
+# copy sits beside the instrumented source. A stamp index may instead be the
+# macro text to place: ACC_BEGIN(k) and ACC_END(k) sum the stamping thread's
+# cycles between them into counter k (zeroed at STAMP(0)), for work that a
+# loop interleaves; "accs" names the counters.
 K2 = dict(src="fused_planar_step.cu", phases=[
-    "prior pu", "draws", "x = mu + eps W", "x A", "per-row sums", "cluster combine"], designs={
-    "cluster split": (0, [
+    "prior pu", "draws", "x = mu + eps W", "x A", "per-row sums", "cluster combine"], thread=0,
+    stamps=[
         (None, "  const int p = blockIdx.x / prm.ctas;", 0, True),
         (None, "  pu_sh[m] = prec_u_lane(mu_sh, m, M, nd, prm.prior);  // read after the next "
                "barrier", 1, True),
@@ -110,10 +105,10 @@ K2 = dict(src="fused_planar_step.cu", phases=[
         (None, "    // --- 4. per-row sums, one warp per row: quad, linear, collision, importance",
          4, False),
         (None, "    __syncthreads();  // the tile buffer is free for the next tile", 5, True),
-        (None, "                         new_means + (size_t)p * M);", 6, True)])})
+        (None, "                         new_means + (size_t)p * M);", 6, True)])
 K6 = dict(src="fused_panda_step.cu", phases=[
     "prior pu", "draws", "x = mu + eps W", "stencil, FK, fields, goal", "cluster combine"],
-    designs={"cluster split": (0, [
+    thread=0, stamps=[
         (None, "  const int p = blockIdx.x / ctas, tid = threadIdx.x, lane = tid & 31, warp = "
                "tid >> 5;", 0, True),
         (None, "  for (int m = tid; m < M; m += NT) pu_sh[m] = prec_u_lane(mu_sh, m, M, D, "
@@ -124,18 +119,14 @@ K6 = dict(src="fused_panda_step.cu", phases=[
         (None, "  // --- 5. per-sample cost ----------------------------------------------------"
                "--------", 4, False),
         (None, "                         prm.temperature, prm.step_size, new_means + (size_t)p "
-               "* M);", 5, True)])})
-_K5_PRODUCT_PHASES = ["draws (persistent: and pu)", "x = mu + eps W", "stencil, importance",
-                      "FK, fields, goal", "cost, softmax", "update"]  # the product designs
+               "* M);", 5, True)])
 K5 = dict(src="fused_panda_dof_step.cu", phases=[
     "Sigma^-1 mu", "draws + substitution", "stencil, importance", "FK, fields, goal",
     "cost, softmax", "update"], accs=[
     "pass 1: draws + chunk recurrence (thread 0's warp)", "carries, pass 2, x rows (same)"],
-    phases_of={"persistent": _K5_PRODUCT_PHASES, "one particle per CTA": _K5_PRODUCT_PHASES},
-    designs={
-    "substitution": (0, [  # the stamps of each CTA's last particle
+    thread=0, stamps=[  # the stamps of each CTA's last particle
         (None, "    __syncthreads();  // the previous particle's rows are consumed", 0, True),
-        (None, "    if constexpr (SUB) {\n      // --- 2. x = mu + y, L^T y = eps", 1, False),
+        (None, "    {  // --- 2. x = mu + y, L^T y = eps", 1, False),
         (None, "        // pass 1: the draws and the chunk's recurrence from a zero carry",
          "ACC_BEGIN(0)", False),
         (None, "        // the carries: y at step t0 is y0 + Phi_c y(t0 + CH); a suffix scan of "
@@ -150,67 +141,23 @@ K5 = dict(src="fused_panda_dof_step.cu", phases=[
                "-----", 4, False),
         (None, "    // --- 6. the mean update ---------------------------------------------------"
                "--------", 5, False),
-        (None, "      new_means[idx] = mu + prm.step_size * grad;\n    }", 6, True)]),
-    "persistent": (0, [  # the stamps of each CTA's last particle
-        (None, "    __syncthreads();  // the previous particle's rows are consumed", 0, True),
-        (None, "    // --- 2. x = mu + eps @ W, a pass of 56 rows at a time ---------------------"
-               "----", 1, False),
-        (None, "    // --- 3. stencil energy + anchors + importance, one warp per row -----------"
-               "----", 2, False),
-        (None, "    // --- 4. FK + link fields per (sample, t); SE(3) goal at t = T-1 -----------"
-               "--", 3, False),
-        (None, "    // --- 5. per-sample cost, the softmax over the S samples -------------------"
-               "-----", 4, False),
-        (None, "    // --- 6. the mean update ---------------------------------------------------"
-               "--------", 5, False),
-        (None, "      new_means[idx] = mu + prm.step_size * grad;\n    }", 6, True)]),
-    "one particle per CTA": (0, [
-        (None, "  const int p = blockIdx.x, m = threadIdx.x, lane = m & 31, warp = m >> 5;",
-         0, True),
-        (None, "  // --- 2. x = mu + eps @ W, RT rows at a time (in place) --------------------"
-               "-----", 1, False),
-        (None, "  // --- 3. stencil energy + anchors + importance, per row ---------------------"
-               "--", 2, False),
-        (None, "  // --- 4. FK + link fields per (sample, t); SE(3) goal at t = T-1 -----------"
-               "----", 3, False),
-        (None, "  // --- 5. per-sample cost ----------------------------------------------------"
-               "---", 4, False),
-        (None, "  for (int d = 0; d < D; ++d) {\n    const size_t idx", 5, False),
-        (None, "    new_means[idx] = mu + prm.step_size * grad;", 6, True)])})
+        (None, "      new_means[idx] = mu + prm.step_size * grad;\n    }", 6, True)])
 K4 = dict(src="fk_fields.cu", phases=["walk", "self field", "obstacle field", "reduction"],
-          designs={
-    "specialised walk": (1, [  # thread 0 holds t = 0, which is skipped
+          thread=1, stamps=[  # thread 0 holds t = 0, which is skipped
         (None, "  const long long b = (long long)blockIdx.x * (NT / lanes) + g;", 0, True),
         (None, "    fk_walk_spec<FkPanda>(chain, q, pos, ee_r);", 1, True),
         ("fk_chain.cuh", "  if (w_obst != 0.0f && n_obst > 0) {", 2, False),
         (None, "pos_sh + tid, sph, n_obst, inv_2m2, w_self, w_obst);\n    }\n  }", 3, True),
-        (None, "    out[b] = s;\n  }", 4, True)]),
-    "one trajectory per block": (1, [  # thread 0 holds t = 0, which is skipped
-        (None, "  const float* qb = q + (long long)blockIdx.x * sb;", 0, True),
-        (None, "    fk_walk(chain, [&](int i) { return qt[(long long)i * sd]; }, pos_sh + "
-               "threadIdx.x, nt, ee_r);", 1, True),
-        ("fk_chain.cuh", "  if (w_obst != 0.0f && n_obst > 0) {", 2, False),
-        (None, "                       w_self, w_obst);\n  }", 3, True),
-        (None, "  if (threadIdx.x == 0) out[blockIdx.x] = acc;", 4, True)])})
+        (None, "    out[b] = s;\n  }", 4, True)])
 S1 = dict(src="bidiag_scan.cu", phases=[  # consumer thread 0, each CTA's last time segment
     "wait for the planes", "phase 1: chunk recurrences", "phase 2: carries",
-    "phase 3: y = local + phi c"], designs={
-    "TMA segments, producer warp": (0, [
+    "phase 3: y = local + phi c"], thread=0, stamps=[
         (None, "    F* buf = bufs + (a.tma ? (size_t)(q % NB) * buf_elems : 0);", 0, True),
         (None, "    // phase 1: the chunk's recurrence from a zero carry, local results in place",
          1, False),
         (None, "    // phase 2: the carries.", 2, False),
         (None, "    // phase 3: y_t = local_t + phi_t carry_in, in place", 3, False),
-        (None, "    if (a.tma) {\n      fence_proxy_async();", 4, False)]),
-    "segments of chunks": (0, [  # the earlier design: stage in, phases 1-3, write back
-        (None, "    __syncthreads();  // the previous segment is written back, its carry set",
-         0, True),
-        (None, "      stage<F, D, 1, true>(x, nullptr, gx, sm, d, rs, plane, b0, B, rows, t0, len);\n"
-               "    __syncthreads();", 1, True),
-        (None, "    // phase 2: the carries across the segment's chunks, one thread per row",
-         2, False),
-        (None, "    // phase 3: y_t = local_t + phi_t carry_in", 3, False),
-        (None, "    if (vy)\n", 4, False)])})
+        (None, "    if (a.tma) {\n      fence_proxy_async();", 4, False)])
 # the planar parity step's temperature and step size (chip_smoke.py), and
 # config 4's (benchmarks/run.py)
 PLANAR_TAU, PLANAR_STEP, PANDA_TAU, PANDA_STEP = 1.0, 0.5, 1.0, 0.1
@@ -250,7 +197,7 @@ def panda_flat_step(dev, ppg: int):
     return step, state.particle_means.contiguous()
 
 
-def panda_dof_step(dev, w_dof=None):
+def panda_dof_step(dev):
     """K5's step at Panda config 5 (10 goals x 128 particles, S = 8, T =
     128, the fast stack) as ``StochGPMP(fused_kernel=True)`` builds it, and
     the means as dof planes ``[7, P, 256]``."""
@@ -267,7 +214,7 @@ def panda_dof_step(dev, w_dof=None):
         target_h=fields.target_h, n_dof=fields.n_dof, traj_len=fields.traj_len, num_samples=s,
         margin=fields.margin, w_self=1.0 / fields.sigma_self**2,
         w_obst=1.0 / fields.sigma_coll**2, w_goal=1.0 / fields.sigma_goal**2,
-        temperature=PANDA_TAU, step_size=PANDA_STEP, w_dof=w_dof)
+        temperature=PANDA_TAU, step_size=PANDA_STEP)
     return step, to_dof_planes(state.particle_means).contiguous()
 
 
@@ -305,18 +252,14 @@ def card() -> str:
 # --- phases -------------------------------------------------------------------
 
 
-def instrumented(spec: dict, out_dir: Path) -> tuple[ctypes.CDLL, str]:
-    """Build ``spec``'s source with clock64 stamps at the anchors of the
-    design whose anchors all occur once; returns the library and the
-    design's name."""
-    name = spec["src"]
-    texts = {None: (_build.CSRC / name).read_text()}
-    for design, (thread, stamps) in spec["designs"].items():
-        files = {f: texts.get(f) or (_build.CSRC / f).read_text() for f, *_ in stamps}
-        if all(files[f].count(a) == 1 for f, a, *_ in stamps):
-            break
-    else:
-        raise RuntimeError(f"{name}: no anchor set matches this source")
+def instrumented(spec: dict, out_dir: Path) -> ctypes.CDLL:
+    """Build ``spec``'s source with clock64 stamps at its anchors; raises
+    where an anchor does not occur exactly once."""
+    name, stamps = spec["src"], spec["stamps"]
+    files = {f: (_build.CSRC / (f or name)).read_text() for f, *_ in stamps}
+    missed = [a for f, a, *_ in stamps if files[f].count(a) != 1]
+    if missed:
+        raise RuntimeError(f"{name}: anchors not found exactly once: {missed}")
     for f, anchor, k, after in stamps:
         mark = f"STAMP({k});" if isinstance(k, int) else k
         files[f] = files[f].replace(
@@ -327,13 +270,13 @@ def instrumented(spec: dict, out_dir: Path) -> tuple[ctypes.CDLL, str]:
         if f is not None:
             (kdir / f).write_text(text)
     cu, so = kdir / name, kdir / name.replace(".cu", ".so")
-    cu.write_text(f"#define STAMP_THREAD {thread}\n" + STAMPS + files[None])
+    cu.write_text(f"#define STAMP_THREAD {spec['thread']}\n" + STAMPS + files[None])
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so),
                     str(cu)], check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     lib.phase_clock_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.phase_acc_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    return lib, design
+    return lib
 
 
 def report(what: str, lib, n_ctas: int, phases, accs=()) -> None:
@@ -370,7 +313,7 @@ def use(lib, so) -> None:
 def phases(dev, out_dir: Path, only) -> None:
     lib = _build.load_library()
     if "K2" in only:
-        k2, design = instrumented(K2, out_dir)
+        k2 = instrumented(K2, out_dir)
         use(lib, k2)
         step, means = planar_step(dev, 5, 128)
         p = means.shape[0]
@@ -379,10 +322,10 @@ def phases(dev, out_dir: Path, only) -> None:
             for _ in range(3):
                 fused_step.fused_planar_step(step, means, seed=3, ctas=c)
             torch.cuda.synchronize()
-            report(f"K2 ({design} design), planar parity, {c} CTAs per particle (matmul "
-                   "branch, seed mode)", k2, p * c, K2["phases"])
+            report(f"K2, planar parity, {c} CTAs per particle (matmul branch, seed mode)", k2,
+                   p * c, K2["phases"])
     if "K6" in only:
-        k6, design = instrumented(K6, out_dir)
+        k6 = instrumented(K6, out_dir)
         use(lib, k6)
         step4, means4 = panda_flat_step(dev, 5)
         p4 = means4.shape[0]
@@ -391,26 +334,24 @@ def phases(dev, out_dir: Path, only) -> None:
             for _ in range(3):
                 panda_step.fused_panda_step(step4, means4, seed=3, ctas=c)
             torch.cuda.synchronize()
-            report(f"K6 ({design} design), Panda config 4, {c} CTAs per particle (seed mode)",
-                   k6, p4 * c, K6["phases"])
+            report(f"K6, Panda config 4, {c} CTAs per particle (seed mode)", k6, p4 * c,
+                   K6["phases"])
     if "K5" in only:
-        k5, design = instrumented(K5, out_dir)
+        k5 = instrumented(K5, out_dir)
         use(lib, k5)
         step5, planes = panda_dof_step(dev)
-        names = K5["phases_of"].get(design, K5["phases"])
-        accs = K5["accs"] if design not in K5["phases_of"] else ()
         eps = torch.randn((step5.n_dof, step5.num_particles, step5.num_samples,
                            planes.shape[-1]), device=dev)
         for mode, kw in (("seed mode", dict(seed=3)), ("eps operand", dict(eps=eps))):
             for _ in range(3):
                 step5(planes, **kw)
             torch.cuda.synchronize()
-            report(f"K5 ({design} design), Panda config 5 ({mode})", k5,
-                   min(16384, step5.num_particles), names, accs)
+            report(f"K5, Panda config 5 ({mode})", k5, min(16384, step5.num_particles),
+                   K5["phases"], K5["accs"])
     if "S1" in only:
         from stoch_gpmp_tpu_torch.problems import build_long_horizon_problem
 
-        s1, design = instrumented(S1, out_dir)
+        s1 = instrumented(S1, out_dir)
         use(lib, s1)
         for t in (4096, 1024):
             ps = build_long_horizon_problem(t, device=dev)[0].psolver
@@ -419,17 +360,17 @@ def phases(dev, out_dir: Path, only) -> None:
                 ps.solve_LT_planes(tuple(x))
             torch.cuda.synchronize()
             shape = s1_shape(lib, 480, t)
-            report(f"S1 ({design} design), backward [4, 480, {t}] float32, launch shape "
-                   f"{shape}", s1, -(-480 // shape[0]), S1["phases"])
+            report(f"S1, backward [4, 480, {t}] float32, launch shape {shape}", s1,
+                   -(-480 // shape[0]), S1["phases"])
     if "K4" in only:
-        k4, design = instrumented(K4, out_dir)
+        k4 = instrumented(K4, out_dir)
         use(lib, k4)
         chain, q, spheres, kw = fk_rows(dev, 128)
         for _ in range(3):
             fk_link_fields_cost_rows(chain, q, spheres, **kw)
         torch.cuda.synchronize()
-        report(f"K4 ({design} design), Panda config 5 dof planes {tuple(q.shape)}, the first "
-               "16384 blocks", k4, 16384, K4["phases"])
+        report(f"K4, Panda config 5 dof planes {tuple(q.shape)}, the first 16384 blocks", k4,
+               16384, K4["phases"])
     for src, info in _build.build_info.items():
         if src in {spec["src"] for k, spec in (("K2", K2), ("K6", K6), ("K5", K5), ("K4", K4),
                                                 ("S1", S1)) if k in only}:
@@ -441,9 +382,10 @@ def phases(dev, out_dir: Path, only) -> None:
 # --- shapes -------------------------------------------------------------------
 
 
-def device_per_call(fn, reps: int, kernel: str) -> tuple[float, float]:
-    """Device ms per call of ``fn()`` under ``torch.profiler``: the kernels
-    whose name holds ``kernel``, and every device operation."""
+def device_events(fn, reps: int) -> list[tuple[str, float, float]]:
+    """``fn()`` once, then ``reps`` calls under ``torch.profiler`` (device
+    activity only, so no time is counted twice): per device operation that
+    took time, its name, device ms per call and runs per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -452,10 +394,27 @@ def device_per_call(fn, reps: int, kernel: str) -> tuple[float, float]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    mine = sum(e.self_device_time_total for e in events if kernel in e.key)
-    every = sum(e.self_device_time_total for e in events)
-    return mine / 1e3 / reps, every / 1e3 / reps
+    return [(e.key, e.self_device_time_total / 1e3 / reps, e.count / reps)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+
+
+def device_per_call(fn, reps: int, kernel: str) -> tuple[float, float]:
+    """Device ms per call of ``fn()`` (:func:`device_events`): the kernels
+    whose name holds ``kernel``, and every device operation."""
+    events = device_events(fn, reps)
+    return sum(ms for k, ms, _ in events if kernel in k), sum(ms for _, ms, _ in events)
+
+
+def device_breakdown(fn, reps: int, top: int = 8) -> tuple[float | None, list, float]:
+    """Device time per call of ``fn()`` (:func:`device_events`), the ``top``
+    device operations by time and the device operations (kernels and copies)
+    per call: ``(total ms per call, or None where the profiler saw no device
+    activity; [(name, ms per call), ...]; operations per call)``."""
+    events = device_events(fn, reps)
+    busy = sum(ms for _, ms, _ in events)
+    rows = sorted(events, key=lambda e: -e[1])[:top]
+    return ((busy if busy > 0 else None), [(name[:48], ms) for name, ms, _ in rows],
+            sum(n for *_, n in events))
 
 
 def time_step(what: str, step, means, kernel: str, wrapper, module, reps: int = 20) -> None:
@@ -464,10 +423,7 @@ def time_step(what: str, step, means, kernel: str, wrapper, module, reps: int = 
     wrapper with ``ctas=`` where it takes it)."""
     p = means.shape[0]
     flat = means.reshape(p, -1)
-    splits = [None]
-    if "ctas" in inspect.signature(wrapper).parameters:
-        splits += [1, 2, 4, 8]
-    for c in splits:
+    for c in (None, 1, 2, 4, 8):
         if c is None:
             fn = lambda: step(means, seed=3)  # noqa: E731
         else:
@@ -477,13 +433,11 @@ def time_step(what: str, step, means, kernel: str, wrapper, module, reps: int = 
         except (RuntimeError, ValueError) as err:
             print(f"{what}, ctas={c}: not launched ({err})", flush=True)
             continue
-        shape = ""
-        if hasattr(module, "launch_shape"):
-            sh = (module.launch_shape(step, c) if c is not None else module.launch_shape(step))
-            shape = (f", {sh['ctas']} CTAs per particle, {sh['ctas_launched']} CTAs, "
-                     f"{sh['smem_bytes']} B shared memory, {sh['stages']} K-tile buffers, "
-                     f"{sh['max_active_clusters']} clusters resident, "
-                     f"{-(-p // sh['max_active_clusters'])} wave(s)")
+        sh = module.launch_shape(step, c)
+        shape = (f", {sh['ctas']} CTAs per particle, {sh['ctas_launched']} CTAs, "
+                 f"{sh['smem_bytes']} B shared memory, {sh['stages']} K-tile buffers, "
+                 f"{sh['max_active_clusters']} clusters resident, "
+                 f"{-(-p // sh['max_active_clusters'])} wave(s)")
         label = "default split" if c is None else f"ctas={c}"
         print(f"{what}, {label}: kernel {kern:.4f} ms, step {every:.4f} ms device per call"
               f"{shape}", flush=True)
@@ -568,8 +522,7 @@ def point_kernels(dev, only) -> None:
     """The launch floor (a one-element ``fill_``), K7 at config 4 and at
     1.30 M points, K1, K10 and K11 at the planner's view and at 1.31 M
     points, the host's share of a wrapper call, and ptxas's report of the
-    four sources. Only the wrappers' public calls: the module run from an older
-    checkout times that checkout's kernels."""
+    four sources."""
     from stoch_gpmp_tpu_torch.ops.kernels import fields, panda_fields
 
     _build.load_library()
@@ -603,28 +556,21 @@ def point_kernels(dev, only) -> None:
         print(f"ptxas {src}: {ptxas_report(src)}", flush=True)
 
 
-# this checkout's S1 launcher (tables rec, phr, psi and a 5-int launch
-# shape), or the earlier one's (dinv, A, phi; rows and chunks)
-S1_SHAPED = len(_build.SIGNATURES["bidiag_scan_launch"]) > 18
-
-
 def s1_shape(lib, b: int, t: int, shape=(0, 0, 0, 0, 0)) -> tuple | None:
     """S1's launch shape on ``[4, b, t]`` float32 planes, as
-    ``bidiag_scan_config`` reports it: this checkout's ``(rows per CTA,
-    chunks per segment, steps per table stage, plane buffers, table
-    stages, shared memory bytes, threads)`` or the earlier launcher's ``(rows, chunks,
-    shared memory bytes)``; the launcher's choice for a zero shape, else
-    the given one, None where the kernel does not take it."""
+    ``bidiag_scan_config`` reports it: ``(rows per CTA, chunks per segment,
+    steps per table stage, plane buffers, table stages, shared memory bytes,
+    threads)``; the launcher's choice for a zero shape, else the given one,
+    None where the kernel does not take it."""
     out = (ctypes.c_int * 7)(*shape, *[0] * (7 - len(shape)))
     if lib.bidiag_scan_config(b, t, 4, 0, out) != 0:
         return None
-    return tuple(out) if S1_SHAPED else tuple(out)[:3]
+    return tuple(out)
 
 
 def s1_launches(dev, sweep: bool) -> None:
     """S1 at the long-horizon main path's shapes: the wrapper's call, then
-    (``sweep``, this checkout's launcher) a sweep of launch shapes,
-    float32, backward."""
+    (``sweep``) a sweep of launch shapes, float32, backward."""
     from stoch_gpmp_tpu_torch.ops.kernels import bidiag_scan as s1
     from stoch_gpmp_tpu_torch.problems import LONG_HORIZON, build_long_horizon_problem
 
@@ -637,7 +583,7 @@ def s1_launches(dev, sweep: bool) -> None:
         out = torch.empty_like(x)
         time_point(f"S1 backward [4, {b}, {t}] (launch shape {s1_shape(lib, b, t)})",
                    lambda: ps.solve_LT_planes(tuple(x), out=tuple(out)), "bidiag_scan")
-        if not (sweep and S1_SHAPED):
+        if not sweep:
             continue
         ptrs = [m.data_ptr() for m in s1.tables(ps, backward=True)]
         for shape in [(rows, 8 * 32 // rows, 4, 2, 2) for rows in (2, 8)] + [
@@ -661,8 +607,7 @@ def s1_host(dev, reps: int = 3000) -> None:
     backward (``time.perf_counter`` over ``reps`` calls, not synchronised,
     the device keeping up): ``solve_LT_planes`` with and without ``out=``,
     the planes' layout check (``_layout``) and the launcher's ctypes call
-    alone. The same calls in this checkout and in the earlier design's
-    (``dinv, A, phi`` tables)."""
+    alone."""
     import time
 
     from stoch_gpmp_tpu_torch.ops.kernels import bidiag_scan as s1
@@ -674,12 +619,9 @@ def s1_host(dev, reps: int = 3000) -> None:
     out = torch.empty_like(x)
     xp, op = tuple(x), tuple(out)
     lib = _build.load_library()
-    if S1_SHAPED:
-        tabs, extra = s1.tables(ps, backward=True), (s1.CHUNK, s1.SCAN_LEVELS)
-    else:
-        tabs, extra = (ps.dinv, ps.a_bwd, ps.phi_bwd), (s1.CHUNK,)
     args = (x.data_ptr(), b * t, t, 1, out.data_ptr(), b * t, t, 1,
-            *(m.data_ptr() for m in tabs), b, t, 4, 0, 1, *extra, _build.stream_ptr(dev))
+            *(m.data_ptr() for m in s1.tables(ps, backward=True)), b, t, 4, 0, 1, s1.CHUNK,
+            s1.SCAN_LEVELS, _build.stream_ptr(dev))
     for what, fn in (("solve_LT_planes(planes, out=)", lambda: ps.solve_LT_planes(xp, out=op)),
                      ("solve_LT_planes(planes)", lambda: ps.solve_LT_planes(xp)),
                      ("_layout(planes)", lambda: s1._layout(xp)),
@@ -788,24 +730,12 @@ def shapes(dev, only) -> None:
         print(f"K5 Panda config 5 P=1280 S=8 T=128: kernel {kern:.4f} ms, step {every:.4f} ms "
               "device per call", flush=True)
         wrapper = panda_step_dof.fused_panda_dof_step
-        if "ctas" in inspect.signature(wrapper).parameters:  # the launch's CTAs, as they loop
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            for c in (sms, 2 * sms, step.num_particles // 2, step.num_particles):
-                kern, _ = device_per_call(lambda: wrapper(step, planes, seed=3, ctas=c), 20,
-                                          "fused_panda_dof_step")
-                print(f"K5 Panda config 5, {c} CTAs: kernel {kern:.4f} ms device per call",
-                      flush=True)
-        from dataclasses import replace
-
-        dense = None  # the dense instantiation on the same W
-        if getattr(step, "substitution", False):
-            dense = replace(step, tables=None)
-        elif getattr(step, "triangular", False):  # the window design before it
-            dense = replace(step, w_windows=None)
-        if dense is not None:
-            kern, _ = device_per_call(lambda: dense(planes, seed=3), 20, "fused_panda_dof_step")
-            print(f"K5 Panda config 5, dense instantiation: kernel {kern:.4f} ms device per "
-                  "call", flush=True)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for c in (sms, 2 * sms, step.num_particles // 2, step.num_particles):  # CTAs, looping
+            kern, _ = device_per_call(lambda: wrapper(step, planes, seed=3, ctas=c), 20,
+                                      "fused_panda_dof_step")
+            print(f"K5 Panda config 5, {c} CTAs: kernel {kern:.4f} ms device per call",
+                  flush=True)
     if "K4" in only:
         for what, t in (("config 5 dof planes", 128), ("config 4 flat batch", 64)):
             chain, q, spheres, kw = fk_rows(dev, t)

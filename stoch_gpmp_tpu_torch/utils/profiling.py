@@ -35,7 +35,7 @@ PREFIX = "stoch_gpmp."
 CAPACITY = 1 << 17  # records kept: a 51-s demo window writes ~50,000
 EVENT_PAIRS = 32  # CUDA event pairs in flight at most; a span past them keeps no device time
 ROUTES = ("fused", "flat", "dof", "planes")
-LAUNCH_COUNTERS = ("launches", "generic_launches", "staged_launches", "dense_launches")
+LAUNCH_COUNTERS = ("launches", "generic_launches", "staged_launches")
 
 
 @contextmanager
@@ -221,7 +221,7 @@ def counters() -> dict:
     """One snapshot: the planner's iterations per route (``fused``,
     ``flat``, ``dof``, ``planes``), its fused-executor builds, and each
     loaded kernel wrapper's own launch counters (``launches``, and where it
-    keeps them ``generic_launches``, ``staged_launches``, ``dense_launches``)."""
+    keeps them ``generic_launches``, ``staged_launches``)."""
     launches = {}
     pkg = "stoch_gpmp_tpu_torch.ops.kernels."
     for name, mod in list(sys.modules.items()):

@@ -17,16 +17,13 @@ within 1e-5. At config 5: K3 within
 its plain version with the best sample agreeing, the RNG-free tiers within
 3e-4 / 1e-3 of float64 oracles, Philox moments within (0.85, 1.15), its
 persistent launch equal to one particle per CTA (costs to the last bit,
-means within 1e-5), its substitution under K5's gates against its dense
-instantiation on the prior's W and its draws whitened against the float64
-factor no worse than the dense instantiation's, the dense instantiation
-under K5's gates on a W the caller gave, and K5 by substitution under its
+means within 1e-5), its draws whitened against the float64 factor no worse
+than the plain version's float32 product ``eps @ W``, and K5 under its
 gates at T = 224, T = 192 and S = 16; K4 and K8 through the generic FK walk
 on a non-Panda chain within 1e-4 of float64 oracles, each counted as a
-generic launch, and K5 (both instantiations) and K6 through it on a tilted
-Panda under K5's gates; the Panda main path's descent, start-anchor,
-launch-count (none through the generic walk, no K5 launch through the dense
-product) and loop (at most 2 device operations per fused iteration) gates. At config 4:
+generic launch, and K5 and K6 through it on a tilted Panda under K5's
+gates; the Panda main path's descent, start-anchor, launch-count (none
+through the generic walk) and loop (at most 2 device operations per fused iteration) gates. At config 4:
 K6 as K5 (every particle's best sample agreeing); K7 and K8 within 1e-4
 relative of float64 oracles and K8 of K7, K7 also on
 three layouts, at 9 links and at 5 (the runtime link count, counted as
@@ -135,13 +132,12 @@ def test_fused_dof_step_kernel(dev, check):
     assert fn(dev)  # each check raises on failure
 
 
-def test_fused_dof_step_split_and_dense(dev):
+def test_fused_dof_step_split(dev):
     import chip_smoke
 
     r = chip_smoke.fused_dof_split_check(dev)  # raises unless the costs are equal
     assert r["mean_max_err"] <= chip_smoke.SPLIT_MEAN_ATOL
-    assert r["sub_dense_cost_max_rel"] <= chip_smoke.K5_COST_RTOL
-    assert r["draw_whitened_sub"] <= r["draw_whitened_dense"]
+    assert r["draw_whitened_sub"] <= r["draw_whitened_plain"]
 
 
 def test_fused_dof_step_other_shapes(dev):
@@ -149,7 +145,7 @@ def test_fused_dof_step_other_shapes(dev):
 
     r = chip_smoke.fused_dof_shapes_check(dev)  # raises unless under K5's gates
     assert len(r) == len(chip_smoke.K5_SHAPES)
-    assert all(v["launch"]["substitution"] for v in r.values())
+    assert all(v["launch"]["variant"] == 1 for v in r.values())  # the Panda's FK walk
 
 
 def test_fk_generic_walk_matches_oracle(dev):

@@ -1,10 +1,10 @@
 """The pieces K5 (the fused dof-factored Panda iteration) and the FK kernels
 rely on, on the CPU: ``Sigma^{-1} mu`` on dof planes against the JAX
 package, the zero pattern of ``W_dof``, the backward tables K5 draws its
-samples with (``L^T y = eps`` on the prior's factor) and the order of work
-its threads take through them, K5's rule between the substitution and the
-dense product, and the choice between the specialised and the generic FK
-walk. Inputs come from numpy with fixed seeds; each test states its
+samples with (``L^T y = eps`` on the prior's factor), the order of work
+its threads take through them and the tables a K5 step builds from each
+source of a prior, and the choice between the specialised and the generic
+FK walk. Inputs come from numpy with fixed seeds; each test states its
 tolerance. The kernels themselves run on the card
 (``tests/test_torch_cuda.py``).
 """
@@ -21,7 +21,6 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from stoch_gpmp_tpu_torch.gp.dof_factored import (  # noqa: E402
-    DofFactoredPrior,
     _perm2,
     make_dof_factored_prior,
     plane_perm,
@@ -35,7 +34,8 @@ from stoch_gpmp_tpu_torch.kinematics.panda_model import (  # noqa: E402
 from stoch_gpmp_tpu_torch.ops.kernels.panda_fields import fk_variant  # noqa: E402
 from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import (  # noqa: E402
     backward_tables,
-    substitutes,
+    fused_panda_dof_step_plain,
+    make_fused_panda_dof_step,
 )
 
 D, DT = 7, 0.05
@@ -199,28 +199,80 @@ def test_chunked_order_equals_the_recurrence(t):
                                atol=1e-12 * float(want.abs().max()))
 
 
-def _no_factor(prior):
-    """The prior without its factor, as ``convert`` builds it from the JAX
-    package's."""
-    return DofFactoredPrior(w_dof=prior.w_dof, prec_dof=prior.prec_dof, traj_len=prior.traj_len,
-                            q_i2=prior.q_i2, k_s2=prior.k_s2, k_g2=prior.k_g2, dt=prior.dt)
+def _sampling_prior(case):
+    """The per-dof prior of ``case`` in float64 on the CPU, at the Panda's
+    sampling sigmas: the planner's sampling prior (``make_gp_prior``'s, T =
+    64, with goals and without), the port's ``make_dof_factored_prior`` at
+    T = 64 and 224, and the JAX package's planner prior (T = 64, goals)
+    carried over by ``convert.sampler_from_jax``."""
+    from stoch_gpmp_tpu_torch.gp.prior import make_gp_prior
+    from stoch_gpmp_tpu_torch.planners import SamplerModel
+
+    if case.startswith("prior_"):
+        return _prior(int(case[len("prior_"):]))
+    start = torch.tensor([0.1] * D + [0.0] * D, dtype=torch.float64)
+    goals = start[None] + 0.1
+    sigmas = (SIGMA_START, SIGMA_GP, SIGMA_GOAL)
+    if case.startswith("planner"):
+        kw = {} if case == "planner_no_goals" else dict(goal_states=goals)
+        return SamplerModel.from_prior(make_gp_prior(
+            D, 64, DT, start, *sigmas, dtype=torch.float64, device="cpu", **kw)).dof
+    from stoch_gpmp_tpu.gp.prior import make_gp_prior as jax_gp_prior
+    from stoch_gpmp_tpu.planners.stoch_gpmp import SamplerModel as JaxSamplerModel
+
+    from stoch_gpmp_tpu_torch import convert
+
+    jprior = jax_gp_prior(D, 64, DT, jnp.asarray(start.numpy()), *sigmas,
+                          goal_states=jnp.asarray(goals.numpy()), dtype=jnp.float64)
+    return convert.sampler_from_jax(JaxSamplerModel.from_prior(jprior), device="cpu").dof
 
 
-@pytest.mark.parametrize("case, want", [
-    ("prior", True), ("prior_w", False), ("zeros", False), ("noisy", False),
-    ("no_factor", False)])
-def test_substitution_rule(case, want):
-    """K5's rule, decided on the host from what the step is given: the
-    substitution where it samples with the prior's own factor; the dense
-    product where the caller gives a ``w_dof`` (the prior's own ``W``, the
-    RNG-free check's zeros, a perturbed ``W``) or the prior holds no factor."""
-    prior = _prior(64, torch.float32)
-    w = prior.w_dof
-    dof_prior, w_dof = {
-        "prior": (prior, None), "prior_w": (prior, w), "zeros": (prior, torch.zeros_like(w)),
-        "noisy": (prior, w + 1e-4 * w.abs().max() * torch.randn(w.shape)),
-        "no_factor": (_no_factor(prior), None)}[case]
-    assert substitutes(dof_prior, w_dof) is want
+def _dof_step(dof_prior):
+    """K5's step on the Panda problem's costs (2 goals x 2 particles, S = 4)
+    in float64 on the CPU, sampling with ``dof_prior`` at its horizon; the
+    means, straight start-to-goal planes ``[7, 4, 2T]``."""
+    from stoch_gpmp_tpu_torch.gp.dof_factored import to_dof_planes
+    from stoch_gpmp_tpu_torch.problems import build_panda_problem
+
+    _, cost, state, obs, s = build_panda_problem(num_goals=2, ppg=2, num_samples=4,
+                                                 dtype=torch.float64, device="cpu")
+    quad, fields = cost.costs
+    t = dof_prior.traj_len
+    step = make_fused_panda_dof_step(
+        chain=fields.chain, dof_prior=dof_prior, dof_quad=quad.dof_form, num_particles=4,
+        spheres=obs["obstacle_spheres"], target_h=fields.target_h, n_dof=D, traj_len=t,
+        num_samples=s, margin=fields.margin, w_self=1.0 / fields.sigma_self**2,
+        w_obst=1.0 / fields.sigma_coll**2, w_goal=1.0 / fields.sigma_goal**2)
+    return step, to_dof_planes(state.particle_means)
+
+
+@pytest.mark.parametrize("case", ["planner_goals", "planner_no_goals", "prior_64", "prior_224",
+                                  "from_jax", "zero_eps"])
+def test_step_samples_with_the_prior_factor(case):
+    """Every K5 step draws by substitution on its prior's factor: the tables
+    the step builds equal ``backward_tables`` of the port's own per-dof
+    factor at the same sigmas and horizon (``make_dof_factored_prior``,
+    without the goal sigma where the prior has no goals) within 1e-12
+    relative, float64, for each source of a sampling prior (the JAX
+    package's keeps no per-dof factor: ``convert`` forms it from the
+    stencil weights it carries). ``zero_eps``: the plain version with an eps
+    of zeros (``y = L^{-T} 0``, the card's RNG-free check) returns the means
+    unmoved, bit for bit, with finite costs."""
+    if case == "zero_eps":
+        step, means = _dof_step(_sampling_prior("planner_goals"))
+        eps = torch.zeros((D, 4, step.num_samples, means.shape[-1]), dtype=torch.float64)
+        new, costs = fused_panda_dof_step_plain(step, means, eps)
+        assert torch.equal(new, means) and bool(torch.isfinite(costs).all())
+        return
+    prior = _sampling_prior(case)
+    step, _ = _dof_step(prior)
+    t = prior.traj_len
+    native = make_dof_factored_prior(t, DT, SIGMA_START, SIGMA_GP,
+                                     None if case == "planner_no_goals" else SIGMA_GOAL,
+                                     dtype=torch.float64, device="cpu").chol
+    assert step.tables.shape == (7, t) and step.tables.dtype == torch.float64
+    np.testing.assert_allclose(step.tables.numpy(), backward_tables(native).numpy(), rtol=1e-12,
+                               atol=0)
 
 
 def _host_fk_rule(tmp_path):
