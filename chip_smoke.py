@@ -45,7 +45,7 @@ Phases, one line each; any failure exits non-zero before the result line:
    launch; seed mode with persistent CTAs against one particle per CTA
    (equal to the last bit); its draws whitened against the float64 factor,
    no worse than the plain version's float32 product ``eps @ W``; at the
-   other shapes of ``K5_SHAPES`` (T = 224, 192; S = 16) against the plain
+   other shapes of ``K5_SHAPES`` (T = 224, 192, 96; S = 16, 7) against the plain
    version; the RNG-free tiers (an eps operand of zeros) against float64
    oracles, and the Philox moments;
 10. the Panda main path: ``build_panda_problem`` at config 5 through
@@ -335,9 +335,11 @@ GN_GOAL_TOL, GN_START_TOL, GN_METHOD_ATOL, GN_INVERSE3_ATOL = 0.05, 0.02, 1e-4, 
 SPLIT_MEAN_ATOL = 1e-5
 # K5 away from config 5 (T, S), 2 goals x 32 particles each, under K5's
 # gates, by substitution: T = 224 (28 chunks of 8 steps: a pair a warp, 4
-# lanes idle) and T = 192 (24 chunks), and S = 16 at T = 128 (32 sample
-# pairs).
-K5_SHAPES = ((224, 8), (192, 8), (128, 16))
+# lanes idle), T = 192 (24 chunks) and T = 96 (12 chunks: two pairs a warp,
+# 8 lanes idle), so the row sums' reduction over a pair's chunks meets
+# counts that are not powers of two; S = 16 at T = 128 (32 sample pairs)
+# and S = 7 (the last pair's second row absent).
+K5_SHAPES = ((224, 8), (192, 8), (96, 8), (128, 16), (128, 7))
 # The fused loops (main, K9-loop, panda4-main (a)) launch one kernel per
 # iteration; the seeds' draw adds one or two operations per window.
 MAX_LOOP_OPS = 2

@@ -41,6 +41,16 @@
 //   formed once per CTA) into the true y at each chunk's first step; pass 2
 //   adds the carry's homogeneous part Phi(t, t1) y_{t1} step by step and
 //   writes x = mu + y as float4 rows.
+// - Each row's quadratic term is summed where the substitution makes the
+//   row, from the same registers: the thread adds its chunk's stencil
+//   residuals (step t0 + CH, the next chunk's first, comes from lane c + 1
+//   by a shuffle, as the carries do; the last chunk has none at T - 1), the
+//   start anchor at t = 0, the goal anchor at t = T - 1 and tau x . pu over
+//   its 16 lanes; a suffix sum over the pair's T / CH lanes (any count up
+//   to 32, in a fixed order: no atomics, so a launch repeats bit for bit)
+//   leaves the two rows' sums in the pair's first lane. No pass re-reads
+//   the rows for them; FK and the update still read the rows from shared
+//   memory.
 // - CTAs loop over particles (blockIdx.x, + gridDim.x, ...); the wrapper
 //   launches one a particle, which the block scheduler balances better than
 //   2 resident CTAs an SM looping over ~5 particles each (0.228 against
@@ -48,11 +58,11 @@
 //   registers a thread (FK spills ~0.4 KB a thread; 256 x 3 at 80
 //   registers, 448 x 2 and 480 x 2 measured no faster), 69 KB of shared
 //   memory at config 5.
-// - Sigma^{-1} mu per lane from the means (prec_u_plane), the stencil energy
-//   and importance one warp per row, FK + fields + goal one thread per
-//   (sample, t) point with the walk specialised for the chain where
-//   fk_spec.h has a spec for it (positions in registers), else the
-//   generic walk (positions in shared memory), then the costs and the
+// - Sigma^{-1} mu per lane from the means (prec_u_plane), before the barrier
+//   that opens a particle (the substitution's sums read it), FK + fields +
+//   goal one thread per (sample, t) point with the walk specialised for the
+//   chain where fk_spec.h has a spec for it (positions in registers), else
+//   the generic walk (positions in shared memory), then the costs and the
 //   softmax in one warp and the mean update.
 
 #include <cuda_runtime.h>
@@ -87,7 +97,7 @@ __device__ __forceinline__ float quad2(float a11, float a12, float a22, float r,
 
 // Floats of shared memory: the tables (chunk-interleaved, [TAB][CH][T /
 // CH]) and each chunk's transition ([4][T / CH]); the rows x [R][M];
-// Sigma^{-1} mu [D][M], per row its stencil + importance sum, per sample
+// Sigma^{-1} mu [D][M], per row its quadratic + importance sum, per sample
 // the field sums [T / 32], goal, cost and weight; then the spheres
 // (float4) and, for the generic walk, its position columns [3 L]
 // [threads].
@@ -142,7 +152,7 @@ fused_panda_dof_step_kernel(const float* __restrict__ means, const float* __rest
                             const __grid_constant__ FkChain chain) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int T = prm.T, M = 2 * T, S = prm.S, D = prm.D, P = prm.P, R = D * S;
+  const int T = prm.T, M = 2 * T, S = prm.S, D = prm.D, P = prm.P;
   const int NT = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = NT >> 5, wpr = T >> 5;
   const int L = chain.n_links, NC = T / CH;
@@ -181,12 +191,12 @@ fused_panda_dof_step_kernel(const float* __restrict__ means, const float* __rest
   const int npairs = (S + 1) / 2, dj = D * npairs;
 
   for (int p = blockIdx.x; p < P; p += gridDim.x) {
-    __syncthreads();  // the previous particle's rows are consumed
-    // Sigma^{-1} mu of each dof plane
+    // Sigma^{-1} mu of each dof plane (no reader of the previous particle's is left)
     for (int i = tid; i < D * M; i += NT) {
       const int d = i / M;
       pu_sh[i] = prec_u_plane(means + ((size_t)d * P + p) * M, i - d * M, T, prm.prior);
     }
+    __syncthreads();  // pu is complete; the previous particle's rows are consumed
     {  // --- 2. x = mu + y, L^T y = eps, by chunks of CH steps --------------------------
       // Lane (g, c) of a warp: sample pair q0 + g, chunk c (steps t0 .. t0 + CH - 1).
       const int gpw = 32 / NC, g = lane / NC, c = lane - g * NC, t0 = c * CH;
@@ -245,7 +255,7 @@ fused_panda_dof_step_kernel(const float* __restrict__ means, const float* __rest
         float h0p = __shfl_down_sync(FULL, y0p, 1), h0v = __shfl_down_sync(FULL, y0v, 1);
         float h1p = __shfl_down_sync(FULL, y1p, 1), h1v = __shfl_down_sync(FULL, y1v, 1);
         if (last) h0p = h0v = h1p = h1v = 0.0f;
-        // pass 2: y_t = z_t + A_t ... A_{t0 + CH - 1} carry, then x = mu + y
+        // pass 2: y_t = z_t + A_t ... A_{t0 + CH - 1} carry
 #pragma unroll
         for (int i = CH - 1; i >= 0; --i) {
           const float* tt = tb + i * NC;
@@ -255,53 +265,83 @@ fused_panda_dof_step_kernel(const float* __restrict__ means, const float* __rest
           h0p = n0p, h0v = n0v, h1p = n1p, h1v = n1v;
           z[i][0] += n0p, z[i][1] += n0v, z[i][2] += n1p, z[i][3] += n1v;
         }
-        if (on) {
-          const float* mu = means + ((size_t)d * P + p) * M + t0;
-          float* x = rows_sh + (size_t)(d * S + 2 * j) * M + t0;
+        // x = mu + y in place (mu = 0 on an idle lane), written as float4 rows
+        const float* mu = means + ((size_t)d * P + p) * M + t0;
+        float* x = rows_sh + (size_t)(d * S + 2 * j) * M + t0;
 #pragma unroll
-          for (int h = 0; h < 2; ++h)  // the position lanes, the velocity lanes
+        for (int h = 0; h < 2; ++h)  // the position lanes, the velocity lanes
 #pragma unroll
-            for (int k = 0; k < CH; k += 4) {
-              const float4 m = __ldg(reinterpret_cast<const float4*>(mu + h * T + k));
+          for (int k = 0; k < CH; k += 4) {
+            const float4 m = on ? __ldg(reinterpret_cast<const float4*>(mu + h * T + k))
+                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            z[k][h] += m.x, z[k + 1][h] += m.y, z[k + 2][h] += m.z, z[k + 3][h] += m.w;
+            z[k][2 + h] += m.x, z[k + 1][2 + h] += m.y, z[k + 2][2 + h] += m.z;
+            z[k + 3][2 + h] += m.w;
+            if (on)
               *reinterpret_cast<float4*>(x + h * T + k) =
-                  make_float4(m.x + z[k][h], m.y + z[k + 1][h], m.z + z[k + 2][h],
-                              m.w + z[k + 3][h]);
-              if (two)
-                *reinterpret_cast<float4*>(x + M + h * T + k) =
-                    make_float4(m.x + z[k][2 + h], m.y + z[k + 1][2 + h], m.z + z[k + 2][2 + h],
-                                m.w + z[k + 3][2 + h]);
+                  make_float4(z[k][h], z[k + 1][h], z[k + 2][h], z[k + 3][h]);
+            if (on && two)
+              *reinterpret_cast<float4*>(x + M + h * T + k) =
+                  make_float4(z[k][2 + h], z[k + 1][2 + h], z[k + 2][2 + h], z[k + 3][2 + h]);
+          }
+        // the rows' quadratic terms: the chunk's stencil residuals, the anchors and
+        // tau x . pu; x at step t0 + CH is lane c + 1's first step (none past T - 1)
+        const float x0p = __shfl_down_sync(FULL, z[0][0], 1);
+        const float x0v = __shfl_down_sync(FULL, z[0][1], 1);
+        const float x1p = __shfl_down_sync(FULL, z[0][2], 1);
+        const float x1v = __shfl_down_sync(FULL, z[0][3], 1);
+        const float* pu = pu_sh + d * M + t0;
+        float e0 = 0.0f, e1 = 0.0f, u0 = 0.0f, u1 = 0.0f;  // energies, x . pu of both rows
+#pragma unroll
+        for (int k = 0; k < CH; k += 4) {
+          const float4 pp = *reinterpret_cast<const float4*>(pu + k);
+          const float4 pv = *reinterpret_cast<const float4*>(pu + T + k);
+          const float pk[2][4] = {{pp.x, pp.y, pp.z, pp.w}, {pv.x, pv.y, pv.z, pv.w}};
+#pragma unroll
+          for (int i = k; i < k + 4; ++i) {
+            u0 = fmaf(z[i][0], pk[0][i - k], fmaf(z[i][1], pk[1][i - k], u0));
+            u1 = fmaf(z[i][2], pk[0][i - k], fmaf(z[i][3], pk[1][i - k], u1));
+            const bool in = i + 1 < CH;
+            if (in || !last) {
+              const float n0p = in ? z[(i + 1) % CH][0] : x0p;
+              const float n0v = in ? z[(i + 1) % CH][1] : x0v;
+              const float n1p = in ? z[(i + 1) % CH][2] : x1p;
+              const float n1v = in ? z[(i + 1) % CH][3] : x1v;
+              e0 += quad2(prm.q11, prm.q12, prm.q22, z[i][0] + prm.dt * z[i][1] - n0p,
+                          z[i][1] - n0v);
+              e1 += quad2(prm.q11, prm.q12, prm.q22, z[i][2] + prm.dt * z[i][3] - n1p,
+                          z[i][3] - n1v);
             }
+          }
+        }
+        if (c == 0) {  // the start anchor at t = 0
+          const float sp = prm.s_pd[2 * d], sv = prm.s_pd[2 * d + 1];
+          e0 += quad2(prm.ks11, prm.ks12, prm.ks22, z[0][0] - sp, z[0][1] - sv);
+          e1 += quad2(prm.ks11, prm.ks12, prm.ks22, z[0][2] - sp, z[0][3] - sv);
+        }
+        if (last) {  // the goal anchor at t = T - 1; the goal's (pos, vel) per dof
+          const float* gp = g_pd + ((size_t)(p / prm.ppg) * D + d) * 2;
+          const float gq = gp[0], gv = gp[1];
+          e0 += quad2(prm.kg11, prm.kg12, prm.kg22, z[CH - 1][0] - gq, z[CH - 1][1] - gv);
+          e1 += quad2(prm.kg11, prm.kg12, prm.kg22, z[CH - 1][2] - gq, z[CH - 1][3] - gv);
+        }
+        e0 = fmaf(prm.temperature, u0, e0), e1 = fmaf(prm.temperature, u1, e1);
+        // a suffix sum over the pair's lanes: lane c ends with chunks c .. NC - 1
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          if (o >= NC) break;
+          const float v0 = __shfl_down_sync(FULL, e0, o), v1 = __shfl_down_sync(FULL, e1, o);
+          if (c + o < NC) e0 += v0, e1 += v1;
+        }
+        if (on && c == 0) {
+          rowq_sh[d * S + 2 * j] = e0;
+          if (two) rowq_sh[d * S + 2 * j + 1] = e1;
         }
       }
       __syncthreads();
     }
 
-    // --- 3. stencil energy + anchors + importance, one warp per row ---------------
-    const float* gp = g_pd + (size_t)(p / prm.ppg) * D * 2;
-    for (int r = warp; r < R; r += nwarps) {
-      const int d = r / S;
-      const float* row = rows_sh + (size_t)r * M;
-      float v = 0.0f;
-#pragma unroll 4
-      for (int m = lane; m < M; m += 32) {
-        if (m < T - 1) {
-          const float rp = row[m] + prm.dt * row[T + m] - row[m + 1];
-          const float rv = row[T + m] - row[T + m + 1];
-          v += quad2(prm.q11, prm.q12, prm.q22, rp, rv);
-        }
-        if (m == 0)
-          v += quad2(prm.ks11, prm.ks12, prm.ks22, row[0] - prm.s_pd[2 * d],
-                     row[T] - prm.s_pd[2 * d + 1]);
-        if (m == T - 1)
-          v += quad2(prm.kg11, prm.kg12, prm.kg22, row[T - 1] - gp[2 * d],
-                     row[2 * T - 1] - gp[2 * d + 1]);
-        v += prm.temperature * row[m] * pu_sh[d * M + m];
-      }
-      v = warp_sum(v);
-      if (lane == 0) rowq_sh[r] = v;
-    }
-
-    // --- 4. FK + link fields per (sample, t); SE(3) goal at t = T-1 -------------
+    // --- 3. FK + link fields per (sample, t); SE(3) goal at t = T-1 -------------
     // S * T points in whole warps (T % 32 == 0): a warp's points share s.
     for (int pt = tid; pt < S * T; pt += NT) {
       const int s = pt / T, t = pt - s * T;
@@ -337,7 +377,7 @@ fused_panda_dof_step_kernel(const float* __restrict__ means, const float* __rest
     }
     __syncthreads();
 
-    // --- 5. per-sample cost, the softmax over the S samples ------------------------
+    // --- 4. per-sample cost, the softmax over the S samples ------------------------
     if (warp == 0) {  // lane l holds the samples l, l + 32, ...
       float mx = __int_as_float(0xff800000);  // -inf
       for (int s = lane; s < S; s += 32) {
@@ -357,7 +397,7 @@ fused_panda_dof_step_kernel(const float* __restrict__ means, const float* __rest
     }
     __syncthreads();
 
-    // --- 6. the mean update -----------------------------------------------------------
+    // --- 5. the mean update -----------------------------------------------------------
 #pragma unroll 4
     for (int i = tid; i < D * M; i += NT) {
       const int d = i / M, m = i - d * M;

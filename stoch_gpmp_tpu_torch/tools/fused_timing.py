@@ -121,27 +121,29 @@ K6 = dict(src="fused_panda_step.cu", phases=[
         (None, "                         prm.temperature, prm.step_size, new_means + (size_t)p "
                "* M);", 5, True)])
 K5 = dict(src="fused_panda_dof_step.cu", phases=[
-    "Sigma^-1 mu", "draws + substitution", "stencil, importance", "FK, fields, goal",
-    "cost, softmax", "update"], accs=[
-    "pass 1: draws + chunk recurrence (thread 0's warp)", "carries, pass 2, x rows (same)"],
+    "Sigma^-1 mu", "draws, substitution, row sums", "FK, fields, goal", "cost, softmax",
+    "update"], accs=[
+    "pass 1: draws + chunk recurrence (thread 0's warp)", "carries, pass 2, x rows (same)",
+    "row sums: stencil, anchors, importance (same)"],
     thread=0, stamps=[  # the stamps of each CTA's last particle
-        (None, "    __syncthreads();  // the previous particle's rows are consumed", 0, True),
-        (None, "    {  // --- 2. x = mu + y, L^T y = eps", 1, False),
+        (None, "  for (int p = blockIdx.x; p < P; p += gridDim.x) {", 0, True),
+        (None, "    __syncthreads();  // pu is complete; the previous particle's rows are "
+               "consumed", 1, True),
         (None, "        // pass 1: the draws and the chunk's recurrence from a zero carry",
          "ACC_BEGIN(0)", False),
         (None, "        // the carries: y at step t0 is y0 + Phi_c y(t0 + CH); a suffix scan of "
                "the", "ACC_END(0) ACC_BEGIN(1)", False),
-        (None, "                                m.w + z[k + 3][2 + h]);\n            }\n        }",
-         "ACC_END(1)", True),
-        (None, "    // --- 3. stencil energy + anchors + importance, one warp per row -----------"
-               "----", 2, False),
-        (None, "    // --- 4. FK + link fields per (sample, t); SE(3) goal at t = T-1 -----------"
-               "--", 3, False),
-        (None, "    // --- 5. per-sample cost, the softmax over the S samples -------------------"
-               "-----", 4, False),
-        (None, "    // --- 6. the mean update ---------------------------------------------------"
-               "--------", 5, False),
-        (None, "      new_means[idx] = mu + prm.step_size * grad;\n    }", 6, True)])
+        (None, "        // the rows' quadratic terms: the chunk's stencil residuals, the anchors "
+               "and", "ACC_END(1) ACC_BEGIN(2)", False),
+        (None, "          if (two) rowq_sh[d * S + 2 * j + 1] = e1;\n        }",
+         "ACC_END(2)", True),
+        (None, "    // --- 3. FK + link fields per (sample, t); SE(3) goal at t = T-1 -----------"
+               "--", 2, False),
+        (None, "    // --- 4. per-sample cost, the softmax over the S samples -------------------"
+               "-----", 3, False),
+        (None, "    // --- 5. the mean update ---------------------------------------------------"
+               "--------", 4, False),
+        (None, "      new_means[idx] = mu + prm.step_size * grad;\n    }", 5, True)])
 K4 = dict(src="fk_fields.cu", phases=["walk", "self field", "obstacle field", "reduction"],
           thread=1, stamps=[  # thread 0 holds t = 0, which is skipped
         (None, "  const long long b = (long long)blockIdx.x * (NT / lanes) + g;", 0, True),
@@ -371,12 +373,9 @@ def phases(dev, out_dir: Path, only) -> None:
         torch.cuda.synchronize()
         report(f"K4, Panda config 5 dof planes {tuple(q.shape)}, the first 16384 blocks", k4,
                16384, K4["phases"])
-    for src, info in _build.build_info.items():
-        if src in {spec["src"] for k, spec in (("K2", K2), ("K6", K6), ("K5", K5), ("K4", K4),
-                                                ("S1", S1)) if k in only}:
-            used = [ln.split(":", 1)[-1].strip() for ln in info["log"].splitlines()
-                    if "Used" in ln or "spill" in ln or "stack" in ln]
-            print(f"ptxas {src}: {' | '.join(used)}")
+    for k, spec in (("K2", K2), ("K6", K6), ("K5", K5), ("K4", K4), ("S1", S1)):
+        if k in only:
+            print(f"ptxas {spec['src']}: {ptxas_report(spec['src'])}", flush=True)
 
 
 # --- shapes -------------------------------------------------------------------

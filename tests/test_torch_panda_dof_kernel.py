@@ -2,10 +2,11 @@
 rely on, on the CPU: ``Sigma^{-1} mu`` on dof planes against the JAX
 package, the zero pattern of ``W_dof``, the backward tables K5 draws its
 samples with (``L^T y = eps`` on the prior's factor), the order of work
-its threads take through them and the tables a K5 step builds from each
-source of a prior, and the choice between the specialised and the generic
-FK walk. Inputs come from numpy with fixed seeds; each test states its
-tolerance. The kernels themselves run on the card
+its threads take through them and through each row's quadratic term, the
+tables a K5 step builds from each source of a prior, and the choice
+between the specialised and the generic FK walk. Inputs come from numpy
+with fixed seeds; each test states its tolerance. The kernels themselves
+run on the card
 (``tests/test_torch_cuda.py``).
 """
 
@@ -36,6 +37,10 @@ from stoch_gpmp_tpu_torch.ops.kernels.panda_step_dof import (  # noqa: E402
     backward_tables,
     fused_panda_dof_step_plain,
     make_fused_panda_dof_step,
+)
+from stoch_gpmp_tpu_torch.ops.kernels.stencil import (  # noqa: E402
+    dof_anchor_rows,
+    dof_quad_eval_plain,
 )
 
 D, DT = 7, 0.05
@@ -197,6 +202,60 @@ def test_chunked_order_equals_the_recurrence(t):
     want = _substitute(tab, eps)
     np.testing.assert_allclose(_chunked(tab, eps).numpy(), want.numpy(), rtol=0,
                                atol=1e-12 * float(want.abs().max()))
+
+
+def _folded_row_sums(dq, x, pu, tau, ch=CH):
+    """Each row's quadratic term of ``x [d, B, 2T]`` in K5's order of work:
+    per chunk of ``ch`` steps its stencil residuals (step ``t0 + ch`` is the
+    next chunk's first; none at ``T - 1``), the start anchor in the first
+    chunk, the goal anchor in the last and ``tau x . pu`` over the chunk's
+    lanes; then a Hillis-Steele suffix sum over the chunks, whose first
+    lane holds the row's sum -> ``[d, B]``."""
+    d, b, t2 = x.shape
+    t = t2 // 2
+    nc, s = t // ch, b // pu.shape[1]
+    p, v = x[..., :t].reshape(d, b, nc, ch), x[..., t:].reshape(d, b, nc, ch)
+    pn = torch.cat([p[..., 1:], p[..., :1].roll(-1, dims=2)], -1)  # step t + 1
+    vn = torch.cat([v[..., 1:], v[..., :1].roll(-1, dims=2)], -1)
+    q, ks, kg = dq.q_i2, dq.k_s2, dq.k_g2
+
+    def quad(a, r, w):
+        return a[0, 0] * r * r + 2.0 * a[0, 1] * r * w + a[1, 1] * w * w
+
+    e = quad(q, p + dq.dt * v - pn, v - vn)
+    e[..., -1, -1] = 0.0  # no residual past T - 1
+    e = e.sum(-1)
+    anch = dof_anchor_rows(dq, b)
+    e[..., 0] += quad(ks, p[..., 0, 0] - anch[..., 0], v[..., 0, 0] - anch[..., 1])
+    e[..., -1] += quad(kg, p[..., -1, -1] - anch[..., 2], v[..., -1, -1] - anch[..., 3])
+    pur = pu[:, :, None].expand(d, pu.shape[1], s, t2).reshape(d, b, t2)
+    e = e + tau * (x * pur).reshape(d, b, 2, nc, ch).sum((2, 4))
+    o = 1
+    while o < nc:  # lane c takes lane c + o's sum where c + o < nc
+        e = torch.cat([e[..., :-o] + e[..., o:], e[..., -o:]], -1)
+        o *= 2
+    return e[..., 0]
+
+
+@pytest.mark.parametrize("t,s", [(96, 4), (128, 3), (224, 4)])
+def test_folded_row_sums_equal_the_plain_quadratic(t, s):
+    """K5's row sums in its order of work (each chunk's residuals, anchors
+    and importance, the suffix sum over the pair's chunks) equal the plain
+    version's quadratic and importance term (``dof_quad_eval_plain`` with
+    ``pu``) within 1e-12 relative, float64, on the Panda problem's stencil
+    weights and anchors (2 goals x 2 particles), at T = 96 (12 chunks: not
+    a power of two), 128 (16) and 224 (28), with an odd S."""
+    from stoch_gpmp_tpu_torch.problems import build_panda_problem
+
+    _, cost, *_ = build_panda_problem(num_goals=2, ppg=2, num_samples=s, dtype=torch.float64,
+                                      device="cpu")
+    dq = cost.costs[0].dof_form
+    rng = np.random.default_rng(t + s)
+    x = torch.from_numpy(rng.normal(size=(D, 4 * s, 2 * t)))
+    pu = torch.from_numpy(rng.normal(size=(D, 4, 2 * t)))
+    want = dof_quad_eval_plain(dq, x, pu=pu, temperature=0.7, num_samples=s)
+    got = _folded_row_sums(dq, x, pu, 0.7).sum(0)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12)
 
 
 def _sampling_prior(case):
